@@ -1,0 +1,103 @@
+"""Carry weights between the reference's flax parameter tree and the port's
+``TransformerEncoder`` state dict.
+
+Layout rules (flax leaf → torch parameter):
+
+- a module path ``layer_<i>/...`` becomes ``layers.<i>....``; every other
+  module keeps its name (``attention/qkv`` → ``attention.qkv``);
+- ``DenseGeneral((3, h*d))`` kernel ``(hidden, 3, h*d)`` → ``qkv.weight``
+  ``(3·h·d, hidden)``: rows ``[0, h·d)`` are q, then k, then v; its bias
+  ``(3, h*d)`` flattens in the same order;
+- every ``Dense``/``DenseGeneral`` kernel ``(in, out)`` → the transposed
+  ``Linear.weight`` ``(out, in)``; its ``bias`` is copied;
+- every ``Embed`` ``embedding`` → that embedding's ``weight``;
+- every ``LayerNorm`` ``scale``/``bias`` → that norm's ``weight``/``bias``.
+
+Values are copied exactly; dtypes are kept (fp32 for the reference's
+parameters).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..common.exceptions import AkIllegalDataException
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _module_name(path) -> str:
+    parts = []
+    for p in path:
+        if p.startswith("layer_") and p[len("layer_"):].isdigit():
+            parts += ["layers", p[len("layer_"):]]
+        else:
+            parts.append(p)
+    return ".".join(parts)
+
+
+def flax_to_torch(params) -> Dict[str, torch.Tensor]:
+    """State dict for :class:`~alink_tpu_torch.dl.modules.TransformerEncoder`
+    from the reference's parameter tree of numpy arrays (with or without the
+    top-level ``"params"`` collection)."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params):
+        arr = np.asarray(leaf)
+        mod, name = _module_name(path[:-1]), path[-1]
+        if name == "kernel":
+            if arr.ndim == 3:       # DenseGeneral((3, h*d)): (in, 3, h*d)
+                arr = arr.reshape(arr.shape[0], -1)
+            elif arr.ndim != 2:
+                raise AkIllegalDataException(
+                    f"unexpected kernel shape {arr.shape} at {'/'.join(path)}")
+            out[f"{mod}.weight"] = torch.from_numpy(arr.T.copy())
+        elif name == "bias":
+            out[f"{mod}.bias"] = torch.from_numpy(arr.reshape(-1).copy())
+        elif name in ("embedding", "scale"):
+            out[f"{mod}.weight"] = torch.from_numpy(arr.copy())
+        else:
+            raise AkIllegalDataException(
+                f"unknown flax parameter {'/'.join(path)}")
+    return out
+
+
+def torch_to_flax(state_dict, cfg) -> dict:
+    """The inverse of :func:`flax_to_torch`: ``{"params": tree}`` of numpy
+    arrays, shaped as the reference's flax ``TransformerEncoder`` for
+    ``cfg`` (a :class:`~alink_tpu_torch.dl.modules.BertConfig`)."""
+    tree: dict = {}
+    hd = cfg.hidden_size
+    for key, t in state_dict.items():
+        arr = t.detach().cpu().numpy()
+        parts = key.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer_{parts[1]}"] + parts[2:]
+        *mods, name = parts
+        is_qkv = mods[-1] == "qkv"
+        is_norm = mods[-1].startswith("ln_")
+        if mods[-1].endswith("_emb") and not is_norm:
+            leaf, value = "embedding", arr
+        elif name == "weight" and is_norm:
+            leaf, value = "scale", arr
+        elif name == "weight":
+            leaf, value = "kernel", arr.T
+            if is_qkv:
+                value = value.reshape(hd, 3, hd)
+        else:
+            leaf, value = "bias", arr.reshape(3, hd) if is_qkv else arr
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return {"params": tree}

@@ -1,0 +1,76 @@
+"""Model-mapper batch operator and the train-op mixin (port of
+``alink_tpu.operator.batch.utils``).
+
+Capability parity with reference operator/batch/utils/ModelMapBatchOp.java:62:
+the mapper loads the model MTable once and maps the data table with it.
+"""
+
+from __future__ import annotations
+
+from typing import Type
+
+from ...common.exceptions import AkIllegalOperationException
+from ...common.model import MODEL_SCHEMA
+from ...common.mtable import MTable, TableSchema
+from ..base import AlgoOperator
+from .base import BatchOperator
+
+
+class ModelMapBatchOp(BatchOperator):
+    """Wrap a ModelMapper class; ``link_from(model_op, data_op)``."""
+
+    _min_inputs = 2
+    _max_inputs = 2
+
+    mapper_cls: Type = None
+
+    def __init__(self, params=None, **kwargs):
+        super().__init__(params, **kwargs)
+
+    def _make_mapper(self, model_schema, data_schema):
+        return self.mapper_cls(model_schema, data_schema, self.get_params())
+
+    def _execute_impl(self, model: MTable, t: MTable) -> MTable:
+        mapper = self._make_mapper(model.schema, t.schema)
+        mapper.device = self.env.device
+        mapper.load_model(model)
+        return mapper.map_table(t)
+
+    def _out_schema(self, model_schema: TableSchema,
+                    data_schema: TableSchema) -> TableSchema:
+        # the mapper's schema decisions (pred type etc.) read model meta;
+        # model-producing ops declare it statically (reference analog:
+        # ModelMapper.prepareIoSchema works off the model *schema* alone)
+        meta = self._inputs[0]._static_model_meta() if self._inputs else None
+        mapper = self._make_mapper(model_schema, data_schema)
+        if meta is not None:
+            mapper.meta = meta
+        try:
+            return mapper.output_schema(data_schema)
+        except (AttributeError, KeyError) as e:
+            raise AkIllegalOperationException(
+                f"{type(self).__name__}: static schema needs model meta that "
+                f"{type(self._inputs[0]).__name__ if self._inputs else '?'} "
+                f"does not declare ({e!r})"
+            ) from e
+
+
+class ModelTrainOpMixin:
+    """Train ops emit the canonical model table; schema is a constant.
+
+    Static model meta: once executed the real meta row wins; before that,
+    ``_static_meta_keys(in_schema)`` supplies the keys the paired
+    ModelMapper's schema decisions need (labelType etc.)."""
+
+    def _out_schema(self, *in_schemas: TableSchema) -> TableSchema:
+        return MODEL_SCHEMA
+
+    def _static_model_meta(self):
+        meta = AlgoOperator._static_model_meta(self)
+        if meta is not None:
+            return meta
+        in_schema = self._inputs[0]._static_schema() if self._inputs else None
+        return self._static_meta_keys(in_schema)
+
+    def _static_meta_keys(self, in_schema: TableSchema) -> dict:
+        return {}
