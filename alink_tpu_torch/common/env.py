@@ -67,6 +67,14 @@ def env_flag(name: str, default: bool = False) -> bool:
     return raw.strip().lower() not in _FALSEY
 
 
+def kernel_knob_on(name: str) -> bool:
+    """A kernel's opt-out knob (``ALINK_ATTN_PALLAS``, ``ALINK_GBDT_PALLAS``):
+    False only when set to a falsey spelling; unset or blank keeps the
+    kernel on."""
+    flag = env_str(name)
+    return flag is None or flag.strip().lower() not in _FALSEY
+
+
 def resolve_device(device=None):
     """The torch device an entry point runs on.
 

@@ -8,12 +8,14 @@
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty_like.h>
+#include <ATen/ops/zeros.h>
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
 #include <cstdint>
+#include <limits>
 #include <tuple>
 
 size_t flash_block_update_smem_bytes(int K, int D);
@@ -25,6 +27,10 @@ cudaError_t flash_block_update_launch(int dtype, const void* q, const void* k,
                                       float* l_out, int B, int H, int Q,
                                       int K, int D, float scale,
                                       cudaStream_t stream);
+
+cudaError_t tree_histogram_launch(const int32_t* ids, const float* vals,
+                                  float* out, int n, int d, int S,
+                                  cudaStream_t stream);
 
 namespace {
 
@@ -84,6 +90,27 @@ std::tuple<at::Tensor, at::Tensor, at::Tensor> flash_block_update(
   return {o_out, m_out, l_out};
 }
 
+at::Tensor tree_histogram(const at::Tensor& ids, const at::Tensor& vals,
+                          int64_t num_segments) {
+  TORCH_CHECK(ids.dim() == 2, "ids must be (n, d)");
+  const int64_t n = ids.size(0), d = ids.size(1), S = num_segments;
+  TORCH_CHECK(S > 0, "num_segments must be positive, got ", S);
+  TORCH_CHECK(n * d <= (int64_t{1} << 30) &&
+                  S * d <= std::numeric_limits<int32_t>::max(),
+              "ids (", n, ", ", d,
+              ") with ", S, " segments exceed the kernel's int32 indexing");
+  check_tensor(ids, "ids", at::kInt, {n, d}, ids);
+  check_tensor(vals, "vals", at::kFloat, {n}, ids);
+
+  c10::cuda::CUDAGuard guard(ids.device());
+  at::Tensor out = at::zeros({S, d}, vals.options());
+  C10_CUDA_CHECK(tree_histogram_launch(
+      ids.data_ptr<int32_t>(), vals.data_ptr<float>(), out.data_ptr<float>(),
+      (int)n, (int)d, (int)S, c10::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(alink_tpu_torch, m) {
@@ -91,8 +118,10 @@ TORCH_LIBRARY(alink_tpu_torch, m) {
       "flash_block_update(Tensor q, Tensor k, Tensor v, Tensor kvalid, "
       "Tensor qk_ok, Tensor o, Tensor m, Tensor l, float scale) "
       "-> (Tensor, Tensor, Tensor)");
+  m.def("tree_histogram(Tensor ids, Tensor vals, int num_segments) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(alink_tpu_torch, CUDA, m) {
   m.impl("flash_block_update", &flash_block_update);
+  m.impl("tree_histogram", &tree_histogram);
 }

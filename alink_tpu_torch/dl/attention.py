@@ -20,18 +20,11 @@ from typing import Optional
 
 import torch
 
-from ..common.env import env_str
+from ..common.env import kernel_knob_on
 from ..common.exceptions import AkUnsupportedOperationException
 from .attn_cuda import NEG_INF, flash_block_update
 
 ATTN_KERNEL_ENV = "ALINK_ATTN_PALLAS"
-_FALSEY = ("0", "off", "false", "no")
-
-
-def use_attn_kernel() -> bool:
-    """False only when ``ALINK_ATTN_PALLAS`` is set to a falsey spelling."""
-    flag = env_str(ATTN_KERNEL_ENV)
-    return flag is None or flag.strip().lower() not in _FALSEY
 
 
 def full_attention(q, k, v, mask: Optional[torch.Tensor] = None, *,
@@ -95,7 +88,7 @@ def blockwise_attention(q, k, v, mask: Optional[torch.Tensor] = None, *,
         k_pos = i * block_size + torch.arange(block_size, device=dev)
         return q_pos[:, None] >= k_pos[None, :]
 
-    if use_attn_kernel():
+    if kernel_knob_on(ATTN_KERNEL_ENV):
         # kernel route: (B, H, ...) layout, each block's K/V contiguous
         scale = float(d) ** -0.5
         qf = q.permute(0, 2, 1, 3).contiguous()

@@ -16,27 +16,7 @@ import numpy as np
 import torch
 
 from ..common.env import resolve_device
-from ..common.exceptions import (AkIllegalArgumentException,
-                                 AkUnsupportedOperationException)
-
-FP32, BF16, INT8 = "fp32", "bf16", "int8"
-PRECISIONS = (FP32, BF16, INT8)
-
-
-def resolve_precision(precision) -> Optional[str]:
-    """None/""/"fp32" -> None (the parameters as stored); "bf16" and
-    "int8" are the reference's quantized-serving policies, not ported yet;
-    anything else raises."""
-    if precision is None or precision == "":
-        return None
-    p = str(precision).lower()
-    if p not in PRECISIONS:
-        raise AkIllegalArgumentException(
-            f"unknown precision {precision!r}; choose one of {PRECISIONS}")
-    if p != FP32:
-        raise AkUnsupportedOperationException(
-            f"serving precision {p!r} is not ported yet")
-    return None
+from ..common.quant import resolve_precision
 
 
 def _batched_apply(model, inputs: Dict[str, np.ndarray], bs: int,

@@ -1,8 +1,13 @@
-from .base import (HasPredictionCol, HasPredictionDetailCol, HasReservedCols,
-                   Mapper, ModelMapper, RichModelMapper, detail_json,
-                   np_labels, softmax_np)
+from .base import (HasFeatureCols, HasPredictionCol, HasPredictionDetailCol,
+                   HasReservedCols, HasVectorCol, Mapper, ModelMapper,
+                   RichModelMapper, default_feature_cols, detail_json,
+                   get_feature_block, merge_feature_params, np_labels,
+                   resolve_feature_cols, softmax_np)
 
 __all__ = [
-    "HasPredictionCol", "HasPredictionDetailCol", "HasReservedCols", "Mapper",
-    "ModelMapper", "RichModelMapper", "detail_json", "np_labels", "softmax_np",
+    "HasFeatureCols", "HasPredictionCol", "HasPredictionDetailCol",
+    "HasReservedCols", "HasVectorCol", "Mapper", "ModelMapper",
+    "RichModelMapper", "default_feature_cols", "detail_json",
+    "get_feature_block", "merge_feature_params", "np_labels",
+    "resolve_feature_cols", "softmax_np",
 ]

@@ -16,7 +16,7 @@ import numpy as np
 
 from ..common.exceptions import AkIllegalArgumentException
 from ..common.mtable import AlinkTypes, MTable, TableSchema
-from ..common.params import ParamInfo, WithParams
+from ..common.params import Params, ParamInfo, WithParams
 
 
 class HasReservedCols:
@@ -31,6 +31,14 @@ class HasPredictionCol:
 
 class HasPredictionDetailCol:
     PREDICTION_DETAIL_COL = ParamInfo("predictionDetailCol", str)
+
+
+class HasVectorCol:
+    VECTOR_COL = ParamInfo("vectorCol", str, desc="vector-typed feature column")
+
+
+class HasFeatureCols:
+    FEATURE_COLS = ParamInfo("featureCols", list, desc="numeric feature columns")
 
 
 class Mapper(WithParams):
@@ -129,6 +137,81 @@ class RichModelMapper(ModelMapper, HasPredictionCol, HasPredictionDetailCol,
             out_cols[detail_col] = detail
             out_types[detail_col] = AlinkTypes.STRING
         return self._append_result(t, out_cols, out_types)
+
+
+def get_feature_block(
+    t: MTable,
+    params: "Params | WithParams",
+    dtype=np.float32,
+    vector_size: Optional[int] = None,
+    exclude: Optional[Sequence[str]] = None,
+) -> np.ndarray:
+    """Resolve featureCols / vectorCol params into one dense (n, d) block —
+    the shared feature-assembly step of train and predict paths.
+
+    ``exclude`` names columns (label/weight/prediction) that must never enter
+    the default all-numeric-columns fallback."""
+    p = params.get_params() if isinstance(params, WithParams) else params
+    vec_col = p.get(HasVectorCol.VECTOR_COL)
+    if vec_col:
+        return t.to_numeric_block([vec_col], dtype=dtype, vector_size=vector_size)
+    return t.to_numeric_block(
+        resolve_feature_cols(t, params, exclude=exclude), dtype=dtype
+    )
+
+
+def default_feature_cols(
+    t: "MTable | TableSchema",
+    exclude: Optional[Sequence[str]] = None,
+    include_vectors: bool = False,
+) -> List[str]:
+    """Every numeric (and optionally vector) column not in ``exclude`` — the
+    shared default-column scan for ops run without explicit featureCols.
+    Works on an MTable or a bare TableSchema (static schema derivation)."""
+    schema = t if isinstance(t, TableSchema) else t.schema
+    drop = set(exclude or ())
+    cols = [
+        n
+        for n, tp in zip(schema.names, schema.types)
+        if (
+            AlinkTypes.is_numeric(tp)
+            or (include_vectors and AlinkTypes.is_vector(tp))
+        )
+        and n not in drop
+    ]
+    if not cols:
+        raise AkIllegalArgumentException(
+            "no featureCols/vectorCol set and no numeric columns found"
+        )
+    return cols
+
+
+def resolve_feature_cols(
+    t: MTable,
+    params: "Params | WithParams",
+    exclude: Optional[Sequence[str]] = None,
+) -> List[str]:
+    """The featureCols actually used: the explicit param, else every numeric
+    column not in ``exclude``. Train ops store this resolved list in model meta
+    so predict binds to the same columns regardless of the predict table."""
+    p = params.get_params() if isinstance(params, WithParams) else params
+    feat_cols = p.get(HasFeatureCols.FEATURE_COLS)
+    if feat_cols:
+        return list(feat_cols)
+    return default_feature_cols(t, exclude=exclude)
+
+
+def merge_feature_params(params: "Params | WithParams", meta: Dict) -> Params:
+    """Model-stored feature binding, unless the user explicitly set either
+    featureCols or vectorCol on the predict op (explicit settings win whole) —
+    the shared predict-side counterpart of resolve_feature_cols."""
+    p = (params.get_params() if isinstance(params, WithParams) else params).clone()
+    if not p.contains("vectorCol") and not p.contains("featureCols"):
+        if meta.get("vectorCol"):
+            p.set("vectorCol", meta["vectorCol"])
+        elif meta.get("featureCols"):
+            p.set("featureCols", meta["featureCols"])
+    return p
 
 
 def np_labels(labels: List, label_type: str, idx: np.ndarray) -> np.ndarray:

@@ -48,6 +48,13 @@ KERNELS: Dict[str, KernelSpec] = {
         replaces="alink_tpu/dl/attn_pallas.py:114",
         source="csrc/flash_block_update.cu",
     ),
+    "tree_histogram": KernelSpec(
+        name="tree_histogram",
+        module="alink_tpu_torch/tree/hist_cuda.py",
+        plain="histogram_ref",
+        replaces="alink_tpu/tree/pallas_hist.py:101",
+        source="csrc/tree_histogram.cu",
+    ),
 }
 
 _build_lock = threading.Lock()

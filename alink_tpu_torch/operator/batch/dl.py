@@ -20,12 +20,11 @@ from ...common.env import resolve_device
 from ...common.model import table_to_model
 from ...common.mtable import AlinkTypes, MTable
 from ...common.params import ParamInfo
+from ...common.quant import PRECISION_KEY
 from ...mapper import (HasPredictionCol, HasPredictionDetailCol,
                        HasReservedCols, RichModelMapper, detail_json,
                        np_labels, softmax_np)
 from .utils import ModelMapBatchOp
-
-PRECISION_KEY = "inferencePrecision"
 
 
 def params_from_bytes(buf: np.ndarray) -> dict:

@@ -30,7 +30,31 @@ non-zero:
    launch counter must rise by 48 per forward chunk, and the logits must
    agree with the same model run with plain attention and with full
    attention; the warm forward is timed on all three attention routes;
-5. one JSON line of kernels, then the device line last.
+5. tree histogram vs plain version on the card: ``tree_histogram`` against
+   ``histogram_ref`` at n = 522,911 rows of Covertype-layout bins (10
+   continuous and 44 binary columns) at every S of a depth-12 tree's levels
+   (64 … 131,072), with integer vals (the forest's g and its bootstrap
+   counts) and normal vals, plus ids at -1 and in [S, S+8) at S = 64, 4,096
+   and 131,072; each S timed beside its bound, the plain version and one
+   ``index_add_`` over ``ids·d + f`` as a labelled yardstick (the port
+   never calls it);
+6. forest path: seeded Covertype-layout data (sklearn's
+   bench_covertype.py shape: 522,911 training and 58,101 held-out rows, 54
+   features, class 1 against the rest) through ``TableSourceBatchOp`` →
+   ``RandomForestTrainBatchOp(numTrees=20, maxDepth=12, maxBins=64,
+   minSamplesPerLeaf=5)`` → ``collect()``; the kernel's launch counter must
+   rise by 3·12·20 = 720 (each launch timed with CUDA events), the first
+   tree's 12 g histograms are held against the plain version again and
+   timed on their own inputs (the numbers of the kernels line), the
+   ``ALINK_GBDT_PALLAS=0`` route must grow identical trees, the card's
+   predict must match a numpy traversal, and
+   the model goes to ``.ak`` and back into ``RandomForestPredictBatchOp``
+   for requests of 1, 1,000 and 58,101 held-out rows; held-out accuracy
+   must beat the majority class by 0.05;
+7. GBDT path: ``GbdtTrainBatchOp(numTrees=20, maxDepth=6, maxBins=64)`` on
+   the same data, then ``GbdtPredictBatchOp`` on the held-out requests,
+   under the same accuracy floor;
+8. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -51,10 +75,16 @@ its plain route at the same bound for the output o/l, with the flip terms
 taken over all keys: 2**-7·(|out| + out_abs) + (flip_o + |out|·flip_l)/l.
 Served logits: max|Δ| ≤ 0.01 against the plain-attention route and against
 full attention, about 4x the gaps measured on the card (see PERF.md).
+Tree histogram: integer vals are summed exactly in any order (every
+partial sum is an integer below 2**24), so kernel and plain version must
+agree exactly; real vals within 2·count·2**-24·Σ|vals| per cell, the
+worst-case fp32 error of a sum taken in any order, for both sides (count
+and Σ|vals| from the plain version on ones and on |vals|).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -556,6 +586,429 @@ def main_path(workdir, cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 5-7: the tree slice
+# ---------------------------------------------------------------------------
+
+
+COVTYPE_TRAIN, COVTYPE_TEST = 522_911, 58_101   # sklearn bench_covertype.py
+COVTYPE_CONTINUOUS = (
+    "Elevation", "Aspect", "Slope", "Horizontal_Distance_To_Hydrology",
+    "Vertical_Distance_To_Hydrology", "Horizontal_Distance_To_Roadways",
+    "Hillshade_9am", "Hillshade_Noon", "Hillshade_3pm",
+    "Horizontal_Distance_To_Fire_Points")
+COVTYPE_COLS = COVTYPE_CONTINUOUS \
+    + tuple(f"Wilderness_Area{i}" for i in range(1, 5)) \
+    + tuple(f"Soil_Type{i}" for i in range(1, 41))
+FOREST = dict(numTrees=20, maxDepth=12, maxBins=64, minSamplesPerLeaf=5)
+GBDT = dict(numTrees=20, maxDepth=6, maxBins=64)
+TREE_REQUEST_ROWS = (1, 1000, COVTYPE_TEST)
+FP32_EPS = 2.0 ** -24    # fp32 unit roundoff
+ORACLE_ROWS = 1000       # held-out rows the predict traversal is held on
+
+
+def covertype_data(n, seed):
+    """n seeded rows in UCI Covertype's column layout (the file is not in the
+    repository): 10 continuous columns in the file's ranges, rounded to
+    integers as there, then 4 one-hot wilderness and 40 one-hot soil columns
+    with skewed frequencies; the label (class 1 against the rest) is a fixed
+    linear rule of the standardised continuous columns, wilderness and soil,
+    plus noise. Returns X (n, 54) float32 and y (n,) int64."""
+    g = np.random.default_rng(seed)
+    rule = np.random.default_rng(seed + 1)   # the label rule, same for any n
+    cont = np.stack([
+        np.clip(g.normal(2959, 280, n), 1859, 3858),
+        g.uniform(0, 360, n),
+        np.clip(g.gamma(4.0, 3.5, n), 0, 66),
+        np.clip(g.exponential(270, n), 0, 1397),
+        np.clip(g.normal(46, 58, n), -173, 601),
+        np.clip(g.exponential(2350, n), 0, 7117),
+        np.clip(g.normal(212, 27, n), 0, 254),
+        np.clip(g.normal(223, 20, n), 0, 254),
+        np.clip(g.normal(143, 38, n), 0, 254),
+        np.clip(g.exponential(1980, n), 0, 7173)], axis=1).round()
+    wild = g.choice(4, n, p=[0.449, 0.051, 0.436, 0.064])
+    soil_p = rule.permutation(1.0 / np.arange(1, 41) ** 1.1)
+    soil = g.choice(40, n, p=soil_p / soil_p.sum())
+    X = np.zeros((n, 54), np.float32)
+    X[:, :10] = cont
+    X[np.arange(n), 10 + wild] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    z = (cont - cont.mean(0)) / cont.std(0)
+    wild_eff = np.array([0.4, 1.0, -0.3, -1.2])
+    soil_eff = rule.normal(0.0, 0.8, 40)
+    score = z @ np.array([1.2, 0.1, -0.6, -0.4, 0.2, 0.5, 0.2, 0.3, 0.0, 0.5]) \
+        + wild_eff[wild] + soil_eff[soil] - 0.3 + g.normal(0.0, 0.5, n)
+    return X, (score > 0).astype(np.int64)
+
+
+def covertype_table(X, y):
+    from alink_tpu_torch.common.mtable import MTable
+
+    cols = {c: X[:, j].astype(np.float64) for j, c in enumerate(COVTYPE_COLS)}
+    cols["label"] = y
+    return MTable(cols)
+
+
+def histogram_inputs(bins, level, seed, device="cuda", oob=False):
+    """ids of one level of the forest's level program: seeded node ids of
+    the level's 2**level nodes, ids = node·B + bin (B = 64) for Covertype-
+    layout bins (n, 54); with ``oob``, 1 % of the ids set to -1 and 1 % to
+    [S, S+8). Returns (ids int32, S, vals): vals maps "g" to the forest's
+    integer g = -label·(bootstrap count), "count" to the counts, "normal" to
+    standard-normal reals."""
+    import torch
+
+    g = np.random.default_rng(seed)
+    n, _ = bins.shape
+    S = 64 << level
+    node = g.integers(0, 1 << level, n)
+    ids = node[:, None] * 64 + bins
+    if oob:
+        r = g.random(ids.shape)
+        ids = np.where(r < 0.01, -1, ids)
+        ids = np.where(r > 0.99, S + g.integers(0, 8, ids.shape), ids)
+    w = g.multinomial(n, np.ones(n) / n).astype(np.float32)
+    label = g.integers(0, 2, n).astype(np.float32)
+    vals = {"g": -(label * w), "count": w,
+            "normal": g.standard_normal(n).astype(np.float32)}
+    return (torch.tensor(ids, dtype=torch.int32, device=device), S,
+            {k: torch.tensor(v, device=device) for k, v in vals.items()})
+
+
+def histogram_mismatch(ids, vals, S, got, exact):
+    """Holds a histogram ``got`` against ``histogram_ref`` on the same
+    inputs. Returns (max|Δ|, worst error/bound; > 1 fails). Exact (integer
+    vals): any difference fails. Real vals: |Δ| ≤ 2·count·2**-24·Σ|vals|
+    per cell, count and Σ|vals| from the plain version on ones and |vals|
+    (the worst-case fp32 error of a sum in any order, for both sides)."""
+    import torch
+
+    from alink_tpu_torch.tree.hist_cuda import histogram_ref
+
+    ref = histogram_ref(ids, vals, num_segments=S)
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        return float("nan"), float("inf")
+    err = (got - ref).abs()
+    raw = float(err.max())
+    if exact:
+        return raw, 0.0 if raw == 0 else float("inf")
+    count = histogram_ref(ids, torch.ones_like(vals), num_segments=S)
+    size = histogram_ref(ids, vals.abs(), num_segments=S)
+    return raw, worst_ratio(err, 2 * count * FP32_EPS * size)
+
+
+def histogram_bytes(n, d, S):
+    """Bytes the function must move: ids and vals read once, out written
+    once."""
+    return n * d * 4 + n * 4 + S * d * 4
+
+
+def time_histogram(peaks, ids, vals, S, label):
+    """Times ``tree_histogram`` on (ids, vals) in turns with its plain
+    version, and one ``index_add_`` over ``ids·d + f`` as the yardstick;
+    returns ms of each and the bound."""
+    import torch
+
+    from alink_tpu_torch.tree.hist_cuda import histogram, histogram_ref
+
+    n, d = ids.shape
+    bw, _, fp32_peak = peaks
+    plain = lambda: histogram_ref(ids, vals, num_segments=S)  # noqa: E731
+    kern = lambda: histogram(ids, vals, num_segments=S)  # noqa: E731
+    flat = (ids.long() * d + torch.arange(d, device="cuda")).reshape(-1)
+    vflat = vals[:, None].expand(n, d).reshape(-1)
+    lib = lambda: torch.zeros(S * d, device="cuda").index_add_(  # noqa: E731
+        0, flat, vflat)
+    t = [cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)]
+    row = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+               library_ms=cuda_ms(lib), bound_ms=max(
+                   histogram_bytes(n, d, S) / bw, n * d / fp32_peak) * 1e3)
+    print(f"tree_histogram {label} n={n} d={d} S={S}: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, index_add_ "
+          f"yardstick {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms'] * 1e3:.1f} us (bytes: "
+          f"{histogram_bytes(n, d, S) / 1e6:.1f} MB); turns "
+          f"plain,kernel,kernel,plain = {[round(x, 4) for x in t]}",
+          flush=True)
+    return row
+
+
+def check_histogram(peaks, bins):
+    """Phase 5: ``tree_histogram`` against ``histogram_ref`` on the card at
+    every level of a depth-12 tree (S = 64 … 131,072) with seeded node ids
+    spread evenly over the level's nodes, then timed there. Returns the
+    raw errors and the timings by S."""
+    from alink_tpu_torch.tree.hist_cuda import histogram
+
+    by_segments, errors = {}, {}
+    for level in range(FOREST["maxDepth"]):
+        ids, S, vals = histogram_inputs(bins, level, SEED + level)
+        cases = [(k, ids, v) for k, v in vals.items()]
+        if S in (64, 4096, 131072):
+            oids, _, ovals = histogram_inputs(bins, level, SEED + 100 + level,
+                                              oob=True)
+            cases += [("oob " + k, oids, ovals[k]) for k in ("g", "normal")]
+        for kind, i_, v in cases:
+            exact = not kind.endswith("normal")
+            raw, ratio = histogram_mismatch(i_, v, S, histogram(
+                i_, v, num_segments=S), exact)
+            print(f"tree_histogram vs plain [S={S} {kind}] max|Δ| {raw:.3g}; "
+                  f"{'exact' if exact else 'error/bound'} {ratio:.3g}",
+                  flush=True)
+            if not ratio <= 1.0:
+                fail(f"tree_histogram [S={S} {kind}] outside its tolerance")
+            errors[f"S={S} {kind}"] = raw
+        by_segments[S] = time_histogram(peaks, ids, vals["g"], S,
+                                        "even nodes")
+    return errors, by_segments
+
+
+def main_path_histograms(peaks, kept):
+    """The forest's first tree, level by level: its g histograms' inputs as
+    the main path made them (``kept``), held against the plain version
+    (exact: integer vals) and timed. Returns the means over the levels, the
+    raw errors and the timings by S."""
+    from alink_tpu_torch.tree.hist_cuda import histogram
+
+    rows, errors = {}, {}
+    for ids, vals, S in kept:
+        raw, ratio = histogram_mismatch(ids, vals, S, histogram(
+            ids, vals, num_segments=S), exact=True)
+        if not ratio <= 1.0:
+            fail(f"tree_histogram on the forest's level S={S}: max|Δ| {raw}")
+        errors[f"forest level S={S} g"] = raw
+        rows[S] = time_histogram(peaks, ids, vals, S, "forest tree 1")
+    mean = {k: sum(r[k] for r in rows.values()) / len(rows)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return mean, errors, rows
+
+
+def predict_numpy(ens, X):
+    """The reference's traversal (alink_tpu/tree/grow.py:189-213) in numpy,
+    tree by tree: the oracle the card's predict is held against."""
+    n = X.shape[0]
+    out = np.tile(ens.base_score[None, :].astype(np.float64), (n, 1))
+    for f, t, lv in zip(ens.feats, ens.thrs, ens.leaves):
+        node = np.zeros(n, np.int64)
+        pos = np.zeros(n, np.int64)
+        for _ in range(ens.depth):
+            fs, ts = f[pos], t[pos]
+            x = X[np.arange(n), np.maximum(fs, 0)]
+            right = (~((fs < 0) | (x <= ts))).astype(np.int64)
+            node = node * 2 + right
+            pos = 2 * pos + 1 + right
+        out += lv[:, node].T
+    return out
+
+
+def instrument_forest(grow):
+    """Wraps ``grow._level`` and ``grow.histogram`` so that each call
+    records CUDA events, and keeps the first tree's g-histogram inputs.
+    Returns (levels, launches, kept, restore): (level, start, end) per
+    level call, (start, end) per histogram launch, (ids, vals, S) per
+    level of the first tree, and the hook that undoes the wrapping."""
+    import torch
+
+    orig_level, orig_hist = grow._level, grow.histogram
+    levels, launches, kept = [], [], []
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def level(*args, **kw):
+        a, b = events()
+        a.record()
+        out = orig_level(*args, **kw)
+        b.record()
+        levels.append((args[6].bit_length() - 1, a, b))   # num_nodes
+        return out
+
+    def hist(ids, vals, *, num_segments):
+        a, b = events()
+        a.record()
+        out = orig_hist(ids, vals, num_segments=num_segments)
+        b.record()
+        if len(launches) % 3 == 0 and len(kept) < FOREST["maxDepth"]:
+            kept.append((ids, vals, num_segments))    # g: first of three
+        launches.append((a, b))
+        return out
+
+    def restore():
+        grow._level, grow.histogram = orig_level, orig_hist
+
+    grow._level, grow.histogram = level, hist
+    return levels, launches, kept, restore
+
+
+def train_trees(op_cls, params, table):
+    """Train through ``TableSourceBatchOp`` → ``op_cls`` → ``collect()``;
+    returns the model table and the wall seconds."""
+    import torch
+
+    from alink_tpu_torch.operator.batch import TableSourceBatchOp
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = op_cls(labelCol="label", **params).link_from(
+        TableSourceBatchOp(table)).collect()
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def serve_trees(op_cls, model_src, X_test, y_test, label):
+    """Serves held-out requests of TREE_REQUEST_ROWS rows; checks each
+    output table; returns the predictions of the whole held-out set."""
+    import torch
+
+    from alink_tpu_torch.operator.batch import TableSourceBatchOp
+
+    pred = None
+    for n in TREE_REQUEST_ROWS:
+        req = covertype_table(X_test[:n], y_test[:n])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = op_cls(predictionCol="pred", predictionDetailCol="detail") \
+            .link_from(model_src, TableSourceBatchOp(req)).collect()
+        dt = time.perf_counter() - t0
+        probs = np.asarray([[json.loads(s)[k] for k in ("0", "1")]
+                            for s in out.col("detail")])
+        pred = np.asarray(out.col("pred"))
+        if out.num_rows != n or not np.isfinite(probs).all() \
+                or not np.allclose(probs.sum(1), 1.0, atol=1e-6) \
+                or not set(pred.tolist()) <= {0, 1}:
+            fail(f"{label} request of {n} rows: bad output table")
+        print(f"{label} predict {n:5d} rows: {dt * 1e3:.1f} ms end to end, "
+              f"{n / dt:.0f} rows/s", flush=True)
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.tree import TreeEnsemble
+
+    ens = TreeEnsemble.from_arrays(*table_to_model(model_src.collect()))
+    ens.raw_predict(X_test)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ens.raw_predict(X_test)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 3
+    print(f"{label} raw_predict alone (warm, {len(X_test)} rows, "
+          f"{ens.feats.shape[0]} trees): {dt * 1e3:.2f} ms, "
+          f"{len(X_test) / dt:.0f} rows/s", flush=True)
+    return pred
+
+
+def forest_path(workdir, X, y, peaks):
+    """Phase 6: the forest at full size through the operators on the card.
+    Returns the main path's tree_histogram launches, the mean device ms of
+    a launch there, and the kernel's timings on the first tree's inputs."""
+    import torch
+
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.operator.batch import (
+        AkSinkBatchOp, AkSourceBatchOp, RandomForestPredictBatchOp,
+        RandomForestTrainBatchOp, TableSourceBatchOp)
+    from alink_tpu_torch.tree import TreeEnsemble, grow
+
+    n_tr = COVTYPE_TRAIN
+    train = covertype_table(X[:n_tr], y[:n_tr])
+    X_test, y_test = X[n_tr:], y[n_tr:]
+    levels, launch_ev, kept, restore = instrument_forest(grow)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    try:
+        model, wall = train_trees(RandomForestTrainBatchOp, FOREST, train)
+    finally:
+        restore()
+    launches = kernels.launches()["tree_histogram"]
+    peak = torch.cuda.max_memory_allocated()
+    expect = 3 * FOREST["maxDepth"] * FOREST["numTrees"]
+    depth = FOREST["maxDepth"]
+    first, rest = [0.0] * depth, [0.0] * depth
+    for i, (lv, a, b) in enumerate(levels):
+        (first if i < depth else rest)[lv] += a.elapsed_time(b)
+    launch_ms = [a.elapsed_time(b) for a, b in launch_ev]
+    print(f"forest train ({n_tr} rows, {FOREST}): {wall:.2f} s wall; "
+          f"{launches} tree_histogram launches, {sum(launch_ms):.1f} ms of "
+          f"device time in them (mean {np.mean(launch_ms):.4f} ms); peak "
+          f"device memory {peak / 2**30:.2f} GiB; level program device ms "
+          f"by level, first tree {[round(t, 2) for t in first]}, mean of "
+          f"the other {FOREST['numTrees'] - 1} "
+          f"{[round(t / (FOREST['numTrees'] - 1), 3) for t in rest]}; all "
+          f"levels of all trees {sum(first) + sum(rest):.1f} ms",
+          flush=True)
+    if launches != expect:
+        fail(f"tree_histogram launched {launches} times on the forest path, "
+             f"expected {expect} (3 per level)")
+    stats = main_path_histograms(peaks, kept)
+    del kept
+
+    os.environ[grow.HIST_KERNEL_ENV] = "0"
+    try:
+        plain_model, plain_wall = train_trees(RandomForestTrainBatchOp,
+                                              FOREST, train)
+    finally:
+        del os.environ[grow.HIST_KERNEL_ENV]
+    (meta, arrays), (_, plain_arrays) = (table_to_model(m)
+                                         for m in (model, plain_model))
+    same = {k: np.array_equal(arrays[k], plain_arrays[k])
+            for k in ("feats", "thrs", "leaves")}
+    print(f"forest trees vs the ALINK_GBDT_PALLAS=0 route "
+          f"({plain_wall:.2f} s wall): identical {same}; split features "
+          f"sha1 {hashlib.sha1(arrays['feats'].tobytes()).hexdigest()}",
+          flush=True)
+    if not all(same.values()):
+        fail("the kernel route grew other trees than the plain route")
+
+    path = os.path.join(workdir, "forest.ak")
+    AkSinkBatchOp(filePath=path, overwriteSink=True).link_from(
+        TableSourceBatchOp(model)).collect()
+    model_src = AkSourceBatchOp(filePath=path)
+    ens = TreeEnsemble.from_arrays(*table_to_model(model_src.collect()))
+    got = ens.raw_predict(X_test[:ORACLE_ROWS])
+    gap = float(np.abs(got - predict_numpy(ens, X_test[:ORACLE_ROWS])).max())
+    print(f"forest raw_predict on the card vs numpy traversal "
+          f"({ORACLE_ROWS} rows): max|Δ| {gap:.3g}", flush=True)
+    if not gap <= 1e-6:
+        fail(f"forest predict disagrees with the numpy traversal ({gap})")
+    pred = serve_trees(RandomForestPredictBatchOp, model_src, X_test, y_test,
+                       "forest")
+    acc = float(np.mean(pred == y_test))
+    base = max(np.mean(y_test), 1 - np.mean(y_test))
+    print(f"forest held-out accuracy {acc:.4f} (majority class "
+          f"{base:.4f})", flush=True)
+    if not acc > base + 0.05:
+        fail("forest held-out accuracy is no better than the majority class")
+    return launches, float(np.mean(launch_ms)), stats
+
+
+def gbdt_path(X, y):
+    """Phase 7: GBDT at full size through the operators on the card."""
+    import torch
+
+    from alink_tpu_torch.operator.batch import (GbdtPredictBatchOp,
+                                                GbdtTrainBatchOp,
+                                                TableSourceBatchOp)
+
+    n_tr = COVTYPE_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    model, wall = train_trees(GbdtTrainBatchOp, GBDT,
+                              covertype_table(X[:n_tr], y[:n_tr]))
+    print(f"gbdt train ({n_tr} rows, {GBDT}): {wall:.2f} s wall, "
+          f"{n_tr / wall:.0f} rows/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    X_test, y_test = X[n_tr:], y[n_tr:]
+    pred = serve_trees(GbdtPredictBatchOp, TableSourceBatchOp(model), X_test,
+                       y_test, "gbdt")
+    acc = float(np.mean(pred == y_test))
+    base = max(np.mean(y_test), 1 - np.mean(y_test))
+    print(f"gbdt held-out accuracy {acc:.4f} (majority class {base:.4f})",
+          flush=True)
+    if not acc > base + 0.05:
+        fail("gbdt held-out accuracy is no better than the majority class")
+
+
 def main() -> int:
     try:
         import torch
@@ -596,18 +1049,47 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     launches = main_path(workdir, serving_config())
 
-    spec = kernels.KERNELS["flash_block_update"]
-    line = {"kernels": [{
-        "name": spec.name, "route": spec.route,
-        "source": "alink_tpu_torch/" + spec.source,
-        "replaces": spec.replaces, "launches": launches,
-        "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
-        "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
-        "bound_us": stats["bound_ms"] * 1e3, "bound_by": stats["bound_by"],
-        "library_ms": stats["library_ms"],
-        "library_call": "scaled_dot_product_attention, all 4 K/V blocks",
-        "shape": "B=32 H=12 Q=512 K=128 D=64 bf16",
-        "errors": stats["errors"]}]}
+    from alink_tpu_torch.tree.binning import apply_bins, quantile_bins
+
+    t0 = time.perf_counter()
+    X, y = covertype_data(COVTYPE_TRAIN + COVTYPE_TEST, SEED)
+    bins = apply_bins(X[:COVTYPE_TRAIN], quantile_bins(X[:COVTYPE_TRAIN], 64))
+    print(f"Covertype-layout data: {X.shape[0]} rows x {X.shape[1]} features "
+          f"from seed {SEED}, label 1 in {y.mean():.3f} of rows; binned in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    errors, even = check_histogram(peaks, bins)
+    del bins
+    tree_launches, launch_ms, (hist, forest_errors, levels) = forest_path(
+        workdir, X, y, peaks)
+    errors.update(forest_errors)
+    hist.update(errors=errors, max_abs_err=max(errors.values()),
+                bound_by="bytes")
+    gbdt_path(X, y)
+
+    def entry(name, launches, st, library_call, shape):
+        spec = kernels.KERNELS[name]
+        return {
+            "name": spec.name, "route": spec.route,
+            "source": "alink_tpu_torch/" + spec.source,
+            "replaces": spec.replaces, "launches": launches,
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_us": st["bound_ms"] * 1e3, "bound_by": st["bound_by"],
+            "library_ms": st["library_ms"], "library_call": library_call,
+            "shape": shape, "errors": st["errors"]}
+
+    line = {"kernels": [
+        entry("flash_block_update", launches, stats,
+              "scaled_dot_product_attention, all 4 K/V blocks",
+              "B=32 H=12 Q=512 K=128 D=64 bf16"),
+        dict(entry("tree_histogram", tree_launches, hist,
+                   "Tensor.index_add_ over ids*d+f (yardstick)",
+                   f"n={COVTYPE_TRAIN} d=54 int32 ids, fp32 vals; ms, "
+                   f"plain_ms, library_ms and bound_ms are means over the "
+                   f"12 levels (S = 64 ... 131072) of the forest's first "
+                   f"tree, on its g histograms' inputs"),
+             main_path_launch_ms=launch_ms, forest_levels=levels,
+             even_nodes=even)]}
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps(line))

@@ -1,6 +1,7 @@
 """The checks of chip_smoke.py, held on the CPU.
 
-chip_smoke.py holds the CUDA kernel against its plain version on the card.
+chip_smoke.py holds each CUDA kernel against its plain version on the card;
+the flash block update first, the tree histogram at the end of the file.
 Here the same checks run on CPU tensors, with the kernel's arithmetic
 re-done in plain torch and rounded to the input type at the kernel's points.
 That stand-in must pass; broken updates that mishandle the carried state
@@ -8,6 +9,7 @@ must not. Shapes are cut to B=2..4 from the card's B=32; the tolerances are
 chip_smoke's own (fp32 atol 1e-5, bf16 bound of its module docstring).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -86,3 +88,94 @@ def test_card_peaks_refuses_an_unknown_card():
     assert chip_smoke.card_peaks("NVIDIA H100 80GB HBM3")[0] == "H100"
     with pytest.raises(SystemExit):
         chip_smoke.card_peaks("NVIDIA A100-SXM4-80GB")
+
+
+# -- the tree histogram (phase 5) ------------------------------------------
+#
+# chip_smoke.check_histogram holds tree_histogram against histogram_ref at
+# n = 522,911 rows of Covertype-layout bins. Here the same check runs at
+# n = 3,001 (not a multiple of any power-of-two row chunk) with
+# histogram_ref standing in for the kernel; three broken histograms must
+# fail it, with integer vals (exact) and with normal vals (the summation
+# bound of chip_smoke's histogram_mismatch).
+
+HIST_N = 3001
+
+
+@pytest.fixture(scope="module")
+def covertype_bins():
+    from alink_tpu_torch.tree.binning import apply_bins, quantile_bins
+
+    X, y = chip_smoke.covertype_data(HIST_N, seed=0)
+    return apply_bins(X, quantile_bins(X, 64))
+
+
+def test_covertype_data_keeps_the_file_layout():
+    X, y = chip_smoke.covertype_data(HIST_N, seed=0)
+    assert X.shape == (HIST_N, 54) and X.dtype == np.float32
+    assert len(chip_smoke.COVTYPE_COLS) == 54
+    # one wilderness area and one soil type per row
+    np.testing.assert_array_equal(X[:, 10:14].sum(1), 1.0)
+    np.testing.assert_array_equal(X[:, 14:].sum(1), 1.0)
+    assert set(np.unique(y)) == {0, 1} and 0.2 < y.mean() < 0.8
+
+
+def _drop_ragged_chunk(ids, vals, S, chunk=512):
+    from alink_tpu_torch.tree.hist_cuda import histogram_ref
+
+    keep = ids.shape[0] // chunk * chunk
+    return histogram_ref(ids[:keep], vals[:keep], num_segments=S)
+
+
+def _clamp_out_of_range(ids, vals, S):
+    from alink_tpu_torch.tree.hist_cuda import histogram_ref
+
+    return histogram_ref(torch.where(ids >= S, S - 1, ids), vals,
+                         num_segments=S)
+
+
+def _swap_two_features(ids, vals, S):
+    from alink_tpu_torch.tree.hist_cuda import histogram_ref
+
+    out = histogram_ref(ids, vals, num_segments=S)
+    return out[:, [1, 0] + list(range(2, out.shape[1]))]
+
+
+def _hist_ratio(bins, level, kind, fn, oob=True):
+    ids, S, vals = chip_smoke.histogram_inputs(bins, level, seed=level,
+                                               device="cpu", oob=oob)
+    got = fn(ids, vals[kind], S)
+    return chip_smoke.histogram_mismatch(ids, vals[kind], S, got,
+                                         exact=kind != "normal")[1]
+
+
+@pytest.mark.parametrize("kind", ["g", "count", "normal"])
+@pytest.mark.parametrize("level,oob", [(0, False), (0, True), (6, True),
+                                       (11, True)])
+def test_histogram_ref_passes_the_smoke_check(covertype_bins, level, oob,
+                                              kind):
+    from alink_tpu_torch.tree.hist_cuda import histogram
+
+    def kernel(ids, vals, S):
+        return histogram(ids, vals, num_segments=S)
+
+    assert _hist_ratio(covertype_bins, level, kind, kernel, oob) <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["g", "normal"])
+@pytest.mark.parametrize("mutant", [_drop_ragged_chunk, _clamp_out_of_range,
+                                    _swap_two_features])
+def test_histogram_smoke_check_rejects_broken_histograms(covertype_bins,
+                                                         mutant, kind):
+    assert _hist_ratio(covertype_bins, 6, kind, mutant) > 1.0
+
+
+def test_predict_oracle_matches_the_ensemble():
+    from alink_tpu_torch.tree import train_forest
+
+    X, y = chip_smoke.covertype_data(HIST_N, seed=1)
+    ens = train_forest(X, y.astype(np.float32), task="binary", num_trees=4,
+                       depth=5, num_bins=64)
+    np.testing.assert_allclose(ens.raw_predict(X),
+                               chip_smoke.predict_numpy(ens, X), rtol=0,
+                               atol=1e-6)
