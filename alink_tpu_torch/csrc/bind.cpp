@@ -7,6 +7,7 @@
 // launch. The Python wrapper counts launches.
 
 #include <ATen/core/Tensor.h>
+#include <ATen/ops/empty.h>
 #include <ATen/ops/empty_like.h>
 #include <ATen/ops/zeros.h>
 #include <c10/cuda/CUDAException.h>
@@ -32,6 +33,12 @@ cudaError_t tree_histogram_launch(const int32_t* ids, const float* vals,
                                   float* out, int n, int d, int S,
                                   cudaStream_t stream);
 
+int sgns_block_grads_max_dim();
+cudaError_t sgns_block_grads_launch(const float* v, const float* u_pos,
+                                    const float* u_neg, float* grad_v,
+                                    float* grad_u, int B, int negs, int D,
+                                    cudaStream_t stream);
+
 namespace {
 
 constexpr int64_t kMaxD = 128;
@@ -41,7 +48,7 @@ void check_tensor(const at::Tensor& t, const char* name, at::ScalarType dtype,
                   at::IntArrayRef shape, const at::Tensor& ref) {
   TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
   TORCH_CHECK(t.device() == ref.device(), name, " is on ", t.device(),
-              " but q is on ", ref.device());
+              " but the first input is on ", ref.device());
   TORCH_CHECK(t.scalar_type() == dtype, name, " must be ", dtype, ", got ",
               t.scalar_type());
   TORCH_CHECK(t.sizes() == shape, name, " must have shape ", shape, ", got ",
@@ -111,6 +118,32 @@ at::Tensor tree_histogram(const at::Tensor& ids, const at::Tensor& vals,
   return out;
 }
 
+std::tuple<at::Tensor, at::Tensor> sgns_block_grads(const at::Tensor& v,
+                                                    const at::Tensor& u_pos,
+                                                    const at::Tensor& u_neg) {
+  TORCH_CHECK(v.dim() == 2, "v must be (B, D)");
+  TORCH_CHECK(u_neg.dim() == 3, "u_neg must be (B, negs, D)");
+  const int64_t B = v.size(0), D = v.size(1), negs = u_neg.size(1);
+  TORCH_CHECK(D >= 1 && D <= sgns_block_grads_max_dim(), "row width D = ", D,
+              " is outside [1, ", sgns_block_grads_max_dim(), "]");
+  TORCH_CHECK((negs + 1) * B * D <= std::numeric_limits<int32_t>::max() &&
+                  B <= std::numeric_limits<int32_t>::max() / 32,
+              "block (", B, ", ", negs, ", ", D, ") is too large");
+  check_tensor(v, "v", at::kFloat, {B, D}, v);
+  check_tensor(u_pos, "u_pos", at::kFloat, {B, D}, v);
+  check_tensor(u_neg, "u_neg", at::kFloat, {B, negs, D}, v);
+
+  c10::cuda::CUDAGuard guard(v.device());
+  at::Tensor grad_v = at::empty_like(v);
+  at::Tensor grad_u = at::empty({(negs + 1) * B, D}, v.options());
+  C10_CUDA_CHECK(sgns_block_grads_launch(
+      v.data_ptr<float>(), u_pos.data_ptr<float>(), u_neg.data_ptr<float>(),
+      grad_v.data_ptr<float>(), grad_u.data_ptr<float>(), (int)B, (int)negs,
+      (int)D, c10::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {grad_v, grad_u};
+}
+
 }  // namespace
 
 TORCH_LIBRARY(alink_tpu_torch, m) {
@@ -119,9 +152,12 @@ TORCH_LIBRARY(alink_tpu_torch, m) {
       "Tensor qk_ok, Tensor o, Tensor m, Tensor l, float scale) "
       "-> (Tensor, Tensor, Tensor)");
   m.def("tree_histogram(Tensor ids, Tensor vals, int num_segments) -> Tensor");
+  m.def("sgns_block_grads(Tensor v, Tensor u_pos, Tensor u_neg) "
+        "-> (Tensor, Tensor)");
 }
 
 TORCH_LIBRARY_IMPL(alink_tpu_torch, CUDA, m) {
   m.impl("flash_block_update", &flash_block_update);
   m.impl("tree_histogram", &tree_histogram);
+  m.impl("sgns_block_grads", &sgns_block_grads);
 }

@@ -55,6 +55,13 @@ KERNELS: Dict[str, KernelSpec] = {
         replaces="alink_tpu/tree/pallas_hist.py:101",
         source="csrc/tree_histogram.cu",
     ),
+    "sgns_block_grads": KernelSpec(
+        name="sgns_block_grads",
+        module="alink_tpu_torch/embedding/sgns_cuda.py",
+        plain="sgns_block_grads_ref",
+        replaces="alink_tpu/embedding/sgns_pallas.py:100",
+        source="csrc/sgns_block_grads.cu",
+    ),
 }
 
 _build_lock = threading.Lock()

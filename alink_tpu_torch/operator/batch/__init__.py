@@ -2,6 +2,10 @@ from .base import (AkSinkBatchOp, AkSourceBatchOp, BatchOperator,
                    TableSourceBatchOp)
 from .dl import (BertTextClassifierPredictBatchOp, BertTextModelMapper,
                  BertTextRegressorPredictBatchOp)
+from .huge import (DeepWalkBatchOp, DeepWalkEmbeddingBatchOp,
+                   Node2VecEmbeddingBatchOp, Node2VecWalkBatchOp,
+                   RandomWalkBatchOp, Word2VecModelMapper,
+                   Word2VecPredictBatchOp, Word2VecTrainBatchOp)
 from .tree import (DecisionTreePredictBatchOp, DecisionTreeRegPredictBatchOp,
                    DecisionTreeRegTrainBatchOp, DecisionTreeTrainBatchOp,
                    GbdtPredictBatchOp, GbdtRegPredictBatchOp,
@@ -15,6 +19,9 @@ __all__ = [
     "AkSinkBatchOp", "AkSourceBatchOp", "BatchOperator", "TableSourceBatchOp",
     "BertTextClassifierPredictBatchOp", "BertTextModelMapper",
     "BertTextRegressorPredictBatchOp", "DecisionTreePredictBatchOp",
+    "DeepWalkBatchOp", "DeepWalkEmbeddingBatchOp", "Node2VecEmbeddingBatchOp",
+    "Node2VecWalkBatchOp", "RandomWalkBatchOp", "Word2VecModelMapper",
+    "Word2VecPredictBatchOp", "Word2VecTrainBatchOp",
     "DecisionTreeRegPredictBatchOp", "DecisionTreeRegTrainBatchOp",
     "DecisionTreeTrainBatchOp", "GbdtPredictBatchOp", "GbdtRegPredictBatchOp",
     "GbdtRegTrainBatchOp", "GbdtTrainBatchOp", "ModelMapBatchOp",

@@ -54,7 +54,25 @@ non-zero:
 7. GBDT path: ``GbdtTrainBatchOp(numTrees=20, maxDepth=6, maxBins=64)`` on
    the same data, then ``GbdtPredictBatchOp`` on the held-out requests,
    under the same accuracy floor;
-8. one JSON line of kernels, then the device line last.
+8. SGNS block gradients vs plain version on the card: ``sgns_block_grads``
+   against ``sgns_block_grads_ref`` at (B, negs, D) = (1024, 5, 100) (the
+   main path's), (1000, 1, 37) and (1000, 15, 100), on the rows of the
+   300th step of a plain-route training on a quarter of the corpus
+   (realistic magnitudes) and on
+   seeded N(0, 1) rows (saturated sigmoids); the main path's shape timed
+   beside its bound;
+9. Word2Vec path: 1,000,000 tokens in text8's layout (the corpus of
+   word2vec's demo-word.sh: Zipf law over 71,290 types, sentences of 1,000
+   tokens, a topic per sentence; see ``text8_corpus``) through
+   ``TableSourceBatchOp`` → ``Word2VecTrainBatchOp`` (the op's defaults:
+   vectorSize 100, window 5, negative 5, numIter 3, batchSize 1024; minCount
+   1) → ``collect()``; the kernel's launch counter must rise by the step
+   count (one launch per step), the table must agree with the
+   ``ALINK_SGNS_PALLAS=0`` route's, the embedding must pass a learning gate
+   on the topics, and the model goes to ``.ak`` and back into
+   ``Word2VecPredictBatchOp`` for requests of 1, 1,000 and 10,000
+   sentences, checked against a numpy mean of the table's rows;
+10. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -80,6 +98,15 @@ partial sum is an integer below 2**24), so kernel and plain version must
 agree exactly; real vals within 2·count·2**-24·Σ|vals| per cell, the
 worst-case fp32 error of a sum taken in any order, for both sides (count
 and Σ|vals| from the plain version on ones and on |vals|).
+SGNS block gradients: atol 1e-5 (the reference kernel's contract). Word2Vec
+tables, kernel route vs plain route: max|Δ| ≤ 1e-3, 100x the 9.8e-6 that a
+rounding-level change of the block gradients (computed in float64) moved a
+table of magnitude 1.4 over 3,700 steps on a quarter of the corpus on the
+CPU; ``index_add_`` on the card adds a batch's duplicate ids in any order,
+so two card runs are not bit-identical either. Learning gate: the in-topic
+share of the top-10 cosine neighbours of vocabulary rows 100..1099 must be
+≥ 0.32 (chance 0.01), half the 0.641 of the port's CPU run on a quarter of
+the corpus.
 """
 
 from __future__ import annotations
@@ -1009,6 +1036,403 @@ def gbdt_path(X, y):
         fail("gbdt held-out accuracy is no better than the majority class")
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: the embedding slice
+# ---------------------------------------------------------------------------
+
+
+TEXT8_TYPES = 71_290     # text8's word types at min_count 5
+SENTENCE = 1_000         # word2vec.c's MAX_SENTENCE_LENGTH
+TOPICS = 100
+W2V_TOKENS = 1_000_000
+W2V = dict(vectorSize=100, window=5, negative=5, numIter=3, batchSize=1024,
+           learningRate=0.025, minCount=1)
+W2V_REQUEST_ROWS = (1, 1000, 10000)
+SGNS_SHAPES = ((1024, 5, 100), (1000, 1, 37), (1000, 15, 100))
+SGNS_TRAINED_STEPS = 300
+TABLE_ATOL = 1e-3        # trained tables, kernel route vs plain route
+TOPIC_FLOOR = 0.32       # in-topic share of top-10 neighbours (chance 0.01)
+
+
+def text8_corpus(n_tokens, seed):
+    """Sentences in text8's layout (the file is not in the repository):
+    ``n_tokens`` tokens ``w<rank>`` drawn by a Zipf law of exponent 1 over
+    71,290 types, in sentences of 1,000 tokens. Each sentence has one of 100
+    topics, and half its tokens come from the Zipf law restricted to its
+    topic's words (rank mod 100), which gives the embedding something to
+    learn. Returns the sentences as space-separated strings."""
+    g = np.random.default_rng(seed)
+    n_sent = n_tokens // SENTENCE
+    p = 1.0 / np.arange(1, TEXT8_TYPES + 1)
+    ids = np.searchsorted(np.cumsum(p) / p.sum(),
+                          g.random((n_sent, SENTENCE)), side="right")
+    topic = g.integers(0, TOPICS, n_sent)
+    from_topic = g.random((n_sent, SENTENCE)) < 0.5
+    u = g.random((n_sent, SENTENCE))
+    for t in range(TOPICS):
+        words = np.arange(t, TEXT8_TYPES, TOPICS)
+        cdf = np.cumsum(1.0 / (words + 1.0))
+        m = from_topic & (topic == t)[:, None]
+        ids[m] = words[np.minimum(np.searchsorted(cdf / cdf[-1], u[m],
+                                                  side="right"),
+                                  len(words) - 1)]
+    ids = np.minimum(ids, TEXT8_TYPES - 1)
+    names = np.asarray([f"w{i}" for i in range(TEXT8_TYPES)], object)
+    return [" ".join(row) for row in names[ids]]
+
+
+def topic_share(words, vecs, device="cuda"):
+    """The learning gate: of the top-10 cosine neighbours of the 1,000 most
+    frequent words outside the top 100 (vocabulary rows 100..1099), the
+    share that lies in the query's topic (rank mod 100); chance is 0.01."""
+    import torch
+
+    e = torch.as_tensor(np.asarray(vecs, np.float32), device=device)
+    e = e / e.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    rows = torch.arange(100, 1100, device=device)
+    sims = e[rows] @ e.T
+    sims[torch.arange(1000, device=device), rows] = -float("inf")
+    nb = sims.topk(10, dim=1).indices.cpu().numpy()
+    topic = np.asarray([int(w[1:]) % TOPICS for w in words])
+    return float(np.mean(topic[nb] == topic[100:1100, None]))
+
+
+def sgns_bytes_flops(B, negs, D):
+    """Bytes the function must move (v, u_pos, u_neg read once; grad_v and
+    grad_u written once) and its fp32 operations: per row, negs+1 dot
+    products (2D), negs+1 grad_u rows (D) and grad_v's negs+1 products and
+    sums (2D)."""
+    rows_in, rows_out = (2 + negs) * B, (2 + negs) * B
+    return (rows_in + rows_out) * D * 4, 5.0 * (negs + 1) * B * D
+
+
+def graph_ms(fn, iters: int = 30, reps: int = 50) -> float:
+    """Device ms of one call of ``fn``: ``iters`` warm calls captured in a
+    CUDA graph, replayed 20 times to warm up and then ``reps`` times between
+    CUDA events (a window of milliseconds, long enough for the card's
+    clocks to settle). A launch of a few microseconds issued from Python
+    back to back is timed at the host's issue rate; the graph replays it at
+    the device's."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    for _ in range(20):
+        graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def sgns_mismatch(args, got):
+    """Holds ``got`` = (grad_v, grad_u) against ``sgns_block_grads_ref`` on
+    the same ``args``; returns max|Δ| (NaN, wrong shapes or a non-finite
+    value count as infinite). Tolerance: FP32_ATOL."""
+    import torch
+
+    from alink_tpu_torch.embedding.sgns_cuda import sgns_block_grads_ref
+
+    ref = sgns_block_grads_ref(*args)
+    if any(a.shape != b.shape or not bool(torch.isfinite(a).all())
+           for a, b in zip(got, ref)):
+        return float("inf")
+    return max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+
+def sgns_normal_inputs(B, negs, D, seed, device="cuda"):
+    """Seeded N(0, 1) rows: dot products of size √D, which saturate the
+    sigmoid."""
+    import torch
+
+    g = np.random.default_rng(seed)
+    return tuple(torch.tensor(g.standard_normal(s), dtype=torch.float32,
+                              device=device)
+                 for s in ((B, D), (B, D), (B, negs, D)))
+
+
+def word_pairs(docs):
+    """(vocab, counts, pairs) of space-separated ``docs`` with the op's
+    defaults (minCount 1, window 5, subsample 1e-3)."""
+    from alink_tpu_torch.embedding import skipgram
+
+    docs = [d.split(" ") for d in docs]
+    vocab, counts = skipgram.build_vocab(docs)
+    cfg = skipgram.SkipGramConfig()
+    return vocab, counts, skipgram.make_pairs(docs, vocab, counts, cfg.window,
+                                              cfg.subsample, SEED)
+
+
+def sgns_trained_inputs(corpus, B, negs, D, steps=SGNS_TRAINED_STEPS,
+                        device="cuda"):
+    """The block inputs of the ``steps``-th step of the plain route
+    (``ALINK_SGNS_PALLAS=0``) training on ``corpus`` = (vocab, counts,
+    pairs) at (B, negs, D): rows at the magnitudes training gives them."""
+    from alink_tpu_torch.embedding import skipgram
+    from alink_tpu_torch.embedding.sgns_cuda import SGNS_KERNEL_ENV
+
+    vocab, counts, pairs = corpus
+    cfg = skipgram.SkipGramConfig(dim=D, negatives=negs, batch_size=B)
+    n_blocks = max(1, len(pairs) // B)
+    pairs = pairs[:steps * B]              # no more steps than needed
+    cfg.epochs = -(-steps // n_blocks)
+    seen, orig = [], skipgram.sgns_block_grads_ref
+
+    def keep(v, u_pos, u_neg):
+        seen.append(None)
+        if len(seen) == steps:
+            seen[-1] = (v, u_pos, u_neg)
+        return orig(v, u_pos, u_neg)
+
+    skipgram.sgns_block_grads_ref = keep
+    os.environ[SGNS_KERNEL_ENV] = "0"
+    try:
+        skipgram.train_skipgram_sharded(pairs, len(vocab), counts, cfg,
+                                        device=device)
+    finally:
+        skipgram.sgns_block_grads_ref = orig
+        del os.environ[SGNS_KERNEL_ENV]
+    return seen[steps - 1]
+
+
+def check_sgns(peaks, docs):
+    """Phase 8: ``sgns_block_grads`` against ``sgns_block_grads_ref`` on the
+    card at the main path's shape and two ragged ones, on rows of tables
+    the plain route trained on ``docs`` and on N(0, 1) rows; then timed at
+    the main path's shape beside its bound."""
+    from alink_tpu_torch.embedding.sgns_cuda import (sgns_block_grads,
+                                                     sgns_block_grads_ref)
+
+    corpus = word_pairs(docs)
+    errors = {}
+    for i, (B, negs, D) in enumerate(SGNS_SHAPES):
+        cases = (("trained rows", sgns_trained_inputs(corpus, B, negs, D)),
+                 ("N(0,1) rows", sgns_normal_inputs(B, negs, D, SEED + i)))
+        for kind, args in cases:
+            err = sgns_mismatch(args, sgns_block_grads(*args))
+            mag = max(float(a.abs().max()) for a in args)
+            print(f"sgns_block_grads vs plain [(B, negs, D) = ({B}, {negs}, "
+                  f"{D}), {kind}, max|input| {mag:.3g}] max|Δ| {err:.3g} "
+                  f"(tol {FP32_ATOL})", flush=True)
+            if not err <= FP32_ATOL:
+                fail(f"sgns_block_grads ({B}, {negs}, {D}) {kind} outside "
+                     f"its tolerance")
+            errors[f"({B}, {negs}, {D}) {kind}"] = err
+        if i == 0:
+            timed = cases[0][1]          # the main path's shape, trained
+
+    B, negs, D = SGNS_SHAPES[0]
+    plain = lambda: sgns_block_grads_ref(*timed)  # noqa: E731
+    kern = lambda: sgns_block_grads(*timed)  # noqa: E731
+    t = [graph_ms(plain), graph_ms(kern), graph_ms(kern), graph_ms(plain)]
+    eager = [cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)]
+    nbytes, flops = sgns_bytes_flops(B, negs, D)
+    bw, _, fp32_peak = peaks
+    bound_by = "bytes" if nbytes / bw >= flops / fp32_peak else "operations"
+    row = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+               bound_ms=max(nbytes / bw, flops / fp32_peak) * 1e3,
+               bound_by=bound_by, library_ms=None,
+               eager_ms=(eager[1] + eager[2]) / 2,
+               eager_plain_ms=(eager[0] + eager[3]) / 2,
+               errors=errors, max_abs_err=max(errors.values()))
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"sgns_block_grads ({B}, {negs}, {D}) fp32, device time per call "
+          f"(CUDA graph of 30 launches, 50 replays; SM clock, max after: "
+          f"{clocks}): kernel {row['ms']:.5f} ms, plain "
+          f"{row['plain_ms']:.5f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
+          f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.2f} MFLOP); "
+          f"turns plain,kernel,kernel,plain = {[round(x, 5) for x in t]}; "
+          f"issued eagerly from Python: kernel {row['eager_ms']:.4f} ms, "
+          f"plain {row['eager_plain_ms']:.4f} ms per call; no single "
+          f"PyTorch call computes this function (library: none)",
+          flush=True)
+    return row
+
+
+def instrument_word2vec(huge, skipgram):
+    """Wraps the op's ``build_vocab`` and ``make_pairs`` (host clock) and the
+    sharded step loop ``_run_pairs_sharded`` (host clock and CUDA events).
+    Returns (stats, restore)."""
+    import torch
+
+    stats = {}
+    orig = (huge.build_vocab, huge.make_pairs, skipgram._run_pairs_sharded)
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            stats[key] = time.perf_counter() - t0
+            return out
+        return run
+
+    def loop(*args, **kw):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        out = orig[2](*args, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        stats.update(loop_s=time.perf_counter() - t0,
+                     loop_device_ms=a.elapsed_time(b), steps=args[5],
+                     n_blocks=args[6], batch=args[3])
+        return out
+
+    def restore():
+        huge.build_vocab, huge.make_pairs, skipgram._run_pairs_sharded = orig
+
+    huge.build_vocab = timed("vocab_s", orig[0])
+    huge.make_pairs = timed("pairs_s", orig[1])
+    skipgram._run_pairs_sharded = loop
+    return stats, restore
+
+
+def train_word2vec(table):
+    """``TableSourceBatchOp`` → ``Word2VecTrainBatchOp`` → ``collect()``;
+    returns the model table and the wall seconds."""
+    import torch
+
+    from alink_tpu_torch.operator.batch import (TableSourceBatchOp,
+                                                Word2VecTrainBatchOp)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Word2VecTrainBatchOp(selectedCol="doc", **W2V).link_from(
+        TableSourceBatchOp(table)).collect()
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def model_vectors(model, dtype=np.float32):
+    return np.stack([np.asarray(v.data, dtype) for v in model.col("vec")])
+
+
+def word2vec_path(workdir, docs):
+    """Phase 9: Word2Vec on the text8-layout corpus through the operators on
+    the card. Returns the main path's sgns_block_grads launches and the
+    path's numbers."""
+    import torch
+
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.embedding import skipgram
+    from alink_tpu_torch.embedding.sgns_cuda import SGNS_KERNEL_ENV
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.operator.batch import (AkSinkBatchOp,
+                                                AkSourceBatchOp,
+                                                TableSourceBatchOp,
+                                                Word2VecPredictBatchOp, huge)
+
+    table = MTable({"doc": np.asarray(docs, object)})
+    stats, restore = instrument_word2vec(huge, skipgram)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    try:
+        model, wall = train_word2vec(table)
+    finally:
+        restore()
+    launches = kernels.launches()["sgns_block_grads"]
+    peak = torch.cuda.max_memory_allocated()
+    steps, B = stats["steps"], stats["batch"]
+    words = list(model.col("word"))
+    vecs = model_vectors(model)
+    print(f"word2vec train ({len(docs) * SENTENCE} tokens, {W2V}): "
+          f"{wall:.2f} s wall; vocabulary {len(words)} types in "
+          f"{stats['vocab_s']:.2f} s, pairs in {stats['pairs_s']:.2f} s "
+          f"(host clock); step loop {steps} steps ({stats['n_blocks']} blocks "
+          f"x {W2V['numIter']} epochs) in {stats['loop_s']:.2f} s: "
+          f"{steps / stats['loop_s']:.0f} steps/s, "
+          f"{steps * B / stats['loop_s']:.0f} pairs/s; device time per step "
+          f"{stats['loop_device_ms'] / steps:.4f} ms (CUDA events around the "
+          f"loop); {launches} sgns_block_grads launches; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if launches != steps or steps != stats["n_blocks"] * W2V["numIter"]:
+        fail(f"sgns_block_grads launched {launches} times on the Word2Vec "
+             f"path, expected one per step ({steps})")
+    if vecs.shape != (len(words), W2V["vectorSize"]) \
+            or not np.isfinite(vecs).all():
+        fail("the Word2Vec model table has bad vectors")
+
+    os.environ[SGNS_KERNEL_ENV] = "0"
+    try:
+        plain_model, plain_wall = train_word2vec(table)
+    finally:
+        del os.environ[SGNS_KERNEL_ENV]
+    plain = model_vectors(plain_model)
+    gap = float(np.abs(vecs - plain).max())
+    print(f"word2vec table vs the ALINK_SGNS_PALLAS=0 route "
+          f"({plain_wall:.2f} s wall): same words "
+          f"{list(plain_model.col('word')) == words}, max|Δ| {gap:.3g} "
+          f"(tol {TABLE_ATOL}; max|table| {float(np.abs(plain).max()):.3g})",
+          flush=True)
+    if list(plain_model.col("word")) != words or not gap <= TABLE_ATOL:
+        fail(f"the kernel route's table differs from the plain route's "
+             f"({gap})")
+    share = topic_share(words, vecs)
+    print(f"learning gate: in-topic share of the top-10 neighbours of "
+          f"vocabulary rows 100..1099 = {share:.4f} (chance 0.01, floor "
+          f"{TOPIC_FLOOR})", flush=True)
+    if not share >= TOPIC_FLOOR:
+        fail(f"Word2Vec did not learn the topics ({share} < {TOPIC_FLOOR})")
+
+    path = os.path.join(workdir, "word2vec.ak")
+    AkSinkBatchOp(filePath=path, overwriteSink=True).link_from(
+        TableSourceBatchOp(model)).collect()
+    model_src = AkSourceBatchOp(filePath=path)
+    loaded = model_src.collect()
+    # .ak keeps a vector as text of 6 significant digits (both packages)
+    back = model_vectors(loaded, np.float64)
+    ak_err = float((np.abs(back - vecs) / np.maximum(np.abs(vecs),
+                                                      1e-30)).max())
+    print(f"word2vec model through .ak ({os.path.getsize(path) / 1e6:.1f} "
+          f"MB): largest relative change of a vector entry {ak_err:.3g} "
+          f"(6 significant digits: ≤ 5e-6)", flush=True)
+    if list(loaded.col("word")) != words or not ak_err <= 5.001e-6:
+        fail("the Word2Vec model changed through .ak")
+    lookup = dict(zip(words, back))
+    requests = text8_corpus(max(W2V_REQUEST_ROWS) * SENTENCE, SEED + 1)
+    rates = {}
+    for n in W2V_REQUEST_ROWS:
+        req = MTable({"doc": np.asarray(requests[:n], object)})
+        t0 = time.perf_counter()
+        out = Word2VecPredictBatchOp(
+            selectedCol="doc", predictionCol="v").link_from(
+            model_src, TableSourceBatchOp(req)).collect()
+        dt = time.perf_counter() - t0
+        got = np.stack([np.asarray(v.data) for v in out.col("v")])
+        want = np.stack([np.mean([lookup[w] for w in d.split(" ")
+                                  if w in lookup], axis=0)
+                         for d in requests[:min(n, 100)]])
+        err = float(np.abs(got[:len(want)] - want).max())
+        rates[n] = n / dt
+        print(f"word2vec predict {n:5d} sentences: {dt * 1e3:.1f} ms end to "
+              f"end (the mapper's model load included; the .ak file was "
+              f"read once above), {n / dt:.0f} rows/s; first "
+              f"{len(want)} rows vs numpy mean of the table's rows: max|Δ| "
+              f"{err:.3g}", flush=True)
+        if out.num_rows != n or got.shape[1] != W2V["vectorSize"] \
+                or not np.isfinite(got).all() or not err <= 1e-6:
+            fail(f"word2vec request of {n} sentences: bad output table")
+    return launches, dict(stats, wall_s=wall, plain_wall_s=plain_wall,
+                          vocab=len(words), table_gap=gap, topic_share=share,
+                          peak_gib=peak / 2**30, predict_rows_per_s=rates)
+
+
 def main() -> int:
     try:
         import torch
@@ -1065,6 +1489,14 @@ def main() -> int:
     hist.update(errors=errors, max_abs_err=max(errors.values()),
                 bound_by="bytes")
     gbdt_path(X, y)
+    del X, y
+
+    t0 = time.perf_counter()
+    docs = text8_corpus(W2V_TOKENS, SEED)
+    print(f"text8-layout corpus: {len(docs)} sentences of {SENTENCE} tokens "
+          f"from seed {SEED} in {time.perf_counter() - t0:.1f} s", flush=True)
+    sgns = check_sgns(peaks, docs[:250])
+    sgns_launches, w2v = word2vec_path(workdir, docs)
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -1089,7 +1521,13 @@ def main() -> int:
                    f"12 levels (S = 64 ... 131072) of the forest's first "
                    f"tree, on its g histograms' inputs"),
              main_path_launch_ms=launch_ms, forest_levels=levels,
-             even_nodes=even)]}
+             even_nodes=even),
+        dict(entry("sgns_block_grads", sgns_launches, sgns, "none",
+                   "B=1024 negs=5 D=100 fp32, rows of tables trained 300 "
+                   "steps; ms and plain_ms are device time per call from a "
+                   "CUDA graph of 30 launches"),
+             eager_ms=sgns["eager_ms"], eager_plain_ms=sgns["eager_plain_ms"],
+             word2vec=w2v)]}
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps(line))

@@ -179,3 +179,88 @@ def test_predict_oracle_matches_the_ensemble():
     np.testing.assert_allclose(ens.raw_predict(X),
                                chip_smoke.predict_numpy(ens, X), rtol=0,
                                atol=1e-6)
+
+
+# -- the SGNS block gradients (phase 8) and the Word2Vec path (phase 9) ----
+#
+# chip_smoke.check_sgns holds sgns_block_grads against sgns_block_grads_ref
+# at atol 1e-5. Here a plain-torch stand-in of the kernel's arithmetic (one
+# row at a time, grad_v accumulated over the negatives in the kernel's
+# order, grad_u rows written to their final places) must pass that check on
+# N(0, 1) rows and on rows of tables trained on the CPU; stand-ins that lay
+# grad_u's negatives out n-major, or drop the −1 of g_pos, must fail it.
+
+
+def sgns_like(v, u_pos, u_neg, mutant=None):
+    B, negs, D = u_neg.shape
+    dot = lambda a, b: (a * b).flip(-1).sum(-1)  # noqa: E731 (another order)
+    g_pos = torch.sigmoid(dot(v, u_pos))
+    if mutant != "no_minus_one":
+        g_pos = g_pos - 1.0
+    grad_u = torch.empty(((negs + 1) * B, D))
+    grad_u[:B] = g_pos[:, None] * v
+    grad_v = g_pos[:, None] * u_pos
+    for n in range(negs):
+        g = torch.sigmoid(dot(v, u_neg[:, n]))
+        grad_v = grad_v + g[:, None] * u_neg[:, n]
+        rows = (B + torch.arange(B) * negs + n if mutant != "n_major"
+                else B + n * B + torch.arange(B))
+        grad_u[rows] = g[:, None] * v
+    return grad_v, grad_u
+
+
+@pytest.fixture(scope="module")
+def text8_docs():
+    return chip_smoke.text8_corpus(20 * chip_smoke.SENTENCE, seed=0)
+
+
+@pytest.mark.parametrize("B,negs,D", chip_smoke.SGNS_SHAPES)
+def test_sgns_stand_in_passes_the_smoke_check(B, negs, D):
+    args = chip_smoke.sgns_normal_inputs(B, negs, D, seed=0, device="cpu")
+    assert chip_smoke.sgns_mismatch(args, sgns_like(*args)) \
+        <= chip_smoke.FP32_ATOL
+
+
+def test_sgns_stand_in_passes_on_trained_rows(text8_docs):
+    args = chip_smoke.sgns_trained_inputs(chip_smoke.word_pairs(text8_docs),
+                                          256, 5, 100, steps=40, device="cpu")
+    assert args[0].shape == (256, 100) and args[2].shape == (256, 5, 100)
+    assert 0 < float(args[2].abs().max()) < 10     # the context table moved
+    assert all(bool(torch.isfinite(a).all()) for a in args)
+    assert chip_smoke.sgns_mismatch(args, sgns_like(*args)) \
+        <= chip_smoke.FP32_ATOL
+
+
+@pytest.mark.parametrize("mutant", ["n_major", "no_minus_one"])
+def test_sgns_smoke_check_rejects_broken_kernels(mutant):
+    args = chip_smoke.sgns_normal_inputs(1000, 15, 100, seed=1, device="cpu")
+    assert chip_smoke.sgns_mismatch(args, sgns_like(*args, mutant=mutant)) \
+        > chip_smoke.FP32_ATOL
+
+
+def test_sgns_bound_counts_each_row_once():
+    nbytes, flops = chip_smoke.sgns_bytes_flops(1024, 5, 100)
+    assert nbytes == 2 * 7 * 1024 * 100 * 4           # 5.73 MB
+    assert nbytes / 3.35e12 > flops / 67e12           # bytes bound it
+
+
+def test_text8_corpus_keeps_the_layout(text8_docs):
+    toks = [d.split(" ") for d in text8_docs]
+    assert len(toks) == 20 and {len(t) for t in toks} == {1000}
+    ranks = np.asarray([[int(w[1:]) for w in t] for t in toks])
+    assert ranks.min() >= 0 and ranks.max() < chip_smoke.TEXT8_TYPES
+    # half of each sentence from one topic: its modal topic holds > 45 %
+    share = [np.bincount(r % chip_smoke.TOPICS).max() / 1000 for r in ranks]
+    assert min(share) > 0.45
+    assert text8_docs == chip_smoke.text8_corpus(20 * 1000, seed=0)
+
+
+def test_topic_share_reads_the_topics():
+    words = [f"w{i}" for i in range(3000)]
+    topics = np.arange(3000) % chip_smoke.TOPICS
+    rng = np.random.default_rng(0)
+    clustered = np.eye(chip_smoke.TOPICS)[topics] \
+        + 0.01 * rng.normal(size=(3000, chip_smoke.TOPICS))
+    assert chip_smoke.topic_share(words, clustered, device="cpu") == 1.0
+    noise = rng.normal(size=(3000, 16))
+    assert chip_smoke.topic_share(words, noise, device="cpu") < 0.03

@@ -35,10 +35,15 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
     count, bad = first.split(" ", 1) if " " in first else (first, "")
     assert int(count) >= 20
     assert bad == "", f"port pulled in: {bad}"
-    # the scan reaches every slice's modules, the tree slice's included
+    # the scan reaches every slice's modules, the tree and embedding
+    # slices' included
     assert {"alink_tpu_torch.tree.grow", "alink_tpu_torch.tree.hist_cuda",
             "alink_tpu_torch.tree.binning",
-            "alink_tpu_torch.operator.batch.tree"} <= set(scanned.split(","))
+            "alink_tpu_torch.operator.batch.tree",
+            "alink_tpu_torch.embedding.skipgram",
+            "alink_tpu_torch.embedding.sgns_cuda",
+            "alink_tpu_torch.parallel.aps",
+            "alink_tpu_torch.operator.batch.huge"} <= set(scanned.split(","))
 
 
 def test_entry_points_refuse_cpu_without_request(monkeypatch):
@@ -148,3 +153,36 @@ def test_tree_mapper_unported_precision_policies_raise(monkeypatch,
     op = GbdtPredictBatchOp(predictionCol="p", inferencePrecision=precision)
     with pytest.raises(getattr(exceptions, exc)):
         op.link_from(model, src).collect()
+
+
+def test_embedding_entry_points_refuse_cpu_without_request(monkeypatch):
+    import torch
+
+    from alink_tpu_torch.common.exceptions import AkIllegalStateException
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.embedding import (SkipGramConfig, train_embedding,
+                                           train_skipgram,
+                                           train_skipgram_sharded)
+    from alink_tpu_torch.operator.batch import (TableSourceBatchOp,
+                                                Word2VecTrainBatchOp)
+
+    monkeypatch.delenv("ALINK_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pairs = np.asarray([[0, 1], [1, 2], [2, 0]] * 4, np.int32)
+    counts = np.asarray([4.0, 4.0, 4.0])
+    cfg = SkipGramConfig(dim=4, negatives=2, epochs=1, batch_size=4)
+    src = TableSourceBatchOp(MTable({"doc": np.asarray(["a b c"] * 4,
+                                                       object)}))
+    for run in (lambda: train_skipgram_sharded(pairs, 3, counts, cfg),
+                lambda: train_skipgram_sharded(pairs[:0], 3, counts, cfg),
+                lambda: train_skipgram(pairs, 3, counts, cfg),
+                lambda: train_embedding(pairs, 3, counts, cfg),
+                lambda: Word2VecTrainBatchOp(selectedCol="doc")
+                .link_from(src).collect()):
+        with pytest.raises(AkIllegalStateException):
+            run()
+    # asking for the CPU, either way, runs there
+    table = train_skipgram_sharded(pairs, 3, counts, cfg, device="cpu")
+    assert table.array.device.type == "cpu"
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    assert train_embedding(pairs, 3, counts, cfg).shape == (3, 4)
