@@ -2,7 +2,8 @@
 //
 // This is the only source that includes PyTorch headers, and only the light
 // ones (no torch/extension.h): the kernels' .cu files expose plain C++
-// launchers. Each binding checks device, dtype, shape and contiguity, allocates
+// launchers. Each binding checks device, dtype, shape and layout (contiguity,
+// or for attention's q, k, v the strides the kernel reads them by), allocates
 // the outputs with at::empty, launches on the current stream and checks the
 // launch. The Python wrapper counts launches.
 
@@ -15,19 +16,12 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include "flash_block_update.h"
+
 #include <cstdint>
 #include <limits>
 #include <tuple>
-
-size_t flash_block_update_smem_bytes(int K, int D);
-cudaError_t flash_block_update_launch(int dtype, const void* q, const void* k,
-                                      const void* v, const int32_t* kvalid,
-                                      const int32_t* qk_ok, const float* o,
-                                      const float* m, const float* l,
-                                      float* o_out, float* m_out,
-                                      float* l_out, int B, int H, int Q,
-                                      int K, int D, float scale,
-                                      cudaStream_t stream);
+#include <utility>
 
 cudaError_t tree_histogram_launch(const int32_t* ids, const float* vals,
                                   float* out, int n, int d, int S,
@@ -56,45 +50,146 @@ void check_tensor(const at::Tensor& t, const char* name, at::ScalarType dtype,
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
+// q, k, v of one attention call: one dtype and device, D with stride 1;
+// bf16 rows are copied in 16-byte pieces, so every other stride and the
+// data pointers must be 16-byte aligned
+int check_qkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v) {
+  const auto dt = q.scalar_type();
+  TORCH_CHECK(dt == at::kFloat || dt == at::kBFloat16,
+              "q, k, v must be float32 or bfloat16, got ", dt);
+  const int64_t D = q.size(3);
+  TORCH_CHECK(D > 0 && D <= kMaxD, "head dim ", D, " is outside [1, ", kMaxD,
+              "]");
+  TORCH_CHECK(dt == at::kFloat || D % 8 == 0, "bf16 head dim ", D,
+              " must be a multiple of 8");
+  const std::pair<const at::Tensor*, const char*> ts[] = {
+      {&q, "q"}, {&k, "k"}, {&v, "v"}};
+  for (const auto& [t, name] : ts) {
+    TORCH_CHECK(t->is_cuda(), name, " must be a CUDA tensor");
+    TORCH_CHECK(t->device() == q.device(), name, " is on ", t->device(),
+                " but q is on ", q.device());
+    TORCH_CHECK(t->scalar_type() == dt, name, " must be ", dt, ", got ",
+                t->scalar_type());
+    TORCH_CHECK(t->dim() == 4 && t->size(3) == D, name,
+                " must be 4-d with head dim ", D, ", got ", t->sizes());
+    TORCH_CHECK(t->stride(3) == 1, name, ": the head dim must have stride 1");
+    if (dt == at::kBFloat16) {
+      const int64_t es = t->element_size();
+      for (int i = 0; i < 3; ++i)
+        TORCH_CHECK(t->stride(i) * es % 16 == 0, name, ": stride ",
+                    t->stride(i), " of dim ", i, " is not 16-byte aligned");
+      TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0, name,
+                  ": data pointer is not 16-byte aligned");
+    }
+  }
+  return dt == at::kFloat ? 0 : 1;
+}
+
+void check_grid(int64_t B, int64_t H, int64_t Q, int64_t K) {
+  TORCH_CHECK(B > 0 && H > 0 && Q > 0 && K > 0, "empty attention");
+  TORCH_CHECK(B * H <= 65535, "B*H = ", B * H, " exceeds the grid limit");
+  TORCH_CHECK(Q <= std::numeric_limits<int32_t>::max() / 2 &&
+                  K <= std::numeric_limits<int32_t>::max() / 2,
+              "sequence too long");
+}
+
+void launch(int dtype, const FlashArgs& a, const at::Tensor& q) {
+  TORCH_CHECK(flash_smem_bytes(dtype, a.block, a.D) <= kMaxSmem, "blocks of ",
+              a.block, " keys do not fit in shared memory");
+  c10::cuda::CUDAGuard guard(q.device());
+  C10_CUDA_CHECK(
+      flash_launch(dtype, a, c10::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// One online-softmax step over one K/V block (nb = 1): q (B,H,Q,D), k and v
+// (B,H,K,D) by strides; kvalid (B,K), qk_ok (Q,K) int32; o (B,H,Q,D), m and
+// l (B,H,Q) fp32, contiguous.
 std::tuple<at::Tensor, at::Tensor, at::Tensor> flash_block_update(
     const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
     const at::Tensor& kvalid, const at::Tensor& qk_ok, const at::Tensor& o,
     const at::Tensor& m, const at::Tensor& l, double scale) {
   TORCH_CHECK(q.dim() == 4, "q must be (B, H, Q, D)");
   TORCH_CHECK(k.dim() == 4, "k must be (B, H, K, D)");
+  const int dtype = check_qkv(q, k, v);
   const int64_t B = q.size(0), H = q.size(1), Q = q.size(2), D = q.size(3);
   const int64_t K = k.size(2);
-  const auto dt = q.scalar_type();
-  TORCH_CHECK(dt == at::kFloat || dt == at::kBFloat16,
-              "q, k, v must be float32 or bfloat16, got ", dt);
-  TORCH_CHECK(B > 0 && H > 0 && Q > 0 && K > 0 && D > 0,
-              "empty attention block");
-  TORCH_CHECK(D <= kMaxD, "head dim ", D, " > ", kMaxD, " is not supported");
-  TORCH_CHECK(B * H <= 65535, "B*H = ", B * H, " exceeds the grid limit");
-  TORCH_CHECK(flash_block_update_smem_bytes(K, D) <= kMaxSmem, "K = ", K,
-              " keys per block do not fit in shared memory");
-  check_tensor(q, "q", dt, {B, H, Q, D}, q);
-  check_tensor(k, "k", dt, {B, H, K, D}, q);
-  check_tensor(v, "v", dt, {B, H, K, D}, q);
+  check_grid(B, H, Q, K);
+  TORCH_CHECK(k.sizes() == at::IntArrayRef({B, H, K, D}) &&
+                  v.sizes() == k.sizes(),
+              "k and v must be (", B, ", ", H, ", K, ", D, "), got ",
+              k.sizes(), " and ", v.sizes());
   check_tensor(kvalid, "kvalid", at::kInt, {B, K}, q);
   check_tensor(qk_ok, "qk_ok", at::kInt, {Q, K}, q);
   check_tensor(o, "o", at::kFloat, {B, H, Q, D}, q);
   check_tensor(m, "m", at::kFloat, {B, H, Q}, q);
   check_tensor(l, "l", at::kFloat, {B, H, Q}, q);
 
-  c10::cuda::CUDAGuard guard(q.device());
   at::Tensor o_out = at::empty_like(o);
   at::Tensor m_out = at::empty_like(m);
   at::Tensor l_out = at::empty_like(l);
-  C10_CUDA_CHECK(flash_block_update_launch(
-      dt == at::kFloat ? 0 : 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-      kvalid.data_ptr<int32_t>(), qk_ok.data_ptr<int32_t>(),
-      o.data_ptr<float>(), m.data_ptr<float>(), l.data_ptr<float>(),
-      o_out.data_ptr<float>(), m_out.data_ptr<float>(),
-      l_out.data_ptr<float>(), (int)B, (int)H, (int)Q, (int)K, (int)D,
-      (float)scale, c10::cuda::getCurrentCUDAStream().stream()));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  FlashArgs a{};
+  a.q = q.data_ptr();
+  a.k = k.data_ptr();
+  a.v = v.data_ptr();
+  a.q_sb = q.stride(0), a.q_sh = q.stride(1), a.q_ss = q.stride(2);
+  a.k_sb = k.stride(0), a.k_sh = k.stride(1), a.k_ss = k.stride(2);
+  a.v_sb = v.stride(0), a.v_sh = v.stride(1), a.v_ss = v.stride(2);
+  a.kvalid = kvalid.data_ptr<int32_t>();
+  a.qk_ok = qk_ok.data_ptr<int32_t>();
+  a.o_in = o.data_ptr<float>();
+  a.m_in = m.data_ptr<float>();
+  a.l_in = l.data_ptr<float>();
+  a.o_out = o_out.data_ptr<float>();
+  a.m_out = m_out.data_ptr<float>();
+  a.l_out = l_out.data_ptr<float>();
+  a.B = (int)B, a.H = (int)H, a.Q = (int)Q, a.K = (int)K, a.D = (int)D;
+  a.block = (int)K, a.nb = 1;
+  a.scale = (float)scale;
+  launch(dtype, a, q);
   return {o_out, m_out, l_out};
+}
+
+// The whole attention call: q (B,Sq,H,D), k and v (B,Sk,H,D) by strides,
+// kmask (B,Sk) int32 or none; K/V in blocks of block_size under the online
+// softmax. Returns o / l as (B,Sq,H,D) in q's dtype.
+at::Tensor flash_blockwise(const at::Tensor& q, const at::Tensor& k,
+                           const at::Tensor& v,
+                           const c10::optional<at::Tensor>& kmask,
+                           int64_t block_size, bool causal, double scale) {
+  TORCH_CHECK(q.dim() == 4, "q must be (B, S, H, D)");
+  TORCH_CHECK(k.dim() == 4, "k must be (B, S, H, D)");
+  const int dtype = check_qkv(q, k, v);
+  const int64_t B = q.size(0), Sq = q.size(1), H = q.size(2), D = q.size(3);
+  const int64_t Sk = k.size(1);
+  check_grid(B, H, Sq, Sk);
+  TORCH_CHECK(k.sizes() == at::IntArrayRef({B, Sk, H, D}) &&
+                  v.sizes() == k.sizes(),
+              "k and v must be (", B, ", S, ", H, ", ", D, "), got ",
+              k.sizes(), " and ", v.sizes());
+  TORCH_CHECK(block_size > 0 && block_size <= std::numeric_limits<int32_t>::max() / 2,
+              "block_size must be positive, got ", block_size);
+  const int64_t nb = (Sk + block_size - 1) / block_size;
+  TORCH_CHECK(nb * block_size <= std::numeric_limits<int32_t>::max() / 2,
+              "sequence too long");
+  if (kmask.has_value()) check_tensor(*kmask, "kmask", at::kInt, {B, Sk}, q);
+
+  at::Tensor out = at::empty({B, Sq, H, D}, q.options());
+  FlashArgs a{};
+  a.q = q.data_ptr();
+  a.k = k.data_ptr();
+  a.v = v.data_ptr();
+  a.q_sb = q.stride(0), a.q_ss = q.stride(1), a.q_sh = q.stride(2);
+  a.k_sb = k.stride(0), a.k_ss = k.stride(1), a.k_sh = k.stride(2);
+  a.v_sb = v.stride(0), a.v_ss = v.stride(1), a.v_sh = v.stride(2);
+  a.kvalid = kmask.has_value() ? kmask->data_ptr<int32_t>() : nullptr;
+  a.causal = causal ? 1 : 0;
+  a.out = out.data_ptr();
+  a.B = (int)B, a.H = (int)H, a.Q = (int)Sq, a.K = (int)Sk, a.D = (int)D;
+  a.block = (int)block_size, a.nb = (int)nb;
+  a.scale = (float)scale;
+  launch(dtype, a, q);
+  return out;
 }
 
 at::Tensor tree_histogram(const at::Tensor& ids, const at::Tensor& vals,
@@ -151,6 +246,9 @@ TORCH_LIBRARY(alink_tpu_torch, m) {
       "flash_block_update(Tensor q, Tensor k, Tensor v, Tensor kvalid, "
       "Tensor qk_ok, Tensor o, Tensor m, Tensor l, float scale) "
       "-> (Tensor, Tensor, Tensor)");
+  m.def(
+      "flash_blockwise(Tensor q, Tensor k, Tensor v, Tensor? kmask, "
+      "int block_size, bool causal, float scale) -> Tensor");
   m.def("tree_histogram(Tensor ids, Tensor vals, int num_segments) -> Tensor");
   m.def("sgns_block_grads(Tensor v, Tensor u_pos, Tensor u_neg) "
         "-> (Tensor, Tensor)");
@@ -158,6 +256,7 @@ TORCH_LIBRARY(alink_tpu_torch, m) {
 
 TORCH_LIBRARY_IMPL(alink_tpu_torch, CUDA, m) {
   m.impl("flash_block_update", &flash_block_update);
+  m.impl("flash_blockwise", &flash_blockwise);
   m.impl("tree_histogram", &tree_histogram);
   m.impl("sgns_block_grads", &sgns_block_grads);
 }

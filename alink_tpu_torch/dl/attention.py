@@ -6,9 +6,10 @@ feed both packages the same arrays.
 - :func:`full_attention` is plain torch, as the reference's is plain XLA.
 - :func:`blockwise_attention` consumes K/V in blocks under an online softmax
   (a Python loop where the reference has ``lax.scan``). On the kernel route
-  it calls :func:`~alink_tpu_torch.dl.attn_cuda.flash_block_update` once per
-  block — the hand-written CUDA kernel for CUDA tensors, its plain version
-  for CPU tensors. ``ALINK_ATTN_PALLAS=0`` is the reference's opt-out: it
+  it calls :func:`~alink_tpu_torch.dl.attn_cuda.flash_blockwise` once per
+  attention call — one launch of the hand-written CUDA kernel, which walks
+  the blocks itself, for CUDA tensors; its plain version (the per-block
+  loop) for CPU tensors. ``ALINK_ATTN_PALLAS=0`` is the reference's opt-out: it
   runs the plain einsum loop instead, on any device (for debugging; a
   failed build or launch never switches routes).
 - :func:`ring_attention` (sequence parallelism) is not ported yet.
@@ -22,7 +23,7 @@ import torch
 
 from ..common.env import kernel_knob_on
 from ..common.exceptions import AkUnsupportedOperationException
-from .attn_cuda import NEG_INF, flash_block_update
+from .attn_cuda import NEG_INF, flash_blockwise
 
 ATTN_KERNEL_ENV = "ALINK_ATTN_PALLAS"
 
@@ -71,6 +72,10 @@ def blockwise_attention(q, k, v, mask: Optional[torch.Tensor] = None, *,
     q, k, v: (B, S, H, D); mask: (B, S) with 1 = valid key.
     """
     b, sq, h, d = q.shape
+    if kernel_knob_on(ATTN_KERNEL_ENV):
+        return flash_blockwise(q, k, v, mask, block_size=block_size,
+                               causal=causal, scale=float(d) ** -0.5)
+
     sk = k.shape[1]
     nb = -(-sk // block_size)
     pad = nb * block_size - sk
@@ -87,24 +92,6 @@ def blockwise_attention(q, k, v, mask: Optional[torch.Tensor] = None, *,
     def block_ok(i):
         k_pos = i * block_size + torch.arange(block_size, device=dev)
         return q_pos[:, None] >= k_pos[None, :]
-
-    if kernel_knob_on(ATTN_KERNEL_ENV):
-        # kernel route: (B, H, ...) layout, each block's K/V contiguous
-        scale = float(d) ** -0.5
-        qf = q.permute(0, 2, 1, 3).contiguous()
-        kb = k.reshape(b, nb, block_size, h, d).permute(1, 0, 3, 2, 4).contiguous()
-        vb = v.reshape(b, nb, block_size, h, d).permute(1, 0, 3, 2, 4).contiguous()
-        mb = kmask.reshape(b, nb, block_size).transpose(0, 1).contiguous()
-        ok_all = torch.ones((sq, block_size), dtype=torch.int32, device=dev)
-        o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
-        m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
-        for i in range(nb):
-            ok = block_ok(i).to(torch.int32) if causal else ok_all
-            o, m, l = flash_block_update(qf, kb[i], vb[i], mb[i], ok, o, m, l,
-                                         scale=scale)
-        l = torch.clamp(l, min=1e-30)
-        return (o / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
 
     scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
     o = torch.zeros((b, sq, h, d), dtype=torch.float32, device=dev)

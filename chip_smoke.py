@@ -10,15 +10,20 @@ non-zero:
 1. environment: card name and power limit (nvidia-smi), torch and CUDA;
 2. build: every kernel of the port from ``alink_tpu_torch/csrc`` into
    ``build/kernels``;
-3. kernel vs plain version on the card: ``flash_block_update`` against
-   ``flash_block_update_ref`` at the serving shape (B=32, H=12, Q=512, K=128,
-   D=64) in bf16 and fp32, with a fully masked batch row, a causal ``qk_ok``
-   and a ragged K=100, each from an empty state (the first K/V block) and
-   from a carried one (every later block); then ``blockwise_attention`` on
-   the kernel route against its plain route (``ALINK_ATTN_PALLAS=0``) over
-   all 4 blocks at (B, S, H, D) = (32, 512, 12, 64); timings beside the
-   bound, and ``scaled_dot_product_attention`` over the whole 512-key
-   attention as a labelled yardstick (the port never calls it);
+3. kernel vs plain version on the card: ``flash_block_update`` (one block
+   through the fused kernel with nb = 1) against ``flash_block_update_ref``
+   at the serving shape (B=32, H=12, Q=512, K=128, D=64) in bf16 and fp32,
+   with a fully masked batch row, a causal ``qk_ok`` and a ragged K=100,
+   each from an empty state (the first K/V block) and from a carried one
+   (every later block); then ``blockwise_attention`` on the kernel route
+   (``flash_blockwise``, one launch per call) against its plain route
+   (``ALINK_ATTN_PALLAS=0``) at (B, H, D) = (32, 12, 64), blocks of 128, in
+   bf16 and fp32: S = 512; S = 512 causal; a ragged S = 500; the last two on
+   q/k/v taken as ``unbind`` views of one (B, S, 3, H, D) tensor, as the main
+   path hands them over (every case has a fully masked batch row); the fused
+   call timed beside its bound and the plain route in turns, one block
+   update timed, and ``scaled_dot_product_attention`` over the whole
+   512-key attention as a labelled yardstick (the port never calls it);
 4. main path: BERT-base at full width (hidden 768, 12 layers, 12 heads,
    vocab 30522, maxSeqLength 512, attentionBlockSize 128, mean pool, 2
    labels) with seeded random weights in the reference's flax layout (q/k
@@ -27,7 +32,8 @@ non-zero:
    model table, written to ``.ak``, read back, and served to 4 requests of
    1, 8, 32 and 64 rows through ``AkSourceBatchOp`` + ``TableSourceBatchOp``
    → ``BertTextClassifierPredictBatchOp`` → ``collect()``; the kernel's
-   launch counter must rise by 48 per forward chunk, and the logits must
+   launch counter must rise by 12 per forward chunk (one launch per layer),
+   and the logits must
    agree with the same model run with plain attention and with full
    attention; the warm forward is timed on all three attention routes;
 5. tree histogram vs plain version on the card: ``tree_histogram`` against
@@ -90,7 +96,8 @@ l, l itself) and flip is the most that one flipped score of the row can
 change x, max_j p_j·expm1(2**-7·|s_j|)·|v_j| for o and the same without
 |v_j| for l. The kernel route of ``blockwise_attention`` is held against
 its plain route at the same bound for the output o/l, with the flip terms
-taken over all keys: 2**-7·(|out| + out_abs) + (flip_o + |out|·flip_l)/l.
+taken over all keys (those causal allows, where causal): 2**-7·(|out| +
+out_abs) + (flip_o + |out|·flip_l)/l.
 Served logits: max|Δ| ≤ 0.01 against the plain-attention route and against
 full attention, about 4x the gaps measured on the card (see PERF.md).
 Tree histogram: integer vals are summed exactly in any order (every
@@ -124,6 +131,11 @@ SEED = 0
 REQUEST_ROWS = (1, 8, 32, 64)
 WORDS = (5, 700)
 SLICE = dict(B=32, H=12, Q=512, K=128, D=64)
+FUSED_CASES = (          # (label, S, causal, q/k/v as the main path's views)
+    ("S=512", 512, False, False),
+    ("S=512, causal, views", 512, True, True),
+    ("ragged S=500, views", 500, False, True),
+)
 BF16_ULP = 2.0 ** -7     # bf16's spacing, relative to the value, at most
 FP32_ATOL = 1e-5
 ATTN_FP32_ATOL = 2e-5    # the reference's blockwise-vs-full contract
@@ -259,23 +271,20 @@ def block_mismatch(args, got, scale):
         "l": worst_ratio((l * f - l_r).abs(), 2 * BF16_ULP * l_r + flip_l)}
 
 
-def blockwise_mismatch(q, k, v, mask, got, block_size):
+def blockwise_mismatch(q, k, v, mask, got, block_size, causal=False):
     """Holds ``blockwise_attention``'s output ``got`` from the kernel route
     against its plain route (``ALINK_ATTN_PALLAS=0``) on the same inputs.
     Returns the raw max |Δ| and the worst error over its bound (> 1 fails):
     fp32 atol 2e-5, bf16 as in the module docstring."""
     import torch
 
-    from alink_tpu_torch.dl.attention import (ATTN_KERNEL_ENV,
-                                              blockwise_attention)
+    from alink_tpu_torch.dl.attention import blockwise_attention
 
-    os.environ[ATTN_KERNEL_ENV] = "0"
-    try:
-        ref = blockwise_attention(q, k, v, mask, block_size=block_size)
-        ref_abs = blockwise_attention(q, k, v.abs(), mask,
-                                      block_size=block_size)
-    finally:
-        del os.environ[ATTN_KERNEL_ENV]
+    def plain(vv):
+        return blockwise_attention(q, k, vv, mask, block_size=block_size,
+                                   causal=causal)
+
+    ref, ref_abs = plain_route(plain, v), plain_route(plain, v.abs())
     if not bool(torch.isfinite(got).all()):
         return float("nan"), float("inf")
     err = (got.float() - ref.float()).abs()
@@ -287,6 +296,10 @@ def blockwise_mismatch(q, k, v, mask, got, block_size):
     sc = torch.einsum("bhqd,bhkd->bhqk", q.transpose(1, 2),
                       k.transpose(1, 2)).float() * q.shape[-1] ** -0.5
     sc = torch.where(mask[:, None, None, :] > 0, sc, NEG)
+    if causal:
+        sq, sk = sc.shape[-2:]
+        sc = torch.where(torch.ones((sq, sk), dtype=torch.bool,
+                                    device=sc.device).tril(), sc, NEG)
     m = sc.amax(dim=-1)
     l = torch.exp(sc - m[..., None]).sum(dim=-1)
     flip_o, flip_l = flip_allowance(sc, m, vh)
@@ -311,11 +324,29 @@ def attn_inputs(B, S, H, D, dtype, seed, device="cuda"):
     return q, k, v, mask
 
 
-def block_bytes_flops(B, H, Q, K, D, itemsize):
-    read = (B * H * Q * D + 2 * B * H * K * D) * itemsize + (B * K + Q * K) * 4 \
-        + (B * H * Q * D + 2 * B * H * Q) * 4
-    write = (B * H * Q * D + 2 * B * H * Q) * 4
-    return read + write, 4.0 * B * H * Q * K * D
+def qkv_views(q, k, v):
+    """q, k, v as ``SelfAttention.forward`` hands them over: ``unbind``
+    views of one (B, S, 3, H, D) tensor, S stride 3·H·D."""
+    import torch
+
+    return torch.stack((q, k, v), dim=2).unbind(dim=2)
+
+
+def plain_route(fn, *a):
+    """``fn(*a)`` with ``ALINK_ATTN_PALLAS=0``: attention's plain route."""
+    from alink_tpu_torch.dl.attention import ATTN_KERNEL_ENV
+
+    os.environ[ATTN_KERNEL_ENV] = "0"
+    try:
+        return fn(*a)
+    finally:
+        del os.environ[ATTN_KERNEL_ENV]
+
+
+def call_bytes_flops(B, S, H, D, itemsize):
+    """One attention call: q, k, v read once, the output written once, the
+    (B, S) key mask; 4·B·H·S²·D operations (the two products)."""
+    return 4 * B * S * H * D * itemsize + B * S * 4, 4.0 * B * H * S * S * D
 
 
 def check_kernel(peaks):
@@ -349,49 +380,69 @@ def check_kernel(peaks):
                 fail(f"flash_block_update [{name}] outside its tolerance")
             results[name] = max(raw)
 
-    # the whole 4-block loop: kernel route against the plain route
-    B, Q, H, D = s["B"], s["Q"], s["H"], s["D"]
+    # the fused route (one launch per attention call) against the plain
+    # route, with masked rows, causal, a ragged S and the main path's views
+    B, H, D, bs = s["B"], s["H"], s["D"], s["K"]
     for dt in (torch.bfloat16, torch.float32):
-        q, k, v, mask = attn_inputs(B, Q, H, D, dt, SEED)
-        got = blockwise_attention(q, k, v, mask, block_size=s["K"])
-        err, worst = blockwise_mismatch(q, k, v, mask, got, s["K"])
-        label = f"blockwise_attention kernel vs plain route {str(dt)[6:]}"
-        print(f"{label} (B, S, H, D) = ({B}, {Q}, {H}, {D}), 4 blocks: "
-              f"max|Δ| {err:.3g}; worst error/bound {worst:.3g}", flush=True)
-        if not worst <= 1.0:
-            fail(f"{label} outside its tolerance")
-        results[label] = err
+        for label, S, causal, strided in FUSED_CASES:
+            q, k, v, mask = attn_inputs(B, S, H, D, dt, SEED)
+            if strided:
+                q, k, v = qkv_views(q, k, v)
+            got = blockwise_attention(q, k, v, mask, block_size=bs,
+                                      causal=causal)
+            err, worst = blockwise_mismatch(q, k, v, mask, got, bs, causal)
+            name = f"fused vs plain route {str(dt)[6:]} [{label}]"
+            print(f"{name} (B, S, H, D) = ({B}, {S}, {H}, {D}), block {bs}: "
+                  f"max|Δ| {err:.3g}; worst error/bound {worst:.3g}",
+                  flush=True)
+            if not worst <= 1.0:
+                fail(f"{name} outside its tolerance")
+            results[name] = err
 
-    # timings at the serving shape, bf16, kernel and plain in turns
-    args = block_inputs(s["B"], s["H"], s["Q"], s["K"], s["D"],
-                        torch.bfloat16, causal=False, fresh=False, seed=SEED)
-    plain = lambda: flash_block_update_ref(*args, scale=scale)  # noqa: E731
-    kern = lambda: flash_block_update(*args, scale=scale)  # noqa: E731
-    t = [cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)]
-    plain_ms, kern_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    nbytes, flops = block_bytes_flops(**s, itemsize=2)
     bw, bf16_peak, _ = peaks
+    # timings at the serving shape, bf16, in turns (plain, kernel, kernel,
+    # plain): the fused call on the main path's views, then one block update
+    S = s["Q"]
+    q, k, v, mask = attn_inputs(B, S, H, D, torch.bfloat16, SEED)
+    q, k, v = qkv_views(q, k, v)
+    kern = lambda: blockwise_attention(q, k, v, mask, block_size=bs)  # noqa: E731
+    t = [plain_route(cuda_ms, kern), cuda_ms(kern), cuda_ms(kern),
+         plain_route(cuda_ms, kern)]
+    plain_ms, kern_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    nbytes, flops = call_bytes_flops(B, S, H, D, itemsize=2)
     bound_s = max(nbytes / bw, flops / bf16_peak)
     bound_by = "bytes" if nbytes / bw >= flops / bf16_peak else "operations"
 
-    # yardstick: one library call for the whole 4-block attention
-    B, H, Q, D = s["B"], s["H"], s["Q"], s["D"]
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    qf, kf, vf = (torch.randn((B, H, Q, D), generator=g, device="cuda",
-                              dtype=torch.bfloat16) for _ in range(3))
+    args = block_inputs(B, H, S, bs, D, torch.bfloat16, causal=False,
+                        fresh=False, seed=SEED)
+    blk = [cuda_ms(lambda: flash_block_update_ref(*args, scale=scale)),
+           cuda_ms(lambda: flash_block_update(*args, scale=scale))]
+
+    # yardstick: one library call for the whole attention
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    qf, kf, vf = (torch.randn((B, H, S, D), generator=g, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(3))
     lib_ms = cuda_ms(lambda: sdpa(qf, kf, vf))
-    print(f"flash_block_update bf16 B=32 H=12 Q=512 K=128 D=64: kernel "
-          f"{kern_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_s * 1e6:.1f} us ({bound_by}: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP); turns plain,kernel,kernel,plain = "
-          f"{[round(x, 4) for x in t]}", flush=True)
-    print(f"yardstick: scaled_dot_product_attention over all 512 keys "
-          f"(4 blocks) bf16 {lib_ms:.4f} ms; 4 kernel launches take "
-          f"{4 * kern_ms:.4f} ms", flush=True)
-    return dict(max_abs_err=max(results.values()), ms=kern_ms, plain_ms=plain_ms,
-                bound_ms=bound_s * 1e3, bound_by=bound_by, library_ms=lib_ms,
-                errors=results)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_views_ms = cuda_ms(lambda: sdpa(qt, kt, vt))
+    print(f"flash_blockwise bf16 (B, S, H, D) = ({B}, {S}, {H}, {D}), block "
+          f"{bs}, one launch: kernel {kern_ms:.4f} ms, plain route "
+          f"{plain_ms:.4f} ms, bound {bound_s * 1e6:.1f} us ({bound_by}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; kernel at "
+          f"{bound_s * 1e3 / kern_ms:.3f} of it); turns plain,kernel,kernel,"
+          f"plain = {[round(x, 4) for x in t]}", flush=True)
+    print(f"flash_block_update one block B={B} H={H} Q={S} K={bs} D={D} "
+          f"bf16, carried state: kernel {blk[1]:.4f} ms, plain "
+          f"{blk[0]:.4f} ms", flush=True)
+    print(f"yardstick: scaled_dot_product_attention over all {S} keys bf16 "
+          f"{lib_ms:.4f} ms (contiguous (B, H, S, D)), {lib_views_ms:.4f} ms "
+          f"(the same views, unmasked); the kernel takes "
+          f"{kern_ms / lib_ms:.3f}x the first", flush=True)
+    return dict(max_abs_err=max(results.values()), ms=kern_ms,
+                plain_ms=plain_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
+                library_ms=lib_ms, library_views_ms=lib_views_ms,
+                block_ms=blk[1], block_plain_ms=blk[0], errors=results)
 
 
 # ---------------------------------------------------------------------------
@@ -481,7 +532,6 @@ def main_path(workdir, cfg):
 
     from alink_tpu_torch.common.model import model_to_table
     from alink_tpu_torch.common.mtable import MTable
-    from alink_tpu_torch.dl.attention import ATTN_KERNEL_ENV
     from alink_tpu_torch.dl.modules import TransformerEncoder
     from alink_tpu_torch.dl.train import predict_model
     from alink_tpu_torch.mapper import softmax_np
@@ -532,10 +582,10 @@ def main_path(workdir, cfg):
     peak = torch.cuda.max_memory_allocated()
 
     chunks = sum(-(-n // 256) for n in REQUEST_ROWS)
-    expect = chunks * cfg.num_layers * (512 // cfg.attention_block_size)
+    expect = chunks * cfg.num_layers
     if launches != expect:
         fail(f"flash_block_update launched {launches} times on the main path, "
-             f"expected {expect} (48 per forward chunk)")
+             f"expected {expect} (one per layer: 12 per forward chunk)")
     for n, out in zip(REQUEST_ROWS, outs):
         probs = np.asarray([[json.loads(d)[k] for k in ("0", "1")]
                             for d in out.col("detail")])
@@ -573,13 +623,6 @@ def main_path(workdir, cfg):
     full_model = TransformerEncoder(
         dataclasses.replace(mapper.cfg, attention_block_size=0))
     full_model.load_state_dict(model.state_dict())
-
-    def plain_route(fn, *a):
-        os.environ[ATTN_KERNEL_ENV] = "0"
-        try:
-            return fn(*a)
-        finally:
-            del os.environ[ATTN_KERNEL_ENV]
 
     routes = {"kernel": [], "plain": [], "full": []}
     for _ in range(2):
@@ -1468,10 +1511,13 @@ def main() -> int:
     print(f"build: {len(kernels.KERNELS)} kernel(s) + binding in "
           f"{kernels.build_seconds:.1f} s", flush=True)
 
+    marks = [("setup and build", time.perf_counter())]
     stats = check_kernel(peaks)
+    marks.append(("phase 3 flash kernel", time.perf_counter()))
     workdir = os.path.join(here, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     launches = main_path(workdir, serving_config())
+    marks.append(("phase 4 BERT serving", time.perf_counter()))
 
     from alink_tpu_torch.tree.binning import apply_bins, quantile_bins
 
@@ -1489,6 +1535,7 @@ def main() -> int:
     hist.update(errors=errors, max_abs_err=max(errors.values()),
                 bound_by="bytes")
     gbdt_path(X, y)
+    marks.append(("phases 5-7 trees", time.perf_counter()))
     del X, y
 
     t0 = time.perf_counter()
@@ -1497,6 +1544,7 @@ def main() -> int:
           f"from seed {SEED} in {time.perf_counter() - t0:.1f} s", flush=True)
     sgns = check_sgns(peaks, docs[:250])
     sgns_launches, w2v = word2vec_path(workdir, docs)
+    marks.append(("phases 8-9 Word2Vec", time.perf_counter()))
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -1511,9 +1559,16 @@ def main() -> int:
             "shape": shape, "errors": st["errors"]}
 
     line = {"kernels": [
-        entry("flash_block_update", launches, stats,
-              "scaled_dot_product_attention, all 4 K/V blocks",
-              "B=32 H=12 Q=512 K=128 D=64 bf16"),
+        dict(entry("flash_block_update", launches, stats,
+                   "scaled_dot_product_attention over all 512 keys, "
+                   "contiguous (B, H, S, D), unmasked (yardstick)",
+                   "one attention call: (B, S, H, D) = (32, 512, 12, 64) "
+                   "bf16, blocks of 128, q/k/v as unbind views of the qkv "
+                   "product; ms is the fused launch, plain_ms the plain "
+                   "route (ALINK_ATTN_PALLAS=0)"),
+             library_views_ms=stats["library_views_ms"],
+             block_ms=stats["block_ms"],
+             block_plain_ms=stats["block_plain_ms"]),
         dict(entry("tree_histogram", tree_launches, hist,
                    "Tensor.index_add_ over ids*d+f (yardstick)",
                    f"n={COVTYPE_TRAIN} d=54 int32 ids, fp32 vals; ms, "
@@ -1528,6 +1583,9 @@ def main() -> int:
                    "CUDA graph of 30 launches"),
              eager_ms=sgns["eager_ms"], eager_plain_ms=sgns["eager_plain_ms"],
              word2vec=w2v)]}
+    print("seconds by phase: " + ", ".join(
+        f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1)
+        in zip([("", t_start)] + marks[:-1], marks)), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps(line))

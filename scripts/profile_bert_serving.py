@@ -50,6 +50,13 @@ def main() -> int:
     vocab = chip_smoke.synthetic_vocab(cfg)
     enc = Tokenizer.from_list(vocab).encode_batch(
         chip_smoke.request_texts(vocab, rng, ROWS), max_len=512)
+    import subprocess
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+          else "nvidia-smi: not available")
     print(f"{torch.cuda.get_device_name(0)}; warm {ROWS}-row forward "
           f"{chip_smoke.forward_ms(model, enc):.1f} ms")
 

@@ -152,6 +152,109 @@ def test_full_attention_matches_jax(causal, with_mask):
     np.testing.assert_allclose(bw, ref_bw, atol=ATTN_ATOL)
 
 
+# the fused route's plain version against the reference, on the cases that
+# pin its padding, layout and masking rules; S = 30 in blocks of 8 leaves
+# two zero keys in the last block, which count on the fully masked row
+FUSED_CASES = {
+    "ragged_masked_row": dict(causal=False, views=False),
+    "strided_views": dict(causal=False, views=True),
+    "causal_masked": dict(causal=True, views=True),
+}
+
+
+def _fused_inputs(views, seed=5, b=3, s=30, h=2, d=8):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(b, s, 3, h, d)).astype(np.float32)
+    mask = rng.integers(0, 2, size=(b, s)).astype(np.int32)
+    mask[0] = 0                      # a fully masked batch row
+    mask[1, :3] = 1
+    arrays = [np.ascontiguousarray(qkv[:, :, i]) for i in range(3)]
+    if views:                        # as SelfAttention.forward hands them over
+        tensors = list(torch.from_numpy(qkv).unbind(dim=2))
+        assert tensors[0].stride(1) == 3 * h * d
+    else:
+        tensors = [torch.from_numpy(x) for x in arrays]
+    return arrays, tensors, mask
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_flash_blockwise_matches_jax(monkeypatch, case):
+    import jax.numpy as jnp
+
+    from alink_tpu.dl.attention import blockwise_attention as jax_bw
+    from alink_tpu_torch.dl.attention import blockwise_attention
+    from alink_tpu_torch.dl.attn_cuda import flash_blockwise
+
+    causal = FUSED_CASES[case]["causal"]
+    (q, k, v), (tq, tk, tv), mask = _fused_inputs(FUSED_CASES[case]["views"])
+    refs = []
+    for knob in ("1", "0"):          # Pallas interpret mode, then plain XLA
+        monkeypatch.setenv("ALINK_ATTN_PALLAS", knob)
+        refs.append(np.asarray(jax_bw(q, k, v, jnp.asarray(mask),
+                                      block_size=8, causal=causal)))
+    monkeypatch.setenv("ALINK_ATTN_PALLAS", "1")
+    got = [flash_blockwise(tq, tk, tv, torch.from_numpy(mask), block_size=8,
+                           causal=causal, scale=8 ** -0.5).numpy(),
+           blockwise_attention(tq, tk, tv, torch.from_numpy(mask),
+                               block_size=8, causal=causal).numpy()]
+    monkeypatch.setenv("ALINK_ATTN_PALLAS", "0")
+    got.append(blockwise_attention(tq, tk, tv, torch.from_numpy(mask),
+                                   block_size=8, causal=causal).numpy())
+    for port in got:
+        for ref in refs:
+            np.testing.assert_allclose(port, ref, atol=ATTN_ATOL)
+    # the fully masked row averages v over all 32 keys of the 4 blocks, the
+    # two zero keys included
+    np.testing.assert_allclose(got[0][0], np.broadcast_to(
+        v[0].sum(0) / 32, got[0][0].shape), atol=ATTN_ATOL)
+
+
+class _FakeOps:
+    """Stands in for torch.ops.alink_tpu_torch: records each launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flash_blockwise(self, q, k, v, kmask, block_size, causal, scale):
+        self.calls.append((q, k, v, kmask, block_size, causal, scale))
+        return torch.empty_like(q)
+
+
+def test_kernel_route_launches_once_on_the_qkv_views(monkeypatch):
+    # off the CPU the kernel route is one launch per attention call, on q, k
+    # and v exactly as handed over (no copies) and no per-block masks
+    from alink_tpu_torch.dl.attention import blockwise_attention
+    from alink_tpu_torch.native import kernels
+
+    fake = _FakeOps()
+    monkeypatch.setattr(kernels, "ops", lambda: fake)
+    kernels.reset_launches()
+    qkv = torch.empty((2, 40, 3, 4, 16), dtype=torch.bfloat16, device="meta")
+    q, k, v = qkv.unbind(dim=2)
+    mask = torch.ones((2, 40), dtype=torch.bool, device="meta")
+    out = blockwise_attention(q, k, v, mask, block_size=16, causal=True)
+    assert out.shape == q.shape and kernels.launches()["flash_block_update"] == 1
+    (cq, ck, cv, km, bs, causal, scale), = fake.calls
+    assert cq is q and ck is k and cv is v
+    assert km.dtype == torch.int32 and km.shape == (2, 40)
+    assert (bs, causal, scale) == (16, True, 0.25)
+
+
+def test_encoder_makes_one_launch_per_layer(monkeypatch):
+    from alink_tpu_torch.dl.modules import BertConfig, TransformerEncoder
+    from alink_tpu_torch.native import kernels
+
+    fake = _FakeOps()
+    monkeypatch.setattr(kernels, "ops", lambda: fake)
+    kernels.reset_launches()
+    with torch.device("meta"):
+        model = TransformerEncoder(BertConfig.tiny(num_layers=3,
+                                                   attention_block_size=16))
+        ids = torch.zeros((2, 40), dtype=torch.int64)
+        model(ids, torch.ones((2, 40), dtype=torch.int32))
+    assert kernels.launches()["flash_block_update"] == 3 == len(fake.calls)
+
+
 def test_ring_attention_not_ported():
     from alink_tpu_torch.common.exceptions import AkUnsupportedOperationException
     from alink_tpu_torch.dl.attention import ring_attention

@@ -1,11 +1,12 @@
 """The checks of chip_smoke.py, held on the CPU.
 
 chip_smoke.py holds each CUDA kernel against its plain version on the card;
-the flash block update first, the tree histogram at the end of the file.
-Here the same checks run on CPU tensors, with the kernel's arithmetic
-re-done in plain torch and rounded to the input type at the kernel's points.
-That stand-in must pass; broken updates that mishandle the carried state
-must not. Shapes are cut to B=2..4 from the card's B=32; the tolerances are
+the flash kernel first (its one-block entry, then the fused attention call),
+the tree histogram and SGNS gradients after. Here the same checks run on CPU
+tensors, with the kernel's arithmetic re-done in plain torch and rounded to
+the input type at the kernel's points. That stand-in must pass; broken
+updates that mishandle the carried state, the per-block correction, the
+zero keys of a ragged last block or the causal offset must not. Shapes are cut to B=2..4 from the card's B=32; the tolerances are
 chip_smoke's own (fp32 atol 1e-5, bf16 bound of its module docstring).
 """
 
@@ -82,6 +83,71 @@ def test_blockwise_kernel_route_passes_the_smoke_check():
                                            seed=3, device="cpu")
     got = blockwise_attention(q, k, v, mask, block_size=64)
     assert chip_smoke.blockwise_mismatch(q, k, v, mask, got, 64)[1] <= 1.0
+
+
+def fused_like(q, k, v, mask, block_size, causal=False, mutant=None):
+    """The fused kernel's block loop in plain torch: ``kernel_like`` once per
+    K/V block in the (B, H, ·, D) layout, the zero keys past S counted as
+    masked keys, then o / max(l, 1e-30). ``mutant`` breaks it on purpose:
+    "corr_at_end" never rescales o and l per block and applies the last
+    block's correction once at the end; "drop_padding" cuts the last block
+    at S, so the zero keys never count; "causal_block0" takes every block's
+    causal key positions from block 0."""
+    b, S, h, d = q.shape
+    nb = -(-S // block_size)
+    pad = nb * block_size - S
+    keys = S if mutant == "drop_padding" else nb * block_size
+    kh, vh = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)).transpose(1, 2)
+              for x in (k, v))
+    kvalid = torch.nn.functional.pad(mask.to(torch.int32), (0, pad))
+    o = torch.zeros((b, h, S, d))
+    m = torch.full((b, h, S), NEG_INF)
+    l = torch.zeros((b, h, S))
+    q_pos = torch.arange(S)
+    for i in range(nb):
+        lo, hi = i * block_size, min((i + 1) * block_size, keys)
+        k_pos = torch.arange(lo, hi) - (lo if mutant == "causal_block0" else 0)
+        ok = (q_pos[:, None] >= k_pos[None, :]).to(torch.int32) if causal \
+            else torch.ones((S, hi - lo), dtype=torch.int32)
+        m_old = m
+        o, m, l = kernel_like(q.transpose(1, 2), kh[:, :, lo:hi],
+                              vh[:, :, lo:hi], kvalid[:, lo:hi], ok, o, m, l,
+                              scale=d ** -0.5,
+                              mutant="corr_one" if mutant == "corr_at_end"
+                              else None)
+    if mutant == "corr_at_end":
+        corr = torch.exp(torch.clamp(m_old - m, min=NEG_INF))
+        o, l = o * corr[..., None], l * corr
+    l = torch.clamp(l, min=1e-30)
+    return (o / l[..., None]).transpose(1, 2).to(q.dtype)
+
+
+def _fused_ratio(causal, mutant=None):
+    # S = 160 in blocks of 128: 96 zero keys in the last block
+    q, k, v, mask = chip_smoke.attn_inputs(4, 160, 2, 64, torch.bfloat16,
+                                           seed=3, device="cpu")
+    q, k, v = chip_smoke.qkv_views(q, k, v)
+    got = fused_like(q, k, v, mask, 128, causal, mutant)
+    return chip_smoke.blockwise_mismatch(q, k, v, mask, got, 128, causal)[1]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_route_passes_the_smoke_check(causal):
+    assert _fused_ratio(causal) <= 1.0
+
+
+@pytest.mark.parametrize("mutant,causal", [("corr_at_end", False),
+                                           ("drop_padding", False),
+                                           ("causal_block0", True)])
+def test_smoke_check_rejects_a_broken_fused_route(mutant, causal):
+    assert _fused_ratio(causal, mutant) > 1.0
+
+
+def test_call_bound_counts_each_tensor_once():
+    nbytes, flops = chip_smoke.call_bytes_flops(32, 512, 12, 64, itemsize=2)
+    assert nbytes == 4 * 32 * 512 * 12 * 64 * 2 + 32 * 512 * 4   # 100.7 MB
+    assert flops == 4 * 32 * 12 * 512 * 512 * 64                 # 25.8 GFLOP
+    assert nbytes / 3.35e12 > flops / 989e12                      # bytes bound
 
 
 def test_card_peaks_refuses_an_unknown_card():
