@@ -23,15 +23,29 @@
 #include <tuple>
 #include <utility>
 
-cudaError_t tree_histogram_launch(const int32_t* ids, const float* vals,
-                                  float* out, int n, int d, int S,
-                                  cudaStream_t stream);
+struct HistVals {
+  const float* p[3];
+};
+int tree_histogram_max_features();
+int tree_histogram_max_nodes();
+long long tree_histogram_scratch(int n, int L);
+cudaError_t tree_histogram_launch(const void* bins, int bin_bytes,
+                                  const int32_t* node, HistVals vals, int C,
+                                  float* out, int* scratch, int n, int d,
+                                  int L, int B, cudaStream_t stream);
 
 int sgns_block_grads_max_dim();
 cudaError_t sgns_block_grads_launch(const float* v, const float* u_pos,
                                     const float* u_neg, float* grad_v,
                                     float* grad_u, int B, int negs, int D,
                                     cudaStream_t stream);
+cudaError_t sgns_pull_grads_launch(const float* win, const float* wctx,
+                                   const int64_t* center, const int64_t* uids,
+                                   const float* rep_in, const float* rep_ctx,
+                                   int64_t* hits, long long rows,
+                                   long long hot, float* grad_v,
+                                   float* grad_u, int B, int negs, int D,
+                                   cudaStream_t stream);
 
 namespace {
 
@@ -192,25 +206,51 @@ at::Tensor flash_blockwise(const at::Tensor& q, const at::Tensor& k,
   return out;
 }
 
-at::Tensor tree_histogram(const at::Tensor& ids, const at::Tensor& vals,
-                          int64_t num_segments) {
-  TORCH_CHECK(ids.dim() == 2, "ids must be (n, d)");
-  const int64_t n = ids.size(0), d = ids.size(1), S = num_segments;
-  TORCH_CHECK(S > 0, "num_segments must be positive, got ", S);
-  TORCH_CHECK(n * d <= (int64_t{1} << 30) &&
-                  S * d <= std::numeric_limits<int32_t>::max(),
-              "ids (", n, ", ", d,
-              ") with ", S, " segments exceed the kernel's int32 indexing");
-  check_tensor(ids, "ids", at::kInt, {n, d}, ids);
-  check_tensor(vals, "vals", at::kFloat, {n}, ids);
+// One level's histograms: bins (n, d) uint8 or int32, node (n,) int32, vals
+// 1..3 channels of (n,) fp32. Returns (C, L, d, B) fp32.
+at::Tensor tree_histogram(const at::Tensor& bins, const at::Tensor& node,
+                          at::TensorList vals, int64_t num_nodes,
+                          int64_t num_bins) {
+  TORCH_CHECK(bins.dim() == 2, "bins must be (n, d)");
+  const int64_t n = bins.size(0), d = bins.size(1);
+  const int64_t L = num_nodes, B = num_bins, C = (int64_t)vals.size();
+  TORCH_CHECK(bins.scalar_type() == at::kByte || bins.scalar_type() == at::kInt,
+              "bins must be uint8 or int32, got ", bins.scalar_type());
+  check_tensor(bins, "bins", bins.scalar_type(), {n, d}, bins);
+  check_tensor(node, "node", at::kInt, {n}, bins);
+  TORCH_CHECK(C >= 1 && C <= 3, "1 to 3 value channels, got ", C);
+  for (const auto& v : vals) check_tensor(v, "vals", at::kFloat, {n}, bins);
+  TORCH_CHECK(L >= 1 && L <= tree_histogram_max_nodes() && B >= 1,
+              "num_nodes must lie in [1, ", tree_histogram_max_nodes(),
+              "] and num_bins be positive, got ", L, " and ", B);
+  TORCH_CHECK(d <= tree_histogram_max_features(), "d = ", d,
+              " features exceed the kernel's ", tree_histogram_max_features());
+  TORCH_CHECK(n <= std::numeric_limits<int32_t>::max() / 2 &&
+                  L * B <= std::numeric_limits<int32_t>::max(),
+              "(n, L·B) = (", n, ", ", L * B,
+              ") exceed the kernel's int32 indexing");
 
-  c10::cuda::CUDAGuard guard(ids.device());
-  at::Tensor out = at::zeros({S, d}, vals.options());
+  c10::cuda::CUDAGuard guard(bins.device());
+  const long long scratch_ints = tree_histogram_scratch((int)n, (int)L);
+  TORCH_CHECK(scratch_ints > 0, "cannot query the device's SM count");
+  at::Tensor out = at::zeros({C, L, d, B}, vals[0].options());
+  at::Tensor scratch = at::empty({scratch_ints}, node.options());
+  HistVals hv{};
+  for (int64_t c = 0; c < C; ++c) hv.p[c] = vals[c].data_ptr<float>();
   C10_CUDA_CHECK(tree_histogram_launch(
-      ids.data_ptr<int32_t>(), vals.data_ptr<float>(), out.data_ptr<float>(),
-      (int)n, (int)d, (int)S, c10::cuda::getCurrentCUDAStream().stream()));
+      bins.data_ptr(), (int)bins.element_size(), node.data_ptr<int32_t>(), hv,
+      (int)C, out.data_ptr<float>(), scratch.data_ptr<int32_t>(), (int)n,
+      (int)d, (int)L, (int)B, c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
+}
+
+void check_sgns_block(int64_t B, int64_t negs, int64_t D) {
+  TORCH_CHECK(D >= 1 && D <= sgns_block_grads_max_dim(), "row width D = ", D,
+              " is outside [1, ", sgns_block_grads_max_dim(), "]");
+  TORCH_CHECK((negs + 1) * B * D <= std::numeric_limits<int32_t>::max() &&
+                  B <= std::numeric_limits<int32_t>::max() / 32,
+              "block (", B, ", ", negs, ", ", D, ") is too large");
 }
 
 std::tuple<at::Tensor, at::Tensor> sgns_block_grads(const at::Tensor& v,
@@ -219,11 +259,7 @@ std::tuple<at::Tensor, at::Tensor> sgns_block_grads(const at::Tensor& v,
   TORCH_CHECK(v.dim() == 2, "v must be (B, D)");
   TORCH_CHECK(u_neg.dim() == 3, "u_neg must be (B, negs, D)");
   const int64_t B = v.size(0), D = v.size(1), negs = u_neg.size(1);
-  TORCH_CHECK(D >= 1 && D <= sgns_block_grads_max_dim(), "row width D = ", D,
-              " is outside [1, ", sgns_block_grads_max_dim(), "]");
-  TORCH_CHECK((negs + 1) * B * D <= std::numeric_limits<int32_t>::max() &&
-                  B <= std::numeric_limits<int32_t>::max() / 32,
-              "block (", B, ", ", negs, ", ", D, ") is too large");
+  check_sgns_block(B, negs, D);
   check_tensor(v, "v", at::kFloat, {B, D}, v);
   check_tensor(u_pos, "u_pos", at::kFloat, {B, D}, v);
   check_tensor(u_neg, "u_neg", at::kFloat, {B, negs, D}, v);
@@ -239,6 +275,56 @@ std::tuple<at::Tensor, at::Tensor> sgns_block_grads(const at::Tensor& v,
   return {grad_v, grad_u};
 }
 
+
+
+// The step's pull and gradients in one launch: win and wctx (rows, D) fp32
+// tables (one tensor when tied), center (B,) and uids ((negs+1)·B,) int64;
+// when hot > 0 the replicas rep_in and rep_ctx (hot, D) and the 0-dim int64
+// hit counter, which the launch adds the batch's hot ids to.
+std::tuple<at::Tensor, at::Tensor> sgns_pull_grads(
+    const at::Tensor& win, const at::Tensor& wctx, const at::Tensor& center,
+    const at::Tensor& uids, const c10::optional<at::Tensor>& rep_in,
+    const c10::optional<at::Tensor>& rep_ctx,
+    const c10::optional<at::Tensor>& hits, int64_t negs, int64_t rows,
+    int64_t hot) {
+  TORCH_CHECK(win.dim() == 2 && wctx.dim() == 2, "tables must be (rows, D)");
+  TORCH_CHECK(center.dim() == 1, "center must be (B,)");
+  const int64_t B = center.size(0), D = win.size(1);
+  TORCH_CHECK(negs >= 0, "negs must be non-negative, got ", negs);
+  check_sgns_block(B, negs, D);
+  TORCH_CHECK(rows >= 0 && rows <= win.size(0) && rows <= wctx.size(0),
+              "rows = ", rows, " exceeds a table's ", win.size(0), " / ",
+              wctx.size(0), " rows");
+  check_tensor(win, "win", at::kFloat, {win.size(0), D}, win);
+  check_tensor(wctx, "wctx", at::kFloat, {wctx.size(0), D}, win);
+  check_tensor(center, "center", at::kLong, {B}, win);
+  check_tensor(uids, "uids", at::kLong, {(negs + 1) * B}, win);
+  const float* rin = nullptr;
+  const float* rctx = nullptr;
+  int64_t* hp = nullptr;
+  if (hot > 0) {
+    TORCH_CHECK(rep_in.has_value() && rep_ctx.has_value() && hits.has_value(),
+                "hot > 0 needs rep_in, rep_ctx and hits");
+    check_tensor(*rep_in, "rep_in", at::kFloat, {hot, D}, win);
+    check_tensor(*rep_ctx, "rep_ctx", at::kFloat, {hot, D}, win);
+    check_tensor(*hits, "hits", at::kLong, {}, win);
+    rin = rep_in->data_ptr<float>();
+    rctx = rep_ctx->data_ptr<float>();
+    hp = hits->data_ptr<int64_t>();
+  }
+
+  c10::cuda::CUDAGuard guard(win.device());
+  at::Tensor grad_v = at::empty({B, D}, win.options());
+  at::Tensor grad_u = at::empty({(negs + 1) * B, D}, win.options());
+  C10_CUDA_CHECK(sgns_pull_grads_launch(
+      win.data_ptr<float>(), wctx.data_ptr<float>(),
+      center.data_ptr<int64_t>(), uids.data_ptr<int64_t>(), rin, rctx, hp,
+      rows, hot, grad_v.data_ptr<float>(), grad_u.data_ptr<float>(), (int)B,
+      (int)negs, (int)D, c10::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {grad_v, grad_u};
+}
+
 }  // namespace
 
 TORCH_LIBRARY(alink_tpu_torch, m) {
@@ -249,9 +335,15 @@ TORCH_LIBRARY(alink_tpu_torch, m) {
   m.def(
       "flash_blockwise(Tensor q, Tensor k, Tensor v, Tensor? kmask, "
       "int block_size, bool causal, float scale) -> Tensor");
-  m.def("tree_histogram(Tensor ids, Tensor vals, int num_segments) -> Tensor");
+  m.def(
+      "tree_histogram(Tensor bins, Tensor node, Tensor[] vals, int num_nodes, "
+      "int num_bins) -> Tensor");
   m.def("sgns_block_grads(Tensor v, Tensor u_pos, Tensor u_neg) "
         "-> (Tensor, Tensor)");
+  m.def(
+      "sgns_pull_grads(Tensor win, Tensor wctx, Tensor center, Tensor uids, "
+      "Tensor? rep_in, Tensor? rep_ctx, Tensor? hits, int negs, int rows, "
+      "int hot) -> (Tensor, Tensor)");
 }
 
 TORCH_LIBRARY_IMPL(alink_tpu_torch, CUDA, m) {
@@ -259,4 +351,5 @@ TORCH_LIBRARY_IMPL(alink_tpu_torch, CUDA, m) {
   m.impl("flash_blockwise", &flash_blockwise);
   m.impl("tree_histogram", &tree_histogram);
   m.impl("sgns_block_grads", &sgns_block_grads);
+  m.impl("sgns_pull_grads", &sgns_pull_grads);
 }

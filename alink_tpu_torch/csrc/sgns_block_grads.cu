@@ -1,11 +1,11 @@
 // sgns_block_grads for Hopper (sm_90a): the skip-gram negative-sampling
-// gradients of one block of center rows, the device-local step between the
-// APS pull and push of the Word2Vec trainer.
+// gradients of one block of center rows, with the APS pull of the Word2Vec
+// trainer's step inside.
 //
 // Replaces the Pallas TPU kernel
 // alink_tpu/embedding/sgns_pallas.py::sgns_block_grads (pl.pallas_call at
-// sgns_pallas.py:100). Same function as the plain version
-// alink_tpu_torch/embedding/sgns_cuda.py::sgns_block_grads_ref:
+// sgns_pallas.py:100). Same function as the plain versions in
+// alink_tpu_torch/embedding/sgns_cuda.py:
 //   g_pos = σ(v_b·u_pos_b) − 1,   g_n = σ(v_b·u_neg_{b,n})
 //   grad_v[b]              = g_pos·u_pos_b + Σ_n g_n·u_neg_{b,n}
 //   grad_u[b]              = g_pos·v_b                 (context rows)
@@ -13,32 +13,57 @@
 // grad_u's row order is the id order the push consumes,
 // concat(ctx, neg.reshape(-1)).
 //
-// Layout: v (B, D), u_pos (B, D), u_neg (B, negs, D) fp32 in; grad_v (B, D),
-// grad_u ((negs+1)·B, D) fp32 out; all contiguous. Any B, any D ≤ 1024
-// (ragged D needs no padding), any negs ≥ 0.
+// Two modes of one kernel:
+//  - pull (sgns_pull_grads_ref): the rows come from the tables through the
+//    step's ids, as the one-rank APS pull reads them: v_b from win at
+//    center[b]; u_pos_b and u_neg_{b,n} from wctx at uids[b] and
+//    uids[B + b·negs + n]. An id in [0, hot) reads the hot replica (and
+//    counts one cache hit), an id in [0, rows) the table, any other id (the
+//    sentinel) a zero row. The batch's hits are added to the int64 *hits.
+//  - gathered rows (sgns_block_grads_ref): v (B, D), u_pos (B, D) and
+//    u_neg (B, negs, D) given, as the TPU kernel takes them.
+// Layout: tables (rows, D), replicas (hot, D), v, u_pos, u_neg, grad_v (B, D)
+// and grad_u ((negs+1)·B, D) fp32; ids int64; all contiguous. Any B, any
+// D ≤ 1024 (ragged D needs no padding), any negs ≥ 0.
 //
-// Design. The TPU kernel tiled 8 rows × 128 lanes in VMEM, walked the
-// negatives on a sequential grid axis and revisited the grad_v block to
-// accumulate it: artefacts of VMEM and of a grid that runs in order. Here
-// one warp owns one row b from start to end. Each lane keeps ceil(D/32)
-// elements of v_b in registers (lane l holds d = l, l+32, …, so a warp's
-// loads and stores are coalesced), loads one context or negative row at a
-// time, reduces its dot product by warp shuffles (every lane ends with the
-// sum), takes the sigmoid in fp32 with expf (not __expf, whose error would
-// eat into the atol), writes that row of grad_u straight to its final place
-// and adds g·u into grad_v, which stays in registers in the reference
-// kernel's order g_pos·u_pos + g_0·u_0 + g_1·u_1 + … and is written once.
-// No (B, negs, D) intermediate and no concatenation touch device memory.
+// Design. One warp owns one center row b from start to end. Lane l holds
+// elements d = l, l+32, … of a row, so a warp's loads and stores are
+// coalesced. The lanes first resolve the row sources of b, one id a lane
+// (the replica, the table or the zero row), and count the hot ids with one
+// ballot; then the warp issues the loads of v_b and of up to GROUP context
+// and negative rows before the first dot product, so their latencies
+// overlap, reduces the dot products by warp shuffles, takes the sigmoids in
+// fp32 with expf (not __expf, whose error would eat into the atol), writes
+// each grad_u row straight to its final place and adds g·u into grad_v,
+// which stays in registers in the reference kernel's order
+// g_pos·u_pos + g_0·u_0 + g_1·u_1 + … and is written once. A CTA adds its
+// warps' hits to *hits with one atomic. The gathered rows of the pull never
+// reach device memory.
 //
-// Bound. Each input row is read once and each output row written once:
-// at the default (B, negs, D) = (1024, 5, 100), 2.87 MB in and 2.87 MB out,
-// 1.71 µs at 3.35 TB/s, against about 2.5 MFLOP — memory-bound, and short
-// enough that the launch costs as much. This simple form keeps one row in
-// flight per warp; fusing the gathers from the tables into it is the
-// redesign (ROADMAP B3).
+// Bound. Each input read once and each output written once: at the main
+// path's (B, negs, D) = (1024, 5, 100), the 7·B ids (57 KB) and 7·B rows of
+// the tables (2.87 MB) in, grad_v and grad_u (2.87 MB) out: 1.73 µs at
+// 3.35 TB/s, against about 3 MFLOP — memory-bound, and short enough that
+// the launch costs as much.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+struct SgnsArgs {
+  // pull mode (center != nullptr)
+  const int64_t* center;   // (B,)
+  const int64_t* uids;     // ((negs+1)·B,)
+  const float* win;        // (rows, D)
+  const float* wctx;       // (rows, D)
+  const float* rep_in;     // (hot, D) or null when hot == 0
+  const float* rep_ctx;    // (hot, D) or null when hot == 0
+  unsigned long long* hits;   // 0-dim int64, or null when hot == 0
+  long long rows, hot;
+  // gathered mode
+  const float* v;          // (B, D)
+  const float* u_pos;      // (B, D)
+  const float* u_neg;      // (B, negs, D)
+};
 
 namespace {
 
@@ -55,76 +80,142 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// VPL: elements of a row per lane, ceil(D/32) rounded up to the instance.
-template <int VPL>
+// Source of row j of center row b: j = 0 is v_b, j = 1 u_pos_b, j ≥ 2
+// u_neg_{b, j-2}; null is a zero row. *hot_hit: the pull read the replica.
+__device__ __forceinline__ const float* row_source(const SgnsArgs& a, int b,
+                                                   int j, int B, int negs,
+                                                   int D, bool* hot_hit) {
+  *hot_hit = false;
+  if (a.center == nullptr) {
+    if (j == 0) return a.v + (size_t)b * D;
+    if (j == 1) return a.u_pos + (size_t)b * D;
+    return a.u_neg + ((size_t)b * negs + (j - 2)) * D;
+  }
+  const long long id =
+      j == 0 ? a.center[b]
+             : a.uids[j == 1 ? (size_t)b : (size_t)B + (size_t)b * negs + (j - 2)];
+  if (id >= 0 && id < a.hot) {
+    *hot_hit = true;
+    return (j == 0 ? a.rep_in : a.rep_ctx) + (size_t)id * D;
+  }
+  if (id >= 0 && id < a.rows) return (j == 0 ? a.win : a.wctx) + (size_t)id * D;
+  return nullptr;
+}
+
+// VPL: elements of a row per lane, ceil(D/32) rounded up to the instance;
+// GROUP: context and negative rows loaded before their dot products.
+template <int VPL, int GROUP>
 __global__ void __launch_bounds__(THREADS)
-sgns_block_grads_kernel(const float* __restrict__ v,
-                        const float* __restrict__ u_pos,
-                        const float* __restrict__ u_neg,
-                        float* __restrict__ grad_v,
+sgns_block_grads_kernel(SgnsArgs a, float* __restrict__ grad_v,
                         float* __restrict__ grad_u, int B, int negs, int D) {
+  __shared__ unsigned long long cta_hits;
+  if (threadIdx.x == 0) cta_hits = 0;
+  if (a.hits != nullptr) __syncthreads();
   const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (b >= B) return;   // whole warps leave together: shuffles stay full
 
-  float vr[VPL], ur[VPL], acc[VPL];
-  const float* vb = v + (size_t)b * D;
-  const float* up = u_pos + (size_t)b * D;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int d = lane + 32 * i;
-    vr[i] = d < D ? vb[d] : 0.f;
-    ur[i] = d < D ? up[d] : 0.f;
-  }
+  if (b < B) {   // whole warps skip together: shuffles stay full
+    const int nrows = negs + 2;   // v, u_pos, the negatives
+    // lane l resolves row l (rows past 31 are resolved where they are used)
+    bool hit = false;
+    const float* mine = lane < nrows
+        ? row_source(a, b, lane, B, negs, D, &hit) : nullptr;
+    unsigned long long warp_hits =
+        __popc(__ballot_sync(0xffffffffu, hit && lane < nrows));
+    auto src = [&](int j) -> const float* {
+      if (j < 32)
+        return reinterpret_cast<const float*>(__shfl_sync(
+            0xffffffffu, reinterpret_cast<unsigned long long>(mine), j));
+      bool h;
+      const float* p = row_source(a, b, j, B, negs, D, &h);
+      if (h) ++warp_hits;   // every lane counts it; lane 0's count is used
+      return p;
+    };
 
-  float dot = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) dot += vr[i] * ur[i];
-  const float g_pos = sigmoid(warp_sum(dot)) - 1.0f;
-  float* gu = grad_u + (size_t)b * D;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int d = lane + 32 * i;
-    acc[i] = g_pos * ur[i];
-    if (d < D) gu[d] = g_pos * vr[i];
-  }
-
-  for (int n = 0; n < negs; ++n) {
-    const float* un = u_neg + ((size_t)b * negs + n) * D;
+    float vr[VPL], acc[VPL];
+    const float* pv = src(0);
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
       const int d = lane + 32 * i;
-      ur[i] = d < D ? un[d] : 0.f;
+      vr[i] = (pv != nullptr && d < D) ? pv[d] : 0.f;
+      acc[i] = 0.f;
     }
-    dot = 0.f;
+
+    for (int j0 = 1; j0 < nrows; j0 += GROUP) {
+      float ur[GROUP][VPL], dot[GROUP];
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) dot += vr[i] * ur[i];
-    const float g = sigmoid(warp_sum(dot));
-    gu = grad_u + ((size_t)B + (size_t)b * negs + n) * D;
+      for (int g = 0; g < GROUP; ++g) {
+        const int j = j0 + g;
+        const float* p = j < nrows ? src(j) : nullptr;   // j: warp-uniform
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) {
+          const int d = lane + 32 * i;
+          ur[g][i] = (p != nullptr && d < D) ? p[d] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) s += vr[i] * ur[g][i];
+        dot[g] = s;
+      }
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g)
+        if (j0 + g < nrows) dot[g] = warp_sum(dot[g]);
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        const int j = j0 + g;
+        if (j >= nrows) break;
+        const float s = sigmoid(dot[g]);
+        const float gj = j == 1 ? s - 1.0f : s;
+        float* gu = grad_u + (j == 1 ? (size_t)b
+                                     : (size_t)B + (size_t)b * negs + (j - 2)) *
+                                 D;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) {
+          const int d = lane + 32 * i;
+          acc[i] = j == 1 ? gj * ur[g][i] : acc[i] + gj * ur[g][i];
+          if (d < D) gu[d] = gj * vr[i];
+        }
+      }
+    }
+
+    float* gv = grad_v + (size_t)b * D;
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
       const int d = lane + 32 * i;
-      acc[i] += g * ur[i];
-      if (d < D) gu[d] = g * vr[i];
+      if (d < D) gv[d] = acc[i];
     }
+    if (a.hits != nullptr && lane == 0 && warp_hits != 0)
+      atomicAdd(&cta_hits, warp_hits);
   }
-
-  float* gv = grad_v + (size_t)b * D;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) gv[d] = acc[i];
+  if (a.hits != nullptr) {
+    __syncthreads();
+    if (threadIdx.x == 0 && cta_hits != 0) atomicAdd(a.hits, cta_hits);
   }
 }
 
-template <int VPL>
-cudaError_t launch(const float* v, const float* u_pos, const float* u_neg,
-                   float* grad_v, float* grad_u, int B, int negs, int D,
-                   cudaStream_t stream) {
+template <int VPL, int GROUP>
+cudaError_t launch(const SgnsArgs& a, float* grad_v, float* grad_u, int B,
+                   int negs, int D, cudaStream_t stream) {
   const int blocks = (B + WARPS - 1) / WARPS;
-  sgns_block_grads_kernel<VPL><<<blocks, THREADS, 0, stream>>>(
-      v, u_pos, u_neg, grad_v, grad_u, B, negs, D);
+  sgns_block_grads_kernel<VPL, GROUP><<<blocks, THREADS, 0, stream>>>(
+      a, grad_v, grad_u, B, negs, D);
   return cudaGetLastError();
+}
+
+cudaError_t launch_any(const SgnsArgs& a, float* grad_v, float* grad_u, int B,
+                       int negs, int D, cudaStream_t stream) {
+  if (B == 0) return cudaSuccess;
+  const int vpl = (D + 31) / 32;
+  if (vpl <= 1) return launch<1, 8>(a, grad_v, grad_u, B, negs, D, stream);
+  if (vpl <= 2) return launch<2, 8>(a, grad_v, grad_u, B, negs, D, stream);
+  if (vpl <= 4) return launch<4, 8>(a, grad_v, grad_u, B, negs, D, stream);
+  if (vpl <= 8) return launch<8, 8>(a, grad_v, grad_u, B, negs, D, stream);
+  if (vpl <= 16) return launch<16, 4>(a, grad_v, grad_u, B, negs, D, stream);
+  if (vpl <= 32) return launch<32, 2>(a, grad_v, grad_u, B, negs, D, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -132,19 +223,32 @@ cudaError_t launch(const float* v, const float* u_pos, const float* u_neg,
 // Largest row width the kernel takes.
 int sgns_block_grads_max_dim() { return 32 * 32; }
 
-// Writes grad_v (B, D) and grad_u ((negs+1)·B, D) for one block. Requires
-// 1 ≤ D ≤ 1024. Returns the launch's CUDA status.
+// Gathered-rows mode: writes grad_v (B, D) and grad_u ((negs+1)·B, D) from
+// v, u_pos and u_neg. Requires 1 ≤ D ≤ 1024. Returns the launch's CUDA
+// status.
 cudaError_t sgns_block_grads_launch(const float* v, const float* u_pos,
                                     const float* u_neg, float* grad_v,
                                     float* grad_u, int B, int negs, int D,
                                     cudaStream_t stream) {
-  if (B == 0) return cudaSuccess;
-  const int vpl = (D + 31) / 32;
-  if (vpl <= 1) return launch<1>(v, u_pos, u_neg, grad_v, grad_u, B, negs, D, stream);
-  if (vpl <= 2) return launch<2>(v, u_pos, u_neg, grad_v, grad_u, B, negs, D, stream);
-  if (vpl <= 4) return launch<4>(v, u_pos, u_neg, grad_v, grad_u, B, negs, D, stream);
-  if (vpl <= 8) return launch<8>(v, u_pos, u_neg, grad_v, grad_u, B, negs, D, stream);
-  if (vpl <= 16) return launch<16>(v, u_pos, u_neg, grad_v, grad_u, B, negs, D, stream);
-  if (vpl <= 32) return launch<32>(v, u_pos, u_neg, grad_v, grad_u, B, negs, D, stream);
-  return cudaErrorInvalidValue;
+  SgnsArgs a{};
+  a.v = v, a.u_pos = u_pos, a.u_neg = u_neg;
+  return launch_any(a, grad_v, grad_u, B, negs, D, stream);
+}
+
+// Pull mode: the same gradients with the rows read from the tables through
+// the ids (see the top of the file). Requires 1 ≤ D ≤ 1024; the replicas and
+// hits only when hot > 0. Returns the launch's CUDA status.
+cudaError_t sgns_pull_grads_launch(const float* win, const float* wctx,
+                                   const int64_t* center, const int64_t* uids,
+                                   const float* rep_in, const float* rep_ctx,
+                                   int64_t* hits, long long rows,
+                                   long long hot, float* grad_v,
+                                   float* grad_u, int B, int negs, int D,
+                                   cudaStream_t stream) {
+  SgnsArgs a{};
+  a.center = center, a.uids = uids, a.win = win, a.wctx = wctx;
+  a.rep_in = rep_in, a.rep_ctx = rep_ctx, a.rows = rows;
+  a.hot = hot > 0 ? hot : 0;
+  a.hits = hot > 0 ? reinterpret_cast<unsigned long long*>(hits) : nullptr;
+  return launch_any(a, grad_v, grad_u, B, negs, D, stream);
 }

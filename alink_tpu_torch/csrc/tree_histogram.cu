@@ -1,42 +1,58 @@
-// tree_histogram for Hopper (sm_90a): per-feature binned histogram, the
-// scatter at the heart of histogram tree growth.
+// tree_histogram for Hopper (sm_90a): every histogram of one level of the
+// forest's level program in one call, with the segment ids built in the
+// kernel.
 //
 // Replaces the Pallas TPU kernel alink_tpu/tree/pallas_hist.py::pallas_histogram
-// (pl.pallas_call at pallas_hist.py:101). Same function as the plain version
-// alink_tpu_torch/tree/hist_cuda.py::histogram_ref:
-//   out[s, f] = Σ_n vals[n] · (ids[n, f] == s),   s in [0, S)
-// ids outside [0, S) add nothing and write nothing.
+// (pl.pallas_call at pallas_hist.py:101), which the reference's level program
+// calls once per value channel on ids = node·B + bin. Same function as the
+// plain version alink_tpu_torch/tree/hist_cuda.py::level_histograms_ref:
+//   out[c, l, f, b] = Σ_n vals_c[n] · (node[n]·B + bins[n, f] == l·B + b)
+// for the C ≤ 3 channels (g, h, counts) and the L nodes of a level; an id
+// outside [0, L·B) adds nothing, so a node outside [0, L) adds nothing and
+// a bin ≥ B lands where node·B + bin points, as in the plain version.
 //
-// Layout: ids (n, d) int32, vals (n,) fp32, out (S, d) fp32, all contiguous;
-// out arrives zeroed. The caller (the forest's level program) passes
-// ids = node·B + bin, S = L·B for the L nodes of a level.
+// Layout: bins (n, d) uint8 or int32; node (n,) int32; vals C × (n,) fp32;
+// out (C, L, d, B) fp32, zeroed by the caller; int32 scratch of
+// tree_histogram_scratch(n, L). All contiguous.
 //
-// Design. The TPU kernel kept an (S, 128-feature) block in VMEM and, for
-// every 512-row block, looped over all S segments with a compare and a
-// masked sum: O(n·d·S) work, a layout workaround for a machine without a
-// scatter. Here each (row, feature) pair is one atomic add, O(n·d). Where
-// the partial histograms live depends on S, which spans 64 … 131,072 within
-// one tree of depth 12:
-//  - small S: each CTA owns a tile of dt features and a chunk of rows,
-//    accumulates a private (S, dt) histogram with shared-memory atomics and
-//    adds its non-zero cells to out with global atomics. The tile takes at
-//    most 48 KB (four CTAs of 512 threads per SM) and at least 6 features
-//    (or the whole row); a CTA covers at least 4·S rows, so its flush stays
-//    small beside its rows. At the shallow levels most pairs of a binary
-//    feature hit two cells: the private histogram keeps that contention
-//    inside each CTA.
-//  - larger S: one global atomic per pair, straight into out (at most
-//    131,072 × 54 × 4 B = 28.3 MB, inside the 50 MB L2), where the pairs
-//    spread over enough cells not to contend.
-// The crossover comes from one H100 run of both paths at every S of a
-// depth-12 tree (PERF.md): with fewer than 6 features per tile, the
-// narrow strided reads and the flush cost more than global atomics save.
+// Design. Five launches on the caller's stream.
+//  - A stable counting sort of the rows by node (bucket 0 below the range,
+//    k+1 for node k, L+1 above): sort_count_kernel counts each unit's rows
+//    (one warp over a contiguous slice of rows) per bucket, two scan
+//    kernels turn the bucket-major (bucket, unit) counts into each unit's
+//    first place in each bucket, and sort_scatter_kernel writes every row
+//    index to its place, units and rows in order: within a node the rows
+//    stay in row order. No atomics, and no 64-bit keys or values to move
+//    (a library radix sort of node took a third of the call).
+//  - level_hist_kernel: the rows are taken in that order, so a run of rows
+//    belongs to one node. Each CTA owns a contiguous slice of the ordered
+//    rows (a small node whole, a large one in slices) and, for every node
+//    run in its slice, builds that node's full C × d × B histogram in
+//    shared memory (2 × 54 × 65 × 4 B = 28 KB at the forest's shape; each
+//    feature's row padded to B + 1 cells so that the lanes' bins fall on
+//    distinct banks), then adds its non-zero cells to out with global
+//    atomics (a node cut over several CTAs sums there). Node runs shorter
+//    than SMEM_MIN_ROWS, nodes outside [0, L) and every run when the
+//    histogram does not fit add their pairs to out directly.
+//  - Ids in the kernel: a lane reads the uint8 bin of its feature and adds
+//    to cell (f, bin) of the run's node: 1 byte a pair instead of 4 bytes of
+//    ids per channel, and no (n, d) ids tensor.
+//  - One warp walks its rows one at a time with lane = feature (two
+//    features a lane at d ≤ 64), so no two lanes of a warp ever add to one
+//    cell. Each lane keeps its feature's current bin and the channels' sums
+//    in registers and adds them to shared memory only when the bin
+//    changes: on the 44 one-hot columns of Covertype nearly every row of a
+//    node hits the same bin, so those columns cost a few shared atomics a
+//    warp instead of one a row. (Hopper has no shared-memory fp32 atomic
+//    add: atomicAdd compiles to a compare-and-swap loop.)
+//  - Loads: a warp takes 32 row indices and their values in one coalesced
+//    load each and broadcasts them by shuffles; the bins of UNROLL rows are
+//    loaded before any is added, so their latencies overlap.
 //
-// Bound. Each pair reads 4 bytes of ids; at n = 522,911, d = 54 one call
-// must move 112.9 MB of ids, 2.1 MB of vals and S·d·4 bytes of out:
-// 34.3 µs at S = 64 and 42.8 µs at S = 131,072 at the H100's 3.35 TB/s,
-// against ~28 M adds, so the function is memory-bound. This kernel's own
-// limit is the atomics (shared or L2), not the bytes.
+// Bound. Each input read once and out written once: at n = 522,911, d = 54,
+// B = 64 and 2 distinct channels (h is c), bins 28.2 MB, node 2.1 MB, vals
+// 4.2 MB and out 2·L·d·B·4 B: 10.3 µs at L = 1 and 27.2 µs at L = 2,048 at
+// the H100's 3.35 TB/s, against 56 M adds: memory-bound.
 //
 // Order of sums: atomics add in an order that changes from run to run. Sums
 // of integers below 2^24 (bootstrap counts, class indicators) are exact in
@@ -46,105 +62,453 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+struct HistVals {
+  const float* p[3];   // the C channels' values, (n,) each
+};
+
 namespace {
 
 constexpr int THREADS = 512;
-constexpr int SMEM_TILE = 48 * 1024;       // four CTAs per SM, no opt-in
-constexpr int MIN_TILE_FEATURES = 6;       // fewer: the global path is faster
-constexpr int ROWS_PER_SEGMENT = 4;        // rows per CTA ≥ 4·S
-constexpr int CTAS_PER_SM = 8;             // aim of the row chunking
+constexpr int WARPS = THREADS / 32;
+constexpr int CTAS_PER_SM = 2;        // __launch_bounds__ below: 64 registers
+constexpr int MIN_ROWS_PER_CTA = 256;
+constexpr int MAX_ROWS_PER_CTA = 8192;  // the slice's node ids in 32 KB
+constexpr int SMEM_MIN_ROWS = 64;     // shorter node runs add straight to out
+constexpr int UNROLL = 8;             // rows whose bins are in flight at once
+constexpr int SORT_UNITS_PER_SM = 4;  // one warp each
+constexpr long long SORT_CELLS = 1 << 19;  // most bucket × unit counters
+constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory a CTA may use
+constexpr unsigned FULL = 0xffffffffu;
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
+__device__ __forceinline__ int bucket_of(int k, int L) {
+  return k < 0 ? 0 : (k >= L ? L + 1 : k + 1);
+}
+
+// Stages the buckets of rows [r0, r1) into b (shared), one warp.
+__device__ __forceinline__ void stage_buckets(const int32_t* __restrict__ node,
+                                              int r0, int r1, int L, int* b) {
+  const int lane = threadIdx.x;
+#pragma unroll 8
+  for (int j = lane; j < r1 - r0; j += 32) b[j] = bucket_of(node[r0 + j], L);
+  __syncwarp();
+}
+
+// Sort pass 1: unit u (one warp, rows [u·rows, (u+1)·rows)) counts its rows
+// per bucket into cnt[b·U + u] (bucket-major, every cell written).
+__global__ void __launch_bounds__(32)
+sort_count_kernel(const int32_t* __restrict__ node, int n, int L, int rows,
+                  int* __restrict__ cnt) {
+  extern __shared__ int sm[];
+  const int M = L + 2, U = gridDim.x, u = blockIdx.x, lane = threadIdx.x;
+  int* c = sm;            // M counters
+  int* b = sm + M;        // the unit's buckets
+  const int r0 = min(n, u * rows), r1 = min(n, r0 + rows);
+  for (int i = lane; i < M; i += 32) c[i] = 0;
+  stage_buckets(node, r0, r1, L, b);
+  for (int base = 0; base < r1 - r0; base += 32) {
+    const bool ok = base + lane < r1 - r0;
+    const unsigned active = __ballot_sync(FULL, ok);
+    if (ok) {
+      const int k = b[base + lane];
+      const unsigned peers = __match_any_sync(active, k);
+      if (lane == __ffs(peers) - 1) c[k] += __popc(peers);
+    }
+    __syncwarp();
+  }
+  for (int i = lane; i < M; i += 32) cnt[(size_t)i * U + u] = c[i];
+}
+
+// Sort pass 2a: CTA p sums x[p·per, (p+1)·per) into partial[p].
 __global__ void __launch_bounds__(THREADS)
-hist_shared_kernel(const int32_t* __restrict__ ids,
-                   const float* __restrict__ vals, float* __restrict__ out,
-                   int n, int d, int S, int dt, int rows_per_cta) {
-  extern __shared__ float hist[];   // (S, w): w features of this CTA
-  const int f0 = blockIdx.x * dt;
-  const int w = min(dt, d - f0);
-  const int r0 = blockIdx.y * rows_per_cta;
-  const int r1 = min(n, r0 + rows_per_cta);
-  const int cells = S * w;
+scan_partial_kernel(const int* __restrict__ x, long long total, int per,
+                    int* __restrict__ partial) {
+  __shared__ int warp_sum[WARPS];
+  const long long a = (long long)blockIdx.x * per;
+  const long long e = min(total, a + per);
+  int s = 0;
+  for (long long i = a + threadIdx.x; i < e; i += THREADS) s += x[i];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int w = 0; w < WARPS; ++w) t += warp_sum[w];
+    partial[blockIdx.x] = t;
+  }
+}
+
+// Sort pass 2b: exclusive prefix sums of x in place, CTA p its segment,
+// starting from the sum of partial[0, p).
+__global__ void __launch_bounds__(THREADS)
+scan_apply_kernel(int* __restrict__ x, long long total, int per,
+                  const int* __restrict__ partial) {
+  __shared__ int warp_total[WARPS];
+  __shared__ int base;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int q = 0; q < (int)blockIdx.x; ++q) t += partial[q];
+    base = t;
+  }
+  const long long a0 = (long long)blockIdx.x * per;
+  const long long e0 = min(total, a0 + per);
+  const int sub = (per + THREADS - 1) / THREADS;
+  const long long a = min(e0, a0 + (long long)threadIdx.x * sub);
+  const long long e = min(e0, a + sub);
+  int s = 0;
+  for (long long i = a; i < e; ++i) s += x[i];
+  int incl = s;   // inclusive scan over the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  int before = base;
+  for (int w = 0; w < warp; ++w) before += warp_total[w];
+  int run = before + incl - s;
+  for (long long i = a; i < e; ++i) {
+    const int v = x[i];
+    x[i] = run;
+    run += v;
+  }
+}
+
+// Sort pass 3: unit u writes each of its rows, in row order, to the next
+// place of its bucket (off: the exclusive prefix sums of cnt), so rows of a
+// bucket keep their order: order[pos] = row, keys[pos] = bucket.
+__global__ void __launch_bounds__(32)
+sort_scatter_kernel(const int32_t* __restrict__ node, int n, int L, int rows,
+                    const int* __restrict__ off, int32_t* __restrict__ order,
+                    int32_t* __restrict__ keys) {
+  extern __shared__ int sm[];
+  const int M = L + 2, U = gridDim.x, u = blockIdx.x, lane = threadIdx.x;
+  int* next = sm;         // M positions
+  int* b = sm + M;        // the unit's buckets
+  const int r0 = min(n, u * rows), r1 = min(n, r0 + rows);
+  for (int i = lane; i < M; i += 32) next[i] = off[(size_t)i * U + u];
+  stage_buckets(node, r0, r1, L, b);
+  for (int base = 0; base < r1 - r0; base += 32) {
+    const bool ok = base + lane < r1 - r0;
+    const unsigned active = __ballot_sync(FULL, ok);
+    if (ok) {
+      const int k = b[base + lane];
+      const unsigned peers = __match_any_sync(active, k);
+      const int pos = next[k] + __popc(peers & ((1u << lane) - 1u));
+      __syncwarp(active);
+      if (lane == __ffs(peers) - 1) next[k] += __popc(peers);
+      order[pos] = r0 + base + lane;
+      keys[pos] = k;
+    }
+    __syncwarp();
+  }
+}
+
+// Adds one pair where the plain version puts it: id = k·B + bin, nothing
+// when the id lies outside [0, L·B).
+template <int C>
+__device__ __forceinline__ void add_global(float* out, long long k,
+                                           long long bin, int f,
+                                           const float (&v)[C], int L, int d,
+                                           int B) {
+  const long long id = k * B + bin;
+  if (id < 0 || id >= (long long)L * B) return;
+  const long long node = id / B, b = id - node * B;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    atomicAdd(&out[((c * (long long)L + node) * d + f) * B + b], v[c]);
+}
+
+// Adds a run's channel sums to its cell of the shared-memory histogram
+// (C × d × (B + 1), channel-major).
+template <int C>
+__device__ __forceinline__ void cell_add(float* hist, int f, int bin, int d,
+                                         int HB, const float (&a)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) atomicAdd(&hist[(c * d + f) * HB + bin], a[c]);
+}
+
+// The ordered rows [a, e) of bucket key straight into out: one warp per row,
+// lane = feature; the node is key - 1, or the row's own for keys 0 and L+1.
+template <typename BinT, int C>
+__device__ void run_direct(const BinT* __restrict__ bins,
+                           const int32_t* __restrict__ order,
+                           const int32_t* __restrict__ node,
+                           const HistVals& vals, float* out, int a, int e,
+                           int key, int d, int L, int B) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = a + warp; i < e; i += WARPS) {
+    const int row = order[i];
+    const int k = key >= 1 && key <= L ? key - 1 : node[row];
+    float v[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = vals.p[c][row];
+    for (int f = lane; f < d; f += 32) {
+      const int bin = (int)bins[(size_t)row * d + f];
+      if (k >= 0 && k < L && (unsigned)bin < (unsigned)B) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          atomicAdd(&out[((c * (size_t)L + k) * d + f) * B + bin], v[c]);
+      } else {
+        add_global<C>(out, k, bin, f, v, L, d, B);
+      }
+    }
+  }
+}
+
+// The ordered rows [a, e) of node k through the shared-memory histogram
+// hist (C × d × (B + 1)), then into out.
+template <typename BinT, int FPL, int C>
+__device__ void run_shared(const BinT* __restrict__ bins,
+                           const int32_t* __restrict__ order,
+                           const HistVals& vals, float* out, float* hist,
+                           int a, int e, int k, int d, int L, int B) {
+  const int HB = B + 1;
+  const int cells = C * d * HB;
   for (int i = threadIdx.x; i < cells; i += THREADS) hist[i] = 0.f;
   __syncthreads();
 
-  // pairs (row, feature) of the tile in row-major order, so a warp reads
-  // neighbouring ids
-  const int pairs = (r1 - r0) * w;
-  for (int e = threadIdx.x; e < pairs; e += THREADS) {
-    const int dr = e / w;
-    const int j = e - dr * w;
-    const int r = r0 + dr;
-    const int s = ids[(size_t)r * d + f0 + j];
-    if ((unsigned)s < (unsigned)S) atomicAdd(&hist[s * w + j], vals[r]);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per = (e - a + WARPS - 1) / WARPS;
+  const int wa = a + warp * per, we = min(e, wa + per);
+  int cur[FPL];             // the bin of the lane's open run, -1: none
+  float acc[FPL][C];
+#pragma unroll
+  for (int j = 0; j < FPL; ++j) {
+    cur[j] = -1;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[j][c] = 0.f;
+  }
+
+  for (int i = wa; i < we; i += 32) {
+    const int cnt = min(32, we - i);
+    const int my_row = lane < cnt ? order[i + lane] : 0;
+    float my_v[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) my_v[c] = lane < cnt ? vals.p[c][my_row] : 0.f;
+    for (int t0 = 0; t0 < cnt; t0 += UNROLL) {
+      int bb[UNROLL][FPL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int row = __shfl_sync(FULL, my_row, (t0 + u) & 31);
+#pragma unroll
+        for (int j = 0; j < FPL; ++j) {
+          const int f = lane + 32 * j;
+          bb[u][j] = (t0 + u < cnt && f < d)
+                         ? (int)bins[(size_t)row * d + f] : 0;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        float v[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          v[c] = __shfl_sync(FULL, my_v[c], (t0 + u) & 31);
+        if (t0 + u >= cnt) continue;   // warp-uniform
+#pragma unroll
+        for (int j = 0; j < FPL; ++j) {
+          const int f = lane + 32 * j;
+          if (f >= d) continue;
+          const int bin = bb[u][j];
+          if ((unsigned)bin >= (unsigned)B) {
+            add_global<C>(out, k, bin, f, v, L, d, B);
+          } else if (bin == cur[j]) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[j][c] += v[c];
+          } else {
+            if (cur[j] >= 0) cell_add<C>(hist, f, cur[j], d, HB, acc[j]);
+            cur[j] = bin;
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[j][c] = v[c];
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < FPL; ++j) {
+    const int f = lane + 32 * j;
+    if (cur[j] >= 0 && f < d) cell_add<C>(hist, f, cur[j], d, HB, acc[j]);
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < cells; i += THREADS) {
-    const float v = hist[i];
-    if (v != 0.f) {   // adding +0 changes nothing
-      const int s = i / w;
-      atomicAdd(&out[(size_t)s * d + f0 + (i - s * w)], v);
+  for (int cf = warp; cf < C * d; cf += WARPS) {   // (channel, feature) rows
+    const float* h = hist + cf * HB;
+    float* o = out + ((size_t)(cf / d) * L + k) * d * B + (size_t)(cf % d) * B;
+    for (int b = lane; b < B; b += 32)
+      if (h[b] != 0.f) atomicAdd(&o[b], h[b]);   // adding +0 changes nothing
+  }
+  __syncthreads();   // hist is zeroed again for the next run
+}
+
+template <typename BinT, int FPL, int C>
+__global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
+level_hist_kernel(const BinT* __restrict__ bins,
+                  const int32_t* __restrict__ order,
+                  const int32_t* __restrict__ keys,
+                  const int32_t* __restrict__ node, HistVals vals,
+                  float* __restrict__ out, int n, int d, int L, int B,
+                  int rows_per_cta, int shared_hist) {
+  extern __shared__ float smem[];
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int r1 = min(n, r0 + rows_per_cta);
+  if (r0 >= r1) return;
+  float* hist = smem;
+  int* ks = reinterpret_cast<int*>(smem + (shared_hist ? C * d * (B + 1) : 0));
+  for (int i = threadIdx.x; i < r1 - r0; i += THREADS) ks[i] = keys[r0 + i];
+  __syncthreads();
+
+  // walk the bucket runs of the slice; the key and the run's end are the
+  // same in every thread, so the branches and barriers below are uniform
+  for (int s = 0; s < r1 - r0;) {
+    const int key = ks[s];
+    int lo = s + 1, hi = r1 - r0;      // first row past the run of key
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (ks[mid] <= key) lo = mid + 1; else hi = mid;
     }
+    if (shared_hist && key >= 1 && key <= L && lo - s >= SMEM_MIN_ROWS)
+      run_shared<BinT, FPL, C>(bins, order, vals, out, hist, r0 + s, r0 + lo,
+                               key - 1, d, L, B);
+    else
+      run_direct<BinT, C>(bins, order, node, vals, out, r0 + s, r0 + lo, key,
+                          d, L, B);
+    s = lo;
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-hist_global_kernel(const int32_t* __restrict__ ids,
-                   const float* __restrict__ vals, float* __restrict__ out,
-                   int n, int d, int S) {
-  const int pairs = n * d;
-  for (int e = blockIdx.x * THREADS + threadIdx.x; e < pairs;
-       e += gridDim.x * THREADS) {
-    const int s = ids[e];
-    if ((unsigned)s < (unsigned)S) {
-      const int r = e / d;
-      atomicAdd(&out[(size_t)s * d + (e - r * d)], vals[r]);
-    }
-  }
+template <typename BinT, int FPL, int C>
+cudaError_t launch_hist(const void* bins, const int32_t* order,
+                        const int32_t* keys, const int32_t* node,
+                        const HistVals& vals, float* out, int n, int d, int L,
+                        int B, int sms, cudaStream_t stream) {
+  int ctas = ceil_div(n, MIN_ROWS_PER_CTA);
+  if (ctas > CTAS_PER_SM * sms) ctas = CTAS_PER_SM * sms;
+  if (ctas < ceil_div(n, MAX_ROWS_PER_CTA)) ctas = ceil_div(n, MAX_ROWS_PER_CTA);
+  const int rows = ceil_div(n, ctas);
+  ctas = ceil_div(n, rows);
+  const long long hist_bytes = 4LL * C * d * (B + 1);
+  const long long node_bytes = 4LL * rows;
+  const int shared_hist = hist_bytes + node_bytes <= SMEM_LIMIT;
+  const int smem = (int)(node_bytes + (shared_hist ? hist_bytes : 0));
+  auto kernel = level_hist_kernel<BinT, FPL, C>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, THREADS, smem, stream>>>(
+      static_cast<const BinT*>(bins), order, keys, node, vals, out, n, d, L,
+      B, rows, shared_hist);
+  return cudaGetLastError();
 }
 
-// Bytes of shared memory one CTA of the shared-memory path takes for S
-// segments and d features; 0 when S is too large for it (global path).
-int tree_histogram_smem_bytes(int S, int d) {
-  long long dt = SMEM_TILE / (4LL * S);
-  if (dt > d) dt = d;
-  if (dt < 1 || (dt < d && dt < MIN_TILE_FEATURES)) return 0;
-  return (int)(4LL * S * dt);
+template <typename BinT, int C>
+cudaError_t launch_fpl(const void* bins, const int32_t* order,
+                       const int32_t* keys, const int32_t* node,
+                       const HistVals& vals, float* out, int n, int d, int L,
+                       int B, int sms, cudaStream_t stream) {
+  if (d <= 64)
+    return launch_hist<BinT, 2, C>(bins, order, keys, node, vals, out, n, d, L, B, sms, stream);
+  if (d <= 128)
+    return launch_hist<BinT, 4, C>(bins, order, keys, node, vals, out, n, d, L, B, sms, stream);
+  if (d <= 256)
+    return launch_hist<BinT, 8, C>(bins, order, keys, node, vals, out, n, d, L, B, sms, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename BinT>
+cudaError_t launch_c(const void* bins, const int32_t* order,
+                     const int32_t* keys, const int32_t* node,
+                     const HistVals& vals, int C, float* out, int n, int d,
+                     int L, int B, int sms, cudaStream_t stream) {
+  switch (C) {
+    case 1: return launch_fpl<BinT, 1>(bins, order, keys, node, vals, out, n, d, L, B, sms, stream);
+    case 2: return launch_fpl<BinT, 2>(bins, order, keys, node, vals, out, n, d, L, B, sms, stream);
+    case 3: return launch_fpl<BinT, 3>(bins, order, keys, node, vals, out, n, d, L, B, sms, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Adds the histogram of (ids, vals) into out (S, d), which the caller zeroed.
-// Requires n·d ≤ 2^30 and S·d < 2^31. Returns the launch's CUDA status.
-cudaError_t tree_histogram_launch(const int32_t* ids, const float* vals,
-                                  float* out, int n, int d, int S,
-                                  cudaStream_t stream) {
-  if (n == 0 || d == 0) return cudaSuccess;
+// Largest feature count and node count the kernel takes.
+int tree_histogram_max_features() { return 256; }
+int tree_histogram_max_nodes() { return 16384; }
+
+namespace {
+
+int sm_count() {
   int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+long long scratch_ints(int n, int L, int sms) {
+  const long long M = L + 2;
+  long long units = (long long)SORT_UNITS_PER_SM * sms;
+  if (units * M > SORT_CELLS) units = SORT_CELLS / M > 0 ? SORT_CELLS / M : 1;
+  if (units > ceil_div(n, 32)) units = ceil_div(n, 32);
+  if (units < 1) units = 1;
+  return M * units + sms + 2LL * n;
+}
+
+}  // namespace
+
+// Int32 scratch the launch needs for n rows and L nodes (0 if the device
+// cannot be queried).
+long long tree_histogram_scratch(int n, int L) {
+  const int sms = sm_count();
+  return sms > 0 ? scratch_ints(n, L, sms) : 0;
+}
+
+// Adds the C histograms of one level into out (C, L, d, B), which the caller
+// zeroed. bins are uint8 (bin_bytes 1) or int32 (4). scratch holds
+// tree_histogram_scratch(n, L, sms) int32s. Requires 1 ≤ C ≤ 3, d ≤ 256,
+// L ≤ 16384, n < 2^31. Returns the launches' CUDA status.
+cudaError_t tree_histogram_launch(const void* bins, int bin_bytes,
+                                  const int32_t* node, HistVals vals, int C,
+                                  float* out, int* scratch, int n, int d,
+                                  int L, int B, cudaStream_t stream) {
+  if (n == 0 || d == 0) return cudaSuccess;
+  const int sms = sm_count();
+  if (sms == 0) return cudaErrorInvalidDevice;
+
+  // the stable counting sort of the rows by node
+  const int M = L + 2;
+  const long long total = scratch_ints(n, L, sms) - sms - 2LL * n;
+  const int units = (int)(total / M);
+  const int rows = ceil_div(n, units);
+  int* cnt = scratch;
+  int* partial = scratch + total;
+  int32_t* order = partial + sms;
+  int32_t* keys = order + n;
+  const int sort_smem = 4 * (M + rows);
+  const int per = ceil_div(total, sms);
+  cudaError_t err = cudaFuncSetAttribute(sort_count_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             sort_smem);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaFuncSetAttribute(sort_scatter_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               sort_smem);
+  if (err != cudaSuccess) return err;
+  sort_count_kernel<<<units, 32, sort_smem, stream>>>(node, n, L, rows, cnt);
+  scan_partial_kernel<<<sms, THREADS, 0, stream>>>(cnt, total, per, partial);
+  scan_apply_kernel<<<sms, THREADS, 0, stream>>>(cnt, total, per, partial);
+  sort_scatter_kernel<<<units, 32, sort_smem, stream>>>(node, n, L, rows, cnt,
+                                                        order, keys);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int smem = tree_histogram_smem_bytes(S, d);
-  if (smem > 0) {
-    const int dt = smem / (4 * S);
-    const int tiles = ceil_div(d, dt);
-    int chunks = ceil_div(CTAS_PER_SM * sms, tiles);
-    const int most = n / (ROWS_PER_SEGMENT * S);   // chunks of ≥ 4·S rows
-    if (chunks > most) chunks = most;
-    if (chunks < 1) chunks = 1;
-    if (chunks > 65535) chunks = 65535;
-    const int rows = ceil_div(n, chunks);
-    hist_shared_kernel<<<dim3(tiles, ceil_div(n, rows)), THREADS, smem,
-                         stream>>>(ids, vals, out, n, d, S, dt, rows);
-  } else {
-    int blocks = ceil_div((long long)n * d, THREADS);
-    if (blocks > CTAS_PER_SM * 4 * sms) blocks = CTAS_PER_SM * 4 * sms;
-    hist_global_kernel<<<blocks, THREADS, 0, stream>>>(ids, vals, out, n, d,
-                                                       S);
-  }
-  return cudaGetLastError();
+  if (bin_bytes == 1)
+    return launch_c<uint8_t>(bins, order, keys, node, vals, C, out, n, d, L, B, sms, stream);
+  if (bin_bytes == 4)
+    return launch_c<int32_t>(bins, order, keys, node, vals, C, out, n, d, L, B, sms, stream);
+  return cudaErrorInvalidValue;
 }

@@ -4,9 +4,9 @@
 The reference trains huge embeddings through a pull/push mini-batch
 parameter server (operator/common/aps/ApsEnv.java; used by
 huge/impl/Word2VecImpl.java and the DeepWalk/Node2Vec ops). Here the
-embedding tables live on the card; per step the trainer pulls the rows a
-block of pairs touches, computes the block's gradients with the
-``sgns_block_grads`` kernel and pushes the updates back
+embedding tables live on the card; per step one launch of the
+``sgns_block_grads`` kernel pulls the rows a block of pairs touches and
+computes the block's gradients, and the updates are pushed back
 (``parallel/aps.py``).
 """
 

@@ -1,10 +1,9 @@
-"""SGNS block gradients: the CUDA kernel's wrapper and its plain PyTorch
-version.
+"""SGNS block gradients: the CUDA kernel's wrappers and their plain PyTorch
+versions.
 
 Port of ``alink_tpu/embedding/sgns_pallas.py::sgns_block_grads``. One call
 computes the skip-gram negative-sampling gradients of one block of B center
-rows, between the APS pull and push of the sharded trainer
-(:mod:`~alink_tpu_torch.embedding.skipgram`):
+rows of the sharded trainer (:mod:`~alink_tpu_torch.embedding.skipgram`):
 
 - ``g_pos = σ(v·u_pos) − 1`` and ``g_n = σ(v·u_n)`` per row;
 - ``grad_v = g_pos·u_pos + Σ_n g_n·u_n``, (B, D);
@@ -12,16 +11,25 @@ rows, between the APS pull and push of the sharded trainer
   ((negs+1)·B, D): the id order ``concat(ctx, neg.reshape(-1))`` that the
   push consumes.
 
-The kernel (``csrc/sgns_block_grads.cu``) runs on CUDA tensors; the plain
-version :func:`sgns_block_grads_ref` runs on CPU tensors and is what the
-kernel is held against on the card. :func:`sgns_block_grads` takes the plain
-version only because its tensors lie on the CPU: for CUDA tensors it launches
-the kernel or raises.
+Two entries launch the one kernel (``csrc/sgns_block_grads.cu``):
+
+- :func:`sgns_pull_grads`, the trainer's step: the APS pull of the block's
+  rows (hot ids from the cache replica) and the gradients in one launch,
+  the pulled rows never written to device memory;
+- :func:`sgns_block_grads`, the TPU kernel's own signature: the pulled rows
+  given.
+
+Each runs on CUDA tensors; its plain version (:func:`sgns_pull_grads_ref`,
+:func:`sgns_block_grads_ref`) runs on CPU tensors and is what the kernel is
+held against on the card. A wrapper takes the plain version only because its
+tensors lie on the CPU: for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
+
+from typing import Optional
 
 from ..common.env import kernel_knob_on
 from ..native import kernels
@@ -61,5 +69,75 @@ def sgns_block_grads(v: torch.Tensor, u_pos: torch.Tensor,
     if v.device.type == "cpu":
         return sgns_block_grads_ref(v, u_pos, u_neg)
     out = kernels.ops().sgns_block_grads(v, u_pos, u_neg)
+    kernels.count_launch("sgns_block_grads")
+    return out
+
+
+def pull_rows(win: torch.Tensor, w_ctx: torch.Tensor, center: torch.Tensor,
+              uids: torch.Tensor, *, negs: int, rows: int, hot: int,
+              rep_in: Optional[torch.Tensor] = None,
+              rep_ctx: Optional[torch.Tensor] = None):
+    """The one-rank pull of a step: ``center`` (B,) from ``win`` and
+    ``uids`` ((negs+1)·B,) from ``w_ctx``, through the hot cache when
+    ``hot > 0`` (:func:`~alink_tpu_torch.parallel.hotcache.pull_cached`),
+    else :func:`~alink_tpu_torch.parallel.aps.pull`. An id in ``[0, hot)``
+    reads the replica, one in ``[0, rows)`` the table, any other a zero row.
+    Returns ``(v, u_pos, u_neg, hits)``: the rows (B, D), (B, D) and
+    (B, negs, D), and the batch's cache hits as a 0-dim device tensor (None
+    when ``hot == 0``)."""
+    from ..parallel.aps import pull
+    from ..parallel.hotcache import pull_cached
+    from ..parallel.mesh import AXIS_MODEL
+
+    B, D = center.shape[0], win.shape[1]
+    hits = None
+    if hot > 0:
+        v, h1 = pull_cached(win, rep_in, center, AXIS_MODEL, rows, hot)
+        u, h2 = pull_cached(w_ctx, rep_ctx, uids, AXIS_MODEL, rows, hot)
+        hits = h1 + h2
+    else:
+        v = pull(win, center, AXIS_MODEL, rows)
+        u = pull(w_ctx, uids, AXIS_MODEL, rows)
+    return v, u[:B], u[B:].reshape(B, negs, D), hits
+
+
+def sgns_pull_grads_ref(win: torch.Tensor, w_ctx: torch.Tensor,
+                        center: torch.Tensor, uids: torch.Tensor, *,
+                        negs: int, rows: int, hot: int,
+                        rep_in: Optional[torch.Tensor] = None,
+                        rep_ctx: Optional[torch.Tensor] = None,
+                        hits: Optional[torch.Tensor] = None):
+    """Plain version of the trainer's step between the ids and the push:
+    :func:`pull_rows`, then :func:`sgns_block_grads_ref`; with ``hot > 0``
+    the batch's cache hits are added to ``hits`` in place. Returns
+    ``(grad_v, grad_u)``."""
+    v, u_pos, u_neg, n_hot = pull_rows(win, w_ctx, center, uids, negs=negs,
+                                       rows=rows, hot=hot, rep_in=rep_in,
+                                       rep_ctx=rep_ctx)
+    if n_hot is not None:
+        hits += n_hot
+    return sgns_block_grads_ref(v, u_pos, u_neg)
+
+
+def sgns_pull_grads(win: torch.Tensor, w_ctx: torch.Tensor,
+                    center: torch.Tensor, uids: torch.Tensor, *, negs: int,
+                    rows: int, hot: int,
+                    rep_in: Optional[torch.Tensor] = None,
+                    rep_ctx: Optional[torch.Tensor] = None,
+                    hits: Optional[torch.Tensor] = None):
+    """The trainer's pull and SGNS gradients in one call (see
+    :func:`pull_rows` and :func:`sgns_pull_grads_ref`).
+
+    CPU tensors take the plain version; CUDA tensors launch the hand-written
+    kernel once, built on first use: contiguous fp32 tables (rows, D) with
+    D ≤ 1024, int64 ids, and when ``hot > 0`` the (hot, D) replicas and a
+    0-dim int64 ``hits`` on the card, raising on anything else."""
+    if win.device.type == "cpu":
+        return sgns_pull_grads_ref(win, w_ctx, center, uids, negs=negs,
+                                   rows=rows, hot=hot, rep_in=rep_in,
+                                   rep_ctx=rep_ctx, hits=hits)
+    out = kernels.ops().sgns_pull_grads(win, w_ctx, center, uids, rep_in,
+                                        rep_ctx, hits, int(negs), int(rows),
+                                        int(hot))
     kernels.count_launch("sgns_block_grads")
     return out

@@ -9,9 +9,9 @@ Two engines, one contract (``ALINK_HUGE_ENGINE``, see ``engine.py``):
 - **host** (:func:`train_skipgram`): replicated tables, updates through
   :func:`~alink_tpu_torch.parallel.aps.apply_gathered_replicated`;
 - **sharded** (:func:`train_skipgram_sharded`): tables row-sharded over
-  the ``model`` ranks; per step the rows a block touches are PULLed (hot
-  rows from the cache replica), the block's gradients come from the
-  ``sgns_block_grads`` kernel, and the updates are PUSHed back.
+  the ``model`` ranks; per step one launch of the ``sgns_block_grads``
+  kernel PULLs the rows a block touches (hot rows from the cache replica)
+  and computes the block's gradients, and the updates are PUSHed back.
 
 The step loop is a Python loop over torch ops on the device; it never
 waits on the host (the cache's hit count stays on the device until the
@@ -39,7 +39,8 @@ import torch
 
 from ..common.env import resolve_device
 from ..parallel.mesh import AXIS_DATA, AXIS_MODEL, axis_size
-from .sgns_cuda import sgns_block_grads, sgns_block_grads_ref, use_sgns_kernel
+from .sgns_cuda import (sgns_block_grads_ref, sgns_pull_grads,
+                        sgns_pull_grads_ref, use_sgns_kernel)
 
 
 @dataclass
@@ -217,12 +218,14 @@ def _run_pairs_host(pairs, V, D, B, negs, steps, n_blocks, lr0, seed, *,
 
 def _run_pairs_sharded(pairs, V, D, B, negs, steps, n_blocks, lr0, seed, *,
                        tie=False, neg_logits=None, neg_v=0, device=None,
-                       hot_rows=None, probs=None, negatives=None):
-    """Sharded engine: pull (through the hot cache when ``hot > 0``),
-    ``sgns_block_grads``, push. Returns the input table's handle."""
-    from ..parallel.aps import ShardedEmbedding, pull, push
-    from ..parallel.hotcache import (cold_capacity, note_cache_dropped,
-                                     note_cache_traffic, pull_cached,
+                       hot_rows=None, negatives=None):
+    """Sharded engine: per step one ``sgns_pull_grads`` (the pull, through
+    the hot cache when ``hot > 0``, and the gradients), then the pushes.
+    Returns the input table's handle. The reference also sizes the
+    multi-rank exchange's buckets here (``cold_capacity``); one rank has no
+    exchange."""
+    from ..parallel.aps import ShardedEmbedding, push
+    from ..parallel.hotcache import (note_cache_dropped, note_cache_traffic,
                                      refresh_hot, refresh_hot_many,
                                      resolve_hot_rows)
 
@@ -236,18 +239,8 @@ def _run_pairs_sharded(pairs, V, D, B, negs, steps, n_blocks, lr0, seed, *,
     rows = w_in.rows_per_shard
 
     hot = resolve_hot_rows(hot_rows, V, rows)
-    cap_in = cap_ctx = None
-    if hot > 0:
-        # empirical tail-mass bucket sizing: centers/contexts follow the
-        # id frequency table, negatives their actual sampling distribution
-        freq = (np.asarray(probs, np.float64) if probs is not None
-                else np.ones(V))
-        neg_p = (np.exp(np.asarray(neg_logits, np.float64))
-                 if neg_logits is not None else np.ones(V))
-        cap_in = cold_capacity([(freq, B)], hot, rows, M)
-        cap_ctx = cold_capacity([(freq, B), (neg_p, B * negs)],
-                                hot, rows, M)
     fused = use_sgns_kernel() and negs >= 1
+    grads = sgns_pull_grads if fused else sgns_pull_grads_ref
     scales = _step_scales(lr0, steps, M)
     centers, ctxs = _pair_columns(pairs, dev)
     draw = _negative_stream(seed, B, negs, neg_logits, neg_v, dev, negatives)
@@ -261,6 +254,7 @@ def _run_pairs_sharded(pairs, V, D, B, negs, steps, n_blocks, lr0, seed, *,
             return rep, rep
         return refresh_hot_many((win, wout), axis, hot)
 
+    rep_in = rep_ctx = hits = None
     if hot > 0:
         hits = torch.zeros((), dtype=torch.int64, device=dev)
         rep_in, rep_ctx = refresh()
@@ -268,18 +262,9 @@ def _run_pairs_sharded(pairs, V, D, B, negs, steps, n_blocks, lr0, seed, *,
         b = s % n_blocks
         center, ctx = centers[b * B:(b + 1) * B], ctxs[b * B:(b + 1) * B]
         uids = torch.cat([ctx, draw(s).reshape(-1)])
-        if hot > 0:
-            v, h1 = pull_cached(win, rep_in, center, axis, rows, hot,
-                                cap=cap_in)
-            u, h2 = pull_cached(w_ctx, rep_ctx, uids, axis, rows, hot,
-                                cap=cap_ctx)
-            hits += h1 + h2
-        else:
-            v = pull(win, center, axis, rows)
-            u = pull(w_ctx, uids, axis, rows)
-        u_pos, u_neg = u[:B], u[B:].reshape(B, negs, D)
-        grads = sgns_block_grads if fused else sgns_block_grads_ref
-        grad_v, grad_u = grads(v, u_pos, u_neg)
+        grad_v, grad_u = grads(win, w_ctx, center, uids, negs=negs,
+                               rows=rows, hot=hot, rep_in=rep_in,
+                               rep_ctx=rep_ctx, hits=hits)
 
         scale = float(scales[s])
         push(win, center, grad_v, axis, rows, scale)
@@ -332,9 +317,9 @@ def train_skipgram_sharded(
     """SGNS with both embedding tables sharded over the ``model`` ranks,
     the APS path (reference: huge/impl/Word2VecImpl.java:82-91).
 
-    Per step the rows of the block are PULLed (hot rows from the cache
-    replica, ``hot_rows``/``ALINK_APS_HOT_ROWS``), ``sgns_block_grads``
-    computes the gradients and they are PUSHed back. Returns the trained
+    Per step one ``sgns_block_grads`` launch PULLs the rows of the block
+    (hot rows from the cache replica, ``hot_rows``/``ALINK_APS_HOT_ROWS``)
+    and computes the gradients, and they are PUSHed back. Returns the trained
     input-embedding ``ShardedEmbedding``; ``.to_numpy()`` materialises it.
     ``negatives``: the tests' replay of a given negative stream."""
     from ..parallel.aps import ShardedEmbedding
@@ -348,5 +333,4 @@ def train_skipgram_sharded(
         pairs, V, D, cfg.batch_size, cfg.negatives,
         n_blocks * cfg.epochs, n_blocks, cfg.learning_rate, cfg.seed,
         neg_logits=_unigram75_logits(counts), device=device,
-        hot_rows=hot_rows, probs=np.asarray(counts, np.float64),
-        negatives=negatives)
+        hot_rows=hot_rows, negatives=negatives)

@@ -51,7 +51,7 @@ KERNELS: Dict[str, KernelSpec] = {
     "tree_histogram": KernelSpec(
         name="tree_histogram",
         module="alink_tpu_torch/tree/hist_cuda.py",
-        plain="histogram_ref",
+        plain="level_histograms_ref",
         replaces="alink_tpu/tree/pallas_hist.py:101",
         source="csrc/tree_histogram.cu",
     ),

@@ -26,7 +26,6 @@ indexing would sync once per call).
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -61,21 +60,6 @@ def shard_table(table: np.ndarray, device, axis: str = AXIS_MODEL):
     m = _single_rank(axis, "sharding a table")
     v_pad = pad_to_multiple(table.shape[0], m)
     return torch.as_tensor(np.ascontiguousarray(table), device=device), v_pad
-
-
-def bucket_slack(override: Optional[float] = None) -> float:
-    """Bucket over-provisioning factor (``ALINK_APS_BUCKET_SLACK``, ≥ 1)."""
-    if override is not None:
-        return max(1.0, float(override))
-    from ..common.env import env_float
-
-    return max(1.0, env_float("ALINK_APS_BUCKET_SLACK", 2.0))
-
-
-def bucket_capacity(batch: int, num_shards: int,
-                    slack: Optional[float] = None) -> int:
-    """Fixed per-owner bucket capacity: ``ceil(slack·B/M)`` rows."""
-    return max(1, int(math.ceil(bucket_slack(slack) * batch / num_shards)))
 
 
 def _dedup_batch(ids: torch.Tensor, grads: torch.Tensor, fill: int):

@@ -6,8 +6,9 @@ rows contiguously, so the Zipf-hot rows are the table prefix ``[0, hot)``,
 all owned by shard 0. The cache is a replica of that prefix on every rank:
 
 - **pull**: ids ``< hot`` gather from the replica (counted as hits); cold
-  ids go through :func:`~alink_tpu_torch.parallel.aps.pull`, with buckets
-  sized from the empirical tail mass (:func:`cold_capacity`);
+  ids go through :func:`~alink_tpu_torch.parallel.aps.pull` (the
+  reference sizes the cold remainder's exchange buckets from the empirical
+  tail mass; one rank has no exchange);
 - **push** is unchanged; :func:`refresh_hot` then copies the owner's updated
   prefix into the replica.
 
@@ -22,13 +23,11 @@ Knob: ``ALINK_APS_HOT_ROWS`` = ``auto`` (default: 0 for vocabularies under
 
 from __future__ import annotations
 
-import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional
 
-import numpy as np
 import torch
 
-from .aps import bucket_capacity, incr, pull
+from .aps import incr, pull
 
 _AUTO_MIN_VOCAB = 64
 _AUTO_MAX_ROWS = 1024
@@ -52,42 +51,6 @@ def resolve_hot_rows(explicit: Optional[int], vocab_size: int,
         explicit = (0 if vocab_size < _AUTO_MIN_VOCAB
                     else min(_AUTO_MAX_ROWS, vocab_size // 4))
     return max(0, min(int(explicit), int(rows_per_shard)))
-
-
-def expected_cold_draws(
-    components: Sequence[Tuple[np.ndarray, int]],
-    hot: int,
-) -> float:
-    """E[draws per batch that miss the hot set]: ``components`` are
-    ``(weights, n_draws)`` pairs of the batch's draw mixture (contexts by
-    word frequency, negatives by unigram^0.75), weights unnormalised; each
-    adds ``n_draws × (1 − mass of its top-hot prefix)``."""
-    e = 0.0
-    for weights, n_draws in components:
-        p = np.asarray(weights, np.float64)
-        tot = p.sum()
-        tail = (p[hot:].sum() / tot) if tot > 0 else \
-            max(0.0, 1.0 - hot / max(1, len(p)))
-        e += n_draws * tail
-    return e
-
-
-def cold_capacity(
-    components: Sequence[Tuple[np.ndarray, int]],
-    hot: int,
-    rows_per_shard: int,
-    num_shards: int,
-    slack: Optional[float] = None,
-) -> int:
-    """Per-owner bucket capacity for the cold remainder of a cached pull:
-    ``ceil(slack·B/M)`` with B shrunk to the expected cold draws, never
-    above the uncached capacity and never below 1."""
-    total = sum(n for _, n in components)
-    if hot <= 0:
-        return bucket_capacity(total, num_shards, slack)
-    basis = min(total, max(1, int(math.ceil(
-        expected_cold_draws(components, hot)))))
-    return bucket_capacity(basis, num_shards, slack)
 
 
 def refresh_hot(table_l: torch.Tensor, axis: str, hot: int) -> torch.Tensor:

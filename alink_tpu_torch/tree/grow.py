@@ -11,15 +11,17 @@ Trees are perfect binary trees of fixed depth: internal nodes in heap layout
 samples route left and both children inherit its statistics.
 
 - The forest (:func:`train_forest`) grows each tree level by level with
-  :func:`_level`: three histograms (g, h, counts) over ``node·B + bin`` by
-  :func:`~alink_tpu_torch.tree.hist_cuda.histogram` — the hand-written CUDA
-  kernel on the card — then the split search and the routing of every
-  sample. The level's splits come to the host after each level, as in the
-  reference. With one card the reference's ``psum`` over the data axis is
-  the identity, so rows are neither sharded nor padded.
+  :func:`_level`: the three histograms (g, h, counts) over ``node·B + bin``
+  in one call of :func:`~alink_tpu_torch.tree.hist_cuda.level_histograms` —
+  one launch of the hand-written CUDA kernel on the card, which reads the
+  uint8 bins and builds the ids itself — then the split search and the
+  routing of every sample. The level's splits come to the host after each
+  level, as in the reference. With one card the reference's ``psum`` over
+  the data axis is the identity, so rows are neither sharded nor padded.
   ``ALINK_GBDT_PALLAS=0`` (the reference's knob) routes the level program to
-  the plain version :func:`~alink_tpu_torch.tree.hist_cuda.histogram_ref`,
-  for debugging only.
+  the plain version
+  :func:`~alink_tpu_torch.tree.hist_cuda.level_histograms_ref`, for
+  debugging only.
 - GBDT (:func:`train_gbdt`) computes its histograms, as the reference does,
   as products of the bf16-rounded (3L, rows) value matrix with the bins'
   one-hot, accumulated in fp32 — plain ``torch.matmul``, no kernel of its
@@ -40,7 +42,7 @@ import torch
 from ..common.env import kernel_knob_on, resolve_device
 from ..common.exceptions import AkIllegalArgumentException
 from .binning import apply_bins, quantile_bins
-from .hist_cuda import histogram, histogram_ref
+from .hist_cuda import level_histograms, level_histograms_ref
 
 HIST_KERNEL_ENV = "ALINK_GBDT_PALLAS"
 
@@ -77,7 +79,7 @@ def _split_search(hg, hh, hc, fmask, l2, min_samples, min_gain):
 
 def _route(bins, node, feat, thr):
     """Send each sample to its child: f<0 routes left (no split).
-    bins (n, d) int32, node (n,) int32 -> (n,) int32."""
+    bins (n, d) uint8 or int32, node (n,) int32 -> (n,) int32."""
     idx = node.long()
     f_s = feat[idx]
     t_s = thr[idx]
@@ -88,20 +90,14 @@ def _route(bins, node, feat, thr):
 
 def _level(bins, g, h, c, node, fmask, num_nodes: int, num_bins: int,
            l2: float, min_samples: float, min_gain: float):
-    """One level of one tree: histograms of g, h and c over
-    ``node·B + bin``, split search, routing. bins (n, d) uint8 or int32;
-    g, h, c (n,) fp32; node (n,) int32. Returns (feat, thr, node)."""
-    L, B = num_nodes, num_bins
-    bins = bins.to(torch.int32)  # staged as uint8 (_compact_bins)
-    d = bins.shape[1]
-    ids = node[:, None] * B + bins  # (n, d) in [0, L*B)
-    hist = histogram if kernel_knob_on(HIST_KERNEL_ENV) else histogram_ref
-
-    def seg(vals):  # (L*B, d) -> (L, d, B)
-        return hist(ids, vals, num_segments=L * B).view(L, B, d) \
-            .permute(0, 2, 1)
-
-    hg, hh, hc = seg(g), seg(h), seg(c)
+    """One level of one tree: the (L, d, B) histograms of g, h and c over
+    ``node·B + bin`` in one call, split search, routing. bins (n, d) uint8
+    or int32; g, h, c (n,) fp32; node (n,) int32. Returns (feat, thr,
+    node)."""
+    hist = (level_histograms if kernel_knob_on(HIST_KERNEL_ENV)
+            else level_histograms_ref)
+    hg, hh, hc = hist(bins, node, (g, h, c), num_nodes=num_nodes,
+                      num_bins=num_bins)
     feat, thr = _split_search(hg, hh, hc, fmask, l2, min_samples, min_gain)
     return feat, thr, _route(bins, node, feat, thr)
 
@@ -249,8 +245,9 @@ def _bins_to_thresholds(edges: np.ndarray, feat: np.ndarray,
 
 
 def _compact_bins(bins: np.ndarray, num_bins: int) -> np.ndarray:
-    """uint8 the bins when codes fit (4x less to stage); every consumer
-    widens back to int32."""
+    """uint8 the bins when codes fit (4x less to stage and to read); the
+    forest's level program reads them as they are, GBDT widens them to
+    int32."""
     if num_bins <= 256:
         return bins.astype(np.uint8)
     return bins

@@ -1,20 +1,24 @@
-"""Per-feature binned histogram: the CUDA kernel's wrapper and its plain
+"""Per-level binned histograms: the CUDA kernel's wrapper and its plain
 PyTorch version.
 
 Port of ``alink_tpu/tree/pallas_hist.py::pallas_histogram``:
 ``out[s, f] = Σ_n vals[n]·(ids[n, f] == s)`` for ``s`` in ``[0, S)``; ids
-outside that range add nothing. The forest's level program
-(:mod:`~alink_tpu_torch.tree.grow`) calls it three times per level, for
-g, h and the counts, with ``ids = node·B + bin``.
+outside that range add nothing. The reference's level program calls it once
+per value channel (g, h, counts) with ``ids = node·B + bin``, ``S = L·B``.
+The port takes one level as one call: :func:`level_histograms` gives all
+channels' (L, d, B) histograms from the bins and the node vector, and builds
+the ids inside the kernel.
 
 The kernel (``csrc/tree_histogram.cu``) runs on CUDA tensors; the plain
-version :func:`histogram_ref` runs on CPU tensors and is what the kernel is
-held against on the card. :func:`histogram` takes the plain version only
-because its tensors lie on the CPU: for CUDA tensors it launches the kernel
-or raises.
+version :func:`level_histograms_ref` runs on CPU tensors and is what the
+kernel is held against on the card. :func:`level_histograms` takes the plain
+version only because its tensors lie on the CPU: for CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 
@@ -23,9 +27,10 @@ from ..native import kernels
 
 def histogram_ref(ids: torch.Tensor, vals: torch.Tensor, *,
                   num_segments: int) -> torch.Tensor:
-    """Plain version: one masked ``index_add_`` over the flat index
-    ``ids·d + f``. ids: (n, d) integer; vals: (n,) fp32. Returns
-    (num_segments, d) fp32; ids outside ``[0, num_segments)`` add nothing."""
+    """The reference kernel's function: one masked ``index_add_`` over the
+    flat index ``ids·d + f``. ids: (n, d) integer; vals: (n,) fp32. Returns
+    (num_segments, d) fp32; ids outside ``[0, num_segments)`` add
+    nothing."""
     n, d = ids.shape
     ids = ids.long()
     ok = (ids >= 0) & (ids < num_segments)
@@ -37,16 +42,44 @@ def histogram_ref(ids: torch.Tensor, vals: torch.Tensor, *,
     return out.view(num_segments, d)
 
 
-def histogram(ids: torch.Tensor, vals: torch.Tensor, *,
-              num_segments: int) -> torch.Tensor:
-    """``(num_segments, d)`` histogram of ``vals`` over ``ids`` (see the
-    module docstring).
+def level_histograms_ref(bins: torch.Tensor, node: torch.Tensor,
+                         vals: Sequence[torch.Tensor], *, num_nodes: int,
+                         num_bins: int) -> Tuple[torch.Tensor, ...]:
+    """Plain version: one :func:`histogram_ref` per channel over
+    ``ids = node·B + bins`` with ``S = L·B``, each reshaped to (L, d, B).
+    bins: (n, d) integer; node: (n,) integer; vals: C (n,) fp32 tensors.
+    Returns C contiguous (L, d, B) fp32 tensors."""
+    L, B = num_nodes, num_bins
+    d = bins.shape[1]
+    ids = node.long()[:, None] * B + bins.long()
+    return tuple(
+        histogram_ref(ids, v, num_segments=L * B).view(L, B, d)
+        .permute(0, 2, 1).contiguous() for v in vals)
 
-    CPU tensors take :func:`histogram_ref`; CUDA tensors launch the
-    hand-written kernel, which is built on first use and takes contiguous
-    int32 ids (n, d) and fp32 vals (n,), raising on anything else."""
-    if ids.device.type == "cpu":
-        return histogram_ref(ids, vals, num_segments=num_segments)
-    out = kernels.ops().tree_histogram(ids, vals, int(num_segments))
+
+def level_histograms(bins: torch.Tensor, node: torch.Tensor,
+                     vals: Sequence[torch.Tensor], *, num_nodes: int,
+                     num_bins: int) -> Tuple[torch.Tensor, ...]:
+    """The C ≤ 3 (L, d, B) histograms of one level (see
+    :func:`level_histograms_ref`).
+
+    CPU tensors take the plain version; CUDA tensors launch the hand-written
+    kernel once, built on first use: contiguous uint8 (or int32) bins (n, d)
+    with d ≤ 256, int32 node (n,), fp32 vals (n,) and at most 16,384 nodes,
+    raising on anything else. A
+    channel given twice (the forest passes its counts as h and as c) is
+    computed once and returned for both: the same values the plain version
+    computes twice."""
+    if bins.device.type == "cpu":
+        return level_histograms_ref(bins, node, vals, num_nodes=num_nodes,
+                                    num_bins=num_bins)
+    ops = kernels.ops()
+    uniq, pick = [], []
+    for v in vals:
+        same = [i for i, u in enumerate(uniq) if u is v]
+        pick.append(same[0] if same else len(uniq))
+        if not same:
+            uniq.append(v)
+    out = ops.tree_histogram(bins, node, uniq, int(num_nodes), int(num_bins))
     kernels.count_launch("tree_histogram")
-    return out
+    return tuple(out[i] for i in pick)

@@ -36,48 +36,57 @@ non-zero:
    and the logits must
    agree with the same model run with plain attention and with full
    attention; the warm forward is timed on all three attention routes;
-5. tree histogram vs plain version on the card: ``tree_histogram`` against
-   ``histogram_ref`` at n = 522,911 rows of Covertype-layout bins (10
-   continuous and 44 binary columns) at every S of a depth-12 tree's levels
-   (64 … 131,072), with integer vals (the forest's g and its bootstrap
-   counts) and normal vals, plus ids at -1 and in [S, S+8) at S = 64, 4,096
-   and 131,072; each S timed beside its bound, the plain version and one
-   ``index_add_`` over ``ids·d + f`` as a labelled yardstick (the port
-   never calls it);
+5. tree histogram vs plain version on the card: the fused level call
+   ``level_histograms`` (one launch of ``tree_histogram`` for the level's
+   g, h and count histograms, ids built in the kernel from the uint8 bins)
+   against ``level_histograms_ref`` at n = 522,911 rows of Covertype-layout
+   bins (10 continuous and 44 binary columns) at every level of a depth-12
+   tree (L = 1 … 2,048 nodes, S = 64 … 131,072) on evenly spread nodes,
+   with the forest's channels (integer g and counts, h the same tensor as
+   c) and real ones (normal, g, counts: h != c), plus nodes at -1 and in
+   [L, L+8) and bins in [64, 256) at L = 1, 64 and 2,048; each level timed
+   (device time in CUDA graphs) beside its bound, the plain version and one
+   ``index_add_`` over the flat cell index as a labelled yardstick (the
+   port never calls it);
 6. forest path: seeded Covertype-layout data (sklearn's
    bench_covertype.py shape: 522,911 training and 58,101 held-out rows, 54
    features, class 1 against the rest) through ``TableSourceBatchOp`` →
    ``RandomForestTrainBatchOp(numTrees=20, maxDepth=12, maxBins=64,
    minSamplesPerLeaf=5)`` → ``collect()``; the kernel's launch counter must
-   rise by 3·12·20 = 720 (each launch timed with CUDA events), the first
-   tree's 12 g histograms are held against the plain version again and
-   timed on their own inputs (the numbers of the kernels line), the
-   ``ALINK_GBDT_PALLAS=0`` route must grow identical trees, the card's
-   predict must match a numpy traversal, and
+   rise by 12·20 = 240, one per level (each level call timed with CUDA
+   events), the first tree's 12 level calls are held against the plain
+   version again and timed on their own inputs (the numbers of the kernels
+   line), the ``ALINK_GBDT_PALLAS=0`` route must grow identical trees, the
+   card's predict must match a numpy traversal, and
    the model goes to ``.ak`` and back into ``RandomForestPredictBatchOp``
    for requests of 1, 1,000 and 58,101 held-out rows; held-out accuracy
    must beat the majority class by 0.05;
 7. GBDT path: ``GbdtTrainBatchOp(numTrees=20, maxDepth=6, maxBins=64)`` on
    the same data, then ``GbdtPredictBatchOp`` on the held-out requests,
    under the same accuracy floor;
-8. SGNS block gradients vs plain version on the card: ``sgns_block_grads``
-   against ``sgns_block_grads_ref`` at (B, negs, D) = (1024, 5, 100) (the
-   main path's), (1000, 1, 37) and (1000, 15, 100), on the rows of the
-   300th step of a plain-route training on a quarter of the corpus
-   (realistic magnitudes) and on
-   seeded N(0, 1) rows (saturated sigmoids); the main path's shape timed
-   beside its bound;
+8. SGNS gradients vs plain versions on the card: the gathered-rows entry
+   ``sgns_block_grads`` against ``sgns_block_grads_ref`` at (B, negs, D) =
+   (1024, 5, 100) (the main path's), (1000, 1, 37) and (1000, 15, 100), on
+   the pulled rows of the 300th step of a plain-route training on a quarter
+   of the corpus (realistic magnitudes) and on seeded N(0, 1) rows
+   (saturated sigmoids); the fused entry ``sgns_pull_grads`` (the APS pull
+   and the gradients in one launch) against ``sgns_pull_grads_ref`` on that
+   step's tables and ids at the main path's shape, with 2 % sentinel and 2 %
+   duplicated ids, the hot cache on (replicas that differ from the tables'
+   prefix), off, and on one tied table, hits equal; both entries timed in a
+   CUDA graph beside their bounds;
 9. Word2Vec path: 1,000,000 tokens in text8's layout (the corpus of
    word2vec's demo-word.sh: Zipf law over 71,290 types, sentences of 1,000
    tokens, a topic per sentence; see ``text8_corpus``) through
    ``TableSourceBatchOp`` → ``Word2VecTrainBatchOp`` (the op's defaults:
    vectorSize 100, window 5, negative 5, numIter 3, batchSize 1024; minCount
    1) → ``collect()``; the kernel's launch counter must rise by the step
-   count (one launch per step), the table must agree with the
+   count (one fused launch per step), the table must agree with the
    ``ALINK_SGNS_PALLAS=0`` route's, the embedding must pass a learning gate
-   on the topics, and the model goes to ``.ak`` and back into
-   ``Word2VecPredictBatchOp`` for requests of 1, 1,000 and 10,000
-   sentences, checked against a numpy mean of the table's rows;
+   on the topics, the steps/s and the device operations a step (both
+   routes, ``torch.profiler``) are reported, and the model goes to ``.ak``
+   and back into ``Word2VecPredictBatchOp`` for requests of 1, 1,000 and
+   10,000 sentences, checked against a numpy mean of the table's rows;
 10. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
@@ -102,10 +111,11 @@ Served logits: max|Δ| ≤ 0.01 against the plain-attention route and against
 full attention, about 4x the gaps measured on the card (see PERF.md).
 Tree histogram: integer vals are summed exactly in any order (every
 partial sum is an integer below 2**24), so kernel and plain version must
-agree exactly; real vals within 2·count·2**-24·Σ|vals| per cell, the
-worst-case fp32 error of a sum taken in any order, for both sides (count
-and Σ|vals| from the plain version on ones and on |vals|).
-SGNS block gradients: atol 1e-5 (the reference kernel's contract). Word2Vec
+agree exactly, channel by channel; real vals within 2·count·2**-24·Σ|vals|
+per cell, the worst-case fp32 error of a sum taken in any order, for both
+sides (count and Σ|vals| from the plain version on ones and on |vals|).
+SGNS gradients, both entries: atol 1e-5 (the reference kernel's
+contract); the fused entry's hit count exactly. Word2Vec
 tables, kernel route vs plain route: max|Δ| ≤ 1e-3, 100x the 9.8e-6 that a
 rounding-level change of the block gradients (computed in float64) moved a
 table of magnitude 1.4 over 3,700 steps on a quarter of the corpus on the
@@ -671,6 +681,7 @@ COVTYPE_COLS = COVTYPE_CONTINUOUS \
     + tuple(f"Wilderness_Area{i}" for i in range(1, 5)) \
     + tuple(f"Soil_Type{i}" for i in range(1, 41))
 FOREST = dict(numTrees=20, maxDepth=12, maxBins=64, minSamplesPerLeaf=5)
+HIST_BINS = FOREST["maxBins"]
 GBDT = dict(numTrees=20, maxDepth=6, maxBins=64)
 TREE_REQUEST_ROWS = (1, 1000, COVTYPE_TEST)
 FP32_EPS = 2.0 ** -24    # fp32 unit roundoff
@@ -720,135 +731,199 @@ def covertype_table(X, y):
     return MTable(cols)
 
 
-def histogram_inputs(bins, level, seed, device="cuda", oob=False):
-    """ids of one level of the forest's level program: seeded node ids of
-    the level's 2**level nodes, ids = node·B + bin (B = 64) for Covertype-
-    layout bins (n, 54); with ``oob``, 1 % of the ids set to -1 and 1 % to
-    [S, S+8). Returns (ids int32, S, vals): vals maps "g" to the forest's
-    integer g = -label·(bootstrap count), "count" to the counts, "normal" to
+def level_inputs(bins, level, seed, device="cuda", oob=False):
+    """One level of the forest's level program on Covertype-layout bins
+    (n, 54) uint8 (a numpy array, or a tensor already on ``device``):
+    seeded node ids spread evenly over the level's L = 2**level nodes; with
+    ``oob``, 1 % of the nodes set to -1 and 1 % to [L, L+8), and 1 % of the
+    bins to [64, 256), where node·B + bin points past the node. Returns
+    (bins, node int32, L, vals): vals maps "g" to the forest's integer
+    g = -label·(bootstrap count), "count" to the counts, "normal" to
     standard-normal reals."""
     import torch
 
     g = np.random.default_rng(seed)
-    n, _ = bins.shape
-    S = 64 << level
-    node = g.integers(0, 1 << level, n)
-    ids = node[:, None] * 64 + bins
+    n = bins.shape[0]
+    L = 1 << level
+    node = g.integers(0, L, n)
     if oob:
-        r = g.random(ids.shape)
-        ids = np.where(r < 0.01, -1, ids)
-        ids = np.where(r > 0.99, S + g.integers(0, 8, ids.shape), ids)
+        r = g.random(n)
+        node = np.where(r < 0.01, -1, node)
+        node = np.where(r > 0.99, L + g.integers(0, 8, n), node)
+        b = np.asarray(bins.cpu() if isinstance(bins, torch.Tensor) else bins)
+        hi = g.random(b.shape) < 0.01
+        bins = np.where(hi, g.integers(64, 256, b.shape), b).astype(np.uint8)
+    if not isinstance(bins, torch.Tensor):
+        bins = torch.tensor(bins, dtype=torch.uint8, device=device)
     w = g.multinomial(n, np.ones(n) / n).astype(np.float32)
     label = g.integers(0, 2, n).astype(np.float32)
     vals = {"g": -(label * w), "count": w,
             "normal": g.standard_normal(n).astype(np.float32)}
-    return (torch.tensor(ids, dtype=torch.int32, device=device), S,
+    return (bins, torch.tensor(node, dtype=torch.int32, device=device), L,
             {k: torch.tensor(v, device=device) for k, v in vals.items()})
 
 
-def histogram_mismatch(ids, vals, S, got, exact):
-    """Holds a histogram ``got`` against ``histogram_ref`` on the same
-    inputs. Returns (max|Δ|, worst error/bound; > 1 fails). Exact (integer
-    vals): any difference fails. Real vals: |Δ| ≤ 2·count·2**-24·Σ|vals|
-    per cell, count and Σ|vals| from the plain version on ones and |vals|
-    (the worst-case fp32 error of a sum in any order, for both sides)."""
+def level_mismatch(bins, node, vals, L, got, exact):
+    """Holds one level's histograms ``got`` (a tuple of C (L, d, B) tensors)
+    against ``level_histograms_ref`` on the same inputs. ``exact``: per
+    channel, integer vals. Returns (max|Δ|, worst error/bound; > 1 fails).
+    Exact channels: any difference fails. Real vals: |Δ| ≤
+    2·count·2**-24·Σ|vals| per cell, count and Σ|vals| from the plain
+    version on ones and |vals| (the worst-case fp32 error of a sum in any
+    order, for both sides)."""
     import torch
 
-    from alink_tpu_torch.tree.hist_cuda import histogram_ref
+    from alink_tpu_torch.tree.hist_cuda import level_histograms_ref
 
-    ref = histogram_ref(ids, vals, num_segments=S)
-    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+    kw = dict(num_nodes=L, num_bins=HIST_BINS)
+    ref = level_histograms_ref(bins, node, vals, **kw)
+    if len(got) != len(ref) or any(
+            a.shape != r.shape or not bool(torch.isfinite(a).all())
+            for a, r in zip(got, ref)):
         return float("nan"), float("inf")
-    err = (got - ref).abs()
-    raw = float(err.max())
-    if exact:
-        return raw, 0.0 if raw == 0 else float("inf")
-    count = histogram_ref(ids, torch.ones_like(vals), num_segments=S)
-    size = histogram_ref(ids, vals.abs(), num_segments=S)
-    return raw, worst_ratio(err, 2 * count * FP32_EPS * size)
+    raw, ratio = 0.0, 0.0
+    for a, r, v, ex in zip(got, ref, vals, exact):
+        err = (a - r).abs()
+        raw = max(raw, float(err.max()))
+        if ex:
+            ratio = max(ratio, 0.0 if float(err.max()) == 0 else float("inf"))
+            continue
+        count, size = level_histograms_ref(bins, node,
+                                           (torch.ones_like(v), v.abs()), **kw)
+        ratio = max(ratio, worst_ratio(err, 2 * count * FP32_EPS * size))
+    return raw, ratio
 
 
-def histogram_bytes(n, d, S):
-    """Bytes the function must move: ids and vals read once, out written
-    once."""
-    return n * d * 4 + n * 4 + S * d * 4
+def level_bytes(n, d, L, channels, bin_bytes=1):
+    """Bytes one level call must move: bins, node and the distinct channels'
+    vals read once, their (L, d, B) histograms written once."""
+    return n * d * bin_bytes + 4 * n + channels * (4 * n + 4 * L * d
+                                                   * HIST_BINS)
 
 
-def time_histogram(peaks, ids, vals, S, label):
-    """Times ``tree_histogram`` on (ids, vals) in turns with its plain
-    version, and one ``index_add_`` over ``ids·d + f`` as the yardstick;
-    returns ms of each and the bound."""
+def time_level(peaks, bins, node, vals, L, label):
+    """Times one level call of ``level_histograms`` on (bins, node, vals) in
+    turns with its plain version, and one
+    ``index_add_`` over the flat cell index of the distinct channels as the
+    yardstick, each as device time in a CUDA graph (the call's few
+    launches issued from Python are timed at the host's pace otherwise);
+    returns ms of each, the bound, the turns and the eager time."""
     import torch
 
-    from alink_tpu_torch.tree.hist_cuda import histogram, histogram_ref
+    from alink_tpu_torch.tree.hist_cuda import (level_histograms,
+                                                level_histograms_ref)
 
-    n, d = ids.shape
+    n, d = bins.shape
+    kw = dict(num_nodes=L, num_bins=HIST_BINS)
+    plain = lambda: level_histograms_ref(bins, node, vals, **kw)  # noqa: E731
+    kern = lambda: level_histograms(bins, node, vals, **kw)  # noqa: E731
+    uniq = list({id(v): v for v in vals}.values())
+    C = len(uniq)
+    cell = (node.long()[:, None] * d + torch.arange(d, device="cuda")) \
+        * HIST_BINS + bins.long()                            # (n, d)
+    flat = torch.cat([cell.reshape(-1) + c * L * d * HIST_BINS
+                      for c in range(C)])
+    vflat = torch.cat([v[:, None].expand(n, d).reshape(-1) for v in uniq])
+    lib = lambda: torch.zeros(C * L * d * HIST_BINS,  # noqa: E731
+                              device="cuda").index_add_(0, flat, vflat)
+    slow = dict(iters=3, reps=5)
+    t = [graph_ms(plain, **slow), graph_ms(kern, 10, 20),
+         graph_ms(kern, 10, 20), graph_ms(plain, **slow)]
     bw, _, fp32_peak = peaks
-    plain = lambda: histogram_ref(ids, vals, num_segments=S)  # noqa: E731
-    kern = lambda: histogram(ids, vals, num_segments=S)  # noqa: E731
-    flat = (ids.long() * d + torch.arange(d, device="cuda")).reshape(-1)
-    vflat = vals[:, None].expand(n, d).reshape(-1)
-    lib = lambda: torch.zeros(S * d, device="cuda").index_add_(  # noqa: E731
-        0, flat, vflat)
-    t = [cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)]
+    nbytes = level_bytes(n, d, L, C)
     row = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
-               library_ms=cuda_ms(lib), bound_ms=max(
-                   histogram_bytes(n, d, S) / bw, n * d / fp32_peak) * 1e3)
-    print(f"tree_histogram {label} n={n} d={d} S={S}: kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, index_add_ "
-          f"yardstick {row['library_ms']:.4f} ms, bound "
-          f"{row['bound_ms'] * 1e3:.1f} us (bytes: "
-          f"{histogram_bytes(n, d, S) / 1e6:.1f} MB); turns "
-          f"plain,kernel,kernel,plain = {[round(x, 4) for x in t]}",
-          flush=True)
+               library_ms=graph_ms(lib, **slow), bound_ms=max(
+                   nbytes / bw, C * n * d / fp32_peak) * 1e3, turns=t,
+               eager_ms=cuda_ms(kern))
+    del flat, vflat, cell
+    print(f"tree_histogram level call {label} n={n} d={d} L={L} "
+          f"(S = {L * HIST_BINS}), {len(vals)} channels ({C} distinct), "
+          f"device time in CUDA graphs: kernel {row['ms']:.4f} ms (its sort "
+          f"of the rows by node included), plain "
+          f"{row['plain_ms']:.4f} ms, index_add_ yardstick "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.1f} us "
+          f"(bytes: {nbytes / 1e6:.1f} MB); turns plain,kernel,kernel,plain "
+          f"= {[round(x, 4) for x in t]}; issued eagerly from Python "
+          f"{row['eager_ms']:.4f} ms", flush=True)
     return row
 
 
-def check_histogram(peaks, bins):
-    """Phase 5: ``tree_histogram`` against ``histogram_ref`` on the card at
-    every level of a depth-12 tree (S = 64 … 131,072) with seeded node ids
-    spread evenly over the level's nodes, then timed there. Returns the
-    raw errors and the timings by S."""
-    from alink_tpu_torch.tree.hist_cuda import histogram
+LEVEL_CASES = (          # (label, the channels (g, h, c) by value kind)
+    ("forest g, count, count (h is c)", ("g", "count", "count")),
+    ("normal, g, count (h != c)", ("normal", "g", "count")),
+)
 
+
+def level_cases(bins, level, seed, device="cuda"):
+    """Phase 5's inputs at one level: the forest's channels (h is c) and
+    real-valued ones (h != c) on evenly spread nodes; at L = 1, 64 and 2,048
+    both again with nodes and bins out of range. Yields (label, bins, node,
+    L, vals, exact)."""
+    cases = [(level_inputs(bins, level, seed, device), "")]
+    if level in (0, 6, 11):
+        cases.append((level_inputs(bins, level, seed + 100, device,
+                                   oob=True), "oob "))
+    for (b, node, L, vals), tag in cases:
+        for label, names in LEVEL_CASES:
+            if names[1] == names[2]:
+                chans = (vals[names[0]], vals[names[1]], vals[names[1]])
+            else:
+                chans = tuple(vals[k] for k in names)
+            yield (tag + label, b, node, L, chans,
+                   tuple(k != "normal" for k in names))
+
+
+def check_histogram(peaks, bins):
+    """Phase 5: the fused level call ``level_histograms`` against
+    ``level_histograms_ref`` on the card at every level of a depth-12 tree
+    (L = 1 … 2,048, S = 64 … 131,072) with seeded node ids spread evenly
+    over the level's nodes, then timed there. Returns the raw errors and the
+    timings by S."""
+    import torch
+
+    from alink_tpu_torch.tree.hist_cuda import level_histograms
+
+    staged = torch.tensor(bins, dtype=torch.uint8, device="cuda")
     by_segments, errors = {}, {}
     for level in range(FOREST["maxDepth"]):
-        ids, S, vals = histogram_inputs(bins, level, SEED + level)
-        cases = [(k, ids, v) for k, v in vals.items()]
-        if S in (64, 4096, 131072):
-            oids, _, ovals = histogram_inputs(bins, level, SEED + 100 + level,
-                                              oob=True)
-            cases += [("oob " + k, oids, ovals[k]) for k in ("g", "normal")]
-        for kind, i_, v in cases:
-            exact = not kind.endswith("normal")
-            raw, ratio = histogram_mismatch(i_, v, S, histogram(
-                i_, v, num_segments=S), exact)
-            print(f"tree_histogram vs plain [S={S} {kind}] max|Δ| {raw:.3g}; "
-                  f"{'exact' if exact else 'error/bound'} {ratio:.3g}",
-                  flush=True)
+        timed = None
+        for label, b, node, L, vals, exact in level_cases(
+                staged, level, SEED + level):
+            got = level_histograms(b, node, vals, num_nodes=L,
+                                   num_bins=HIST_BINS)
+            raw, ratio = level_mismatch(b, node, vals, L, got, exact)
+            S = L * HIST_BINS
+            print(f"tree_histogram vs plain [S={S} {label}] max|Δ| "
+                  f"{raw:.3g}; error/bound {ratio:.3g} (exact channels: "
+                  f"{exact})", flush=True)
             if not ratio <= 1.0:
-                fail(f"tree_histogram [S={S} {kind}] outside its tolerance")
-            errors[f"S={S} {kind}"] = raw
-        by_segments[S] = time_histogram(peaks, ids, vals["g"], S,
-                                        "even nodes")
+                fail(f"tree_histogram [S={S} {label}] outside its tolerance")
+            errors[f"S={S} {label}"] = raw
+            if timed is None:
+                timed = (b, node, vals, L)
+        by_segments[timed[3] * HIST_BINS] = time_level(
+            peaks, *timed, "even nodes")
     return errors, by_segments
 
 
 def main_path_histograms(peaks, kept):
-    """The forest's first tree, level by level: its g histograms' inputs as
+    """The forest's first tree, level by level: its level calls' inputs as
     the main path made them (``kept``), held against the plain version
     (exact: integer vals) and timed. Returns the means over the levels, the
     raw errors and the timings by S."""
-    from alink_tpu_torch.tree.hist_cuda import histogram
+    from alink_tpu_torch.tree.hist_cuda import level_histograms
 
     rows, errors = {}, {}
-    for ids, vals, S in kept:
-        raw, ratio = histogram_mismatch(ids, vals, S, histogram(
-            ids, vals, num_segments=S), exact=True)
+    for bins, node, vals, L in kept:
+        S = L * HIST_BINS
+        got = level_histograms(bins, node, vals, num_nodes=L,
+                               num_bins=HIST_BINS)
+        raw, ratio = level_mismatch(bins, node, vals, L, got,
+                                    (True,) * len(vals))
         if not ratio <= 1.0:
             fail(f"tree_histogram on the forest's level S={S}: max|Δ| {raw}")
-        errors[f"forest level S={S} g"] = raw
-        rows[S] = time_histogram(peaks, ids, vals, S, "forest tree 1")
+        errors[f"forest level S={S}"] = raw
+        rows[S] = time_level(peaks, bins, node, vals, L, "forest tree 1")
     mean = {k: sum(r[k] for r in rows.values()) / len(rows)
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return mean, errors, rows
@@ -873,14 +948,15 @@ def predict_numpy(ens, X):
 
 
 def instrument_forest(grow):
-    """Wraps ``grow._level`` and ``grow.histogram`` so that each call
-    records CUDA events, and keeps the first tree's g-histogram inputs.
+    """Wraps ``grow._level`` and ``grow.level_histograms`` so that each call
+    records CUDA events, and keeps the first tree's level-call inputs.
     Returns (levels, launches, kept, restore): (level, start, end) per
-    level call, (start, end) per histogram launch, (ids, vals, S) per
-    level of the first tree, and the hook that undoes the wrapping."""
+    level program, (start, end) per level call of the histogram, (bins,
+    node, vals, L) per level of the first tree, and the hook that undoes
+    the wrapping."""
     import torch
 
-    orig_level, orig_hist = grow._level, grow.histogram
+    orig_level, orig_hist = grow._level, grow.level_histograms
     levels, launches, kept = [], [], []
 
     def events():
@@ -895,20 +971,21 @@ def instrument_forest(grow):
         levels.append((args[6].bit_length() - 1, a, b))   # num_nodes
         return out
 
-    def hist(ids, vals, *, num_segments):
+    def hist(bins, node, vals, *, num_nodes, num_bins):
         a, b = events()
         a.record()
-        out = orig_hist(ids, vals, num_segments=num_segments)
+        out = orig_hist(bins, node, vals, num_nodes=num_nodes,
+                        num_bins=num_bins)
         b.record()
-        if len(launches) % 3 == 0 and len(kept) < FOREST["maxDepth"]:
-            kept.append((ids, vals, num_segments))    # g: first of three
+        if len(kept) < FOREST["maxDepth"]:
+            kept.append((bins, node, tuple(vals), num_nodes))
         launches.append((a, b))
         return out
 
     def restore():
-        grow._level, grow.histogram = orig_level, orig_hist
+        grow._level, grow.level_histograms = orig_level, orig_hist
 
-    grow._level, grow.histogram = level, hist
+    grow._level, grow.level_histograms = level, hist
     return levels, launches, kept, restore
 
 
@@ -970,8 +1047,9 @@ def serve_trees(op_cls, model_src, X_test, y_test, label):
 
 def forest_path(workdir, X, y, peaks):
     """Phase 6: the forest at full size through the operators on the card.
-    Returns the main path's tree_histogram launches, the mean device ms of
-    a launch there, and the kernel's timings on the first tree's inputs."""
+    Returns the main path's tree_histogram launches, the device ms of its
+    level calls and level programs there, and the kernel's timings on the
+    first tree's inputs."""
     import torch
 
     from alink_tpu_torch.common.model import table_to_model
@@ -993,7 +1071,7 @@ def forest_path(workdir, X, y, peaks):
         restore()
     launches = kernels.launches()["tree_histogram"]
     peak = torch.cuda.max_memory_allocated()
-    expect = 3 * FOREST["maxDepth"] * FOREST["numTrees"]
+    expect = FOREST["maxDepth"] * FOREST["numTrees"]
     depth = FOREST["maxDepth"]
     first, rest = [0.0] * depth, [0.0] * depth
     for i, (lv, a, b) in enumerate(levels):
@@ -1001,7 +1079,9 @@ def forest_path(workdir, X, y, peaks):
     launch_ms = [a.elapsed_time(b) for a, b in launch_ev]
     print(f"forest train ({n_tr} rows, {FOREST}): {wall:.2f} s wall; "
           f"{launches} tree_histogram launches, {sum(launch_ms):.1f} ms of "
-          f"device time in them (mean {np.mean(launch_ms):.4f} ms); peak "
+          f"device time in the level calls, sort of node included (mean "
+          f"{np.mean(launch_ms):.4f} ms, by level of the first tree "
+          f"{[round(t, 4) for t in launch_ms[:depth]]}); peak "
           f"device memory {peak / 2**30:.2f} GiB; level program device ms "
           f"by level, first tree {[round(t, 2) for t in first]}, mean of "
           f"the other {FOREST['numTrees'] - 1} "
@@ -1010,7 +1090,7 @@ def forest_path(workdir, X, y, peaks):
           flush=True)
     if launches != expect:
         fail(f"tree_histogram launched {launches} times on the forest path, "
-             f"expected {expect} (3 per level)")
+             f"expected {expect} (one per level)")
     stats = main_path_histograms(peaks, kept)
     del kept
 
@@ -1050,7 +1130,13 @@ def forest_path(workdir, X, y, peaks):
           f"{base:.4f})", flush=True)
     if not acc > base + 0.05:
         fail("forest held-out accuracy is no better than the majority class")
-    return launches, float(np.mean(launch_ms)), stats
+    return launches, dict(
+        level_call_mean_ms=float(np.mean(launch_ms)),
+        level_calls_total_ms=float(sum(launch_ms)),
+        first_tree_level_call_ms=launch_ms[:depth],
+        level_program_total_ms=sum(first) + sum(rest),
+        level_program_first_tree_ms=first, train_wall_s=wall,
+        plain_train_wall_s=plain_wall), stats
 
 
 def gbdt_path(X, y):
@@ -1093,6 +1179,8 @@ W2V = dict(vectorSize=100, window=5, negative=5, numIter=3, batchSize=1024,
 W2V_REQUEST_ROWS = (1, 1000, 10000)
 SGNS_SHAPES = ((1024, 5, 100), (1000, 1, 37), (1000, 15, 100))
 SGNS_TRAINED_STEPS = 300
+OPS_STEPS = 100          # traced steps of the operations count
+OPS_DOCS = 50            # sentences whose pairs they take
 TABLE_ATOL = 1e-3        # trained tables, kernel route vs plain route
 TOPIC_FLOOR = 0.32       # in-topic share of top-10 neighbours (chance 0.01)
 
@@ -1218,11 +1306,13 @@ def word_pairs(docs):
                                               cfg.subsample, SEED)
 
 
-def sgns_trained_inputs(corpus, B, negs, D, steps=SGNS_TRAINED_STEPS,
-                        device="cuda"):
-    """The block inputs of the ``steps``-th step of the plain route
+def sgns_trained_step(corpus, B, negs, D, steps=SGNS_TRAINED_STEPS,
+                      device="cuda"):
+    """The pull inputs of the ``steps``-th step of the plain route
     (``ALINK_SGNS_PALLAS=0``) training on ``corpus`` = (vocab, counts,
-    pairs) at (B, negs, D): rows at the magnitudes training gives them."""
+    pairs) at (B, negs, D): the tables (copied) and replicas at the
+    magnitudes training gives them, the step's ids, rows and hot. Returns
+    a dict of ``sgns_pull_grads``' arguments (hits aside)."""
     from alink_tpu_torch.embedding import skipgram
     from alink_tpu_torch.embedding.sgns_cuda import SGNS_KERNEL_ENV
 
@@ -1231,37 +1321,117 @@ def sgns_trained_inputs(corpus, B, negs, D, steps=SGNS_TRAINED_STEPS,
     n_blocks = max(1, len(pairs) // B)
     pairs = pairs[:steps * B]              # no more steps than needed
     cfg.epochs = -(-steps // n_blocks)
-    seen, orig = [], skipgram.sgns_block_grads_ref
+    seen, orig = [], skipgram.sgns_pull_grads_ref
 
-    def keep(v, u_pos, u_neg):
+    def keep(win, w_ctx, center, uids, **kw):
         seen.append(None)
         if len(seen) == steps:
-            seen[-1] = (v, u_pos, u_neg)
-        return orig(v, u_pos, u_neg)
+            copy = lambda t: None if t is None else t.clone()  # noqa: E731
+            seen[-1] = dict(
+                win=win.clone(), w_ctx=w_ctx.clone(), center=center.clone(),
+                uids=uids.clone(), negs=kw["negs"], rows=kw["rows"],
+                hot=kw["hot"], rep_in=copy(kw["rep_in"]),
+                rep_ctx=copy(kw["rep_ctx"]))
+        return orig(win, w_ctx, center, uids, **kw)
 
-    skipgram.sgns_block_grads_ref = keep
+    skipgram.sgns_pull_grads_ref = keep
     os.environ[SGNS_KERNEL_ENV] = "0"
     try:
         skipgram.train_skipgram_sharded(pairs, len(vocab), counts, cfg,
                                         device=device)
     finally:
-        skipgram.sgns_block_grads_ref = orig
+        skipgram.sgns_pull_grads_ref = orig
         del os.environ[SGNS_KERNEL_ENV]
     return seen[steps - 1]
 
 
+def pull_cases(step, seed):
+    """Phase 8's inputs of the fused entry from a trained ``step``: the
+    step's ids with 2 % of them set to sentinels (rows, where the one-rank
+    pull parks hot ids, and -1) and 2 % to copies of other ids (duplicates
+    beyond the Zipf draw's own), in three cases: the hot cache on, with
+    replicas that differ from the tables' prefix by N(0, 0.01) noise (so a
+    read of the table for a hot id shows); the hot cache off; one tied
+    table with the cache on. Returns [(label, args)]."""
+    import torch
+
+    g = np.random.default_rng(seed)
+    ids = {}
+    for key in ("center", "uids"):
+        x = step[key].cpu().numpy().copy()
+        r = g.random(x.shape)
+        x = np.where(r < 0.01, step["rows"], x)
+        x = np.where((r >= 0.01) & (r < 0.02), -1, x)
+        dup = r > 0.98
+        x[dup] = x[g.integers(0, len(x), int(dup.sum()))]
+        ids[key] = torch.tensor(x, dtype=torch.int64,
+                                device=step["win"].device)
+
+    def noisy(t):
+        return t + torch.tensor(g.normal(0.0, 0.01, tuple(t.shape)),
+                                dtype=torch.float32, device=t.device)
+
+    hot = step["hot"]
+    on = dict(step, **ids, rep_in=noisy(step["rep_in"]),
+              rep_ctx=noisy(step["rep_ctx"]))
+    off = dict(step, **ids, hot=0, rep_in=None, rep_ctx=None)
+    tied = dict(on, w_ctx=on["win"], rep_ctx=on["rep_in"])
+    return [(f"hot cache on ({hot} rows)", on), ("hot cache off", off),
+            (f"tied table, hot cache on ({hot} rows)", tied)]
+
+
+def pull_mismatch(args, fn):
+    """Runs ``fn`` (``sgns_pull_grads`` or a stand-in) and
+    ``sgns_pull_grads_ref`` on the same ``args``, each with a hit counter
+    from 7 when the cache is on; returns max|Δ| of the gradients (infinite
+    on other hits, wrong shapes or a non-finite value). Tolerance:
+    FP32_ATOL."""
+    import torch
+
+    from alink_tpu_torch.embedding.sgns_cuda import sgns_pull_grads_ref
+
+    dev = args["win"].device
+    counters = [torch.full((), 7, dtype=torch.int64, device=dev)
+                if args["hot"] > 0 else None for _ in range(2)]
+    got = fn(**args, hits=counters[0])
+    ref = sgns_pull_grads_ref(**args, hits=counters[1])
+    if args["hot"] > 0 and int(counters[0]) != int(counters[1]):
+        return float("inf")
+    if len(got) != 2 or any(
+            a.shape != b.shape or not bool(torch.isfinite(a).all())
+            for a, b in zip(got, ref)):
+        return float("inf")
+    return max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+
+def pull_bytes(B, negs, D):
+    """Bytes the fused call must move: the (negs+2)·B ids and their table
+    or replica rows read once, grad_v and grad_u written once."""
+    rows = (2 + negs) * B
+    return rows * 8 + 2 * rows * D * 4
+
+
 def check_sgns(peaks, docs):
-    """Phase 8: ``sgns_block_grads`` against ``sgns_block_grads_ref`` on the
-    card at the main path's shape and two ragged ones, on rows of tables
-    the plain route trained on ``docs`` and on N(0, 1) rows; then timed at
-    the main path's shape beside its bound."""
-    from alink_tpu_torch.embedding.sgns_cuda import (sgns_block_grads,
-                                                     sgns_block_grads_ref)
+    """Phase 8: the gathered-rows entry ``sgns_block_grads`` against
+    ``sgns_block_grads_ref`` at the main path's shape and two ragged ones,
+    on rows of tables the plain route trained on ``docs`` and on N(0, 1)
+    rows; the fused entry ``sgns_pull_grads`` against
+    ``sgns_pull_grads_ref`` on the 300th-step tables and ids at the main
+    path's shape (cache on and off, tied, sentinel and duplicate ids, hits
+    equal); then both entries timed in a CUDA graph beside their bounds."""
+    import torch
+
+    from alink_tpu_torch.embedding.sgns_cuda import (pull_rows,
+                                                     sgns_block_grads,
+                                                     sgns_block_grads_ref,
+                                                     sgns_pull_grads,
+                                                     sgns_pull_grads_ref)
 
     corpus = word_pairs(docs)
     errors = {}
     for i, (B, negs, D) in enumerate(SGNS_SHAPES):
-        cases = (("trained rows", sgns_trained_inputs(corpus, B, negs, D)),
+        step = sgns_trained_step(corpus, B, negs, D)
+        cases = (("trained rows", pull_rows(**step)[:3]),
                  ("N(0,1) rows", sgns_normal_inputs(B, negs, D, SEED + i)))
         for kind, args in cases:
             err = sgns_mismatch(args, sgns_block_grads(*args))
@@ -1274,37 +1444,114 @@ def check_sgns(peaks, docs):
                      f"its tolerance")
             errors[f"({B}, {negs}, {D}) {kind}"] = err
         if i == 0:
-            timed = cases[0][1]          # the main path's shape, trained
+            timed, main_step = cases[0][1], step
 
     B, negs, D = SGNS_SHAPES[0]
-    plain = lambda: sgns_block_grads_ref(*timed)  # noqa: E731
-    kern = lambda: sgns_block_grads(*timed)  # noqa: E731
+    for label, args in pull_cases(main_step, SEED):
+        err = pull_mismatch(args, sgns_pull_grads)
+        print(f"sgns_pull_grads vs plain [(B, negs, D) = ({B}, {negs}, {D}), "
+              f"300th-step tables, {label}, sentinel and duplicate ids] "
+              f"max|Δ| {err:.3g} (tol {FP32_ATOL}; hits equal)", flush=True)
+        if not err <= FP32_ATOL:
+            fail(f"sgns_pull_grads [{label}] outside its tolerance or "
+                 f"counted other hits")
+        errors[f"pull ({B}, {negs}, {D}) {label}"] = err
+
+    run = dict(main_step, hits=torch.zeros((), dtype=torch.int64,
+                                           device="cuda"))
+    plain = lambda: sgns_pull_grads_ref(**run)  # noqa: E731
+    kern = lambda: sgns_pull_grads(**run)  # noqa: E731
     t = [graph_ms(plain), graph_ms(kern), graph_ms(kern), graph_ms(plain)]
+    gplain = lambda: sgns_block_grads_ref(*timed)  # noqa: E731
+    gkern = lambda: sgns_block_grads(*timed)  # noqa: E731
+    gt = [graph_ms(gplain), graph_ms(gkern), graph_ms(gkern),
+          graph_ms(gplain)]
     eager = [cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)]
-    nbytes, flops = sgns_bytes_flops(B, negs, D)
     bw, _, fp32_peak = peaks
+    gbytes, flops = sgns_bytes_flops(B, negs, D)
+    nbytes = pull_bytes(B, negs, D)
     bound_by = "bytes" if nbytes / bw >= flops / fp32_peak else "operations"
     row = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
                bound_ms=max(nbytes / bw, flops / fp32_peak) * 1e3,
-               bound_by=bound_by, library_ms=None,
+               bound_by=bound_by, library_ms=None, turns=t,
+               gathered_ms=(gt[1] + gt[2]) / 2,
+               gathered_plain_ms=(gt[0] + gt[3]) / 2,
+               gathered_bound_ms=max(gbytes / bw, flops / fp32_peak) * 1e3,
+               gathered_turns=gt,
                eager_ms=(eager[1] + eager[2]) / 2,
                eager_plain_ms=(eager[0] + eager[3]) / 2,
+               hot_rows=main_step["hot"],
                errors=errors, max_abs_err=max(errors.values()))
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"sgns_block_grads ({B}, {negs}, {D}) fp32, device time per call "
-          f"(CUDA graph of 30 launches, 50 replays; SM clock, max after: "
-          f"{clocks}): kernel {row['ms']:.5f} ms, plain "
+    print(f"sgns_pull_grads ({B}, {negs}, {D}) fp32, hot cache of "
+          f"{main_step['hot']} rows, device time per call (CUDA graph of 30 "
+          f"launches, 50 replays; SM clock, max after: {clocks}): kernel "
+          f"{row['ms']:.5f} ms, plain (pull + gradients) "
           f"{row['plain_ms']:.5f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
           f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.2f} MFLOP); "
           f"turns plain,kernel,kernel,plain = {[round(x, 5) for x in t]}; "
           f"issued eagerly from Python: kernel {row['eager_ms']:.4f} ms, "
-          f"plain {row['eager_plain_ms']:.4f} ms per call; no single "
-          f"PyTorch call computes this function (library: none)",
-          flush=True)
+          f"plain {row['eager_plain_ms']:.4f} ms per call; gathered-rows "
+          f"entry sgns_block_grads: kernel {row['gathered_ms']:.5f} ms, "
+          f"plain {row['gathered_plain_ms']:.5f} ms, bound "
+          f"{row['gathered_bound_ms'] * 1e3:.2f} us ({gbytes / 1e6:.2f} MB), "
+          f"turns {[round(x, 5) for x in gt]}; no single PyTorch call "
+          f"computes this function (library: none)", flush=True)
     return row
+
+
+def step_operations(docs, steps=OPS_STEPS):
+    """Device operations a step of the sharded loop (``torch.profiler``,
+    CUDA activity, after an untraced warm run) on ``steps`` steps of the
+    op's configuration over ``docs``, on the kernel route and on the plain
+    route (``ALINK_SGNS_PALLAS=0``). Returns, per route, the operations,
+    device µs and traced wall µs a step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from alink_tpu_torch.embedding import skipgram
+    from alink_tpu_torch.embedding.sgns_cuda import SGNS_KERNEL_ENV
+
+    vocab, counts, pairs = word_pairs(docs)
+    cfg = skipgram.SkipGramConfig(epochs=1)
+    window = pairs[:steps * cfg.batch_size]
+    out = {}
+    for route, knob in (("kernel", None), ("plain", "0")):
+        if knob is not None:
+            os.environ[SGNS_KERNEL_ENV] = knob
+        try:
+            skipgram.train_skipgram_sharded(window, len(vocab), counts, cfg)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                skipgram.train_skipgram_sharded(window, len(vocab), counts,
+                                                cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            if knob is not None:
+                del os.environ[SGNS_KERNEL_ENV]
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+        out[route] = dict(
+            operations_per_step=sum(ev.count for ev in evs) / steps,
+            device_us_per_step=sum(ev.self_device_time_total
+                                   for ev in evs) / steps,
+            traced_wall_us_per_step=wall * 1e6 / steps)
+    print(f"device operations a step ({steps} traced steps of the sharded "
+          f"loop, vocabulary {len(vocab)}, torch.profiler): kernel route "
+          f"{out['kernel']['operations_per_step']:.1f} "
+          f"({out['kernel']['device_us_per_step']:.1f} us of device work, "
+          f"{out['kernel']['traced_wall_us_per_step']:.1f} us traced wall), "
+          f"plain route {out['plain']['operations_per_step']:.1f} "
+          f"({out['plain']['device_us_per_step']:.1f} us, "
+          f"{out['plain']['traced_wall_us_per_step']:.1f} us)", flush=True)
+    return out
 
 
 def instrument_word2vec(huge, skipgram):
@@ -1426,6 +1673,7 @@ def word2vec_path(workdir, docs):
     if list(plain_model.col("word")) != words or not gap <= TABLE_ATOL:
         fail(f"the kernel route's table differs from the plain route's "
              f"({gap})")
+    ops = step_operations(docs[:OPS_DOCS])
     share = topic_share(words, vecs)
     print(f"learning gate: in-topic share of the top-10 neighbours of "
           f"vocabulary rows 100..1099 = {share:.4f} (chance 0.01, floor "
@@ -1472,8 +1720,10 @@ def word2vec_path(workdir, docs):
                 or not np.isfinite(got).all() or not err <= 1e-6:
             fail(f"word2vec request of {n} sentences: bad output table")
     return launches, dict(stats, wall_s=wall, plain_wall_s=plain_wall,
-                          vocab=len(words), table_gap=gap, topic_share=share,
-                          peak_gib=peak / 2**30, predict_rows_per_s=rates)
+                          steps_per_s=steps / stats["loop_s"],
+                          operations=ops, vocab=len(words), table_gap=gap,
+                          topic_share=share, peak_gib=peak / 2**30,
+                          predict_rows_per_s=rates)
 
 
 def main() -> int:
@@ -1529,7 +1779,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     errors, even = check_histogram(peaks, bins)
     del bins
-    tree_launches, launch_ms, (hist, forest_errors, levels) = forest_path(
+    tree_launches, forest, (hist, forest_errors, levels) = forest_path(
         workdir, X, y, peaks)
     errors.update(forest_errors)
     hist.update(errors=errors, max_abs_err=max(errors.values()),
@@ -1570,18 +1820,27 @@ def main() -> int:
              block_ms=stats["block_ms"],
              block_plain_ms=stats["block_plain_ms"]),
         dict(entry("tree_histogram", tree_launches, hist,
-                   "Tensor.index_add_ over ids*d+f (yardstick)",
-                   f"n={COVTYPE_TRAIN} d=54 int32 ids, fp32 vals; ms, "
-                   f"plain_ms, library_ms and bound_ms are means over the "
-                   f"12 levels (S = 64 ... 131072) of the forest's first "
-                   f"tree, on its g histograms' inputs"),
-             main_path_launch_ms=launch_ms, forest_levels=levels,
+                   "Tensor.index_add_ of the distinct channels over the "
+                   "flat cell index (yardstick)",
+                   f"one level call: n={COVTYPE_TRAIN} d=54 uint8 bins, "
+                   f"int32 node, fp32 (g, count, count) with h is c; ms "
+                   f"(device time in CUDA graphs), plain_ms, library_ms "
+                   f"and bound_ms are means over the 12 levels (L = 1 ... "
+                   f"2048, S = 64 ... 131072) of the forest's first tree, "
+                   f"on its level calls' inputs"),
+             forest=forest, forest_levels=levels,
              even_nodes=even),
         dict(entry("sgns_block_grads", sgns_launches, sgns, "none",
-                   "B=1024 negs=5 D=100 fp32, rows of tables trained 300 "
-                   "steps; ms and plain_ms are device time per call from a "
-                   "CUDA graph of 30 launches"),
-             eager_ms=sgns["eager_ms"], eager_plain_ms=sgns["eager_plain_ms"],
+                   "one fused pull-and-gradients call (sgns_pull_grads): "
+                   "B=1024 negs=5 D=100 fp32, the tables, hot replicas "
+                   f"({sgns['hot_rows']} rows) and ids of the 300th step of "
+                   "a training; ms and plain_ms (pull + gradients) are "
+                   "device time per call from a CUDA graph of 30 launches; "
+                   "gathered_* the gathered-rows entry sgns_block_grads on "
+                   "that step's pulled rows"),
+             **{k: sgns[k] for k in (
+                 "gathered_ms", "gathered_plain_ms", "gathered_bound_ms",
+                 "eager_ms", "eager_plain_ms", "turns", "gathered_turns")},
              word2vec=w2v)]}
     print("seconds by phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1)

@@ -10,8 +10,9 @@ and times on the host clock what ``RandomForestTrainBatchOp`` does: the
 feature block and label mapping (``_prep_data``), the binning
 (``quantile_bins`` + ``apply_bins``) and the whole ``train_forest`` (which
 bins again). A second ``train_forest`` runs under ``torch.profiler``: the
-script prints device time by kernel group and the device's idle share of
-the traced wall time; the Chrome trace goes to
+script prints device time and operations by kernel group (the level
+calls' histogram kernel and their sort of the rows apart) and the
+device's idle share of the traced wall time; the Chrome trace goes to
 ``build/forest_training_trace.json``.
 """
 
@@ -25,7 +26,11 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-GROUPS = (("tree_histogram", ("hist_shared_kernel", "hist_global_kernel")),
+GROUPS = (("tree_histogram: histograms", ("level_hist_kernel",)),
+          ("tree_histogram: sort of the rows", ("sort_count_kernel",
+                                                "scan_partial_kernel",
+                                                "scan_apply_kernel",
+                                                "sort_scatter_kernel")),
           ("cumsum (split search)", ("scan", "cumsum")),
           ("argmax and other reductions", ("reduce",)),
           ("gather and index (routing, ids)", ("gather", "index")),
@@ -87,12 +92,14 @@ def main() -> int:
           f"{busy / 1e3:.1f} ms (kernel time summed; idle share "
           f"{max(0.0, 1 - busy / wall_us):.3f})")
     sums = dict.fromkeys([g for g, _ in GROUPS] + ["other"], 0.0)
-    for dev, _, key in rows:
+    counts = dict.fromkeys(sums, 0)
+    for dev, count, key in rows:
         group = next((g for g, keys in GROUPS
                       if any(k in key for k in keys)), "other")
         sums[group] += dev
-    print("device ms by group: " + ", ".join(
-        f"{g} {v / 1e3:.1f} ({v / max(busy, 1e-9):.3f})"
+        counts[group] += count
+    print("device ms by group (operations, share): " + ", ".join(
+        f"{g} {v / 1e3:.1f} ({counts[g]}, {v / max(busy, 1e-9):.3f})"
         for g, v in sums.items()))
     for dev, count, key in rows[:15]:
         print(f"  {dev / 1e3:9.2f} ms  {count:6d}x  {dev / busy:6.3f}  "

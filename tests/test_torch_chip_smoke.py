@@ -2,7 +2,8 @@
 
 chip_smoke.py holds each CUDA kernel against its plain version on the card;
 the flash kernel first (its one-block entry, then the fused attention call),
-the tree histogram and SGNS gradients after. Here the same checks run on CPU
+the tree histogram's level call and the SGNS gradients (given rows, and the
+fused pull-and-gradients entry) after. Here the same checks run on CPU
 tensors, with the kernel's arithmetic re-done in plain torch and rounded to
 the input type at the kernel's points. That stand-in must pass; broken
 updates that mishandle the carried state, the per-block correction, the
@@ -158,14 +159,19 @@ def test_card_peaks_refuses_an_unknown_card():
 
 # -- the tree histogram (phase 5) ------------------------------------------
 #
-# chip_smoke.check_histogram holds tree_histogram against histogram_ref at
-# n = 522,911 rows of Covertype-layout bins. Here the same check runs at
-# n = 3,001 (not a multiple of any power-of-two row chunk) with
-# histogram_ref standing in for the kernel; three broken histograms must
-# fail it, with integer vals (exact) and with normal vals (the summation
-# bound of chip_smoke's histogram_mismatch).
+# chip_smoke.check_histogram holds the fused level call level_histograms
+# against level_histograms_ref at n = 522,911 rows of Covertype-layout bins.
+# Here the same check runs at n = 3,001 (not a multiple of any power-of-two
+# row chunk) with the plain version standing in for the kernel; broken level
+# calls must fail it, with integer vals (exact) and with normal vals (the
+# summation bound of chip_smoke's level_mismatch).
 
 HIST_N = 3001
+CHANNELS = {              # a test's value kind -> the level call's (g, h, c)
+    "g": ("g", "count", "count"),          # the forest's: h is c
+    "count": ("count", "g", "g"),
+    "normal": ("normal", "g", "count"),    # h != c
+}
 
 
 @pytest.fixture(scope="module")
@@ -173,7 +179,7 @@ def covertype_bins():
     from alink_tpu_torch.tree.binning import apply_bins, quantile_bins
 
     X, y = chip_smoke.covertype_data(HIST_N, seed=0)
-    return apply_bins(X, quantile_bins(X, 64))
+    return apply_bins(X, quantile_bins(X, 64)).astype(np.uint8)
 
 
 def test_covertype_data_keeps_the_file_layout():
@@ -186,33 +192,53 @@ def test_covertype_data_keeps_the_file_layout():
     assert set(np.unique(y)) == {0, 1} and 0.2 < y.mean() < 0.8
 
 
-def _drop_ragged_chunk(ids, vals, S, chunk=512):
-    from alink_tpu_torch.tree.hist_cuda import histogram_ref
+def _ref(bins, node, vals, L):
+    from alink_tpu_torch.tree.hist_cuda import level_histograms_ref
 
-    keep = ids.shape[0] // chunk * chunk
-    return histogram_ref(ids[:keep], vals[:keep], num_segments=S)
-
-
-def _clamp_out_of_range(ids, vals, S):
-    from alink_tpu_torch.tree.hist_cuda import histogram_ref
-
-    return histogram_ref(torch.where(ids >= S, S - 1, ids), vals,
-                         num_segments=S)
+    return level_histograms_ref(bins, node, vals, num_nodes=L,
+                                num_bins=chip_smoke.HIST_BINS)
 
 
-def _swap_two_features(ids, vals, S):
-    from alink_tpu_torch.tree.hist_cuda import histogram_ref
-
-    out = histogram_ref(ids, vals, num_segments=S)
-    return out[:, [1, 0] + list(range(2, out.shape[1]))]
+def _drop_ragged_chunk(bins, node, vals, L, chunk=512):
+    keep = bins.shape[0] // chunk * chunk
+    return _ref(bins[:keep], node[:keep], [v[:keep] for v in vals], L)
 
 
-def _hist_ratio(bins, level, kind, fn, oob=True):
-    ids, S, vals = chip_smoke.histogram_inputs(bins, level, seed=level,
+def _clamp_out_of_range(bins, node, vals, L):
+    # bins past B clamped to the last bin instead of landing past the node
+    return _ref(bins.clamp(max=chip_smoke.HIST_BINS - 1), node, vals, L)
+
+
+def _swap_two_features(bins, node, vals, L):
+    return tuple(h[:, [1, 0] + list(range(2, h.shape[1]))]
+                 for h in _ref(bins, node, vals, L))
+
+
+def _drop_channel_c(bins, node, vals, L):
+    hg, hh, _ = _ref(bins, node, vals, L)
+    return hg, hh, torch.zeros_like(hh)
+
+
+def _swap_h_and_c(bins, node, vals, L):
+    hg, hh, hc = _ref(bins, node, vals, L)
+    return hg, hc, hh
+
+
+def _count_outside_nodes(bins, node, vals, L):
+    # nodes outside [0, L) counted at the nearest node
+    return _ref(bins, node.clamp(0, L - 1), vals, L)
+
+
+def _level_ratio(bins, level, kind, fn, oob=True):
+    b, node, L, vals = chip_smoke.level_inputs(bins, level, seed=level,
                                                device="cpu", oob=oob)
-    got = fn(ids, vals[kind], S)
-    return chip_smoke.histogram_mismatch(ids, vals[kind], S, got,
-                                         exact=kind != "normal")[1]
+    names = CHANNELS[kind]
+    chans = tuple(vals[k] for k in names)
+    if names[1] == names[2]:
+        chans = chans[:2] + (chans[1],)        # the same tensor: h is c
+    got = fn(b, node, chans, L)
+    return chip_smoke.level_mismatch(b, node, chans, L, got,
+                                     tuple(k != "normal" for k in names))[1]
 
 
 @pytest.mark.parametrize("kind", ["g", "count", "normal"])
@@ -220,12 +246,13 @@ def _hist_ratio(bins, level, kind, fn, oob=True):
                                        (11, True)])
 def test_histogram_ref_passes_the_smoke_check(covertype_bins, level, oob,
                                               kind):
-    from alink_tpu_torch.tree.hist_cuda import histogram
+    from alink_tpu_torch.tree.hist_cuda import level_histograms
 
-    def kernel(ids, vals, S):
-        return histogram(ids, vals, num_segments=S)
+    def kernel(bins, node, vals, L):
+        return level_histograms(bins, node, vals, num_nodes=L,
+                                num_bins=chip_smoke.HIST_BINS)
 
-    assert _hist_ratio(covertype_bins, level, kind, kernel, oob) <= 1.0
+    assert _level_ratio(covertype_bins, level, kind, kernel, oob) <= 1.0
 
 
 @pytest.mark.parametrize("kind", ["g", "normal"])
@@ -233,7 +260,45 @@ def test_histogram_ref_passes_the_smoke_check(covertype_bins, level, oob,
                                     _swap_two_features])
 def test_histogram_smoke_check_rejects_broken_histograms(covertype_bins,
                                                          mutant, kind):
-    assert _hist_ratio(covertype_bins, 6, kind, mutant) > 1.0
+    assert _level_ratio(covertype_bins, 6, kind, mutant) > 1.0
+
+
+@pytest.mark.parametrize("mutant,kind,oob", [
+    (_drop_channel_c, "g", False), (_drop_channel_c, "normal", False),
+    (_swap_h_and_c, "normal", False), (_count_outside_nodes, "g", True),
+    (_count_outside_nodes, "normal", True)])
+@pytest.mark.parametrize("level", [0, 11])
+def test_level_smoke_check_rejects_broken_channels_and_nodes(
+        covertype_bins, mutant, kind, oob, level):
+    assert _level_ratio(covertype_bins, level, kind, mutant, oob) > 1.0
+
+
+def test_level_cases_cover_the_forest_and_the_edges(covertype_bins):
+    # phase 5's cases: the forest's channels with h the same tensor as c,
+    # real ones with h != c, and at L = 1, 64, 2048 nodes and bins out of
+    # range
+    seen = {}
+    for level in (0, 3, 6):
+        for label, b, node, L, vals, exact in chip_smoke.level_cases(
+                torch.from_numpy(covertype_bins), level, level,
+                device="cpu"):
+            seen[(L, label)] = (b, node, vals, exact)
+    assert len(seen) == 2 * 3 + 2 * 2
+    b, node, vals, exact = seen[(1, "forest g, count, count (h is c)")]
+    assert vals[1] is vals[2] and exact == (True, True, True)
+    b, node, vals, exact = seen[(64, "oob normal, g, count (h != c)")]
+    assert vals[1] is not vals[2] and exact == (False, True, True)
+    assert bool((node < 0).any()) and bool((node >= 64).any())
+    assert int(b.max()) >= chip_smoke.HIST_BINS
+
+
+def test_level_bound_counts_each_input_once():
+    # bins, node and the distinct channels read once, their histograms
+    # written once: 34.5 MB at L = 1 and 91.1 MB at L = 2048
+    n, d = chip_smoke.COVTYPE_TRAIN, 54
+    assert chip_smoke.level_bytes(n, d, 1, 2) == \
+        n * d + 4 * n + 2 * (4 * n + 4 * 64 * d)
+    assert round(chip_smoke.level_bytes(n, d, 2048, 2) / 1e6, 1) == 91.1
 
 
 def test_predict_oracle_matches_the_ensemble():
@@ -288,8 +353,11 @@ def test_sgns_stand_in_passes_the_smoke_check(B, negs, D):
 
 
 def test_sgns_stand_in_passes_on_trained_rows(text8_docs):
-    args = chip_smoke.sgns_trained_inputs(chip_smoke.word_pairs(text8_docs),
-                                          256, 5, 100, steps=40, device="cpu")
+    from alink_tpu_torch.embedding.sgns_cuda import pull_rows
+
+    args = pull_rows(**chip_smoke.sgns_trained_step(
+        chip_smoke.word_pairs(text8_docs), 256, 5, 100, steps=40,
+        device="cpu"))[:3]
     assert args[0].shape == (256, 100) and args[2].shape == (256, 5, 100)
     assert 0 < float(args[2].abs().max()) < 10     # the context table moved
     assert all(bool(torch.isfinite(a).all()) for a in args)
@@ -302,6 +370,86 @@ def test_sgns_smoke_check_rejects_broken_kernels(mutant):
     args = chip_smoke.sgns_normal_inputs(1000, 15, 100, seed=1, device="cpu")
     assert chip_smoke.sgns_mismatch(args, sgns_like(*args, mutant=mutant)) \
         > chip_smoke.FP32_ATOL
+
+
+# The fused entry: chip_smoke.check_sgns holds sgns_pull_grads against
+# sgns_pull_grads_ref on the tables and ids of a trained step, with sentinel
+# and duplicate ids, the cache on (replicas that differ from the tables'
+# prefix), off and tied, and equal hits. A plain-torch stand-in of the
+# kernel (each row read through its id, the gradients of sgns_like, the hot
+# ids counted) must pass; stand-ins that read the table for hot ids, read
+# sentinel ids as row 0, or count only the centers' hits must fail.
+
+
+def pull_like(win, w_ctx, center, uids, *, negs, rows, hot, rep_in=None,
+              rep_ctx=None, hits=None, mutant=None):
+    def read(table, rep, ids):
+        inside = (ids >= 0) & (ids < rows)
+        if mutant == "sentinel_row0":
+            rows_of = table[torch.where(inside, ids, 0)]
+        else:
+            rows_of = torch.where(inside[:, None],
+                                  table[ids.clamp(0, rows - 1)], 0.0)
+        if hot > 0 and mutant != "ignore_replica":
+            is_hot = (ids >= 0) & (ids < hot)
+            rows_of = torch.where(is_hot[:, None],
+                                  rep[ids.clamp(0, hot - 1)], rows_of)
+        return rows_of
+
+    B, D = center.shape[0], win.shape[1]
+    v, u = read(win, rep_in, center), read(w_ctx, rep_ctx, uids)
+    if hits is not None:
+        n_hot = lambda x: ((x >= 0) & (x < hot)).sum()  # noqa: E731
+        hits += n_hot(center)
+        if mutant != "miscount_hits":
+            hits += n_hot(uids)
+    return sgns_like(v, u[:B], u[B:].reshape(B, negs, D))
+
+
+@pytest.fixture(scope="module")
+def trained_step(text8_docs):
+    return chip_smoke.sgns_trained_step(chip_smoke.word_pairs(text8_docs),
+                                        256, 5, 100, steps=40, device="cpu")
+
+
+def test_pull_cases_cover_the_ids_and_the_cache(trained_step):
+    cases = dict(chip_smoke.pull_cases(trained_step, seed=0))
+    hot, rows = trained_step["hot"], trained_step["rows"]
+    assert len(cases) == 3 and hot > 0
+    on = cases[f"hot cache on ({hot} rows)"]
+    ids = torch.cat([on["center"], on["uids"]])
+    assert bool((ids == rows).any()) and bool((ids == -1).any())
+    assert bool(((ids >= 0) & (ids < hot)).any())
+    assert len(torch.unique(ids)) < len(ids)                 # duplicates
+    assert not torch.equal(on["rep_in"], on["win"][:hot])    # replica shows
+    assert cases["hot cache off"]["hot"] == 0
+    tied = cases[f"tied table, hot cache on ({hot} rows)"]
+    assert tied["w_ctx"] is tied["win"] and tied["rep_ctx"] is tied["rep_in"]
+
+
+def test_pull_stand_in_passes_the_smoke_check(trained_step):
+    for label, args in chip_smoke.pull_cases(trained_step, seed=0):
+        assert chip_smoke.pull_mismatch(args, pull_like) \
+            <= chip_smoke.FP32_ATOL, label
+
+
+@pytest.mark.parametrize("mutant", ["ignore_replica", "sentinel_row0",
+                                    "miscount_hits"])
+def test_pull_smoke_check_rejects_broken_kernels(trained_step, mutant):
+    on = chip_smoke.pull_cases(trained_step, seed=0)[0][1]
+
+    def broken(**kw):
+        return pull_like(**kw, mutant=mutant)
+
+    assert chip_smoke.pull_mismatch(on, broken) > chip_smoke.FP32_ATOL
+
+
+def test_pull_bound_counts_each_row_once():
+    # the 7·B ids and their rows read once, grad_v and grad_u written once:
+    # 5.79 MB, 1.73 us at 3.35 TB/s
+    nbytes = chip_smoke.pull_bytes(1024, 5, 100)
+    assert nbytes == 7 * 1024 * 8 + 2 * 7 * 1024 * 100 * 4
+    assert round(nbytes / 3.35e12 * 1e6, 2) == 1.73
 
 
 def test_sgns_bound_counts_each_row_once():

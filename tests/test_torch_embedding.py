@@ -3,9 +3,14 @@ tables and the huge operators) held against ``alink_tpu`` on the CPU, with
 inputs made by seeded numpy.
 
 - ``sgns_block_grads_ref`` (the plain version of the CUDA kernel
-  ``sgns_block_grads``) against the reference's ``_block_grads`` and its
-  Pallas kernel in interpret mode, at the shapes of ``tests/test_kernels.py``
-  and a ragged D = 37: atol 1e-5, the reference kernel's contract.
+  ``sgns_block_grads`` given the pulled rows) against the reference's
+  ``_block_grads`` and its Pallas kernel in interpret mode, at the shapes of
+  ``tests/test_kernels.py`` and a ragged D = 37: atol 1e-5, the reference
+  kernel's contract. ``sgns_pull_grads_ref`` (the plain version of the
+  trainer's fused pull-and-gradients entry) against the reference's
+  ``pull_cached``/``pull`` and the Pallas kernel on a one-device mesh, with
+  hot, cold, sentinel and duplicate ids and a tied table: atol 1e-5, hits
+  equal.
 - The trainers against the reference's on one device
   (``model_mesh(1)``, and a one-device mesh for the host engine), with the
   reference's negative stream replayed into the port (its threefry draws
@@ -97,6 +102,132 @@ def test_wrapper_takes_the_plain_version_on_cpu_without_counting():
     assert spec.plain == "sgns_block_grads_ref"
     assert os.path.exists(os.path.join(os.path.dirname(kernels.__file__),
                                        "..", spec.source))
+
+
+def _pull_step(rows=40, D=16, B=12, negs=3, hot=6, tied=False, seed=2):
+    """A step's pull inputs with every kind of id: hot ids (< hot), cold ids,
+    sentinels (rows, the one-rank pull's parked id, and -1) and duplicates;
+    replicas that differ from the tables' prefix, so a read of the table
+    for a hot id shows."""
+    rng = np.random.default_rng(seed)
+    win = rng.normal(size=(rows, D)).astype(np.float32)
+    wctx = win if tied else rng.normal(size=(rows, D)).astype(np.float32)
+    rep_in = (rng.normal(size=(hot, D)) * 0.5).astype(np.float32)
+    rep_ctx = rep_in if tied else (rng.normal(size=(hot, D)) * 0.5).astype(
+        np.float32)
+    center = rng.integers(0, rows, B)
+    uids = rng.integers(0, rows, (negs + 1) * B)
+    center[:3] = [0, rows, 1]                  # hot, sentinel, hot
+    uids[:5] = [rows, -1, 2, 2, rows - 1]      # sentinels, duplicates, cold
+    uids[B:B + 4] = [0, 0, rows, 5]
+    return (win, wctx, center.astype(np.int64), uids.astype(np.int64),
+            rep_in, rep_ctx)
+
+
+def _jax_pull_grads(win, wctx, center, uids, rep_in, rep_ctx, *, negs, rows,
+                    hot):
+    """The reference's step on a one-device mesh: ``pull_cached`` (or
+    ``pull``) of both id vectors, then the Pallas kernel in interpret
+    mode. Returns (grad_v, grad_u, hits)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from alink_tpu.embedding.sgns_pallas import sgns_block_grads
+    from alink_tpu.parallel.aps import AXIS_MODEL, model_mesh, pull
+    from alink_tpu.parallel.hotcache import pull_cached
+    from alink_tpu.parallel.shardmap import shard_map
+
+    B, D = center.shape[0], win.shape[1]
+    axis = AXIS_MODEL
+
+    def body(win_l, wctx_l, r_in, r_ctx, c, u_ids):
+        if hot > 0:
+            v, h1 = pull_cached(win_l, r_in, c, axis, rows, hot)
+            u, h2 = pull_cached(wctx_l, r_ctx, u_ids, axis, rows, hot)
+            hits = h1 + h2
+        else:
+            v = pull(win_l, c, axis, rows)
+            u = pull(wctx_l, u_ids, axis, rows)
+            hits = jnp.zeros((), jnp.int32)
+        gv, gu = sgns_block_grads(v, u[:B], u[B:].reshape(B, negs, D),
+                                  interpret=True)
+        return gv, gu, hits[None]
+
+    run = jax.jit(shard_map(body, mesh=model_mesh(1),
+                    in_specs=(P(axis), P(axis), P(), P(), P(), P()),
+                    out_specs=(P(), P(), P(axis)), check_vma=False))
+    gv, gu, hits = run(*(jnp.asarray(x) for x in (
+        win, wctx, rep_in, rep_ctx, center.astype(np.int32),
+        uids.astype(np.int32))))
+    return np.asarray(gv), np.asarray(gu), int(np.asarray(hits).sum())
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("hot", [0, 6])
+def test_pull_grads_ref_matches_reference(hot, tied):
+    # the fused entry's plain version against the reference's pull (through
+    # the hot cache when hot > 0) and its Pallas kernel: grads at atol 1e-5,
+    # hits equal
+    from alink_tpu_torch.embedding.sgns_cuda import (sgns_pull_grads,
+                                                     sgns_pull_grads_ref)
+
+    negs, rows = 3, 40
+    win, wctx, center, uids, rep_in, rep_ctx = _pull_step(hot=max(hot, 1),
+                                                          tied=tied)
+    ref_v, ref_u, ref_hits = _jax_pull_grads(
+        win, wctx, center, uids, rep_in, rep_ctx, negs=negs, rows=rows,
+        hot=hot)
+    t = {k: torch.from_numpy(x) for k, x in dict(
+        win=win, wctx=wctx, center=center, uids=uids, rep_in=rep_in,
+        rep_ctx=rep_ctx).items()}
+    if tied:
+        t["wctx"], t["rep_ctx"] = t["win"], t["rep_in"]
+    for fn in (sgns_pull_grads_ref, sgns_pull_grads):
+        hits = torch.full((), 5, dtype=torch.int64)
+        gv, gu = fn(t["win"], t["wctx"], t["center"], t["uids"], negs=negs,
+                    rows=rows, hot=hot,
+                    rep_in=t["rep_in"] if hot else None,
+                    rep_ctx=t["rep_ctx"] if hot else None,
+                    hits=hits if hot else None)
+        np.testing.assert_allclose(gv.numpy(), ref_v, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(gu.numpy(), ref_u, rtol=0, atol=1e-5)
+        assert int(hits) - 5 == ref_hits
+    if hot:
+        is_hot = lambda x: int(((x >= 0) & (x < hot)).sum())  # noqa: E731
+        assert ref_hits == is_hot(center) + is_hot(uids) > 0
+
+
+def test_pull_grads_takes_the_plain_version_only_for_cpu_tensors(
+        monkeypatch):
+    from alink_tpu_torch.embedding.sgns_cuda import (sgns_pull_grads,
+                                                     sgns_pull_grads_ref)
+    from alink_tpu_torch.native import kernels
+
+    calls = []
+
+    def no_kernel():
+        calls.append(1)
+        raise RuntimeError("kernel unavailable")
+
+    monkeypatch.setattr(kernels, "ops", no_kernel)
+    kernels.reset_launches()
+    win, wctx, center, uids, rep_in, rep_ctx = (
+        torch.from_numpy(x) for x in _pull_step())
+    kw = dict(negs=3, rows=40, hot=6, rep_in=rep_in, rep_ctx=rep_ctx)
+    h1, h2 = torch.zeros((), dtype=torch.int64), torch.zeros((),
+                                                             dtype=torch.int64)
+    for a, b in zip(sgns_pull_grads(win, wctx, center, uids, hits=h1, **kw),
+                    sgns_pull_grads_ref(win, wctx, center, uids, hits=h2,
+                                        **kw)):
+        assert torch.equal(a, b)
+    assert int(h1) == int(h2) > 0
+    assert calls == [] and kernels.launches()["sgns_block_grads"] == 0
+    meta = dict(kw, rep_in=rep_in.to("meta"), rep_ctx=rep_ctx.to("meta"))
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        sgns_pull_grads(win.to("meta"), wctx.to("meta"), center.to("meta"),
+                        uids.to("meta"), hits=h1.to("meta"), **meta)
+    assert calls == [1] and kernels.launches()["sgns_block_grads"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """The tree slice of the port (``alink_tpu_torch.tree`` and its operators)
 held against ``alink_tpu`` on the CPU, with inputs made by seeded numpy.
 
-- ``histogram_ref`` (the plain version of the CUDA kernel ``tree_histogram``)
+- ``histogram_ref`` (the reference kernel's function) and
+  ``level_histograms_ref`` (the plain version of the CUDA kernel
+  ``tree_histogram``: one level's g, h and count histograms in one call)
   against the JAX kernel ``pallas_histogram`` in interpret mode and against
   the level program's knob-off fallback, a vmapped ``segment_sum``, at the
-  shapes of ``tests/test_pallas_hist.py``: exact on integer vals, atol 1e-5
-  on normal vals (the reference kernel's contract), out-of-range ids
-  included.
+  shapes of ``tests/test_pallas_hist.py`` and at small levels: exact on
+  integer vals, atol 1e-5 on normal vals (the reference kernel's contract),
+  out-of-range ids and nodes included.
 - ``train_forest`` against JAX with ``ALINK_GBDT_PALLAS`` at 0 and at 1
   (interpret mode): split features and thresholds identical; leaves and
   ``raw_predict`` within 1e-6 for classification (integer histograms, so
@@ -92,11 +94,66 @@ def test_histogram_ref_drops_out_of_range_ids(integer):
     _check_hist(ids, vals, S, integer)
 
 
+def _level_inputs(n, d, L, B, integer, seed=0, oob=False):
+    """One level's (bins uint8, node int32, g, h, c): bins in [0, B), nodes
+    in [0, L); with ``oob`` 5 % of the nodes at -1 and 5 % in [L, L+3)."""
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, B, (n, d)).astype(np.uint8)
+    node = rng.integers(0, L, n).astype(np.int32)
+    if oob:
+        r = rng.random(n)
+        node[r < 0.05] = -1
+        hi = r > 0.95
+        node[hi] = L + rng.integers(0, 3, int(hi.sum()))
+    if integer:
+        w = rng.integers(0, 4, n).astype(np.float32)
+        g = -(rng.integers(0, 2, n) * w).astype(np.float32)
+        h = rng.integers(0, 3, n).astype(np.float32)
+    else:
+        g, h, w = (rng.normal(size=n).astype(np.float32) for _ in range(3))
+    return bins, node, g, h, w
+
+
+@pytest.mark.parametrize("oob", [False, True])
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("h_is_c", [True, False])
+@pytest.mark.parametrize("level", [0, 2, 5])
+def test_level_histograms_ref_matches_jax(level, h_is_c, integer, oob):
+    # the level program's three histograms in one call, against three
+    # reference kernel calls (interpret mode) and the vmapped segment_sum
+    # over ids = node·B + bin, reshaped to (L, d, B) as the level program
+    # does
+    from alink_tpu_torch.tree.hist_cuda import level_histograms_ref
+
+    n, d, L, B = 700, 6, 1 << level, 16
+    bins, node, g, h, w = _level_inputs(n, d, L, B, integer, seed=level,
+                                        oob=oob)
+    c = w if h_is_c else h
+    vals = (g, w, c)
+    got = level_histograms_ref(
+        torch.from_numpy(bins), torch.from_numpy(node),
+        tuple(torch.from_numpy(v) for v in vals), num_nodes=L, num_bins=B)
+    assert len(got) == 3
+    ids = node[:, None].astype(np.int32) * B + bins.astype(np.int32)
+    for v, out in zip(vals, got):
+        assert out.shape == (L, d, B) and out.is_contiguous()
+        for ref in _jax_histograms(ids, v, L * B):
+            ref = ref.reshape(L, B, d).transpose(0, 2, 1)
+            if integer:
+                np.testing.assert_array_equal(out.numpy(), ref)
+            else:
+                np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                                           atol=1e-5)
+    if h_is_c:
+        assert torch.equal(got[1], got[2])
+
+
 def test_histogram_takes_plain_version_only_for_cpu_tensors(monkeypatch):
     # a tensor off the CPU goes to the kernel, whose failure propagates:
-    # nothing falls back to the plain version
+    # nothing falls back to the plain version, and only a launch counts
     from alink_tpu_torch.native import kernels
-    from alink_tpu_torch.tree.hist_cuda import histogram, histogram_ref
+    from alink_tpu_torch.tree.hist_cuda import (level_histograms,
+                                                level_histograms_ref)
 
     calls = []
 
@@ -106,13 +163,20 @@ def test_histogram_takes_plain_version_only_for_cpu_tensors(monkeypatch):
 
     monkeypatch.setattr(kernels, "ops", no_kernel)
     kernels.reset_launches()
-    ids, vals = (torch.from_numpy(a) for a in _hist_inputs(50, 4, 8, True))
-    assert torch.equal(histogram(ids, vals, num_segments=8),
-                       histogram_ref(ids, vals, num_segments=8))
+    bins, node, g, h, w = (torch.from_numpy(a) for a in
+                           _level_inputs(50, 4, 2, 8, True))
+    kw = dict(num_nodes=2, num_bins=8)
+    for a, b in zip(level_histograms(bins, node, (g, w, w), **kw),
+                    level_histograms_ref(bins, node, (g, w, w), **kw)):
+        assert torch.equal(a, b)
     assert calls == [] and kernels.launches()["tree_histogram"] == 0
     with pytest.raises(RuntimeError, match="kernel unavailable"):
-        histogram(ids.to("meta"), vals.to("meta"), num_segments=8)
+        level_histograms(bins.to("meta"), node.to("meta"),
+                         (g.to("meta"), w.to("meta"), w.to("meta")), **kw)
     assert calls == [1] and kernels.launches()["tree_histogram"] == 0
+    spec = kernels.KERNELS["tree_histogram"]
+    assert spec.plain == "level_histograms_ref"
+    assert spec.replaces == "alink_tpu/tree/pallas_hist.py:101"
 
 
 def _forest_data(task):
