@@ -96,6 +96,13 @@ def resolve_device(device=None):
     return dev
 
 
+def plugin_dir() -> str:
+    """The local plugin directory pretrained resources are read from
+    (the reference's ``AlinkGlobalConfiguration.get_plugin_dir``):
+    ``ALINK_PLUGINS_DIR``, else ``plugins``."""
+    return os.environ.get("ALINK_PLUGINS_DIR", "plugins")
+
+
 class MLEnvironment:
     """One session: torch device + lazy-sink manager."""
 

@@ -26,7 +26,6 @@
 struct HistVals {
   const float* p[3];
 };
-int tree_histogram_max_features();
 int tree_histogram_max_nodes();
 long long tree_histogram_scratch(int n, int L);
 cudaError_t tree_histogram_launch(const void* bins, int bin_bytes,
@@ -34,7 +33,6 @@ cudaError_t tree_histogram_launch(const void* bins, int bin_bytes,
                                   float* out, int* scratch, int n, int d,
                                   int L, int B, cudaStream_t stream);
 
-int sgns_block_grads_max_dim();
 cudaError_t sgns_block_grads_launch(const float* v, const float* u_pos,
                                     const float* u_neg, float* grad_v,
                                     float* grad_u, int B, int negs, int D,
@@ -223,8 +221,7 @@ at::Tensor tree_histogram(const at::Tensor& bins, const at::Tensor& node,
   TORCH_CHECK(L >= 1 && L <= tree_histogram_max_nodes() && B >= 1,
               "num_nodes must lie in [1, ", tree_histogram_max_nodes(),
               "] and num_bins be positive, got ", L, " and ", B);
-  TORCH_CHECK(d <= tree_histogram_max_features(), "d = ", d,
-              " features exceed the kernel's ", tree_histogram_max_features());
+  TORCH_CHECK(d <= 65535LL * 128, "d = ", d, " features exceed the grid");
   TORCH_CHECK(n <= std::numeric_limits<int32_t>::max() / 2 &&
                   L * B <= std::numeric_limits<int32_t>::max(),
               "(n, L·B) = (", n, ", ", L * B,
@@ -246,8 +243,7 @@ at::Tensor tree_histogram(const at::Tensor& bins, const at::Tensor& node,
 }
 
 void check_sgns_block(int64_t B, int64_t negs, int64_t D) {
-  TORCH_CHECK(D >= 1 && D <= sgns_block_grads_max_dim(), "row width D = ", D,
-              " is outside [1, ", sgns_block_grads_max_dim(), "]");
+  TORCH_CHECK(D >= 1, "row width D = ", D, " must be positive");
   TORCH_CHECK((negs + 1) * B * D <= std::numeric_limits<int32_t>::max() &&
                   B <= std::numeric_limits<int32_t>::max() / 32,
               "block (", B, ", ", negs, ", ", D, ") is too large");

@@ -23,8 +23,8 @@
 //  - gathered rows (sgns_block_grads_ref): v (B, D), u_pos (B, D) and
 //    u_neg (B, negs, D) given, as the TPU kernel takes them.
 // Layout: tables (rows, D), replicas (hot, D), v, u_pos, u_neg, grad_v (B, D)
-// and grad_u ((negs+1)·B, D) fp32; ids int64; all contiguous. Any B, any
-// D ≤ 1024 (ragged D needs no padding), any negs ≥ 0.
+// and grad_u ((negs+1)·B, D) fp32; ids int64; all contiguous. Any B, any D
+// (ragged D needs no padding), any negs ≥ 0.
 //
 // Design. One warp owns one center row b from start to end. Lane l holds
 // elements d = l, l+32, … of a row, so a warp's loads and stores are
@@ -38,7 +38,10 @@
 // which stays in registers in the reference kernel's order
 // g_pos·u_pos + g_0·u_0 + g_1·u_1 + … and is written once. A CTA adds its
 // warps' hits to *hits with one atomic. The gathered rows of the pull never
-// reach device memory.
+// reach device memory. Rows wider than 1,024 (32 elements a lane) do not fit
+// in registers: sgns_wide_kernel walks them in chunks, a row at a time, and
+// keeps grad_v in its output row instead (the reference pads D to lanes of
+// 128 and has no cap either).
 //
 // Bound. Each input read once and each output written once: at the main
 // path's (B, negs, D) = (1024, 5, 100), the 7·B ids (57 KB) and 7·B rows of
@@ -196,6 +199,64 @@ sgns_block_grads_kernel(SgnsArgs a, float* __restrict__ grad_v,
   }
 }
 
+// D > 1024: one warp per center row as above, with the rows walked in
+// chunks of 32 elements, lane-strided: for each context or negative row j,
+// the dot product v_b·u_j over the whole row, then grad_u row j and
+// grad_v[b] += g_j·u_j (read back from its output row, which only this
+// warp writes), in the same order of terms as the kernel above.
+__global__ void __launch_bounds__(THREADS)
+sgns_wide_kernel(SgnsArgs a, float* __restrict__ grad_v,
+                 float* __restrict__ grad_u, int B, int negs, int D) {
+  __shared__ unsigned long long cta_hits;
+  if (threadIdx.x == 0) cta_hits = 0;
+  if (a.hits != nullptr) __syncthreads();
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+
+  if (b < B) {
+    const int nrows = negs + 2;
+    bool hit = false;
+    const float* mine = lane < nrows
+        ? row_source(a, b, lane, B, negs, D, &hit) : nullptr;
+    unsigned long long warp_hits =
+        __popc(__ballot_sync(0xffffffffu, hit && lane < nrows));
+    auto src = [&](int j) -> const float* {
+      if (j < 32)
+        return reinterpret_cast<const float*>(__shfl_sync(
+            0xffffffffu, reinterpret_cast<unsigned long long>(mine), j));
+      bool h;
+      const float* p = row_source(a, b, j, B, negs, D, &h);
+      if (h) ++warp_hits;
+      return p;
+    };
+    const float* pv = src(0);
+    float* gv = grad_v + (size_t)b * D;
+    for (int j = 1; j < nrows; ++j) {
+      const float* pu = src(j);
+      float s = 0.f;
+      if (pv != nullptr && pu != nullptr)
+        for (int d = lane; d < D; d += 32) s += pv[d] * pu[d];
+      s = warp_sum(s);
+      const float sg = sigmoid(s);
+      const float gj = j == 1 ? sg - 1.0f : sg;
+      float* gu = grad_u + (j == 1 ? (size_t)b
+                                   : (size_t)B + (size_t)b * negs + (j - 2)) *
+                               D;
+      for (int d = lane; d < D; d += 32) {
+        const float u = pu != nullptr ? pu[d] : 0.f;
+        gu[d] = gj * (pv != nullptr ? pv[d] : 0.f);
+        gv[d] = j == 1 ? gj * u : gv[d] + gj * u;
+      }
+    }
+    if (a.hits != nullptr && lane == 0 && warp_hits != 0)
+      atomicAdd(&cta_hits, warp_hits);
+  }
+  if (a.hits != nullptr) {
+    __syncthreads();
+    if (threadIdx.x == 0 && cta_hits != 0) atomicAdd(a.hits, cta_hits);
+  }
+}
+
 template <int VPL, int GROUP>
 cudaError_t launch(const SgnsArgs& a, float* grad_v, float* grad_u, int B,
                    int negs, int D, cudaStream_t stream) {
@@ -215,17 +276,15 @@ cudaError_t launch_any(const SgnsArgs& a, float* grad_v, float* grad_u, int B,
   if (vpl <= 8) return launch<8, 8>(a, grad_v, grad_u, B, negs, D, stream);
   if (vpl <= 16) return launch<16, 4>(a, grad_v, grad_u, B, negs, D, stream);
   if (vpl <= 32) return launch<32, 2>(a, grad_v, grad_u, B, negs, D, stream);
-  return cudaErrorInvalidValue;
+  sgns_wide_kernel<<<(B + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
+      a, grad_v, grad_u, B, negs, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Largest row width the kernel takes.
-int sgns_block_grads_max_dim() { return 32 * 32; }
-
 // Gathered-rows mode: writes grad_v (B, D) and grad_u ((negs+1)·B, D) from
-// v, u_pos and u_neg. Requires 1 ≤ D ≤ 1024. Returns the launch's CUDA
-// status.
+// v, u_pos and u_neg. Requires D ≥ 1. Returns the launch's CUDA status.
 cudaError_t sgns_block_grads_launch(const float* v, const float* u_pos,
                                     const float* u_neg, float* grad_v,
                                     float* grad_u, int B, int negs, int D,
@@ -236,8 +295,8 @@ cudaError_t sgns_block_grads_launch(const float* v, const float* u_pos,
 }
 
 // Pull mode: the same gradients with the rows read from the tables through
-// the ids (see the top of the file). Requires 1 ≤ D ≤ 1024; the replicas and
-// hits only when hot > 0. Returns the launch's CUDA status.
+// the ids (see the top of the file). Requires D ≥ 1; the replicas and hits
+// only when hot > 0. Returns the launch's CUDA status.
 cudaError_t sgns_pull_grads_launch(const float* win, const float* wctx,
                                    const int64_t* center, const int64_t* uids,
                                    const float* rep_in, const float* rep_ctx,

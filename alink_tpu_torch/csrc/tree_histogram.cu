@@ -13,7 +13,10 @@
 //
 // Layout: bins (n, d) uint8 or int32; node (n,) int32; vals C × (n,) fp32;
 // out (C, L, d, B) fp32, zeroed by the caller; int32 scratch of
-// tree_histogram_scratch(n, L). All contiguous.
+// tree_histogram_scratch(n, L). All contiguous. Any d: up to 256 features
+// are one block; wider tables are walked in blocks of 128 features on a
+// second grid axis (the reference's kernel takes blocks of 128 too), over
+// the one sort of the rows.
 //
 // Design. Five launches on the caller's stream.
 //  - A stable counting sort of the rows by node (bucket 0 below the range,
@@ -26,8 +29,9 @@
 //    (a library radix sort of node took a third of the call).
 //  - level_hist_kernel: the rows are taken in that order, so a run of rows
 //    belongs to one node. Each CTA owns a contiguous slice of the ordered
-//    rows (a small node whole, a large one in slices) and, for every node
-//    run in its slice, builds that node's full C × d × B histogram in
+//    rows (a small node whole, a large one in slices) and one block of
+//    features (blockIdx.y; all of them up to d = 256) and, for every node
+//    run in its slice, builds that node's C × d_block × B histogram in
 //    shared memory (2 × 54 × 65 × 4 B = 28 KB at the forest's shape; each
 //    feature's row padded to B + 1 cells so that the lanes' bins fall on
 //    distinct banks), then adds its non-zero cells to out with global
@@ -233,13 +237,14 @@ __device__ __forceinline__ void cell_add(float* hist, int f, int bin, int d,
 }
 
 // The ordered rows [a, e) of bucket key straight into out: one warp per row,
-// lane = feature; the node is key - 1, or the row's own for keys 0 and L+1.
+// lane = feature of the block [f0, f0 + db) (bins points at feature f0 of
+// row 0); the node is key - 1, or the row's own for keys 0 and L+1.
 template <typename BinT, int C>
 __device__ void run_direct(const BinT* __restrict__ bins,
                            const int32_t* __restrict__ order,
                            const int32_t* __restrict__ node,
                            const HistVals& vals, float* out, int a, int e,
-                           int key, int d, int L, int B) {
+                           int key, int d, int f0, int db, int L, int B) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int i = a + warp; i < e; i += WARPS) {
     const int row = order[i];
@@ -247,28 +252,30 @@ __device__ void run_direct(const BinT* __restrict__ bins,
     float v[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) v[c] = vals.p[c][row];
-    for (int f = lane; f < d; f += 32) {
+    for (int f = lane; f < db; f += 32) {
       const int bin = (int)bins[(size_t)row * d + f];
       if (k >= 0 && k < L && (unsigned)bin < (unsigned)B) {
 #pragma unroll
         for (int c = 0; c < C; ++c)
-          atomicAdd(&out[((c * (size_t)L + k) * d + f) * B + bin], v[c]);
+          atomicAdd(&out[((c * (size_t)L + k) * d + f0 + f) * B + bin], v[c]);
       } else {
-        add_global<C>(out, k, bin, f, v, L, d, B);
+        add_global<C>(out, k, bin, f0 + f, v, L, d, B);
       }
     }
   }
 }
 
-// The ordered rows [a, e) of node k through the shared-memory histogram
-// hist (C × d × (B + 1)), then into out.
+// The ordered rows [a, e) of node k, features [f0, f0 + db) (bins points at
+// feature f0 of row 0), through the shared-memory histogram hist
+// (C × db × (B + 1)), then into out.
 template <typename BinT, int FPL, int C>
 __device__ void run_shared(const BinT* __restrict__ bins,
                            const int32_t* __restrict__ order,
                            const HistVals& vals, float* out, float* hist,
-                           int a, int e, int k, int d, int L, int B) {
+                           int a, int e, int k, int d, int f0, int db, int L,
+                           int B) {
   const int HB = B + 1;
-  const int cells = C * d * HB;
+  const int cells = C * db * HB;
   for (int i = threadIdx.x; i < cells; i += THREADS) hist[i] = 0.f;
   __syncthreads();
 
@@ -298,7 +305,7 @@ __device__ void run_shared(const BinT* __restrict__ bins,
 #pragma unroll
         for (int j = 0; j < FPL; ++j) {
           const int f = lane + 32 * j;
-          bb[u][j] = (t0 + u < cnt && f < d)
+          bb[u][j] = (t0 + u < cnt && f < db)
                          ? (int)bins[(size_t)row * d + f] : 0;
         }
       }
@@ -312,15 +319,15 @@ __device__ void run_shared(const BinT* __restrict__ bins,
 #pragma unroll
         for (int j = 0; j < FPL; ++j) {
           const int f = lane + 32 * j;
-          if (f >= d) continue;
+          if (f >= db) continue;
           const int bin = bb[u][j];
           if ((unsigned)bin >= (unsigned)B) {
-            add_global<C>(out, k, bin, f, v, L, d, B);
+            add_global<C>(out, k, bin, f0 + f, v, L, d, B);
           } else if (bin == cur[j]) {
 #pragma unroll
             for (int c = 0; c < C; ++c) acc[j][c] += v[c];
           } else {
-            if (cur[j] >= 0) cell_add<C>(hist, f, cur[j], d, HB, acc[j]);
+            if (cur[j] >= 0) cell_add<C>(hist, f, cur[j], db, HB, acc[j]);
             cur[j] = bin;
 #pragma unroll
             for (int c = 0; c < C; ++c) acc[j][c] = v[c];
@@ -332,33 +339,39 @@ __device__ void run_shared(const BinT* __restrict__ bins,
 #pragma unroll
   for (int j = 0; j < FPL; ++j) {
     const int f = lane + 32 * j;
-    if (cur[j] >= 0 && f < d) cell_add<C>(hist, f, cur[j], d, HB, acc[j]);
+    if (cur[j] >= 0 && f < db) cell_add<C>(hist, f, cur[j], db, HB, acc[j]);
   }
   __syncthreads();
 
-  for (int cf = warp; cf < C * d; cf += WARPS) {   // (channel, feature) rows
+  for (int cf = warp; cf < C * db; cf += WARPS) {  // (channel, feature) rows
     const float* h = hist + cf * HB;
-    float* o = out + ((size_t)(cf / d) * L + k) * d * B + (size_t)(cf % d) * B;
+    float* o = out + ((size_t)(cf / db) * L + k) * d * B +
+               (size_t)(f0 + cf % db) * B;
     for (int b = lane; b < B; b += 32)
       if (h[b] != 0.f) atomicAdd(&o[b], h[b]);   // adding +0 changes nothing
   }
   __syncthreads();   // hist is zeroed again for the next run
 }
 
-template <typename BinT, int FPL, int C>
+// BLOCKED: more than one feature block (blockIdx.y walks them); without it
+// the block is the whole row, f0 = 0 and db = d at compile time, the code of
+// a single-block kernel.
+template <typename BinT, int FPL, int C, bool BLOCKED>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
 level_hist_kernel(const BinT* __restrict__ bins,
                   const int32_t* __restrict__ order,
                   const int32_t* __restrict__ keys,
                   const int32_t* __restrict__ node, HistVals vals,
-                  float* __restrict__ out, int n, int d, int L, int B,
-                  int rows_per_cta, int shared_hist) {
+                  float* __restrict__ out, int n, int d, int fb, int L,
+                  int B, int rows_per_cta, int shared_hist) {
   extern __shared__ float smem[];
   const int r0 = blockIdx.x * rows_per_cta;
   const int r1 = min(n, r0 + rows_per_cta);
+  const int f0 = BLOCKED ? blockIdx.y * fb : 0;   // this CTA's feature block
+  const int db = BLOCKED ? min(fb, d - f0) : d;
   if (r0 >= r1) return;
   float* hist = smem;
-  int* ks = reinterpret_cast<int*>(smem + (shared_hist ? C * d * (B + 1) : 0));
+  int* ks = reinterpret_cast<int*>(smem + (shared_hist ? C * fb * (B + 1) : 0));
   for (int i = threadIdx.x; i < r1 - r0; i += THREADS) ks[i] = keys[r0 + i];
   __syncthreads();
 
@@ -372,11 +385,11 @@ level_hist_kernel(const BinT* __restrict__ bins,
       if (ks[mid] <= key) lo = mid + 1; else hi = mid;
     }
     if (shared_hist && key >= 1 && key <= L && lo - s >= SMEM_MIN_ROWS)
-      run_shared<BinT, FPL, C>(bins, order, vals, out, hist, r0 + s, r0 + lo,
-                               key - 1, d, L, B);
+      run_shared<BinT, FPL, C>(bins + f0, order, vals, out, hist, r0 + s,
+                               r0 + lo, key - 1, d, f0, db, L, B);
     else
-      run_direct<BinT, C>(bins, order, node, vals, out, r0 + s, r0 + lo, key,
-                          d, L, B);
+      run_direct<BinT, C>(bins + f0, order, node, vals, out, r0 + s, r0 + lo,
+                          key, d, f0, db, L, B);
     s = lo;
   }
 }
@@ -391,17 +404,22 @@ cudaError_t launch_hist(const void* bins, const int32_t* order,
   if (ctas < ceil_div(n, MAX_ROWS_PER_CTA)) ctas = ceil_div(n, MAX_ROWS_PER_CTA);
   const int rows = ceil_div(n, ctas);
   ctas = ceil_div(n, rows);
-  const long long hist_bytes = 4LL * C * d * (B + 1);
+  const int fb = d < 32 * FPL ? d : 32 * FPL;   // features of a block
+  const long long hist_bytes = 4LL * C * fb * (B + 1);
   const long long node_bytes = 4LL * rows;
   const int shared_hist = hist_bytes + node_bytes <= SMEM_LIMIT;
   const int smem = (int)(node_bytes + (shared_hist ? hist_bytes : 0));
-  auto kernel = level_hist_kernel<BinT, FPL, C>;
+  auto kernel = level_hist_kernel<BinT, FPL, C, false>;
+  if constexpr (FPL == 4) {   // the instance that walks wide tables
+    if (fb < d) kernel = level_hist_kernel<BinT, FPL, C, true>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<ctas, THREADS, smem, stream>>>(
-      static_cast<const BinT*>(bins), order, keys, node, vals, out, n, d, L,
-      B, rows, shared_hist);
+  const dim3 grid(ctas, ceil_div(d, fb));
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const BinT*>(bins), order, keys, node, vals, out, n, d, fb,
+      L, B, rows, shared_hist);
   return cudaGetLastError();
 }
 
@@ -416,7 +434,9 @@ cudaError_t launch_fpl(const void* bins, const int32_t* order,
     return launch_hist<BinT, 4, C>(bins, order, keys, node, vals, out, n, d, L, B, sms, stream);
   if (d <= 256)
     return launch_hist<BinT, 8, C>(bins, order, keys, node, vals, out, n, d, L, B, sms, stream);
-  return cudaErrorInvalidValue;
+  // wider tables: blocks of 128 features, each CTA's histogram half the
+  // 256-feature one, so two CTAs still fit an SM
+  return launch_hist<BinT, 4, C>(bins, order, keys, node, vals, out, n, d, L, B, sms, stream);
 }
 
 template <typename BinT>
@@ -434,8 +454,7 @@ cudaError_t launch_c(const void* bins, const int32_t* order,
 
 }  // namespace
 
-// Largest feature count and node count the kernel takes.
-int tree_histogram_max_features() { return 256; }
+// Largest node count the kernel takes (any feature count).
 int tree_histogram_max_nodes() { return 16384; }
 
 namespace {
@@ -469,8 +488,8 @@ long long tree_histogram_scratch(int n, int L) {
 
 // Adds the C histograms of one level into out (C, L, d, B), which the caller
 // zeroed. bins are uint8 (bin_bytes 1) or int32 (4). scratch holds
-// tree_histogram_scratch(n, L, sms) int32s. Requires 1 ≤ C ≤ 3, d ≤ 256,
-// L ≤ 16384, n < 2^31. Returns the launches' CUDA status.
+// tree_histogram_scratch(n, L, sms) int32s. Requires 1 ≤ C ≤ 3,
+// L ≤ 16384, n < 2^31, ceil(d / 128) < 65536. Returns the launches' CUDA status.
 cudaError_t tree_histogram_launch(const void* bins, int bin_bytes,
                                   const int32_t* node, HistVals vals, int C,
                                   float* out, int* scratch, int n, int d,

@@ -9,9 +9,12 @@ feed both packages the same arrays.
   it calls :func:`~alink_tpu_torch.dl.attn_cuda.flash_blockwise` once per
   attention call — one launch of the hand-written CUDA kernel, which walks
   the blocks itself, for CUDA tensors; its plain version (the per-block
-  loop) for CPU tensors. ``ALINK_ATTN_PALLAS=0`` is the reference's opt-out: it
-  runs the plain einsum loop instead, on any device (for debugging; a
-  failed build or launch never switches routes).
+  loop) for CPU tensors. Its gradient is
+  :func:`~alink_tpu_torch.dl.attn_cuda.flash_blockwise_bwd` (the reference
+  differentiates its knob-off scan: the Pallas kernel has no backward).
+  ``ALINK_ATTN_PALLAS=0`` is the reference's opt-out: it runs the plain
+  einsum loop instead, on any device, differentiated by autograd (for
+  debugging; a failed build or launch never switches routes).
 - :func:`ring_attention` (sequence parallelism) is not ported yet.
 """
 
@@ -23,7 +26,7 @@ import torch
 
 from ..common.env import kernel_knob_on
 from ..common.exceptions import AkUnsupportedOperationException
-from .attn_cuda import NEG_INF, flash_blockwise
+from .attn_cuda import NEG_INF, flash_attention
 
 ATTN_KERNEL_ENV = "ALINK_ATTN_PALLAS"
 
@@ -73,7 +76,7 @@ def blockwise_attention(q, k, v, mask: Optional[torch.Tensor] = None, *,
     """
     b, sq, h, d = q.shape
     if kernel_knob_on(ATTN_KERNEL_ENV):
-        return flash_blockwise(q, k, v, mask, block_size=block_size,
+        return flash_attention(q, k, v, mask, block_size=block_size,
                                causal=causal, scale=float(d) ** -0.5)
 
     sk = k.shape[1]

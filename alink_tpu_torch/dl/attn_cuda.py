@@ -22,6 +22,15 @@ Each counts one launch. Their plain versions :func:`flash_blockwise_ref` and
 held against on the card. A wrapper takes its plain version only because
 its tensors lie on the CPU: for CUDA tensors it launches the kernel or
 raises.
+
+:func:`flash_attention` is :func:`flash_blockwise` with a gradient: a
+``torch.autograd.Function`` whose forward is the wrapper (the kernel for
+CUDA tensors) and whose backward is :func:`flash_blockwise_bwd`, the
+FlashAttention backward in plain PyTorch from q, k, v, the mask, the output
+and the rows' softmax statistics, which it recomputes. The
+Pallas kernel has no backward of its own (the reference differentiates its
+knob-off scan), so neither does the CUDA kernel; the backward launches no
+kernel of the port and counts nothing.
 """
 
 from __future__ import annotations
@@ -108,6 +117,93 @@ def flash_blockwise(q, k, v, kmask, *, block_size: int, causal: bool,
                                         bool(causal), float(scale))
     kernels.count_launch("flash_block_update")
     return out
+
+
+BWD_CHUNK_ELEMS = 1 << 26   # score elements of a query chunk (256 MB fp32)
+
+
+def flash_blockwise_bwd(q, k, v, kmask, out, dout, *, block_size: int,
+                        causal: bool, scale: float):
+    """The gradient of :func:`flash_blockwise_ref`'s function: ``(dq, dk,
+    dv)`` in q's layout and dtype, from the inputs, the output ``out`` and
+    its cotangent ``dout`` (both (B, Sq, H, D)).
+
+    With P = exp(s − m) / l over the keys zero-padded to whole blocks (s
+    masked to -1e30 as in the forward; m and l each row's max and sum,
+    recomputed): dV = Pᵀ·dO; dS = P∘(dO·Vᵀ − rowsum(dO∘O)), zero where the
+    score was masked; dQ = dS·K·scale and dK = dSᵀ·Q·scale. So masked
+    scores carry no gradient to q and k, a fully masked row (m = -1e30)
+    spreads 1/l over every key of every block, the ragged last block's
+    padded keys included, and, in bf16, P and dS are rounded to bf16 before
+    their products, as p is before p·v in the forward.
+
+    The rows are taken in chunks of queries against all keys, at most
+    ``BWD_CHUNK_ELEMS`` scores a chunk: each row's statistics come from one
+    pass over its scores, the products are batched over (B, H), and dK and
+    dV are summed over the chunks in fp32."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    skp = -(-sk // block_size) * block_size
+    dev, dt = q.device, q.dtype
+    kh, vh = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, skp - sk))
+              .transpose(1, 2).contiguous() for x in (k, v))   # (B, H, K, D)
+    kmask = (torch.ones((b, sk), dtype=torch.int32, device=dev)
+             if kmask is None else kmask.to(torch.int32))
+    valid = torch.nn.functional.pad(kmask, (0, skp - sk))[:, None, None, :] > 0
+    k_pos = torch.arange(skp, device=dev)
+    rows = max(1, BWD_CHUNK_ELEMS // max(1, b * h * skp))
+    rows = -(-sq // -(-sq // rows))          # even chunks
+    dq = torch.empty((b, sq, h, d), dtype=dt, device=dev)
+    dk = torch.zeros((b, h, skp, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for c0 in range(0, sq, rows):
+        c1 = min(sq, c0 + rows)
+        qc, oc, doc = (x[:, c0:c1].transpose(1, 2) for x in (q, out, dout))
+        doc = doc.to(dt)
+        masked = ~valid
+        if causal:
+            masked = masked | (torch.arange(c0, c1, device=dev)[:, None]
+                               < k_pos[None, :])
+        # in place where it can be: each pass over the (B, H, rows, K)
+        # scores costs as much as the products
+        s = torch.matmul(qc, kh.transpose(-1, -2)).float().mul_(scale)
+        p = torch.softmax(s.masked_fill_(masked, NEG_INF), dim=-1)
+        del s
+        dv += torch.matmul(p.to(dt).transpose(-1, -2), doc).float()
+        dsum = (doc.float() * oc.float()).sum(dim=-1, keepdim=True)
+        ds = torch.matmul(doc, vh.transpose(-1, -2)).float()
+        ds = ds.sub_(dsum).mul_(p).masked_fill_(masked, 0.0).mul_(scale)
+        ds = ds.to(dt)
+        del p
+        dq[:, c0:c1] = torch.matmul(ds, kh).transpose(1, 2)
+        dk += torch.matmul(ds.transpose(-1, -2), qc).float()
+    return (dq, dk[:, :, :sk].transpose(1, 2).to(dt),
+            dv[:, :, :sk].transpose(1, 2).to(dt))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kmask, block_size, causal, scale):
+        out = flash_blockwise(q, k, v, kmask, block_size=block_size,
+                              causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, kmask, out)
+        ctx.args = dict(block_size=block_size, causal=causal, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kmask, out = ctx.saved_tensors
+        dq, dk, dv = flash_blockwise_bwd(q, k, v, kmask, out, dout,
+                                         **ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, kmask, *, block_size: int, causal: bool,
+                    scale: float):
+    """:func:`flash_blockwise` (one kernel launch for CUDA tensors) with
+    :func:`flash_blockwise_bwd` as its gradient."""
+    return _FlashAttention.apply(q, k, v, kmask, int(block_size),
+                                 bool(causal), float(scale))
 
 
 def flash_block_update(q, k, v, kvalid, qk_ok, o, m, l, *, scale: float):

@@ -1,22 +1,576 @@
-"""Batched inference (port of ``predict_model``/``_batched_apply`` of
-``alink_tpu/dl/train.py``).
+"""The DL train loop and batched inference (port of ``alink_tpu/dl/train.py``).
 
-The forward pass is row-wise, so rows are fed in chunks of ``batch_size`` as
-they come: the reference pads each chunk up its bucket ladder to reuse
-compiled programs, which eager PyTorch does not need. The reference's
-training loop and its ``int8``/``bf16`` serving precision policies are not
-ported yet.
+Training keeps the reference's contract step for step:
+
+- :class:`TrainConfig` has every field of the reference's;
+- :func:`make_optimizer` is optax's ``adamw``, ``adam`` or
+  ``sgd(momentum=0.9)`` under ``warmup_cosine_decay_schedule(0, lr, warmup,
+  max(total, warmup + 1))``, written in torch (``torch._foreach_*`` over all
+  parameters): the first update runs at lr 0, adamw's weight decay is
+  decoupled and covers every parameter, Adam's bias correction is optax's;
+- :func:`loss_fn` gives ``softmax``, ``mse`` and ``gaussian_nll``, plain,
+  weighted (``sum(l·w) / max(sum(w), 1)``) and ``"sum"``;
+- :func:`make_train_step` is one step: forward, weighted loss, backward,
+  update; :func:`make_accum_programs` the ordered-chunk accumulation, whose
+  ``micro`` and ``fused`` schedules add the same fp32 chunk gradients in
+  the same order and divide once, so they are bit-identical;
+- :func:`train_model` splits and shuffles rows with the reference's numpy
+  generators (``default_rng(seed)`` for the eval split, ``default_rng((seed,
+  epoch))`` for each epoch's order), so both packages feed the same rows in
+  the same order; the ragged tail is padded with zero-weight rows (exact),
+  and it keeps eval, early stopping on a host copy of the best parameters,
+  the history and checkpoint/resume (:mod:`.checkpoint`).
+
+Dropout draws come from a ``torch.Generator`` seeded from (seed, step) (and
+the chunk under accumulation) on the model's device, where the reference
+folds the step into its key: the draws differ from JAX's by design. Eager
+PyTorch needs no program cache, no donation and no shape buckets. One
+process only: data parallelism over processes is the distributed slice
+(ROADMAP A3).
+
+Inference (:func:`predict_model`) feeds rows in chunks of ``batch_size`` as
+they come. The reference's ``int8``/``bf16`` serving precision policies are
+not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..common.env import resolve_device
+from ..common.exceptions import (AkIllegalArgumentException,
+                                 AkUnsupportedOperationException)
 from ..common.quant import resolve_precision
+
+
+@dataclass
+class TrainConfig:
+    num_epochs: int = 3
+    batch_size: int = 32
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.0
+    warmup_ratio: float = 0.1
+    optimizer: str = "adamw"  # adamw | adam | sgd
+    early_stopping_patience: int = 0  # 0 = off
+    eval_ratio: float = 0.0  # fraction of rows held out for eval
+    seed: int = 0
+    loss: str = "auto"  # auto | softmax | mse | gaussian_nll
+    log_every: int = 0
+    # mid-training checkpoint/resume (dl/checkpoint.py); None disables
+    checkpoint_dir: "str | None" = None
+    checkpoint_every: int = 0  # extra mid-epoch saves every N steps; 0 = only per epoch
+    resume: bool = True
+    # input pipeline: "async" assembles (and on the card, pins and ships)
+    # batches on a thread ahead of compute; "sync" inline. Same batches.
+    feed: str = "async"
+    feed_depth: int = 0  # batches in flight ahead of compute; 0 = 2
+    # gradient accumulation: the step's gradient is the ORDERED fp32 sum of
+    # accum_steps chunk gradients over the effective batch (batch_size
+    # rows, divisible by accum_steps), divided once. "micro" runs one chunk
+    # a call, "fused" all chunks in one call; bit-identical.
+    accum_steps: int = 1
+    accum_mode: str = "micro"  # micro | fused
+    # checkpoint retention: keep the last K checkpoints on disk (None =
+    # the ALINK_CKPT_KEEP env knob, default 3; <= 0 = unbounded)
+    checkpoint_keep: "int | None" = None
+
+
+# ---------------------------------------------------------------------------
+# optimizer and schedule (optax's, step for step)
+# ---------------------------------------------------------------------------
+
+
+def warmup_cosine_schedule(peak: float, warmup: int,
+                           decay_steps: int) -> Callable[[int], float]:
+    """optax ``warmup_cosine_decay_schedule(0.0, peak, warmup, decay_steps)``
+    in fp32: linear from 0 over ``warmup`` steps, then cosine to 0 over
+    ``decay_steps - warmup``. Step counts start at 0."""
+    f32 = np.float32
+    peak_f = f32(peak)
+
+    def sched(count: int) -> float:
+        if count < warmup:
+            frac = f32(1) - f32(count) / f32(warmup)
+            return float((f32(0) - peak_f) * frac + peak_f)
+        t = f32(min(count - warmup, decay_steps - warmup))
+        cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t
+                                          / f32(decay_steps - warmup)))
+        return float(peak_f * cos)
+
+    return sched
+
+
+class Optimizer:
+    """optax's ``adamw`` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay
+    on every parameter), ``adam`` or ``sgd(momentum=0.9)`` under a schedule,
+    over named parameters updated in place. The update at step t (from 0)
+    runs at ``schedule(t)``."""
+
+    B1, B2, EPS, MOMENTUM = 0.9, 0.999, 1e-8, 0.9
+
+    def __init__(self, kind: str, schedule: Callable[[int], float],
+                 params: Dict[str, torch.Tensor], weight_decay: float = 0.0):
+        if kind not in ("adamw", "adam", "sgd"):
+            raise AkIllegalArgumentException(f"unknown optimizer {kind!r}")
+        self.kind, self.schedule = kind, schedule
+        self.weight_decay = weight_decay if kind == "adamw" else 0.0
+        self.names = list(params)
+        self.params = [params[n] for n in self.names]
+        self.count = 0
+        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        self.slots: Dict[str, List[torch.Tensor]] = (
+            {"trace": zeros()} if kind == "sgd" else
+            {"mu": zeros(), "nu": zeros()})
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        grads = list(grads)
+        lr = self.schedule(self.count)
+        if self.kind == "sgd":
+            tr = self.slots["trace"]
+            torch._foreach_mul_(tr, self.MOMENTUM)
+            torch._foreach_add_(tr, grads)
+            torch._foreach_add_(self.params, tr, alpha=-lr)
+        else:
+            mu, nu = self.slots["mu"], self.slots["nu"]
+            torch._foreach_mul_(mu, self.B1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - self.B1)
+            torch._foreach_mul_(nu, self.B2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.B2)
+            t = self.count + 1
+            bc1 = float(np.float32(1) - np.float32(self.B1) ** t)
+            bc2 = float(np.float32(1) - np.float32(self.B2) ** t)
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.EPS)
+            upd = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(upd, denom)
+            if self.weight_decay:
+                torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
+            torch._foreach_add_(self.params, upd, alpha=-lr)
+        self.count += 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Host copies: ``count`` and each slot by parameter name."""
+        return {"count": self.count, **{
+            k: {n: t.detach().cpu().clone() for n, t in zip(self.names, v)}
+            for k, v in self.slots.items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.count = int(state["count"])
+        for k, v in self.slots.items():
+            for n, t in zip(self.names, v):
+                t.copy_(state[k][n])
+
+
+def make_optimizer(cfg: TrainConfig, total_steps: int,
+                   params: Dict[str, torch.Tensor]) -> Optimizer:
+    """The reference's ``_make_optimizer`` over ``params`` (name → tensor)."""
+    warmup = max(1, int(total_steps * cfg.warmup_ratio))
+    sched = warmup_cosine_schedule(cfg.learning_rate, warmup,
+                                   max(total_steps, warmup + 1))
+    return Optimizer(cfg.optimizer, sched, params, cfg.weight_decay)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(kind: str, regression: bool, weighted: "bool | str" = False):
+    """Scalar loss ``f(logits, y)``; with ``weighted=True`` the masked form
+    ``f(logits, y, w) = sum(l_i·w_i) / max(sum(w), 1)`` (zero-weight rows add
+    nothing); with ``weighted="sum"`` the unnormalised ``sum(l_i·w_i)`` that
+    the accumulation chunks differentiate."""
+    if kind == "auto":
+        kind = "mse" if regression else "softmax"
+    if kind == "softmax":
+        def per_row(logits, y):
+            return F.cross_entropy(logits.float(), y.long(), reduction="none")
+    elif kind == "mse":
+        def per_row(logits, y):
+            y = y.float()
+            if logits.dim() == y.dim() + 1 and logits.shape[-1] == 1:
+                logits = logits.squeeze(-1)
+            d = (logits.float() - y) ** 2
+            return d if d.dim() == 1 else d.mean(-1)
+    elif kind == "gaussian_nll":
+        def per_row(logits, y):
+            mu, log_sigma = logits[..., 0].float(), logits[..., 1].float()
+            sigma2 = torch.exp(2.0 * log_sigma)
+            return log_sigma + 0.5 * (y.float() - mu) ** 2 / sigma2
+    else:
+        raise AkIllegalArgumentException(f"unknown loss {kind!r}")
+
+    if not weighted:
+        return lambda logits, y: per_row(logits, y).mean()
+    if weighted == "sum":
+        return lambda logits, y, w: (per_row(logits, y) * w.float()).sum()
+
+    def fw(logits, y, w):
+        w = w.float()
+        return (per_row(logits, y) * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return fw
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+
+def dropout_generator(seed: int, step: int, device, *chunk: int
+                      ) -> torch.Generator:
+    """The dropout generator of one step (and chunk) on ``device``, seeded
+    from (seed, step, chunk...)."""
+    key = np.random.SeedSequence([int(seed), int(step), *map(int, chunk)])
+    return torch.Generator(device=device).manual_seed(
+        int(key.generate_state(1, np.uint64)[0] >> 1))
+
+
+def _trainable(model) -> Dict[str, torch.Tensor]:
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+
+def _chunk_grad(model, params, loss_of, batch, y, w, rng):
+    logits = model(**batch, deterministic=rng is None, rng=rng)
+    loss = loss_of(logits, y, w) if w is not None else loss_of(logits, y)
+    # a parameter the batch does not reach (type_emb without token types)
+    # gets a zero gradient
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss, [torch.zeros_like(p) if g is None else g
+                  for p, g in zip(params, grads)]
+
+
+def make_train_step(model, opt: Optimizer, loss_of, *, weighted: bool = False):
+    """One optimizer step: ``step(batch, y, w=None, rng=None) -> loss`` (a
+    0-dim device tensor). ``batch`` maps the model's keyword arguments to
+    tensors; ``w`` the rows' loss weights when ``weighted``; ``rng`` the
+    step's dropout generator (None: deterministic)."""
+    params = opt.params
+
+    def step(batch, y, w=None, rng=None):
+        loss, grads = _chunk_grad(model, params, loss_of, batch, y,
+                                  w if weighted else None, rng)
+        opt.step(grads)
+        return loss.detach()
+
+    return step
+
+
+def make_accum_programs(model, opt: Optimizer, loss_sum_of, accum: int):
+    """The ordered-chunk gradient schedule: ``(micro_step, apply_step,
+    fused_step)``.
+
+    - ``micro_step(acc, batch, y, w, rng)`` adds one chunk's gradient of
+      ``loss_sum_of`` (the unnormalised ``sum(l·w)``), its weight and loss
+      into the fp32 accumulators ``acc = (grads, wsum, lsum)``
+      (:func:`new_accumulators` over the optimizer's parameters);
+    - ``apply_step(acc)`` divides by ``max(wsum, 1)``, steps the optimizer,
+      zeroes the accumulators and returns the step's loss;
+    - ``fused_step(batch, y, w, rngs)`` runs the same chunk body over
+      (accum, micro, ...) stacks in one call, then the same apply.
+
+    Both schedules add the same values in the same order."""
+    params = opt.params
+
+    def micro_step(acc, batch, y, w, rng=None):
+        gacc, wacc, lacc = acc
+        lsum, g = _chunk_grad(model, params, loss_sum_of, batch, y, w, rng)
+        torch._foreach_add_(gacc, [x.float() for x in g])
+        wacc.add_(w.float().sum())
+        lacc.add_(lsum.detach())
+        return acc
+
+    def apply_step(acc):
+        gacc, wacc, lacc = acc
+        denom = torch.clamp(wacc, min=1.0)
+        opt.step([g / denom for g in gacc])
+        loss = lacc / denom
+        torch._foreach_zero_(gacc)
+        wacc.zero_()
+        lacc.zero_()
+        return loss
+
+    def fused_step(batch, y, w, rngs=None):
+        acc = new_accumulators(params)
+        for k in range(accum):
+            micro_step(acc, {n: t[k] for n, t in batch.items()}, y[k], w[k],
+                       None if rngs is None else rngs[k])
+        return apply_step(acc)
+
+    return micro_step, apply_step, fused_step
+
+
+def new_accumulators(params: Sequence[torch.Tensor]):
+    """Zeroed fp32 accumulators ``(grads, wsum, lsum)`` for ``params``."""
+    dev = params[0].device
+    return ([torch.zeros(p.shape, dtype=torch.float32, device=dev)
+             for p in params],
+            torch.zeros((), dtype=torch.float32, device=dev),
+            torch.zeros((), dtype=torch.float32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the train loop
+# ---------------------------------------------------------------------------
+
+
+def _feed(build: Callable[[int], Sequence[np.ndarray]],
+          place: Callable[[Sequence[np.ndarray]], List[torch.Tensor]],
+          steps: int, *, mode: str = "async", depth: int = 0
+          ) -> Iterator[Tuple[int, List[torch.Tensor]]]:
+    """Yield ``(step, tensors)`` for ``place(build(step))``. ``async`` runs
+    both on one thread, up to ``depth`` (default 2) batches ahead; ``sync``
+    inline. Both call the same functions in the same step order."""
+    if mode not in ("async", "sync"):
+        raise AkIllegalArgumentException(f"unknown feed mode {mode!r}")
+    if mode == "sync":
+        for s in range(steps):
+            yield s, place(build(s))
+        return
+    pending: deque = deque()
+    with ThreadPoolExecutor(1, thread_name_prefix="alink-feed") as pool:
+        try:
+            nxt = 0
+            for s in range(steps):
+                while nxt < steps and len(pending) < (depth or 2):
+                    pending.append(pool.submit(
+                        lambda i=nxt: place(build(i))))
+                    nxt += 1
+                yield s, pending.popleft().result()
+        finally:
+            for f in pending:
+                f.cancel()
+
+
+def _pad_tail(arrs: List[np.ndarray], target: int) -> List[np.ndarray]:
+    """Pad row-aligned arrays to ``target`` rows by repeating the last real
+    row (exact under a zero loss weight)."""
+    m = arrs[0].shape[0]
+    if m == target:
+        return arrs
+    return [np.concatenate([a, np.repeat(a[-1:], target - m, axis=0)])
+            for a in arrs]
+
+
+def _check_single_process() -> None:
+    multi = int(os.environ.get("NUM_PROCESSES", "1") or 1) > 1
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        multi = multi or torch.distributed.get_world_size() > 1
+    if multi:
+        raise AkUnsupportedOperationException(
+            "train_model runs in one process: multi-process data parallelism "
+            "is not ported yet (ROADMAP A3)")
+
+
+def _host_state(model) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def train_model(model, inputs: Dict[str, np.ndarray], y: np.ndarray,
+                cfg: TrainConfig, *, regression: bool = False,
+                init_params=None, device=None
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """Train ``model`` (called as ``model(**batch, deterministic=...,
+    rng=...)``) on ``inputs`` (name → (n, ...) arrays) and targets ``y``.
+
+    Parameters start from ``init_params`` (the reference's flax tree,
+    carried over by :func:`~alink_tpu_torch.dl.convert.flax_to_torch`),
+    else from ``model.init_weights(cfg.seed)``. Runs on
+    ``device`` (see :func:`~alink_tpu_torch.common.env.resolve_device`).
+    Returns the final (or, with eval, the best) parameters as a host state
+    dict, also loaded into ``model``, and the history: ``loss`` (per epoch,
+    or every ``log_every`` steps), ``eval_metric`` (accuracy, or −MSE for
+    regression) and ``final_loss``."""
+    _check_single_process()
+    accum = int(cfg.accum_steps or 1)
+    if accum < 1:
+        raise AkIllegalArgumentException(
+            f"accum_steps must be >= 1, got {cfg.accum_steps}")
+    if cfg.accum_mode not in ("micro", "fused"):
+        raise AkIllegalArgumentException(
+            f"unknown accum_mode {cfg.accum_mode!r}")
+    if accum > 1 and cfg.batch_size % accum:
+        raise AkIllegalArgumentException(
+            f"batch_size={cfg.batch_size} is not divisible by "
+            f"accum_steps={accum}: micro chunks must tile the effective "
+            "batch exactly (the ordered-chunk gradient contract)")
+    dev = resolve_device(device)
+    model.to(dev)
+
+    n = y.shape[0]
+    rng = np.random.default_rng(cfg.seed)
+    n_eval = int(n * cfg.eval_ratio)
+    perm = rng.permutation(n)
+    eval_idx, train_idx = perm[:n_eval], perm[n_eval:]
+    tr_inputs = {k: v[train_idx] for k, v in inputs.items()}
+    tr_y = y[train_idx]
+    ev_inputs = {k: v[eval_idx] for k, v in inputs.items()}
+    ev_y = y[eval_idx]
+    n_train = tr_y.shape[0]
+
+    bs = max(accum, (min(cfg.batch_size, n_train) // accum) * accum)
+    steps_per_epoch = -(-n_train // bs) if n_train >= bs else 1
+    total_steps = steps_per_epoch * cfg.num_epochs
+
+    if init_params is None:
+        model.init_weights(cfg.seed)
+    else:
+        from .convert import flax_to_torch
+
+        model.load_state_dict(flax_to_torch(init_params))
+    params = _trainable(model)
+    opt = make_optimizer(cfg, total_steps, params)
+    if accum > 1:
+        micro_prog, apply_prog, fused_prog = make_accum_programs(
+            model, opt, loss_fn(cfg.loss, regression, weighted="sum"), accum)
+    else:
+        train_step = make_train_step(
+            model, opt, loss_fn(cfg.loss, regression, weighted=True),
+            weighted=True)
+
+    ckpt = None
+    start_epoch, step = 0, 0
+    history: Dict[str, Any] = {"loss": [], "eval_metric": []}
+    best_metric, best_params = None, None
+    patience_left = cfg.early_stopping_patience
+    if cfg.checkpoint_dir:
+        from .checkpoint import TrainCheckpointManager
+
+        ckpt = TrainCheckpointManager(cfg.checkpoint_dir,
+                                      max_to_keep=cfg.checkpoint_keep)
+        if cfg.resume:
+            restored = ckpt.restore_latest()
+            if restored is not None:
+                r_params, r_opt, extra = restored
+                model.load_state_dict(r_params)
+                opt.load_state_dict(r_opt)
+                step = int(extra.get("step", 0))
+                start_epoch = int(extra.get("epoch", -1)) + 1
+
+    names = sorted(tr_inputs)
+    pinned = dev.type == "cuda"
+
+    def place(arrs):
+        out = []
+        for a in arrs:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if pinned:
+                t = t.pin_memory().to(dev, non_blocking=True)
+            out.append(t)
+        return out
+
+    micro_rows = bs // accum
+    acc = new_accumulators(opt.params) \
+        if accum > 1 and cfg.accum_mode == "micro" else None
+
+    def after_step(s, loss, epoch):
+        nonlocal step
+        step += 1
+        if ckpt is not None and cfg.checkpoint_every \
+                and step % cfg.checkpoint_every == 0:
+            # mid-epoch save: resume restarts this epoch with this state
+            ckpt.save(step, _host_state(model), opt.state_dict(),
+                      {"step": step, "epoch": epoch - 1})
+        if cfg.log_every and step % cfg.log_every == 0:
+            history["loss"].append(float(loss))
+
+    def full_batch(order, s):
+        idx = order[s * bs:(s + 1) * bs]
+        arrs = [tr_inputs[k][idx] for k in names] + [tr_y[idx]]
+        w = np.ones(len(idx), np.float32)
+        if len(idx) < bs:
+            arrs = _pad_tail(arrs, bs)
+            w = np.concatenate([w, np.zeros(bs - len(idx), np.float32)])
+        return arrs + [w]
+
+    loss = None
+    for epoch in range(start_epoch, cfg.num_epochs):
+        # per-(seed, epoch) generator: a resumed run replays the shuffle
+        order = np.random.default_rng((cfg.seed, epoch)).permutation(n_train)
+        if n_train < bs:  # tile tiny datasets up to one full batch
+            order = np.resize(order, bs)
+
+        if accum == 1:
+            for s, devs in _feed(lambda s, o=order: full_batch(o, s), place,
+                                 steps_per_epoch, mode=cfg.feed,
+                                 depth=cfg.feed_depth):
+                batch = dict(zip(names, devs[:-2]))
+                loss = train_step(batch, devs[-2], devs[-1],
+                                  dropout_generator(cfg.seed, step, dev))
+                after_step(s, loss, epoch)
+        elif cfg.accum_mode == "fused":
+            def build_fused(s, o=order):
+                return [a.reshape((accum, micro_rows) + a.shape[1:])
+                        for a in full_batch(o, s)]
+
+            for s, devs in _feed(build_fused, place, steps_per_epoch,
+                                 mode=cfg.feed, depth=cfg.feed_depth):
+                batch = dict(zip(names, devs[:-2]))
+                rngs = [dropout_generator(cfg.seed, step, dev, k)
+                        for k in range(accum)]
+                loss = fused_prog(batch, devs[-2], devs[-1], rngs)
+                after_step(s, loss, epoch)
+        else:
+            def build_micro(m, o=order):
+                s, k = divmod(m, accum)
+                start = s * bs
+                m_real = min(bs, len(o) - start)
+                pos = np.arange(k * micro_rows, (k + 1) * micro_rows)
+                # positions past the real rows repeat the effective batch's
+                # last real row with zero loss weight
+                idx = o[start + np.minimum(pos, m_real - 1)]
+                arrs = [tr_inputs[k2][idx] for k2 in names] + [tr_y[idx]]
+                return arrs + [(pos < m_real).astype(np.float32)]
+
+            for m, devs in _feed(build_micro, place, steps_per_epoch * accum,
+                                 mode=cfg.feed, depth=cfg.feed_depth):
+                s, k = divmod(m, accum)
+                batch = dict(zip(names, devs[:-2]))
+                micro_prog(acc, batch, devs[-2], devs[-1],
+                           dropout_generator(cfg.seed, step, dev, k))
+                if k == accum - 1:
+                    loss = apply_prog(acc)
+                    after_step(s, loss, epoch)
+        if not cfg.log_every:
+            history["loss"].append(float(loss))
+
+        if ckpt is not None:
+            ckpt.save(step, _host_state(model), opt.state_dict(),
+                      {"step": step, "epoch": epoch})
+        if n_eval:
+            logits = _batched_apply(model, ev_inputs, bs, dev)
+            if regression:
+                metric = -float(np.mean((logits.squeeze(-1) - ev_y) ** 2))
+            else:
+                metric = float(np.mean(np.argmax(logits, -1) == ev_y))
+            history["eval_metric"].append(metric)
+            if best_metric is None or metric > best_metric:
+                best_metric, best_params = metric, _host_state(model)
+                patience_left = cfg.early_stopping_patience
+            elif cfg.early_stopping_patience:
+                patience_left -= 1
+                if patience_left <= 0:
+                    break
+
+    if best_params is not None:
+        model.load_state_dict(best_params)
+    history["final_loss"] = history["loss"][-1] if history["loss"] else None
+    return _host_state(model), history
+
+
+# ---------------------------------------------------------------------------
+# inference
+# ---------------------------------------------------------------------------
 
 
 def _batched_apply(model, inputs: Dict[str, np.ndarray], bs: int,

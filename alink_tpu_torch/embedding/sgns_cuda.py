@@ -65,7 +65,7 @@ def sgns_block_grads(v: torch.Tensor, u_pos: torch.Tensor,
 
     CPU tensors take :func:`sgns_block_grads_ref`; CUDA tensors launch the
     hand-written kernel, which is built on first use and takes contiguous
-    fp32 tensors with D ≤ 1024, raising on anything else."""
+    fp32 tensors of any width D, raising on anything else."""
     if v.device.type == "cpu":
         return sgns_block_grads_ref(v, u_pos, u_neg)
     out = kernels.ops().sgns_block_grads(v, u_pos, u_neg)
@@ -130,7 +130,7 @@ def sgns_pull_grads(win: torch.Tensor, w_ctx: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the hand-written
     kernel once, built on first use: contiguous fp32 tables (rows, D) with
-    D ≤ 1024, int64 ids, and when ``hot > 0`` the (hot, D) replicas and a
+    any D, int64 ids, and when ``hot > 0`` the (hot, D) replicas and a
     0-dim int64 ``hits`` on the card, raising on anything else."""
     if win.device.type == "cpu":
         return sgns_pull_grads_ref(win, w_ctx, center, uids, negs=negs,

@@ -1,8 +1,8 @@
 """Registry of the port's hand-written CUDA kernels.
 
-One record per kernel: the module holding its wrapper and plain PyTorch
-version, the TPU kernel of ``alink_tpu`` it replaces, its CUDA source, and a
-launch counter. A wrapper adds one to its counter each time it launches its
+One record per kernel: the module holding its wrappers and their plain
+PyTorch versions (one per entry of the kernel), the TPU kernel of
+``alink_tpu`` it replaces, its CUDA source, and a launch counter. A wrapper adds one to its counter each time it launches its
 kernel and nowhere else, so a run can show that its main path went through
 the kernel (``reset_launches`` before, ``launches`` after).
 
@@ -20,7 +20,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_ROOT = os.path.dirname(_PKG_DIR)
@@ -32,8 +32,8 @@ CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 @dataclass
 class KernelSpec:
     name: str
-    module: str       # wrapper + plain version, repo-relative
-    plain: str        # the plain PyTorch version in that module
+    module: str       # wrappers + plain versions, repo-relative
+    plain: Tuple[str, ...]   # the plain PyTorch version of each entry there
     replaces: str     # the TPU kernel, file:line of its pl.pallas_call
     source: str       # CUDA source, package-relative
     route: str = "cuda"
@@ -44,21 +44,21 @@ KERNELS: Dict[str, KernelSpec] = {
     "flash_block_update": KernelSpec(
         name="flash_block_update",
         module="alink_tpu_torch/dl/attn_cuda.py",
-        plain="flash_block_update_ref",
+        plain=("flash_block_update_ref", "flash_blockwise_ref"),
         replaces="alink_tpu/dl/attn_pallas.py:114",
         source="csrc/flash_block_update.cu",
     ),
     "tree_histogram": KernelSpec(
         name="tree_histogram",
         module="alink_tpu_torch/tree/hist_cuda.py",
-        plain="level_histograms_ref",
+        plain=("level_histograms_ref",),
         replaces="alink_tpu/tree/pallas_hist.py:101",
         source="csrc/tree_histogram.cu",
     ),
     "sgns_block_grads": KernelSpec(
         name="sgns_block_grads",
         module="alink_tpu_torch/embedding/sgns_cuda.py",
-        plain="sgns_block_grads_ref",
+        plain=("sgns_block_grads_ref", "sgns_pull_grads_ref"),
         replaces="alink_tpu/embedding/sgns_pallas.py:100",
         source="csrc/sgns_block_grads.cu",
     ),

@@ -1,7 +1,9 @@
 from .base import (AkSinkBatchOp, AkSourceBatchOp, BatchOperator,
                    TableSourceBatchOp)
-from .dl import (BertTextClassifierPredictBatchOp, BertTextModelMapper,
-                 BertTextRegressorPredictBatchOp)
+from .dl import (BaseBertTextTrainBatchOp, BertTextClassifierPredictBatchOp,
+                 BertTextClassifierTrainBatchOp, BertTextModelMapper,
+                 BertTextPairClassifierTrainBatchOp,
+                 BertTextRegressorPredictBatchOp, BertTextRegressorTrainBatchOp)
 from .huge import (DeepWalkBatchOp, DeepWalkEmbeddingBatchOp,
                    Node2VecEmbeddingBatchOp, Node2VecWalkBatchOp,
                    RandomWalkBatchOp, Word2VecModelMapper,
@@ -17,8 +19,10 @@ from .utils import ModelMapBatchOp, ModelTrainOpMixin
 
 __all__ = [
     "AkSinkBatchOp", "AkSourceBatchOp", "BatchOperator", "TableSourceBatchOp",
-    "BertTextClassifierPredictBatchOp", "BertTextModelMapper",
-    "BertTextRegressorPredictBatchOp", "DecisionTreePredictBatchOp",
+    "BaseBertTextTrainBatchOp", "BertTextClassifierPredictBatchOp",
+    "BertTextClassifierTrainBatchOp", "BertTextModelMapper",
+    "BertTextPairClassifierTrainBatchOp", "BertTextRegressorPredictBatchOp",
+    "BertTextRegressorTrainBatchOp", "DecisionTreePredictBatchOp",
     "DeepWalkBatchOp", "DeepWalkEmbeddingBatchOp", "Node2VecEmbeddingBatchOp",
     "Node2VecWalkBatchOp", "RandomWalkBatchOp", "Word2VecModelMapper",
     "Word2VecPredictBatchOp", "Word2VecTrainBatchOp",

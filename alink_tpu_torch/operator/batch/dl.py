@@ -1,30 +1,38 @@
-"""BERT text classify/regress prediction operators (port of the serving half
-of ``alink_tpu/operator/batch/dl.py``).
+"""BERT text classify/regress train and predict operators (port of the BERT
+half of ``alink_tpu/operator/batch/dl.py``).
 
 A BERT model table — meta (``bertConfig``, vocab, labels, …) plus the flax
 parameter tree as ``flax.serialization.to_bytes`` bytes — is the one that
-``alink_tpu``'s ``BertText*TrainBatchOp`` writes. The mapper decodes those
-bytes with :mod:`~alink_tpu_torch.common.flax_msgpack`, carries the weights
-into the torch encoder (:mod:`~alink_tpu_torch.dl.convert`) and computes in
-bf16, as the reference mapper does. The train operators and the
-KerasSequential family are not ported yet.
+``alink_tpu``'s ``BertText*TrainBatchOp`` writes, and the port's train
+operators write the same table (the weights carried into the flax layout by
+:func:`~alink_tpu_torch.dl.convert.torch_to_flax`, encoded with
+:mod:`~alink_tpu_torch.common.flax_msgpack`), so each package serves a model
+the other trained. The mapper carries the weights into the torch encoder
+and computes in bf16, as the reference mapper does. Training runs on the
+session's device (``self.env.device``). Not ported yet: the KerasSequential
+family, and ``seqShards > 1`` (ring attention, ROADMAP A3).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ...common import flax_msgpack
 from ...common.env import resolve_device
-from ...common.model import table_to_model
+from ...common.exceptions import (AkIllegalArgumentException,
+                                  AkUnsupportedOperationException)
+from ...common.model import model_to_table, table_to_model
 from ...common.mtable import AlinkTypes, MTable
-from ...common.params import ParamInfo
+from ...common.params import InValidator, MinValidator, ParamInfo
 from ...common.quant import PRECISION_KEY
 from ...mapper import (HasPredictionCol, HasPredictionDetailCol,
                        HasReservedCols, RichModelMapper, detail_json,
                        np_labels, softmax_np)
-from .utils import ModelMapBatchOp
+from .base import BatchOperator
+from .utils import ModelMapBatchOp, ModelTrainOpMixin
 
 
 def params_from_bytes(buf: np.ndarray) -> dict:
@@ -36,6 +44,217 @@ def params_from_bytes(buf: np.ndarray) -> dict:
 def params_to_bytes(tree: dict) -> np.ndarray:
     """The inverse of :func:`params_from_bytes`: bytes flax reads back."""
     return np.frombuffer(flax_msgpack.dumps(tree), dtype=np.uint8).copy()
+
+
+class HasDLTrainParams:
+    NUM_EPOCHS = ParamInfo("numEpochs", int, default=10, validator=MinValidator(1))
+    BATCH_SIZE = ParamInfo("batchSize", int, default=32, validator=MinValidator(1))
+    LEARNING_RATE = ParamInfo("learningRate", float, default=1e-3)
+    VALIDATION_SPLIT = ParamInfo("validationSplit", float, default=0.0)
+    EARLY_STOPPING_PATIENCE = ParamInfo("earlyStoppingPatience", int, default=0)
+    RANDOM_SEED = ParamInfo("randomSeed", int, default=0)
+
+
+class BaseBertTextTrainBatchOp(ModelTrainOpMixin, BatchOperator,
+                               HasDLTrainParams):
+    """(reference: common/dl/BaseEasyTransferTrainBatchOp.java; params
+    params/tensorflow/bert/*)"""
+
+    TEXT_COL = ParamInfo("textCol", str, optional=False)
+    TEXT_PAIR_COL = ParamInfo("textPairCol", str)
+    LABEL_COL = ParamInfo("labelCol", str, optional=False)
+    MAX_SEQ_LENGTH = ParamInfo("maxSeqLength", int, default=128)
+    VOCAB_SIZE = ParamInfo("vocabSize", int, default=8000)
+    HIDDEN_SIZE = ParamInfo("hiddenSize", int, default=256)
+    NUM_LAYERS = ParamInfo("numLayers", int, default=4)
+    NUM_HEADS = ParamInfo("numHeads", int, default=4)
+    INTERMEDIATE_SIZE = ParamInfo("intermediateSize", int, default=1024)
+    BERT_SIZE = ParamInfo(
+        "bertSize", str, default="custom",
+        desc="custom (use hidden/layers params) | base | tiny",
+    )
+    SEQ_SHARDS = ParamInfo("seqShards", int, default=1,
+                           desc="sequence-parallel shards (ring attention)")
+    ATTENTION_BLOCK_SIZE = ParamInfo(
+        "attentionBlockSize", int, default=0, validator=MinValidator(0),
+        desc="0 = full attention; >0 = blockwise attention with this K/V "
+             "block (the flash kernel's route)")
+    BERT_MODEL_NAME = ParamInfo(
+        "bertModelName", str,
+        desc="pretrained model resolved from the plugin dir, e.g. "
+             "'base-uncased' (see dl.pretrained.MODEL_NAME_DIRS)")
+    CHECKPOINT_FILE_PATH = ParamInfo(
+        "checkpointFilePath", str,
+        desc="explicit pretrained checkpoint directory (HF layout); "
+             "overrides bertModelName")
+    POOLING_STRATEGY = ParamInfo(
+        "poolingStrategy", str, default="auto",
+        validator=InValidator("auto", "cls", "mean"),
+        desc="auto | cls | mean — auto uses cls for pretrained checkpoints "
+             "and mean for from-scratch models")
+
+    _min_inputs = 1
+    _max_inputs = 1
+
+    _regression = False
+
+    def _static_meta_keys(self, in_schema):
+        return {
+            "regression": self._regression,
+            "labelType": in_schema.type_of(self.get(self.LABEL_COL)),
+        }
+
+    def _resolve_pooling(self, pretrained: bool) -> str:
+        pool = self.get(self.POOLING_STRATEGY)
+        if pool == "auto":
+            return "cls" if pretrained else "mean"
+        return pool
+
+    def _bert_config(self, vocab_size: int, num_labels: int):
+        from ...dl.modules import BertConfig
+
+        size = self.get(self.BERT_SIZE)
+        common = dict(
+            vocab_size=vocab_size,
+            max_position=self.get(self.MAX_SEQ_LENGTH),
+            num_labels=num_labels,
+            regression=self._regression,
+            pool=self._resolve_pooling(pretrained=False),
+            attention_block_size=self.get(self.ATTENTION_BLOCK_SIZE),
+        )
+        if size == "base":
+            return BertConfig.base(**common)
+        if size == "tiny":
+            return BertConfig.tiny(**common)
+        return BertConfig(
+            hidden_size=self.get(self.HIDDEN_SIZE),
+            num_layers=self.get(self.NUM_LAYERS),
+            num_heads=self.get(self.NUM_HEADS),
+            intermediate_size=self.get(self.INTERMEDIATE_SIZE),
+            **common,
+        )
+
+    def _resolve_pretrained(self):
+        """Checkpoint dir from checkpointFilePath / bertModelName, or None."""
+        path = self.get(self.CHECKPOINT_FILE_PATH)
+        if path:
+            return path
+        name = self.get(self.BERT_MODEL_NAME)
+        if not name:
+            return None
+        from ...dl.pretrained import resolve_bert_resource
+
+        return resolve_bert_resource(name)
+
+    def _execute_impl(self, t: MTable) -> MTable:
+        from ...dl.convert import torch_to_flax
+        from ...dl.modules import BertConfig, TransformerEncoder
+        from ...dl.tokenizer import Tokenizer
+        from ...dl.train import TrainConfig, train_model
+
+        if self.get(self.SEQ_SHARDS) > 1:
+            raise AkUnsupportedOperationException(
+                "seqShards > 1 (ring attention over a device group) is not "
+                "ported yet (ROADMAP A3)")
+        device = self.env.device
+        text_col = self.get(self.TEXT_COL)
+        pair_col = self.get(self.TEXT_PAIR_COL)
+        label_col = self.get(self.LABEL_COL)
+        max_len = self.get(self.MAX_SEQ_LENGTH)
+
+        texts = [str(v) for v in t.col(text_col)]
+        pairs = [str(v) for v in t.col(pair_col)] if pair_col else None
+
+        y_raw = t.col(label_col)
+        if self._regression:
+            y = np.asarray(y_raw, np.float32)
+            labels, num_labels = None, 1
+        else:
+            labels = sorted(set(np.asarray(y_raw).tolist()), key=str)
+            lab_to_idx = {v: i for i, v in enumerate(labels)}
+            y = np.asarray([lab_to_idx[v] for v in y_raw], np.int32)
+            num_labels = len(labels)
+
+        pre_dir = self._resolve_pretrained()
+        pre_subtree = None
+        if pre_dir:
+            from ...dl.pretrained import load_bert_checkpoint, load_vocab_file
+
+            ckpt_cfg, pre_subtree = load_bert_checkpoint(pre_dir)
+            do_lower = ckpt_cfg.pop("do_lower_case", True)
+            vocab_list = load_vocab_file(pre_dir)
+            if len(vocab_list) != ckpt_cfg["vocab_size"]:
+                raise AkIllegalArgumentException(
+                    f"vocab.txt has {len(vocab_list)} entries but the "
+                    f"checkpoint config says vocab_size="
+                    f"{ckpt_cfg['vocab_size']} ({pre_dir})")
+            tok = Tokenizer.from_list(vocab_list, do_lower)
+            if max_len > ckpt_cfg["max_position"]:
+                raise AkIllegalArgumentException(
+                    f"maxSeqLength={max_len} exceeds the pretrained "
+                    f"checkpoint's max_position={ckpt_cfg['max_position']}")
+            cfg = BertConfig(
+                num_labels=num_labels, regression=self._regression,
+                pool=self._resolve_pooling(pretrained=True), dropout=0.1,
+                attention_block_size=self.get(self.ATTENTION_BLOCK_SIZE),
+                **ckpt_cfg)
+        else:
+            tok = Tokenizer.build(
+                texts + (pairs or []), vocab_size=self.get(self.VOCAB_SIZE))
+            cfg = self._bert_config(tok.vocab_size, num_labels)
+        enc = tok.encode_batch(texts, pairs, max_len=max_len)
+        model = TransformerEncoder(cfg)
+        tc = TrainConfig(
+            num_epochs=self.get(self.NUM_EPOCHS),
+            batch_size=self.get(self.BATCH_SIZE),
+            learning_rate=self.get(self.LEARNING_RATE),
+            eval_ratio=self.get(self.VALIDATION_SPLIT),
+            early_stopping_patience=self.get(self.EARLY_STOPPING_PATIENCE),
+            seed=self.get(self.RANDOM_SEED),
+            weight_decay=0.01,
+        )
+        init_params = None
+        if pre_subtree is not None:
+            from ...dl.pretrained import init_from_pretrained
+
+            init_params = init_from_pretrained(
+                model, cfg, pre_subtree, seed=self.get(self.RANDOM_SEED))
+        state, history = train_model(
+            model, enc, y, tc, regression=self._regression,
+            init_params=init_params, device=device)
+
+        cfg_dict = {k: v for k, v in dataclasses.asdict(cfg).items()
+                    if k != "dtype"}
+        meta = {
+            "modelName": "BertTextModel",
+            "bertConfig": cfg_dict,
+            "textCol": text_col,
+            "textPairCol": pair_col,
+            "labelCol": label_col,
+            "labelType": t.schema.type_of(label_col),
+            "labels": labels,
+            "regression": self._regression,
+            "maxSeqLength": max_len,
+            "vocab": tok.to_list(),
+            "doLowerCase": tok.do_lower_case,
+            "pretrainedFrom": pre_dir,
+            "finalLoss": history.get("final_loss"),
+        }
+        return model_to_table(
+            meta, {"params": params_to_bytes(torch_to_flax(state, cfg))})
+
+
+class BertTextClassifierTrainBatchOp(BaseBertTextTrainBatchOp):
+    _regression = False
+
+
+class BertTextRegressorTrainBatchOp(BaseBertTextTrainBatchOp):
+    _regression = True
+
+
+class BertTextPairClassifierTrainBatchOp(BaseBertTextTrainBatchOp):
+    _regression = False
+    TEXT_PAIR_COL = ParamInfo("textPairCol", str, optional=False)
 
 
 class BertTextModelMapper(RichModelMapper):

@@ -65,8 +65,8 @@ def level_histograms(bins: torch.Tensor, node: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the hand-written
     kernel once, built on first use: contiguous uint8 (or int32) bins (n, d)
-    with d ≤ 256, int32 node (n,), fp32 vals (n,) and at most 16,384 nodes,
-    raising on anything else. A
+    of any width d, int32 node (n,), fp32 vals (n,) and at most 16,384
+    nodes, raising on anything else. A
     channel given twice (the forest passes its counts as h and as c) is
     computed once and returned for both: the same values the plain version
     computes twice."""

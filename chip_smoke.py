@@ -47,7 +47,10 @@ non-zero:
    [L, L+8) and bins in [64, 256) at L = 1, 64 and 2,048; each level timed
    (device time in CUDA graphs) beside its bound, the plain version and one
    ``index_add_`` over the flat cell index as a labelled yardstick (the
-   port never calls it);
+   port never calls it); then wide tables, more than one of the kernel's
+   feature blocks: d = 300 and 784 on 60,000 rows of MNIST-layout bins
+   (see ``mnist_layout``) at L = 1, 64 and 2,048, with the same channels
+   and out-of-range cases, timed at L = 64;
 6. forest path: seeded Covertype-layout data (sklearn's
    bench_covertype.py shape: 522,911 training and 58,101 held-out rows, 54
    features, class 1 against the rest) through ``TableSourceBatchOp`` →
@@ -60,7 +63,9 @@ non-zero:
    card's predict must match a numpy traversal, and
    the model goes to ``.ak`` and back into ``RandomForestPredictBatchOp``
    for requests of 1, 1,000 and 58,101 held-out rows; held-out accuracy
-   must beat the majority class by 0.05;
+   must beat the majority class by 0.05; then a forest of 4 trees (depth
+   10) on 60,000 MNIST-layout rows of 784 columns, one launch a level,
+   must grow the ``ALINK_GBDT_PALLAS=0`` route's trees;
 7. GBDT path: ``GbdtTrainBatchOp(numTrees=20, maxDepth=6, maxBins=64)`` on
    the same data, then ``GbdtPredictBatchOp`` on the held-out requests,
    under the same accuracy floor;
@@ -74,7 +79,8 @@ non-zero:
    step's tables and ids at the main path's shape, with 2 % sentinel and 2 %
    duplicated ids, the hot cache on (replicas that differ from the tables'
    prefix), off, and on one tied table, hits equal; both entries timed in a
-   CUDA graph beside their bounds;
+   CUDA graph beside their bounds; then both entries at row widths D = 1100
+   and 2048, past the kernel's register-held rows (``check_sgns_wide``);
 9. Word2Vec path: 1,000,000 tokens in text8's layout (the corpus of
    word2vec's demo-word.sh: Zipf law over 71,290 types, sentences of 1,000
    tokens, a topic per sentence; see ``text8_corpus``) through
@@ -87,7 +93,27 @@ non-zero:
    routes, ``torch.profiler``) are reported, and the model goes to ``.ak``
    and back into ``Word2VecPredictBatchOp`` for requests of 1, 1,000 and
    10,000 sentences, checked against a numpy mean of the table's rows;
-10. one JSON line of kernels, then the device line last.
+10. BERT training: (10.1) ``blockwise_attention``'s kernel route forward
+    and backward (the autograd Function around ``flash_blockwise``, whose
+    backward is ``flash_blockwise_bwd`` in plain PyTorch) against the plain
+    route's autograd at (32, 512, 12, 64), blocks of 128, bf16 and fp32, on
+    phase 3's fused cases, with a seeded cotangent; forward + backward and
+    backward alone timed on both routes, and SDPA's forward + backward as a
+    labelled yardstick; (10.2) bench.py's configuration of the metric of
+    record (``bench_bert``: BERT-base, 2 labels, dropout 0, bf16 compute
+    with fp32 parameters, seq 128, batch 32, full attention, AdamW at a
+    constant 2e-5 with weight decay 0.01, ids and labels from
+    ``np.random.RandomState(0)``) through the port's one-step function
+    (``make_train_step``): 3 warm-up and 3 × 10 timed steps, samples/s, ms a
+    step, peak memory, MFU (see ``train_step_flops``) and the device time
+    by kernel group; the loss must be finite and fall over the 33 steps;
+    (10.3) the same model with attentionBlockSize 128 at seq 512: 5 steps,
+    12 flash launches a step, losses within LOSS_ROUTE_ATOL of 5 plain-route
+    steps from the same weights; (10.4) ``BertTextClassifierTrainBatchOp``
+    on data/sst2_mini.csv from data/bert_tiny_sst and from scratch, the
+    holdout through ``BertTextClassifierPredictBatchOp``: the pretrained
+    run must reach SST2_FLOOR, and predict identically after ``.ak``;
+11. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -115,7 +141,11 @@ agree exactly, channel by channel; real vals within 2·count·2**-24·Σ|vals|
 per cell, the worst-case fp32 error of a sum taken in any order, for both
 sides (count and Σ|vals| from the plain version on ones and on |vals|).
 SGNS gradients, both entries: atol 1e-5 (the reference kernel's
-contract); the fused entry's hit count exactly. Word2Vec
+contract); the fused entry's hit count exactly. At D > 1,000 the gathered
+rows are N(0, 100/D), not N(0, 1): the dot products then spread as those
+of N(0, 1) rows at D = 100, while the fp32 rounding of a dot product of
+2,048 N(0, 1) products (magnitude ~45) exceeds the atol in any summation
+order. Word2Vec
 tables, kernel route vs plain route: max|Δ| ≤ 1e-3, 100x the 9.8e-6 that a
 rounding-level change of the block gradients (computed in float64) moved a
 table of magnitude 1.4 over 3,700 steps on a quarter of the corpus on the
@@ -124,6 +154,22 @@ so two card runs are not bit-identical either. Learning gate: the in-topic
 share of the top-10 cosine neighbours of vocabulary rows 100..1099 must be
 ≥ 0.32 (chance 0.01), half the 0.641 of the port's CPU run on a quarter of
 the corpus.
+Flash backward (phase 10.1), kernel route against the plain route's
+autograd: fp32 within 1e-4 of the plain gradient's largest entry. bf16:
+2**-6·(|g| + g_abs) element by element, g_abs the gradient's formula on
+absolute values (``backward_mismatch``). Both routes round their products
+to bf16 (≤ 2**-8 relative of each product) at different points: P before
+P·dO (the plain route its unnormalised p), dS before dS·K and dSᵀ·Q, and
+the plain route's dq sums its 4 blocks' bf16 gradients in bf16; each such
+error is at most 2**-8 of a term of the absolute formula, and the
+forward's own bf16 difference in O (within 2**-7 of O_abs) enters only
+through rowsum(dO∘O), which g_abs also carries. Training losses (phase
+10.3), kernel route against plain route: within 0.02, twice LOGIT_ATOL:
+cross-entropy moves by at most twice the largest logit change, and the two
+routes' logits agree within LOGIT_ATOL (phase 4); 4 AdamW steps of 2e-5
+between them move the logits by far less. sst2 (phase 10.4): holdout
+accuracy ≥ SST2_REFERENCE_ACC − 0.05, the reference's accuracy at the same
+settings on the CPU (tests/test_torch_train_e2e.py).
 """
 
 from __future__ import annotations
@@ -906,6 +952,110 @@ def check_histogram(peaks, bins):
     return errors, by_segments
 
 
+WIDE_ROWS = 60_000          # MNIST's training rows
+WIDE_D = (300, 784)         # above the 256 features of one feature block
+WIDE_LEVELS = (0, 6, 11)    # L = 1, 64, 2,048
+WIDE_FOREST = dict(numTrees=4, maxDepth=10, maxBins=HIST_BINS,
+                   minSamplesPerLeaf=5)
+
+
+def mnist_layout(n, seed):
+    """n seeded rows in MNIST's layout (the file is not in the repository):
+    784 pixel columns of integer intensities in [0, 255], about a fifth of
+    them non-zero and more often near the image's centre, and a binary
+    label from a fixed linear rule of the pixels plus noise. Returns X (n,
+    784) float32 and y (n,) int64."""
+    g = np.random.default_rng(seed)
+    rule = np.random.default_rng(seed + 1)
+    r = np.hypot(*np.meshgrid(np.arange(28) - 13.5, np.arange(28) - 13.5))
+    p_on = (0.45 * np.exp(-(r / 9.0) ** 2)).reshape(-1)   # mean ~0.19
+    on = g.random((n, 784), dtype=np.float32) < p_on
+    X = np.where(on, g.integers(1, 256, (n, 784)), 0).astype(np.float32)
+    w = rule.normal(0.0, 1.0, 784) * p_on
+    score = (X / 255.0) @ w
+    score += g.normal(0.0, 0.3 * score.std(), n)
+    return X, (score > np.median(score)).astype(np.int64)
+
+
+def check_wide_histograms(peaks, bins, device="cuda"):
+    """Phase 5, wide tables (more than one feature block of the kernel): the
+    level call against ``level_histograms_ref`` at d = 300 and 784 on
+    MNIST-layout bins (n = 60,000) at L = 1, 64 and 2,048, the forest's
+    integer channels exactly and real ones within their bound, nodes and
+    bins out of range included; timed at L = 64. Returns the raw errors and
+    the times by d."""
+    import torch
+
+    from alink_tpu_torch.tree.hist_cuda import level_histograms
+
+    staged = torch.tensor(bins, dtype=torch.uint8, device=device)
+    errors, times = {}, {}
+    for d in WIDE_D:
+        b_d = staged[:, :d].contiguous()
+        for level in WIDE_LEVELS:
+            for label, b, node, L, vals, exact in level_cases(
+                    b_d, level, SEED + 50 + level, device):
+                got = level_histograms(b, node, vals, num_nodes=L,
+                                       num_bins=HIST_BINS)
+                raw, ratio = level_mismatch(b, node, vals, L, got, exact)
+                name = f"d={d} L={L} {label}"
+                print(f"tree_histogram vs plain [{name}] max|Δ| {raw:.3g}; "
+                      f"error/bound {ratio:.3g} (exact channels: {exact})",
+                      flush=True)
+                if not ratio <= 1.0:
+                    fail(f"tree_histogram [{name}] outside its tolerance")
+                errors[name] = raw
+        if device != "cuda":
+            continue
+        b, node, L, vals = level_inputs(b_d, 6, SEED + 56)
+        times[d] = time_level(peaks, b, node,
+                              (vals["g"], vals["count"], vals["count"]), L,
+                              f"wide table d={d}")
+    return errors, times
+
+
+def wide_forest_path():
+    """Phase 6, wide table: a forest of 4 trees (depth 10) through
+    ``RandomForestTrainBatchOp`` on 60,000 MNIST-layout rows of 784 columns,
+    one histogram launch a level, the same trees as the
+    ``ALINK_GBDT_PALLAS=0`` route. Returns the launches and the walls."""
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.operator.batch import RandomForestTrainBatchOp
+    from alink_tpu_torch.tree import grow
+
+    X, y = mnist_layout(WIDE_ROWS, SEED)
+    cols = {f"pixel{j}": X[:, j].astype(np.float64) for j in range(784)}
+    cols["label"] = y
+    table = MTable(cols)
+    kernels.reset_launches()
+    model, wall = train_trees(RandomForestTrainBatchOp, WIDE_FOREST, table)
+    launches = kernels.launches()["tree_histogram"]
+    os.environ[grow.HIST_KERNEL_ENV] = "0"
+    try:
+        plain_model, plain_wall = train_trees(RandomForestTrainBatchOp,
+                                              WIDE_FOREST, table)
+    finally:
+        del os.environ[grow.HIST_KERNEL_ENV]
+    (_, arrays), (_, plain_arrays) = (table_to_model(m)
+                                      for m in (model, plain_model))
+    same = {k: np.array_equal(arrays[k], plain_arrays[k])
+            for k in ("feats", "thrs", "leaves")}
+    expect = WIDE_FOREST["numTrees"] * WIDE_FOREST["maxDepth"]
+    print(f"wide forest ({WIDE_ROWS} rows x 784 columns, {WIDE_FOREST}): "
+          f"{wall:.2f} s wall, {launches} tree_histogram launches (expected "
+          f"{expect}); plain route {plain_wall:.2f} s; trees identical "
+          f"{same}", flush=True)
+    if launches != expect:
+        fail(f"tree_histogram launched {launches} times on the wide forest, "
+             f"expected {expect}")
+    if not all(same.values()):
+        fail("the kernel route grew other trees than the plain route on the "
+             "784-column table")
+    return dict(launches=launches, wall_s=wall, plain_wall_s=plain_wall)
+
+
 def main_path_histograms(peaks, kept):
     """The forest's first tree, level by level: its level calls' inputs as
     the main path made them (``kept``), held against the plain version
@@ -1503,6 +1653,74 @@ def check_sgns(peaks, docs):
     return row
 
 
+SGNS_WIDE_D = (1100, 2048)   # above the kernel's 1,024 register-held lanes
+
+
+def wide_step(B, negs, D, seed, rows=20_000, hot=1_024, device="cuda"):
+    """A step's pull inputs at row width D: N(0, 0.05) tables of ``rows``
+    rows (a trained table's scale: the dot products of 2,048 such entries
+    spread about 0.1), replicas of the hot rows, and ids of which a third
+    are hot; the shape of :func:`sgns_trained_step`'s result."""
+    import torch
+
+    g = np.random.default_rng(seed)
+
+    def table(n):
+        return torch.tensor(g.normal(0.0, 0.05, (n, D)), dtype=torch.float32,
+                            device=device)
+
+    def ids(n):
+        x = np.where(g.random(n) < 1 / 3, g.integers(0, hot, n),
+                     g.integers(0, rows, n))
+        return torch.tensor(x, dtype=torch.int64, device=device)
+
+    win, w_ctx = table(rows), table(rows)
+    return dict(win=win, w_ctx=w_ctx, center=ids(B), uids=ids((negs + 1) * B),
+                negs=negs, rows=rows, hot=hot, rep_in=win[:hot].clone(),
+                rep_ctx=w_ctx[:hot].clone())
+
+
+def check_sgns_wide(seed=SEED, B=1024, rows=20_000, device="cuda"):
+    """Phase 8, wide rows (D > 1,024, the kernel's chunked instance): both
+    entries against both plain versions at (B, negs) = (1024, 5), atol 1e-5:
+    the gathered rows on N(0, 100/D) rows (dot products spread as those of
+    the N(0, 1) rows at D = 100 above, which saturate the sigmoid; N(0, 1)
+    rows of D > 1,000 entries give dot products whose fp32 rounding alone,
+    in any summation order, exceeds the atol) and on table rows, the pull
+    on :func:`wide_step` through :func:`pull_cases` (sentinel and duplicate
+    ids; cache on, off, tied; hits equal). Returns the raw errors."""
+    from alink_tpu_torch.embedding.sgns_cuda import (pull_rows,
+                                                     sgns_block_grads,
+                                                     sgns_pull_grads)
+
+    negs = 5
+    errors = {}
+    for D in SGNS_WIDE_D:
+        step = wide_step(B, negs, D, seed + D, rows=rows, device=device)
+        scaled = tuple(x * (10.0 / D ** 0.5)
+                       for x in sgns_normal_inputs(B, negs, D, seed + D,
+                                                   device))
+        for kind, args in (("N(0, 100/D) rows", scaled),
+                           ("table rows", pull_rows(**step)[:3])):
+            err = sgns_mismatch(args, sgns_block_grads(*args))
+            print(f"sgns_block_grads vs plain [(B, negs, D) = ({B}, {negs}, "
+                  f"{D}), {kind}] max|Δ| {err:.3g} (tol {FP32_ATOL})",
+                  flush=True)
+            if not err <= FP32_ATOL:
+                fail(f"sgns_block_grads D={D} {kind} outside its tolerance")
+            errors[f"({B}, {negs}, {D}) {kind}"] = err
+        for label, args in pull_cases(step, seed):
+            err = pull_mismatch(args, sgns_pull_grads)
+            print(f"sgns_pull_grads vs plain [(B, negs, D) = ({B}, {negs}, "
+                  f"{D}), {label}, sentinel and duplicate ids] max|Δ| "
+                  f"{err:.3g} (tol {FP32_ATOL}; hits equal)", flush=True)
+            if not err <= FP32_ATOL:
+                fail(f"sgns_pull_grads D={D} [{label}] outside its tolerance "
+                     f"or counted other hits")
+            errors[f"pull ({B}, {negs}, {D}) {label}"] = err
+    return errors
+
+
 def step_operations(docs, steps=OPS_STEPS):
     """Device operations a step of the sharded loop (``torch.profiler``,
     CUDA activity, after an untraced warm run) on ``steps`` steps of the
@@ -1726,6 +1944,408 @@ def word2vec_path(workdir, docs):
                           predict_rows_per_s=rates)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: BERT training
+# ---------------------------------------------------------------------------
+
+
+TRAIN_SEQ, TRAIN_BATCH = 128, 32    # bench.py's SEQ and PER_CHIP_BATCH
+TRAIN_WARMUP, TRAIN_REPS, TRAIN_STEPS = 3, 3, 10   # 3 + 30 timed steps
+TRAIN_LR, TRAIN_WD = 2e-5, 0.01     # bench.py: optax.adamw(2e-5, 0.01)
+KERNEL_TRAIN = dict(seq=512, batch=32, block=128, steps=5)
+BWD_FP32_REL = 1e-4                 # of the plain route's largest entry
+LOSS_ROUTE_ATOL = 2 * LOGIT_ATOL    # kernel vs plain route training losses
+# phase 10.4: the operator's fine-tune on data/sst2_mini.csv
+SST2 = dict(maxSeqLength=32, numEpochs=20, batchSize=32, learningRate=1e-3,
+            randomSeed=0)
+# alink_tpu's holdout accuracy at these settings on the CPU, 8 virtual
+# devices (81 of 101 rows;
+# tests/test_torch_train_e2e.py::test_sst2_holdout_accuracy_of_both_packages)
+SST2_REFERENCE_ACC = 0.8020
+SST2_FLOOR = SST2_REFERENCE_ACC - 0.05
+
+
+def layer_matmul_params(cfg) -> int:
+    """Weights of the encoder layers' products: 12 · (4·h² + 2·h·i) =
+    84,934,656 at BERT-base."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    return cfg.num_layers * (4 * h * h + 2 * h * i)
+
+
+def train_step_flops(cfg, batch, seq) -> float:
+    """Model FLOPs of one training step: 6 · (layer product weights) ·
+    tokens, plus attention's two products, 4·B·S²·h a layer forward and
+    twice that backward: 12 · L · B · S² · h."""
+    tokens = batch * seq
+    return 6.0 * layer_matmul_params(cfg) * tokens \
+        + 12.0 * cfg.num_layers * batch * seq * seq * cfg.hidden_size
+
+
+def route_grads(q, k, v, mask, ct, block_size, causal=False, views=False):
+    """``blockwise_attention`` forward and backward on the current route,
+    with the cotangent ``ct``; ``views``: q, k and v as ``unbind`` views of
+    one (B, S, 3, H, D) tensor, as the main path hands them over. Returns
+    the output and (dq, dk, dv)."""
+    import torch
+
+    from alink_tpu_torch.dl.attention import blockwise_attention
+
+    if views:
+        base = torch.stack((q, k, v), dim=2).detach().requires_grad_()
+        qq, kk, vv = base.unbind(dim=2)
+        leaves = (base,)
+    else:
+        qq, kk, vv = leaves = tuple(x.detach().requires_grad_()
+                                    for x in (q, k, v))
+    out = blockwise_attention(qq, kk, vv, mask, block_size=block_size,
+                              causal=causal)
+    grads = torch.autograd.grad(out, leaves, ct)
+    return out.detach(), (grads[0].unbind(dim=2) if views else grads)
+
+
+def backward_mismatch(q, k, v, mask, ct, got, block_size, causal=False):
+    """Holds ``got`` = (dq, dk, dv) of the kernel route against the plain
+    route's autograd (``ALINK_ATTN_PALLAS=0``) on the same inputs and
+    cotangent. Returns the raw max |Δ| of each and the worst error over its
+    bound (> 1 fails). fp32: 1e-4 of the plain gradient's largest entry.
+    bf16: 2**-6 · (|g| + g_abs) element by element, where g_abs is the
+    gradient's formula on absolute values, P the plain softmax (uniform on
+    a fully masked row): dv_abs = Pᵀ|dO|; A = P∘(|dO|·|V|ᵀ + rowsum(|dO∘O|));
+    dq_abs = scale·A·|K|; dk_abs = scale·Aᵀ·|Q| (module docstring)."""
+    import torch
+
+    _, ref = plain_route(route_grads, q, k, v, mask, ct, block_size, causal)
+    if any(a.shape != r.shape or not bool(torch.isfinite(a).all())
+           for a, r in zip(got, ref)):
+        return dict.fromkeys("qkv", float("nan")), float("inf")
+    errs = [(a.float() - r.float()).abs() for a, r in zip(got, ref)]
+    raw = {n: float(e.max()) for n, e in zip("qkv", errs)}
+    if q.dtype != torch.bfloat16:
+        return raw, max(float(e.max()) / (BWD_FP32_REL * float(
+            r.float().abs().max()) + 1e-30) for e, r in zip(errs, ref))
+    scale = q.shape[-1] ** -0.5
+    qh, kh, vh, dh = (x.transpose(1, 2).float() for x in (q, k, v, ct))
+    sc = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+    ok = (mask[:, None, None, :] > 0).expand_as(sc)
+    if causal:
+        ok = ok & torch.ones(sc.shape[-2:], dtype=torch.bool,
+                             device=sc.device).tril()
+    p = torch.softmax(torch.where(ok, sc, NEG), dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vh)
+    a = p * (torch.einsum("bhqd,bhkd->bhqk", dh.abs(), vh.abs())
+             + (dh * o).abs().sum(-1, keepdim=True))
+    g_abs = (scale * torch.einsum("bhqk,bhkd->bhqd", a, kh.abs()),
+             scale * torch.einsum("bhqk,bhqd->bhkd", a, qh.abs()),
+             torch.einsum("bhqk,bhqd->bhkd", p, dh.abs()))
+    del sc, ok, p, a
+    worst = 0.0
+    for e, r, ga in zip(errs, ref, g_abs):
+        bound = 2 * BF16_ULP * (r.float().abs() + ga.transpose(1, 2))
+        worst = max(worst, worst_ratio(e, bound))
+    return raw, worst
+
+
+def check_backward(peaks):
+    """Phase 10.1: the flash route's backward against the plain route's
+    autograd at (B, S, H, D) = (32, 512, 12, 64), blocks of 128, bf16 and
+    fp32, on the forward's cases (fully masked batch row, causal, ragged S =
+    500, the main path's views), with a seeded N(0, 1) cotangent; then
+    forward + backward and backward alone timed on both routes, and SDPA's
+    forward + backward over the same attention as a yardstick."""
+    import torch
+
+    s = SLICE
+    B, H, D, bs = s["B"], s["H"], s["D"], s["K"]
+    errors = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for label, S, causal, views in FUSED_CASES:
+            q, k, v, mask = attn_inputs(B, S, H, D, dt, SEED)
+            g = np.random.default_rng(SEED + S)
+            ct = torch.tensor(g.standard_normal((B, S, H, D), np.float32),
+                              device="cuda").to(dt)
+            _, got = route_grads(q, k, v, mask, ct, bs, causal, views)
+            raw, worst = backward_mismatch(q, k, v, mask, ct, got, bs, causal)
+            name = f"backward {str(dt)[6:]} [{label}]"
+            print(f"{name} kernel route vs plain route's autograd: max|Δ| " +
+                  " ".join(f"d{n}={x:.3g}" for n, x in raw.items()) +
+                  f"; worst error/bound {worst:.3g}", flush=True)
+            if not worst <= 1.0:
+                fail(f"{name} outside its tolerance")
+            errors[name] = max(raw.values())
+
+    S = s["Q"]
+    q, k, v, mask = attn_inputs(B, S, H, D, torch.bfloat16, SEED)
+    ct = torch.randn((B, S, H, D), device="cuda", dtype=torch.bfloat16,
+                     generator=torch.Generator(device="cuda").manual_seed(SEED))
+    fwd_bwd = lambda: route_grads(q, k, v, mask, ct, bs, views=True)  # noqa: E731
+    base = torch.stack((q, k, v), dim=2).detach().requires_grad_()
+
+    def bwd_only():
+        from alink_tpu_torch.dl.attention import blockwise_attention
+
+        out = blockwise_attention(*base.unbind(dim=2), mask, block_size=bs)
+        return lambda: torch.autograd.grad(out, base, ct, retain_graph=True)
+
+    t = [plain_route(cuda_ms, fwd_bwd), cuda_ms(fwd_bwd), cuda_ms(fwd_bwd),
+         plain_route(cuda_ms, fwd_bwd)]
+    bwd = [plain_route(lambda: cuda_ms(bwd_only())),
+           cuda_ms(bwd_only()), cuda_ms(bwd_only()),
+           plain_route(lambda: cuda_ms(bwd_only()))]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (torch.randn((B, H, S, D), device="cuda",
+                              dtype=torch.bfloat16, requires_grad=True)
+                  for _ in range(3))
+    cts = ct.transpose(1, 2)
+    lib = cuda_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs), (qs, ks, vs),
+                                              cts))
+    row = dict(fwd_bwd_ms=(t[1] + t[2]) / 2, fwd_bwd_plain_ms=(t[0] + t[3]) / 2,
+               bwd_ms=(bwd[1] + bwd[2]) / 2,
+               bwd_plain_ms=(bwd[0] + bwd[3]) / 2, library_fwd_bwd_ms=lib,
+               fwd_bwd_turns=t, bwd_turns=bwd, errors=errors)
+    print(f"flash route forward + backward bf16 (B, S, H, D) = ({B}, {S}, "
+          f"{H}, {D}), block {bs}, views: kernel route "
+          f"{row['fwd_bwd_ms']:.4f} ms (backward alone {row['bwd_ms']:.4f}), "
+          f"plain route {row['fwd_bwd_plain_ms']:.4f} ms (backward alone "
+          f"{row['bwd_plain_ms']:.4f}); turns plain,kernel,kernel,plain "
+          f"{[round(x, 4) for x in t]} / {[round(x, 4) for x in bwd]}; "
+          f"yardstick: scaled_dot_product_attention forward + backward "
+          f"{lib:.4f} ms (contiguous, unmasked)", flush=True)
+    return row
+
+
+def bert_train_setup(seq, batch, block=0, device="cuda"):
+    """bench.py's fine-tune: BERT-base, 2 labels, dropout 0, bf16 compute
+    with fp32 parameters, freshly initialised from SEED, AdamW at a
+    constant 2e-5 with weight decay 0.01, ids and labels from
+    ``np.random.RandomState(0)``, all-ones mask. Returns (model, step,
+    batch dict, y)."""
+    import torch
+
+    from alink_tpu_torch.dl.modules import BertConfig, TransformerEncoder
+    from alink_tpu_torch.dl.train import (Optimizer, loss_fn,
+                                          make_train_step)
+
+    cfg = BertConfig.base(num_labels=2, dropout=0.0,
+                          attention_block_size=block)
+    model = TransformerEncoder(cfg).to(device).init_weights(SEED)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    y = rng.randint(0, 2, batch).astype(np.int32)
+    opt = Optimizer("adamw", lambda count: TRAIN_LR,
+                    dict(model.named_parameters()), TRAIN_WD)
+    step = make_train_step(model, opt, loss_fn("softmax", False))
+    tb = {"input_ids": torch.tensor(ids, device=device),
+          "attention_mask": torch.ones((batch, seq), dtype=torch.int32,
+                                       device=device)}
+    return model, step, tb, torch.tensor(y, device=device)
+
+
+def time_split(step, tb, y, steps=2):
+    """Device ms a step by kernel group over ``steps`` profiled steps
+    (``torch.profiler``, CUDA activity): the products (cuBLAS), the flash
+    kernel, the optimizer's multi-tensor kernels, the rest; their sum
+    (``busy``) and the 8 kernels of most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(tb, y)
+        torch.cuda.synchronize()
+    groups = {"products": 0.0, "flash kernel": 0.0, "optimizer": 0.0,
+              "other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        name = ev.key.lower()
+        ms = ev.self_device_time_total / 1e3 / steps
+        if "flash" in name:
+            key = "flash kernel"
+        elif any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet",
+                                     "cublas", "matmul")):
+            key = "products"
+        elif "multi_tensor" in name or "foreach" in name:
+            key = "optimizer"
+        else:
+            key = "other"
+        groups[key] += ms
+        top.append((ms, ev.count / steps, ev.key[:60]))
+    groups["busy"] = sum(groups.values())
+    groups["top"] = [(round(ms, 3), n, k) for ms, n, k in sorted(top)[-8:]]
+    return groups
+
+
+def train_metric_of_record(peaks):
+    """Phase 10.2: bench.py's configuration (seq 128, batch 32, full
+    attention) through the port's one-step function: 3 warm-up steps, then
+    3 repeats of 10 timed steps on the same batch (host clock, synced).
+    Returns samples/s, ms a step (median of the repeats), peak memory, MFU,
+    the losses and the device time split."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    model, step, tb, y = bert_train_setup(TRAIN_SEQ, TRAIN_BATCH)
+    losses = [step(tb, y) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(TRAIN_REPS):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            losses.append(step(tb, y))
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    split = time_split(step, tb, y)
+    ms = float(np.median(reps)) * 1e3
+    flops = train_step_flops(model.cfg, TRAIN_BATCH, TRAIN_SEQ)
+    mfu = flops / (ms / 1e3) / peaks[1]
+    split["idle_share"] = 1.0 - split["busy"] / ms
+    row = dict(samples_per_s=TRAIN_BATCH / (ms / 1e3), ms_per_step=ms,
+               ms_per_step_repeats=[r * 1e3 for r in reps],
+               peak_gib=peak / 2**30, mfu=mfu, step_tflop=flops / 1e12,
+               loss_first=losses[0], loss_last=losses[-1],
+               steps=len(losses), device_ms_by_group=split)
+    print(f"BERT-base fine-tune step (bench.py's configuration: seq "
+          f"{TRAIN_SEQ}, batch {TRAIN_BATCH}, bf16 compute, fp32 params, "
+          f"AdamW {TRAIN_LR} wd {TRAIN_WD}, full attention): "
+          f"{row['samples_per_s']:.1f} samples/s, {ms:.2f} ms a step "
+          f"(median of {TRAIN_REPS} repeats of {TRAIN_STEPS}: "
+          f"{[round(r * 1e3, 2) for r in reps]}); peak device memory "
+          f"{row['peak_gib']:.2f} GiB; {flops / 1e12:.3f} TFLOP a step, MFU "
+          f"{mfu:.4f} of {peaks[1] / 1e12:.0f} TFLOP/s; loss {losses[0]:.4f} "
+          f"at step 1, {losses[-1]:.4f} at step {len(losses)}; device ms a "
+          f"step by group (torch.profiler) " +
+          ", ".join(f"{k} {v}" for k, v in split.items()), flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"BERT-base training loss not finite or not falling: "
+             f"{losses[0]} -> {losses[-1]}")
+    return row
+
+
+def train_kernel_route():
+    """Phase 10.3: the same model on the flash kernel's route
+    (attentionBlockSize 128) at seq 512, batch 32: 5 steps with the launch
+    counter (12 a step: one per layer's attention, the backward launches
+    none), then 5 steps of the plain route from the same weights and batch;
+    the losses agree within LOSS_ROUTE_ATOL (bf16: cross-entropy moves by
+    at most twice the largest logit change, and the routes' logits agree
+    within LOGIT_ATOL, phase 4). Returns the launches and ms a step."""
+    import torch
+
+    from alink_tpu_torch.native import kernels
+
+    kt = KERNEL_TRAIN
+    model, step, tb, y = bert_train_setup(kt["seq"], kt["batch"], kt["block"])
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    out = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            del model, step
+            model, step, tb, y = bert_train_setup(kt["seq"], kt["batch"],
+                                                  kt["block"])
+            model.load_state_dict(init)
+            os.environ["ALINK_ATTN_PALLAS"] = "0"
+        try:
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            losses, marks = [], []
+            for _ in range(kt["steps"]):
+                losses.append(step(tb, y))
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            launches = kernels.launches()["flash_block_update"]
+            split = time_split(step, tb, y)
+        finally:
+            os.environ.pop("ALINK_ATTN_PALLAS", None)
+        ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+        split["idle_share"] = 1.0 - split["busy"] / ms
+        out[route] = dict(losses=[float(x) for x in losses],
+                          launches=launches, ms_per_step=ms,
+                          device_ms_by_group=split)
+    gap = max(abs(a - b) for a, b in zip(out["kernel"]["losses"],
+                                         out["plain"]["losses"]))
+    print(f"BERT-base training on the flash route (seq {kt['seq']}, batch "
+          f"{kt['batch']}, attentionBlockSize {kt['block']}): "
+          f"{out['kernel']['launches']} flash_block_update launches in "
+          f"{kt['steps']} steps; ms a step kernel route "
+          f"{out['kernel']['ms_per_step']:.1f}, plain route "
+          f"{out['plain']['ms_per_step']:.1f}; losses kernel "
+          f"{[round(x, 5) for x in out['kernel']['losses']]}, plain "
+          f"{[round(x, 5) for x in out['plain']['losses']]}, max|Δ| "
+          f"{gap:.3g} (tol {LOSS_ROUTE_ATOL}); device ms a step by group "
+          f"(torch.profiler) kernel route " + ", ".join(
+              f"{k} {v}" for k, v in out["kernel"]["device_ms_by_group"]
+              .items()) + "; plain route " + ", ".join(
+              f"{k} {v}" for k, v in out["plain"]["device_ms_by_group"]
+              .items()), flush=True)
+    expect = model.cfg.num_layers * kt["steps"]
+    if out["kernel"]["launches"] != expect or out["plain"]["launches"] != 0:
+        fail(f"flash_block_update launched {out['kernel']['launches']} times "
+             f"in {kt['steps']} training steps, expected {expect} (12 a step)")
+    if not all(np.isfinite(out["kernel"]["losses"])) \
+            or not gap <= LOSS_ROUTE_ATOL:
+        fail(f"training losses of the kernel and plain routes differ by {gap}")
+    return dict(out, loss_gap=gap)
+
+
+def finetune_sst2(workdir):
+    """Phase 10.4: ``BertTextClassifierTrainBatchOp`` on the sst2_mini train
+    split (``sst2_split(seed=0)``), from ``data/bert_tiny_sst`` and from
+    scratch (``bertSize="tiny"``), predicted on the holdout through
+    ``BertTextClassifierPredictBatchOp``; the pretrained run must reach
+    SST2_FLOOR, and its model, written to ``.ak`` and read back, must
+    predict identically."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.dl.data import data_path, sst2_split
+    from alink_tpu_torch.operator.batch import (
+        AkSinkBatchOp, AkSourceBatchOp, BertTextClassifierPredictBatchOp,
+        BertTextClassifierTrainBatchOp, TableSourceBatchOp)
+
+    tr_t, tr_y, ho_t, ho_y = sst2_split(seed=0)
+    train = TableSourceBatchOp(MTable({"text": tr_t, "label": tr_y}))
+    hold = TableSourceBatchOp(MTable({"text": ho_t, "label": ho_y}))
+
+    def predict(model_op):
+        out = BertTextClassifierPredictBatchOp(
+            predictionCol="p", predictionDetailCol="d").link_from(
+            model_op, hold).collect()
+        return np.asarray(out.col("p")), list(out.col("d"))
+
+    res = {}
+    for label, extra in (("pretrained", dict(
+            checkpointFilePath=data_path("bert_tiny_sst"))),
+            ("scratch", dict(bertSize="tiny"))):
+        t0 = time.perf_counter()
+        model = BertTextClassifierTrainBatchOp(
+            textCol="text", labelCol="label", **SST2, **extra).link_from(
+            train).collect()
+        wall = time.perf_counter() - t0
+        pred, detail = predict(TableSourceBatchOp(model))
+        res[label] = dict(acc=float(np.mean(pred == ho_y)), train_s=wall)
+        if label == "pretrained":
+            path = os.path.join(workdir, "bert_sst2.ak")
+            AkSinkBatchOp(filePath=path, overwriteSink=True).link_from(
+                TableSourceBatchOp(model)).collect()
+            back, back_detail = predict(AkSourceBatchOp(filePath=path))
+            same = bool(np.array_equal(back, pred) and back_detail == detail)
+    print(f"sst2_mini fine-tune through the operators ({len(tr_t)} train, "
+          f"{len(ho_t)} holdout rows, {SST2}): pretrained from "
+          f"data/bert_tiny_sst accuracy {res['pretrained']['acc']:.4f} "
+          f"(floor {SST2_FLOOR:.4f}; {res['pretrained']['train_s']:.1f} s), "
+          f"from scratch {res['scratch']['acc']:.4f} "
+          f"({res['scratch']['train_s']:.1f} s); .ak round trip predicts "
+          f"identically: {same}", flush=True)
+    if not res["pretrained"]["acc"] >= SST2_FLOOR:
+        fail(f"the pretrained fine-tune's holdout accuracy "
+             f"{res['pretrained']['acc']} is below {SST2_FLOOR}")
+    if not same:
+        fail("the fine-tuned model predicts otherwise after .ak")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1779,9 +2399,19 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     errors, even = check_histogram(peaks, bins)
     del bins
+    t0 = time.perf_counter()
+    Xw, _ = mnist_layout(WIDE_ROWS, SEED)
+    wide_bins = apply_bins(Xw, quantile_bins(Xw, HIST_BINS))
+    del Xw
+    print(f"MNIST-layout data: {WIDE_ROWS} rows x 784 features from seed "
+          f"{SEED}, binned in {time.perf_counter() - t0:.1f} s", flush=True)
+    wide_errors, wide_times = check_wide_histograms(peaks, wide_bins)
+    errors.update(wide_errors)
+    del wide_bins
     tree_launches, forest, (hist, forest_errors, levels) = forest_path(
         workdir, X, y, peaks)
     errors.update(forest_errors)
+    wide_forest = wide_forest_path()
     hist.update(errors=errors, max_abs_err=max(errors.values()),
                 bound_by="bytes")
     gbdt_path(X, y)
@@ -1793,8 +2423,17 @@ def main() -> int:
     print(f"text8-layout corpus: {len(docs)} sentences of {SENTENCE} tokens "
           f"from seed {SEED} in {time.perf_counter() - t0:.1f} s", flush=True)
     sgns = check_sgns(peaks, docs[:250])
+    sgns["errors"].update(check_sgns_wide())
+    sgns["max_abs_err"] = max(sgns["errors"].values())
     sgns_launches, w2v = word2vec_path(workdir, docs)
     marks.append(("phases 8-9 Word2Vec", time.perf_counter()))
+    del docs
+
+    bwd = check_backward(peaks)
+    record = train_metric_of_record(peaks)
+    kernel_train = train_kernel_route()
+    sst2 = finetune_sst2(workdir)
+    marks.append(("phase 10 BERT training", time.perf_counter()))
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -1818,7 +2457,11 @@ def main() -> int:
                    "route (ALINK_ATTN_PALLAS=0)"),
              library_views_ms=stats["library_views_ms"],
              block_ms=stats["block_ms"],
-             block_plain_ms=stats["block_plain_ms"]),
+             block_plain_ms=stats["block_plain_ms"],
+             train_launches=kernel_train["kernel"]["launches"],
+             backward_errors=bwd.pop("errors"), **bwd,
+             bert_training=dict(metric_of_record=record,
+                                kernel_route=kernel_train, sst2=sst2)),
         dict(entry("tree_histogram", tree_launches, hist,
                    "Tensor.index_add_ of the distinct channels over the "
                    "flat cell index (yardstick)",
@@ -1829,7 +2472,8 @@ def main() -> int:
                    f"2048, S = 64 ... 131072) of the forest's first tree, "
                    f"on its level calls' inputs"),
              forest=forest, forest_levels=levels,
-             even_nodes=even),
+             even_nodes=even, wide_tables=wide_times,
+             wide_forest=wide_forest),
         dict(entry("sgns_block_grads", sgns_launches, sgns, "none",
                    "one fused pull-and-gradients call (sgns_pull_grads): "
                    "B=1024 negs=5 D=100 fp32, the tables, hot replicas "

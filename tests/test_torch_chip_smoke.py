@@ -478,3 +478,134 @@ def test_topic_share_reads_the_topics():
     assert chip_smoke.topic_share(words, clustered, device="cpu") == 1.0
     noise = rng.normal(size=(3000, 16))
     assert chip_smoke.topic_share(words, noise, device="cpu") < 0.03
+
+
+# -- wide tables and wide rows (phases 5 and 8) -----------------------------
+def test_case_lists_cover_wide_tables_and_rows():
+    """Past one feature block of the histogram kernel (256 features) and
+    past the SGNS kernel's register-held rows (1,024 entries)."""
+    assert min(chip_smoke.WIDE_D) > 256 and 784 in chip_smoke.WIDE_D
+    assert [1 << lv for lv in chip_smoke.WIDE_LEVELS] == [1, 64, 2048]
+    assert min(chip_smoke.SGNS_WIDE_D) > 1024 and max(
+        chip_smoke.SGNS_WIDE_D) >= 2048
+
+
+@pytest.fixture(scope="module")
+def mnist_bins():
+    from alink_tpu_torch.tree.binning import apply_bins, quantile_bins
+
+    X, y = chip_smoke.mnist_layout(2_000, seed=0)
+    return X, y, apply_bins(X, quantile_bins(X, chip_smoke.HIST_BINS))
+
+
+def test_mnist_layout_keeps_the_file_layout(mnist_bins):
+    X, y, bins = mnist_bins
+    assert X.shape == (2_000, 784) and bins.shape == (2_000, 784)
+    assert np.array_equal(X, np.round(X)) and X.min() == 0 and X.max() <= 255
+    assert 0.1 < float((X > 0).mean()) < 0.3      # MNIST: ~19 % ink
+    assert 0.4 < float(y.mean()) < 0.6
+
+
+def test_wide_histogram_check_passes_the_plain_version(mnist_bins):
+    errors, times = chip_smoke.check_wide_histograms(None, mnist_bins[2],
+                                                     device="cpu")
+    assert len(errors) == 2 * 3 * 4 and max(errors.values()) == 0.0
+    assert times == {}
+
+
+def _drop_second_block(bins, node, vals, L):
+    # a feature-block walk that stops after the first block of 256
+    return tuple(torch.cat([h[:, :256], torch.zeros_like(h[:, 256:])], 1)
+                 for h in _ref(bins, node, vals, L))
+
+
+@pytest.mark.parametrize("kind", ["g", "normal"])
+def test_wide_histogram_check_rejects_a_cut_feature_walk(mnist_bins, kind):
+    bins = torch.tensor(mnist_bins[2][:, :300].copy())
+    assert _level_ratio(bins, 6, kind, _drop_second_block) > 1.0
+
+
+def test_wide_sgns_check_passes_the_plain_versions():
+    errors = chip_smoke.check_sgns_wide(B=32, rows=3_000, device="cpu")
+    assert len(errors) == 2 * (2 + 3) and max(errors.values()) == 0.0
+
+
+# -- the flash route's backward (phase 10) ----------------------------------
+def bwd_like(q, k, v, kmask, out, dout, *, block_size, causal, scale,
+             mutant=None):
+    """The backward in plain torch over the whole score matrix. ``mutant``
+    breaks it on purpose: "masked_carry" lets masked scores carry gradient,
+    "no_rowsum" drops the rowsum(dO∘O) term, "unpadded" leaves out the zero
+    keys of the ragged last block (a fully masked row then spreads over S
+    keys, not over whole blocks)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pad = 0 if mutant == "unpadded" else -sk % block_size
+    kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) for x in (k, v))
+    km = torch.nn.functional.pad(kmask.to(torch.int32), (0, pad))
+    qf, kf, vf, do = (x.float() for x in (q, kp, vp, dout))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    ok = (km[:, None, None, :] > 0).expand_as(s)
+    if causal:
+        ok = ok & torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+    p = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    dsum = (do * out.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = p * dp if mutant == "no_rowsum" else p * (dp - dsum)
+    if mutant != "masked_carry":
+        ds = torch.where(ok, ds, 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    return tuple(x.to(q.dtype) for x in (dq, dk[:, :sk], dv[:, :sk]))
+
+
+BWD_CASES = [("S=40", 40, False, False), ("S=40 causal views", 40, True, True),
+             ("ragged S=36 views", 36, False, True)]
+
+
+def _bwd_ratio(monkeypatch, dtype, S, causal, views, fn=None):
+    from alink_tpu_torch.dl import attn_cuda
+
+    if fn is not None:
+        monkeypatch.setattr(attn_cuda, "flash_blockwise_bwd", fn)
+    q, k, v, mask = chip_smoke.attn_inputs(4, S, 2, 16, dtype, seed=5,
+                                           device="cpu")
+    ct = torch.tensor(np.random.default_rng(6).standard_normal(q.shape),
+                      dtype=torch.float32).to(dtype)
+    _, got = chip_smoke.route_grads(q, k, v, mask, ct, 16, causal, views)
+    monkeypatch.undo()
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    return chip_smoke.backward_mismatch(q, k, v, mask, ct, got, 16,
+                                        causal)[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,S,causal,views", BWD_CASES)
+def test_backward_check_passes_the_port_and_a_stand_in(monkeypatch, dtype,
+                                                       label, S, causal,
+                                                       views):
+    assert _bwd_ratio(monkeypatch, dtype, S, causal, views) <= 1.0
+    assert _bwd_ratio(monkeypatch, dtype, S, causal, views, bwd_like) <= 1.0
+
+
+@pytest.mark.parametrize("mutant,case", [("masked_carry", 0),
+                                         ("no_rowsum", 1),
+                                         ("unpadded", 2)])
+def test_backward_check_rejects_broken_backwards(monkeypatch, mutant, case):
+    _, S, causal, views = BWD_CASES[case]
+
+    def broken(*a, **kw):
+        return bwd_like(*a, mutant=mutant, **kw)
+
+    assert _bwd_ratio(monkeypatch, torch.float32, S, causal, views,
+                      broken) > 1.0
+
+
+def test_training_flops_count_the_layers_and_attention():
+    from alink_tpu_torch.dl.modules import BertConfig
+
+    cfg = BertConfig.base()
+    assert chip_smoke.layer_matmul_params(cfg) == 84_934_656
+    flops = chip_smoke.train_step_flops(cfg, 32, 128)
+    assert flops == 6 * 84_934_656 * 32 * 128 + 12 * 12 * 32 * 128 ** 2 * 768

@@ -99,7 +99,7 @@ def test_wrapper_takes_the_plain_version_on_cpu_without_counting():
     assert kernels.launches()["sgns_block_grads"] == before
     spec = kernels.KERNELS["sgns_block_grads"]
     assert spec.replaces == "alink_tpu/embedding/sgns_pallas.py:100"
-    assert spec.plain == "sgns_block_grads_ref"
+    assert spec.plain == ("sgns_block_grads_ref", "sgns_pull_grads_ref")
     assert os.path.exists(os.path.join(os.path.dirname(kernels.__file__),
                                        "..", spec.source))
 

@@ -1,6 +1,6 @@
 """Rules of the port: ``alink_tpu_torch`` imports nothing of JAX, flax,
-msgpack or ``alink_tpu``, and its entry points never fall back to the CPU
-quietly."""
+optax, orbax, msgpack, safetensors, TensorFlow or ``alink_tpu``, and its
+entry points never fall back to the CPU quietly."""
 
 import os
 import subprocess
@@ -19,14 +19,17 @@ names = [m.name for m in pkgutil.walk_packages(alink_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
-                                    "alink_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "orbax", "msgpack", "safetensors",
+                                    "tensorflow", "alink_tpu"))
 print(len(names), ",".join(bad))
 print(",".join(names))
 """
 
 
 def test_port_imports_no_jax_flax_msgpack_or_reference():
+    """Every module of the port imported in a fresh interpreter pulls in
+    none of the forbidden packages, and chip_smoke.py neither."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -43,7 +46,17 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.embedding.skipgram",
             "alink_tpu_torch.embedding.sgns_cuda",
             "alink_tpu_torch.parallel.aps",
-            "alink_tpu_torch.operator.batch.huge"} <= set(scanned.split(","))
+            "alink_tpu_torch.operator.batch.huge",
+            "alink_tpu_torch.dl.train", "alink_tpu_torch.dl.checkpoint",
+            "alink_tpu_torch.dl.data", "alink_tpu_torch.dl.pretrained",
+            "alink_tpu_torch.operator.batch.dl"} <= set(scanned.split(","))
+    smoke = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; print(','.join(sorted("
+         "m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+         "'flax', 'optax', 'orbax', 'msgpack', 'safetensors', 'tensorflow', "
+         "'alink_tpu'))))"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert smoke.returncode == 0 and smoke.stdout.strip() == "", smoke
 
 
 def test_entry_points_refuse_cpu_without_request(monkeypatch):
@@ -186,3 +199,45 @@ def test_embedding_entry_points_refuse_cpu_without_request(monkeypatch):
     assert table.array.device.type == "cpu"
     monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
     assert train_embedding(pairs, 3, counts, cfg).shape == (3, 4)
+
+
+def test_training_entry_points_refuse_cpu_without_request(monkeypatch):
+    import torch
+
+    from alink_tpu_torch.common.exceptions import AkIllegalStateException
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.dl.modules import BertConfig, TransformerEncoder
+    from alink_tpu_torch.dl.train import TrainConfig, train_model
+    from alink_tpu_torch.operator.batch import (
+        BertTextClassifierTrainBatchOp, BertTextPairClassifierTrainBatchOp,
+        BertTextRegressorTrainBatchOp, TableSourceBatchOp)
+
+    monkeypatch.delenv("ALINK_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inputs = {"input_ids": np.zeros((4, 6), np.int32)}
+    y = np.asarray([0, 1, 0, 1], np.int32)
+    tc = TrainConfig(num_epochs=1, batch_size=2)
+    src = TableSourceBatchOp(MTable({"text": ["a b", "c d"] * 2,
+                                     "pair": ["x", "y"] * 2,
+                                     "label": np.asarray([0, 1] * 2)}))
+    kw = dict(textCol="text", labelCol="label", bertSize="tiny",
+              maxSeqLength=8, numEpochs=1, batchSize=2)
+    for run in (lambda: train_model(
+                    TransformerEncoder(BertConfig.tiny(dtype=torch.float32)),
+                    inputs, y, tc),
+                lambda: BertTextClassifierTrainBatchOp(**kw)
+                .link_from(src).collect(),
+                lambda: BertTextRegressorTrainBatchOp(**kw)
+                .link_from(src).collect(),
+                lambda: BertTextPairClassifierTrainBatchOp(
+                    textPairCol="pair", **kw).link_from(src).collect()):
+        with pytest.raises(AkIllegalStateException):
+            run()
+    # asking for the CPU, either way, runs there
+    state, hist = train_model(
+        TransformerEncoder(BertConfig.tiny(dtype=torch.float32)), inputs, y,
+        tc, device="cpu")
+    assert all(t.device.type == "cpu" for t in state.values())
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    assert BertTextClassifierTrainBatchOp(**kw).link_from(
+        src).collect().num_rows > 0

@@ -175,7 +175,7 @@ def test_histogram_takes_plain_version_only_for_cpu_tensors(monkeypatch):
                          (g.to("meta"), w.to("meta"), w.to("meta")), **kw)
     assert calls == [1] and kernels.launches()["tree_histogram"] == 0
     spec = kernels.KERNELS["tree_histogram"]
-    assert spec.plain == "level_histograms_ref"
+    assert spec.plain == ("level_histograms_ref",)
     assert spec.replaces == "alink_tpu/tree/pallas_hist.py:101"
 
 
