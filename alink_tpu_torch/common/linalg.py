@@ -15,7 +15,7 @@ runs on tensors, so these classes are thin host-side value types whose job is:
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Sequence, Union
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 
@@ -253,3 +253,52 @@ def stack_vectors(
             d = min(v.size(), size)
             out[r, :d] = v.data[:d]
     return out
+
+
+def pairwise_sq_dists(Q, X):
+    """Blocked squared Euclidean distance matrix ||q-x||² as three matmul-
+    friendly terms — the single home of this function (KMeans assign and
+    the Lloyd loop call it). Generic over numpy arrays and torch tensors;
+    fp32 cancellation can produce tiny negatives, which callers taking sqrt
+    should clip."""
+    return ((Q * Q).sum(1)[:, None] - 2.0 * (Q @ X.T)
+            + (X * X).sum(1)[None, :])
+
+
+class SparseBlock(NamedTuple):
+    """ELL-padded sparse row block: ``idx`` (n, k) int32 column indices
+    (0-padded), ``val`` (n, k) float32 (0-padded), so padded entries
+    contribute 0 to any product. The "huge sparse" carrier (reference:
+    common/linalg/SparseVector.java + the HugeSparseVector story): fixed
+    shapes, gathers/scatter-adds instead of dense materialization. Holds
+    numpy arrays on the host and tensors once staged on a device.
+    """
+
+    idx: "np.ndarray"
+    val: "np.ndarray"
+
+
+def to_sparse_block(
+    cells: "Sequence[SparseVector]",
+    dim: Optional[int] = None,
+    append_intercept: bool = False,
+) -> "tuple[SparseBlock, int]":
+    """Pack SparseVector cells into one ELL block. Returns (block, dim).
+    ``append_intercept`` adds one slot per row with index ``dim`` value 1."""
+    n = len(cells)
+    if dim is None:
+        dim = max((int(c.n) if c.n >= 0 else
+                   (int(c.indices[-1]) + 1 if c.indices.size else 0))
+                  for c in cells) if n else 0
+    max_nnz = max((c.indices.size for c in cells), default=0)
+    extra = 1 if append_intercept else 0
+    idx = np.zeros((n, max_nnz + extra), np.int32)
+    val = np.zeros((n, max_nnz + extra), np.float32)
+    for i, c in enumerate(cells):
+        m = c.indices.size
+        idx[i, :m] = c.indices
+        val[i, :m] = c.values
+        if append_intercept:
+            idx[i, max_nnz] = dim
+            val[i, max_nnz] = 1.0
+    return SparseBlock(idx, val), int(dim)

@@ -366,9 +366,9 @@ class MTable:
 
         The returned array is **read-only and shared**: the same buffer is
         handed to every caller (including concurrent DAG-executor nodes) and
-        keyed into the device staging cache by content, so an in-place
+        keyed into the device staging cache by identity, so an in-place
         mutation would silently corrupt every other job's view and desync
-        the content cache. The write flag is cleared — mutating raises
+        the staged copy. The write flag is cleared — mutating raises
         ``ValueError``; callers that need a scratch buffer must ``copy()``."""
         memo_key = (tuple(names), np.dtype(dtype).str, vector_size)
         memo = getattr(self, "_block_memo", None)

@@ -115,6 +115,21 @@ class RichModelMapper(ModelMapper, HasPredictionCol, HasPredictionDetailCol,
     def predict_block(self, t: MTable):
         raise NotImplementedError
 
+    def predict_proba_block(self, t: MTable):
+        """(n, k) class probabilities aligned with ``self.meta['labels']``, or
+        None for mappers without a probability notion."""
+        return None
+
+    def _classification_result(self, probs: np.ndarray):
+        """Standard (pred, type, detail) triple from a probability block."""
+        labels = self.meta["labels"]
+        label_type = self.meta.get("labelType", AlinkTypes.STRING)
+        pred = np_labels(labels, label_type, probs.argmax(axis=1))
+        detail = None
+        if self.get(HasPredictionDetailCol.PREDICTION_DETAIL_COL):
+            detail = detail_json(labels, probs)
+        return pred, label_type, detail
+
     def output_schema(self, input_schema: TableSchema) -> TableSchema:
         pred_col = self.get(HasPredictionCol.PREDICTION_COL)
         detail_col = self.get(HasPredictionDetailCol.PREDICTION_DETAIL_COL)
@@ -227,6 +242,12 @@ def np_labels(labels: List, label_type: str, idx: np.ndarray) -> np.ndarray:
 def softmax_np(logits: np.ndarray) -> np.ndarray:
     e = np.exp(logits - logits.max(axis=1, keepdims=True))
     return e / e.sum(axis=1, keepdims=True)
+
+
+def sigmoid_np(s: np.ndarray) -> np.ndarray:
+    """Numerically stable sigmoid (no overflow for large |s|)."""
+    e = np.exp(-np.abs(s))
+    return np.where(s >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
 
 
 def detail_json(labels: List, probs: np.ndarray) -> np.ndarray:

@@ -113,7 +113,31 @@ non-zero:
     on data/sst2_mini.csv from data/bert_tiny_sst and from scratch, the
     holdout through ``BertTextClassifierPredictBatchOp``: the pretrained
     run must reach SST2_FLOOR, and predict identically after ``.ak``;
-11. one JSON line of kernels, then the device line last.
+11. the classical BSP path, which launches none of the port's kernels
+    (``CLASSICAL_CASES``): (11.1) BASELINE #1 as bench.py:246-279 runs it,
+    ``Pipeline(KMeans(k=3, maxIter=50))`` fit on data/iris.csv through
+    ``CsvSourceBatchOp``, then ``transform`` + ``collect``, cold and warm;
+    purity against the species must equal the reference's
+    (``IRIS_REFERENCE_PURITY``), the centroids lie within 1e-4 of the
+    port's CPU route (``ALINK_TORCH_DEVICE=cpu`` in this process) with the
+    same numIters, and the model saved, loaded and served through
+    ``LocalPredictor`` predicts the same; ``predict_row`` latency is the
+    median of 20 calls; (11.2) KMeans k=10, maxIter=50 on 60,000
+    MNIST-layout rows of 784 columns: walls, numIters, inertia, host syncs
+    of a fit (``torch.cuda.set_sync_debug_mode``), device operations and
+    idle share (``torch.profiler``), centroids within 1e-4 of the largest
+    entry of the CPU route's, same numIters; (11.3) BASELINE #2 in
+    bench.py:281-350's configuration, ``SoftmaxTrainBatchOp(maxIter=30)`` +
+    ``SoftmaxPredictBatchOp`` on bench.py's seeded problem at n = 20,000
+    and 60,000: samples/s (n·30 / warm wall), walls, numIters, host syncs,
+    device busy time, idle share; at 20,000 the same numIters as the CPU
+    route, and with l2 = SOFTMAX_GATE_L2 the weights against the CPU
+    route's (``softmax_weight_gate``); the digits holdout as
+    bench.py runs it, accuracy ≥ ``DIGITS_REFERENCE_ACC`` − 0.02; (11.4)
+    examples/sparse_highdim_logistic.py's LR on 300 rows of
+    1,000,000-dimensional SparseVectors: accuracy and numIters equal to the
+    CPU route's, peak device memory under a dense block's 1.2 GB;
+12. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -170,6 +194,31 @@ routes' logits agree within LOGIT_ATOL (phase 4); 4 AdamW steps of 2e-5
 between them move the logits by far less. sst2 (phase 10.4): holdout
 accuracy ≥ SST2_REFERENCE_ACC − 0.05, the reference's accuracy at the same
 settings on the CPU (tests/test_torch_train_e2e.py).
+Phase 11, card against the port's CPU route (``ALINK_TORCH_DEVICE=cpu``),
+numIters always equal. KMeans centroids: iris within 1e-4, MNIST-layout
+within 1e-4 of the largest entry; both routes take the argmin on float64
+distances (operator/batch/clustering.py says why) and sum integer pixels
+exactly in float32, so only the float32 division and rounding-level
+differences of non-integer sums remain. Softmax at n = 20,000: bench.py's
+problem is separable at that size (training accuracy 1.0, loss ~1e-6
+where L-BFGS stops), so its loss has no minimizer and where the weights
+stop depends on rounding: the CPU route on the same rows permuted lands
+up to 2e-3 of the largest weight from itself, as far as a bf16 wire moves
+them. So bench.py's fit is held to the CPU route's numIters only, and the
+weights are held on the same rows with l2 = SOFTMAX_GATE_L2, which gives
+the loss a minimizer (``softmax_weight_gate``). That gate is measured in
+the same run: the CPU route on the rows under SOFTMAX_PERMUTATIONS seeded
+permutations (another summation order, nothing else) gives the spread
+that the order of the sums alone causes, and the card must lie within
+SOFTMAX_SPREAD_FACTOR times the largest of those distances (each relative
+to the CPU route's largest weight). The card sums in another order than
+the CPU over the 784 columns as well as over the rows, so its distance may
+exceed a permutation's (by 1.2x on an H100); 10 leaves room for that. Two
+wrong routes run on the card in the same call must fall outside the gate,
+or the gate fails: TF32 products, and the bf16 wire
+(``ALINK_WIRE_PRECISION=bf16``). Iris purity equal to the
+reference's; digits holdout accuracy ≥ DIGITS_REFERENCE_ACC − 0.02; the
+sparse route's accuracy and numIters equal to the CPU route's.
 """
 
 from __future__ import annotations
@@ -2346,6 +2395,582 @@ def finetune_sst2(workdir):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the classical BSP path (KMeans, the optimizers, the pipeline)
+# ---------------------------------------------------------------------------
+IRIS_SCHEMA = "sl double, sw double, pl double, pw double, species string"
+IRIS_FEATURES = ["sl", "sw", "pl", "pw"]
+# alink_tpu's figures on the CPU (8 virtual devices, as the tests run it),
+# measured by tests/test_torch_pipeline.py::test_reference_figures
+IRIS_REFERENCE_PURITY = 134 / 150
+DIGITS_REFERENCE_ACC = 346 / 360
+DIGITS_SLACK = 0.02
+CENTROID_ATOL = 1e-4       # iris centroids, card against the CPU route
+CENTROID_RTOL = 1e-4       # 11.2, relative to the largest centroid entry
+SOFTMAX_SPREAD_FACTOR = 10  # 11.3, card vs CPU, in permutation spreads
+SOFTMAX_PERMUTATIONS = 2    # CPU fits on permuted rows that set the spread
+SOFTMAX_GATE_L2 = 1e-3      # 11.3's weight gate fits with a minimizer
+ROW_CALLS = 20             # predict_row calls timed
+KMEANS_REAL = dict(k=10, maxIter=50)
+SOFTMAX_ITERS = 30         # bench.py's maxIter
+SOFTMAX_ROWS = (20_000, 60_000)
+SPARSE_ROWS, SPARSE_DIM, SPARSE_ITERS = 300, 1_000_000, 20
+CLASSICAL_CASES = (
+    ("11.1 KMeans iris through Pipeline", "bench.py:246-279"),
+    ("11.2 KMeans 60,000 x 784, k=10", "chip_smoke.mnist_layout"),
+    ("11.3 Softmax n=20,000 and 60,000 x 784 x 10, L-BFGS",
+     "bench.py:281-350"),
+    ("11.4 sparse LR, 300 rows x 1,000,000 dims",
+     "examples/sparse_highdim_logistic.py"),
+)
+
+
+class torch_device:
+    """Run the port's entry points on ``name`` inside the block (the port
+    reads ``ALINK_TORCH_DEVICE`` at each call)."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.old = os.environ.get("ALINK_TORCH_DEVICE")
+        os.environ["ALINK_TORCH_DEVICE"] = self.name
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ["ALINK_TORCH_DEVICE"]
+        else:
+            os.environ["ALINK_TORCH_DEVICE"] = self.old
+
+
+def purity(pred, truth) -> float:
+    """bench.py's cluster purity: the share of rows in their class's most
+    common cluster."""
+    pred, truth = np.asarray(pred), np.asarray(truth)
+    return float(sum(np.unique(pred[truth == s], return_counts=True)[1].max()
+                     for s in np.unique(truth)) / len(pred))
+
+
+def fit_mismatch(got, want, got_iters, want_iters, tol, relative=False):
+    """Why the card's fit (``got``, ``got_iters``) is not the CPU route's,
+    or None: the iteration counts must be equal and the arrays within
+    ``tol`` (of the CPU route's largest entry when ``relative``)."""
+    if got_iters != want_iters:
+        return f"numIters {got_iters} on the card, {want_iters} on the CPU"
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return f"shape {got.shape} on the card, {want.shape} on the CPU"
+    err = float(np.abs(got - want).max())
+    if relative:
+        err /= max(float(np.abs(want).max()), 1e-30)
+    if not err <= tol:
+        return f"max |Δ|{' (relative)' if relative else ''} {err:.3g} > {tol}"
+    return None
+
+
+def rel_dist(got, want) -> float:
+    """max |got − want| over the largest |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def softmax_weight_gate(W, iters, Wc, cpu_iters, permuted, controls):
+    """11.3's check of the card's Softmax weights ``W`` (``iters``
+    iterations) against the CPU route's ``Wc`` (``cpu_iters``).
+    ``permuted``: the CPU route's weights on the rows permuted; the largest
+    of their distances from ``Wc`` is the spread of the summation order
+    alone, and the card must lie within SOFTMAX_SPREAD_FACTOR spreads of
+    ``Wc`` with equal numIters. ``controls``: {name: (weights, iters)} of
+    wrong routes on the card, each of which the gate must reject.
+    Returns (tolerance, problems)."""
+    tol = SOFTMAX_SPREAD_FACTOR * max(rel_dist(P, Wc) for P in permuted)
+    problems = [p for p in (fit_mismatch(W, Wc, iters, cpu_iters, tol,
+                                         relative=True),) if p]
+    for name, (Wx, ix) in controls.items():
+        if fit_mismatch(Wx, Wc, ix, cpu_iters, tol, relative=True) is None:
+            problems.append(f"the gate ({tol:.3g}) does not reject the "
+                            f"{name} route ({rel_dist(Wx, Wc):.3g}, "
+                            f"numIters {ix})")
+    return tol, problems
+
+
+def below_floor(value, floor, what):
+    """Why ``value`` fails its floor, or None."""
+    if not value >= floor:
+        return f"{what} {value} is below {floor}"
+    return None
+
+
+def count_syncs(fn):
+    """(fn(), host syncs): the synchronizing CUDA calls made while ``fn``
+    runs, as ``torch.cuda.set_sync_debug_mode`` reports them (reads of a
+    device value and blocking copies, staging pushes included)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def device_profile(fn, warm_s):
+    """Device activities (kernels and copies), their busy ms and the traced
+    wall of one run of ``fn`` under ``torch.profiler``; the idle share is
+    1 − busy / ``warm_s``, the untraced warm wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and ev.self_device_time_total > 0]
+    busy_ms = sum(ev.self_device_time_total for ev in evs) / 1e3
+    return dict(operations=int(sum(ev.count for ev in evs)),
+                busy_ms=busy_ms, traced_wall_ms=wall * 1e3,
+                idle_share=max(0.0, 1.0 - busy_ms / (warm_s * 1e3)))
+
+
+def timed(fn):
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def iris_path(workdir, problems):
+    """11.1, BASELINE #1 as bench.py:246-279 runs it: KMeans(k=3,
+    maxIter=50) through Pipeline on data/iris.csv, fit + transform +
+    collect cold and warm; purity against species; save → load →
+    LocalPredictor; predict_row latency; the CPU route's centroids and
+    numIters."""
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.operator.batch import CsvSourceBatchOp
+    from alink_tpu_torch.pipeline import (KMeans, LocalPredictor, Pipeline,
+                                          PipelineModel)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = CsvSourceBatchOp(filePath=os.path.join(here, "data", "iris.csv"),
+                           schemaStr=IRIS_SCHEMA)
+
+    def fit_once():
+        model = Pipeline(KMeans(k=3, maxIter=50, featureCols=IRIS_FEATURES,
+                                predictionCol="pred")).fit(src)
+        return model, model.transform(src).collect()
+
+    cold, _ = timed(fit_once)
+    warm, (model, out) = timed(fit_once)
+    meta, arrays = table_to_model(model.stages[0].get_model_data())
+    with torch_device("cpu"):
+        cpu_model, cpu_out = fit_once()
+    cmeta, carrays = table_to_model(cpu_model.stages[0].get_model_data())
+    pred = np.asarray(out.col("pred"))
+    pur = purity(pred, out.col("species"))
+    path = os.path.join(workdir, "iris_kmeans.ak")
+    model.save(path)
+    table = src.collect()
+    lp = LocalPredictor(PipelineModel.load(path), IRIS_SCHEMA)
+    served = np.asarray(lp.predict_table(table).col("pred"))
+    rows = table.to_rows()
+    lat = []
+    for i in range(ROW_CALLS):
+        t0 = time.perf_counter()
+        lp.predict_row(rows[i * 7 % len(rows)])
+        lat.append(time.perf_counter() - t0)
+    res = dict(wall_cold_s=cold, wall_warm_s=warm,
+               num_iters=meta["numIters"], cpu_num_iters=cmeta["numIters"],
+               purity=pur, reference_purity=IRIS_REFERENCE_PURITY,
+               centroid_max_abs_err=float(np.abs(
+                   arrays["centroids"] - carrays["centroids"]).max()),
+               local_predictor_same=bool(np.array_equal(served, pred)),
+               predict_row_median_ms=float(np.median(lat)) * 1e3)
+    print(f"11.1 KMeans iris through Pipeline: cold {cold:.3f} s, warm "
+          f"{warm:.3f} s, numIters {res['num_iters']} (CPU route "
+          f"{res['cpu_num_iters']}), purity {pur:.4f} (reference "
+          f"{IRIS_REFERENCE_PURITY:.4f}), centroids within "
+          f"{res['centroid_max_abs_err']:.2e} of the CPU route; save → load "
+          f"→ LocalPredictor same predictions: "
+          f"{res['local_predictor_same']}; predict_row median "
+          f"{res['predict_row_median_ms']:.3f} ms of {ROW_CALLS}",
+          flush=True)
+    for p in (fit_mismatch(arrays["centroids"], carrays["centroids"],
+                           meta["numIters"], cmeta["numIters"],
+                           CENTROID_ATOL),
+              None if abs(pur - IRIS_REFERENCE_PURITY) < 1e-12 else
+              f"purity {pur} is not the reference's {IRIS_REFERENCE_PURITY}",
+              None if res["local_predictor_same"] else
+              "LocalPredictor on the saved model predicts otherwise"):
+        if p:
+            problems.append(f"11.1: {p}")
+    return res
+
+
+def kmeans_real_path(problems):
+    """11.2: KMeans k=10, maxIter=50, default tolerance on 60,000 seeded
+    MNIST-layout rows of 784 columns: walls, numIters, inertia, host syncs
+    and device operations of a fit, idle share; centroids against the
+    CPU route."""
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import (KMeansTrainBatchOp,
+                                                TableSourceBatchOp)
+    from alink_tpu_torch.operator.batch.clustering import _kmeanspp_init
+
+    X, _ = mnist_layout(WIDE_ROWS, SEED)
+    feats = [f"p{i}" for i in range(X.shape[1])]
+    src = TableSourceBatchOp(MTable({f: X[:, i] for i, f in
+                                     enumerate(feats)}))
+    del X
+
+    def fit():
+        return table_to_model(KMeansTrainBatchOp(
+            featureCols=feats, **KMEANS_REAL).link_from(src).collect())
+
+    cold, _ = timed(fit)
+    warm, (meta, arrays) = timed(fit)
+    _, syncs = count_syncs(fit)
+    prof = device_profile(fit, warm)
+    # the host's share: k-means++ seeding on a 10,000-row sample, numpy
+    block = src.collect().to_numeric_block(feats)
+    t0 = time.perf_counter()
+    _kmeanspp_init(block, KMEANS_REAL["k"], 0)
+    seed_s = time.perf_counter() - t0
+    with torch_device("cpu"):
+        t0 = time.perf_counter()
+        cmeta, carrays = fit()
+        cpu_s = time.perf_counter() - t0
+    c, cc = arrays["centroids"], carrays["centroids"]
+    res = dict(rows=WIDE_ROWS, cols=len(feats), wall_cold_s=cold,
+               wall_warm_s=warm, num_iters=meta["numIters"],
+               cpu_num_iters=cmeta["numIters"], inertia=meta["inertia"],
+               cpu_inertia=cmeta["inertia"], host_syncs_per_fit=syncs,
+               centroid_rel_err=float(np.abs(c - cc).max()
+                                      / np.abs(cc).max()),
+               cpu_route_s=cpu_s, kmeanspp_seed_s=seed_s, **prof)
+    print(f"11.2 KMeans {WIDE_ROWS} x {len(feats)} MNIST-layout, k=10: cold "
+          f"{cold:.3f} s, warm {warm:.3f} s, numIters {res['num_iters']} "
+          f"(CPU route {res['cpu_num_iters']}, {cpu_s:.1f} s), inertia "
+          f"{res['inertia']:.6g} (CPU {res['cpu_inertia']:.6g}), centroids "
+          f"within {res['centroid_rel_err']:.2e} of the largest entry; a "
+          f"warm fit: {syncs} host syncs, {prof['operations']} device "
+          f"operations, {prof['busy_ms']:.1f} ms busy, idle share "
+          f"{prof['idle_share']:.3f}; on the host k-means++ seeding "
+          f"{seed_s:.3f} s",
+          flush=True)
+    p = fit_mismatch(c, cc, meta["numIters"], cmeta["numIters"],
+                     CENTROID_RTOL, relative=True)
+    if p:
+        problems.append(f"11.2: {p}")
+    return res
+
+
+def softmax_table(n):
+    """bench.py's seeded Softmax problem (:295-300): 784 N(0, 1) features, 10
+    classes from a random linear rule plus noise."""
+    from alink_tpu_torch.common.mtable import MTable
+
+    rng = np.random.default_rng(1)
+    d, k = 784, 10
+    W_true = rng.normal(size=(d, k)).astype(np.float32)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (X @ W_true + 0.5 * rng.normal(size=(n, k))).argmax(1)
+    cols = {f"p{i}": X[:, i] for i in range(d)}
+    cols["label"] = y.astype(np.int64)
+    return MTable(cols), [f"p{i}" for i in range(d)]
+
+
+def softmax_path(n, problems, check_cpu):
+    """11.3 at n rows: SoftmaxTrainBatchOp(maxIter=30) + SoftmaxPredictBatchOp
+    as bench.py runs them, cold and warm (min of 2); samples/s =
+    n·30 / warm wall; host syncs of a fit; device busy time and idle share
+    of a fit + predict; with ``check_cpu`` the numIters against the CPU
+    route's, and the weights of a fit with l2 = SOFTMAX_GATE_L2 against
+    the CPU route's (``softmax_weight_gate``)."""
+    import torch
+
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.operator.batch import (SoftmaxPredictBatchOp,
+                                                SoftmaxTrainBatchOp,
+                                                TableSourceBatchOp)
+
+    table, feats = softmax_table(n)
+    src = TableSourceBatchOp(table)
+
+    def train():
+        return SoftmaxTrainBatchOp(featureCols=feats, labelCol="label",
+                                   maxIter=SOFTMAX_ITERS).link_from(src)
+
+    def run_once():
+        model = train()
+        return model, SoftmaxPredictBatchOp().link_from(model, src).collect()
+
+    cold, _ = timed(run_once)
+    w1, (model, out) = timed(run_once)
+    w2, _ = timed(run_once)
+    warm = min(w1, w2)
+    meta, arrays = table_to_model(model.collect())
+    fit_s, _ = timed(lambda: train().collect())
+    _, syncs = count_syncs(lambda: train().collect())
+    prof = device_profile(run_once, warm)
+    acc = float(np.mean(np.asarray(out.col("pred"))
+                        == np.asarray(table.col("label"))))
+    res = dict(rows=n, wall_cold_s=cold, wall_warm_s=warm,
+               samples_per_s=n * SOFTMAX_ITERS / warm,
+               samples_per_s_cold=n * SOFTMAX_ITERS / cold,
+               num_iters=meta["numIters"], train_acc=acc,
+               fit_warm_s=fit_s, host_syncs_per_fit=syncs, **prof)
+    line = (f"11.3 Softmax n={n} x 784 x 10, maxIter {SOFTMAX_ITERS}: cold "
+            f"{cold:.3f} s, warm {warm:.3f} s, {res['samples_per_s']:.1f} "
+            f"samples/s (cold {res['samples_per_s_cold']:.1f}), numIters "
+            f"{res['num_iters']}, train accuracy {acc:.4f}; a fit: "
+            f"{fit_s:.3f} s, {syncs} host syncs; fit + predict: "
+            f"{prof['operations']} device "
+            f"operations, {prof['busy_ms']:.1f} ms busy, idle share "
+            f"{prof['idle_share']:.3f}")
+    if check_cpu:
+        def weights(source, **kw):
+            m, a = table_to_model(
+                SoftmaxTrainBatchOp(featureCols=feats, labelCol="label",
+                                    maxIter=SOFTMAX_ITERS, **kw)
+                .link_from(source).collect())
+            return a["weights"], m["numIters"]
+
+        gated = dict(l2=SOFTMAX_GATE_L2)
+        W, iters = weights(src, **gated)
+        controls = {}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            controls["TF32"] = weights(src, **gated)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        wire = os.environ.get("ALINK_WIRE_PRECISION")
+        os.environ["ALINK_WIRE_PRECISION"] = "bf16"
+        try:
+            controls["bf16 wire"] = weights(src, **gated)
+        finally:
+            if wire is None:
+                del os.environ["ALINK_WIRE_PRECISION"]
+            else:
+                os.environ["ALINK_WIRE_PRECISION"] = wire
+        with torch_device("cpu"):
+            t0 = time.perf_counter()
+            W0c, cpu_iters0 = weights(src)
+            res["cpu_route_s"] = time.perf_counter() - t0
+            Wc, cpu_iters = weights(src, **gated)
+            permuted = [weights(TableSourceBatchOp(table.take(
+                np.random.default_rng(SEED + r).permutation(n))), **gated)
+                for r in range(SOFTMAX_PERMUTATIONS)]
+        tol, problems_w = softmax_weight_gate(
+            W, iters, Wc, cpu_iters, [P for P, _ in permuted], controls)
+        res.update(
+            cpu_num_iters=cpu_iters0,
+            weight_rel_err=rel_dist(arrays["weights"], W0c),
+            gate=dict(l2=SOFTMAX_GATE_L2, num_iters=iters,
+                      cpu_num_iters=cpu_iters, weight_rel_err=rel_dist(W, Wc),
+                      tol=tol,
+                      cpu_permuted=[dict(rel_err=rel_dist(P, Wc),
+                                         num_iters=i) for P, i in permuted],
+                      controls={k: dict(rel_err=rel_dist(Wx, Wc),
+                                        num_iters=i)
+                                for k, (Wx, i) in controls.items()}))
+        g = res["gate"]
+        line += (f"; CPU route numIters {cpu_iters0} "
+                 f"({res['cpu_route_s']:.1f} s), weights "
+                 f"{res['weight_rel_err']:.3g} of the largest apart "
+                 f"(not gated: no minimizer); with l2 {SOFTMAX_GATE_L2}: "
+                 f"numIters {iters} (CPU {cpu_iters}), weights within "
+                 f"{g['weight_rel_err']:.3g} of the largest of the CPU "
+                 f"route's, gate {tol:.3g} = {SOFTMAX_SPREAD_FACTOR} x the "
+                 f"CPU route's on permuted rows ("
+                 + ", ".join(f"{d['rel_err']:.3g} in {d['num_iters']}"
+                             for d in g["cpu_permuted"])
+                 + "); wrong routes on the card: "
+                 + ", ".join(f"{k} {d['rel_err']:.3g} in {d['num_iters']}"
+                             for k, d in g["controls"].items()))
+        if meta["numIters"] != cpu_iters0:
+            problems.append(f"11.3 n={n}: numIters {meta['numIters']} on "
+                            f"the card, {cpu_iters0} on the CPU")
+        problems += [f"11.3 n={n}, l2 {SOFTMAX_GATE_L2}: {p}"
+                     for p in problems_w]
+    print(line, flush=True)
+    return res
+
+
+def digits_holdout(problems):
+    """11.3's accuracy as bench.py measures it: data/digits.csv, the 80/20
+    split of ``shuffle(seed=0)``, Softmax maxIter=60."""
+    from alink_tpu_torch.operator.batch import (CsvSourceBatchOp,
+                                                SoftmaxPredictBatchOp,
+                                                SoftmaxTrainBatchOp,
+                                                TableSourceBatchOp)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    dcols = [f"p{i}" for i in range(64)]
+    digits = CsvSourceBatchOp(
+        filePath=os.path.join(here, "data", "digits.csv"),
+        schemaStr=", ".join(f"{c} double" for c in dcols)
+        + ", label long").collect()
+    tr, te = digits.shuffle(seed=0).split_at(int(digits.num_rows * 0.8))
+    model = SoftmaxTrainBatchOp(featureCols=dcols, labelCol="label",
+                                maxIter=60).link_from(TableSourceBatchOp(tr))
+    pred = SoftmaxPredictBatchOp().link_from(
+        model, TableSourceBatchOp(te)).collect()
+    acc = float(np.mean(np.asarray(pred.col("pred"))
+                        == np.asarray(te.col("label"))))
+    floor = DIGITS_REFERENCE_ACC - DIGITS_SLACK
+    print(f"11.3 digits holdout ({tr.num_rows} train, {te.num_rows} test, "
+          f"maxIter 60): accuracy {acc:.4f} (reference "
+          f"{DIGITS_REFERENCE_ACC:.4f}, floor {floor:.4f})", flush=True)
+    p = below_floor(acc, floor, "digits holdout accuracy")
+    if p:
+        problems.append(f"11.3: {p}")
+    return acc
+
+
+def sparse_table():
+    """examples/sparse_highdim_logistic.py's problem: 300 rows of 8 seeded
+    non-zeros in 1,000,000 dimensions, the label carried by dimension 0."""
+    from alink_tpu_torch.common.linalg import SparseVector
+    from alink_tpu_torch.common.mtable import MTable, TableSchema
+
+    rng = np.random.default_rng(0)
+    cells, labels = [], []
+    for _ in range(SPARSE_ROWS):
+        label = int(rng.integers(2))
+        idx = np.sort(rng.choice(SPARSE_DIM, size=8, replace=False))
+        val = rng.normal(size=8)
+        val[0] = (1.0 if label else -1.0) + 0.1 * rng.normal()
+        idx[0] = 0
+        cells.append(SparseVector(SPARSE_DIM, np.sort(idx), val))
+        labels.append(label)
+    return MTable({"vec": np.asarray(cells, object),
+                   "label": np.asarray(labels, np.int64)},
+                  TableSchema(["vec", "label"], ["SPARSE_VECTOR", "LONG"]))
+
+
+def sparse_path(problems):
+    """11.4: the sparse route, LR on 1,000,000-dimensional SparseVectors;
+    accuracy and numIters equal to the CPU route's, and the device's peak
+    memory above its resident set far under a dense block's."""
+    import torch
+
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.operator.batch import (
+        LogisticRegressionPredictBatchOp, LogisticRegressionTrainBatchOp,
+        TableSourceBatchOp)
+
+    t = sparse_table()
+    src = TableSourceBatchOp(t)
+
+    def fit_predict():
+        model = LogisticRegressionTrainBatchOp(
+            vectorCol="vec", labelCol="label", maxIter=SPARSE_ITERS,
+            standardization=False).link_from(src)
+        out = LogisticRegressionPredictBatchOp(vectorCol="vec").link_from(
+            model, src).collect()
+        acc = float(np.mean(np.asarray(out.col("pred"))
+                            == np.asarray(t.col("label"))))
+        return acc, table_to_model(model.collect())[0]["numIters"]
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wall, (acc, iters) = timed(fit_predict)
+    peak = torch.cuda.max_memory_allocated() - base
+    with torch_device("cpu"):
+        cpu_acc, cpu_iters = fit_predict()
+    dense = SPARSE_ROWS * SPARSE_DIM * 4
+    res = dict(wall_s=wall, accuracy=acc, cpu_accuracy=cpu_acc,
+               num_iters=iters, cpu_num_iters=cpu_iters,
+               peak_bytes_above_resident=int(peak), dense_block_bytes=dense)
+    print(f"11.4 sparse LR {SPARSE_ROWS} x {SPARSE_DIM}, maxIter "
+          f"{SPARSE_ITERS}: {wall:.3f} s, accuracy {acc:.4f} (CPU route "
+          f"{cpu_acc:.4f}), numIters {iters} (CPU {cpu_iters}), peak device "
+          f"memory {peak / 1e6:.1f} MB above the resident set (a dense block "
+          f"is {dense / 1e6:.0f} MB)", flush=True)
+    for p in (None if acc == cpu_acc else
+              f"accuracy {acc} on the card, {cpu_acc} on the CPU",
+              None if iters == cpu_iters else
+              f"numIters {iters} on the card, {cpu_iters} on the CPU",
+              None if peak < dense else
+              f"peak {peak} bytes reaches a dense block's {dense}"):
+        if p:
+            problems.append(f"11.4: {p}")
+    return res
+
+
+def staging_key_cost():
+    """What a content key of the staging cache would cost against the push
+    it saves, on the 60,000 × 784 float32 MNIST-layout block: a blake2b
+    digest of the block on the host (the reference's key), and one push of
+    it to the card (``push_block``, synced). Best of 3 each."""
+    import torch
+
+    from alink_tpu_torch.common.staging import push_block
+
+    X, _ = mnist_layout(WIDE_ROWS, SEED)
+    digest, push = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hashlib.blake2b(X.view(np.uint8).reshape(-1).data,
+                        digest_size=16).hexdigest()
+        digest.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        push_block(X, "cuda")
+        torch.cuda.synchronize()
+        push.append(time.perf_counter() - t0)
+    res = dict(bytes=X.nbytes, digest_s=min(digest), push_s=min(push))
+    print(f"phase 11 staging key: a {X.shape[0]} x {X.shape[1]} float32 "
+          f"block ({X.nbytes / 1e6:.1f} MB): blake2b digest "
+          f"{res['digest_s']:.4f} s ({X.nbytes / 1e6 / res['digest_s']:.0f}"
+          f" MB/s) on the host, push to the card {res['push_s']:.4f} s "
+          f"({X.nbytes / 1e6 / res['push_s']:.0f} MB/s)", flush=True)
+    return res
+
+
+def classical_path(workdir):
+    """Phase 11: every case of CLASSICAL_CASES; any failed gate fails the
+    run after all have been reported. Returns their numbers."""
+    from alink_tpu_torch.common.staging import (clear_staging_cache,
+                                                staging_cache_stats)
+
+    problems = []
+    print("phase 11, the classical path: " + "; ".join(
+        f"{label} ({source})" for label, source in CLASSICAL_CASES),
+        flush=True)
+    clear_staging_cache()
+    out = dict(iris=iris_path(workdir, problems),
+               kmeans_60000=kmeans_real_path(problems))
+    out["softmax"] = [softmax_path(n, problems, check_cpu=n == 20_000)
+                      for n in SOFTMAX_ROWS]
+    out["digits_holdout_acc"] = digits_holdout(problems)
+    out["sparse"] = sparse_path(problems)
+    st = staging_cache_stats()
+    out["staging"] = dict(hits=st["hits"], misses=st["misses"],
+                          uncached=st["uncached"],
+                          wire_bytes_sent=st["wire_bytes_sent"],
+                          key_cost=staging_key_cost())
+    print(f"phase 11 staging cache: {st['hits']} hits, {st['misses']} "
+          f"misses, {st['uncached']} uncached pushes, "
+          f"{st['wire_bytes_sent'] / 1e6:.0f} MB sent", flush=True)
+    print("phase 11: " + json.dumps(out), flush=True)
+    if problems:
+        fail("phase 11: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2434,6 +3059,8 @@ def main() -> int:
     kernel_train = train_kernel_route()
     sst2 = finetune_sst2(workdir)
     marks.append(("phase 10 BERT training", time.perf_counter()))
+    classical_path(workdir)
+    marks.append(("phase 11 classical path", time.perf_counter()))
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]

@@ -9,7 +9,12 @@ the input type at the kernel's points. That stand-in must pass; broken
 updates that mishandle the carried state, the per-block correction, the
 zero keys of a ragged last block or the causal offset must not. Shapes are cut to B=2..4 from the card's B=32; the tolerances are
 chip_smoke's own (fp32 atol 1e-5, bf16 bound of its module docstring).
+Phase 11's checks (the card's fit against the CPU route, the floors) must
+pass a match and reject a perturbation past the tolerance, another
+iteration count and a value under the floor.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -609,3 +614,139 @@ def test_training_flops_count_the_layers_and_attention():
     assert chip_smoke.layer_matmul_params(cfg) == 84_934_656
     flops = chip_smoke.train_step_flops(cfg, 32, 128)
     assert flops == 6 * 84_934_656 * 32 * 128 + 12 * 12 * 32 * 128 ** 2 * 768
+
+
+# -- phase 11: the classical path's checks ---------------------------------
+
+def test_classical_case_list_covers_both_baselines_and_the_sparse_route():
+    labels = [c[0] for c in chip_smoke.CLASSICAL_CASES]
+    sources = [c[1] for c in chip_smoke.CLASSICAL_CASES]
+    assert [lab.split()[0] for lab in labels] == ["11.1", "11.2", "11.3",
+                                                  "11.4"]
+    assert sources == ["bench.py:246-279", "chip_smoke.mnist_layout",
+                       "bench.py:281-350",
+                       "examples/sparse_highdim_logistic.py"]
+    assert chip_smoke.SOFTMAX_ROWS == (20_000, 60_000)
+    assert chip_smoke.KMEANS_REAL == dict(k=10, maxIter=50)
+    assert chip_smoke.SOFTMAX_GATE_L2 > 0 \
+        and chip_smoke.SOFTMAX_PERMUTATIONS >= 2
+    assert (chip_smoke.SPARSE_ROWS, chip_smoke.SPARSE_DIM,
+            chip_smoke.SPARSE_ITERS) == (300, 1_000_000, 20)
+
+
+@pytest.mark.parametrize("relative,tol", [(False, chip_smoke.CENTROID_ATOL),
+                                          (True, chip_smoke.CENTROID_RTOL)])
+def test_fit_check_passes_a_match_and_rejects_a_perturbation(relative, tol):
+    want = np.random.default_rng(0).normal(size=(10, 784)) \
+        .astype(np.float32) * 100
+    scale = float(np.abs(want).max()) if relative else 1.0
+    near = want.copy()
+    near[3, 5] += 0.5 * tol * scale
+    far = want.copy()
+    far[7, 2] -= 2.0 * tol * scale
+    assert chip_smoke.fit_mismatch(want, want, 12, 12, tol, relative) is None
+    assert chip_smoke.fit_mismatch(near, want, 12, 12, tol, relative) is None
+    assert "max |Δ|" in chip_smoke.fit_mismatch(far, want, 12, 12, tol,
+                                                relative)
+
+
+def _softmax_weights():
+    Wc = np.random.default_rng(0).normal(size=(785, 10)).astype(np.float32)
+    scale = float(np.abs(Wc).max())
+    spread = Wc.copy()
+    spread[1, 2] += 1e-4 * scale      # a permutation's spread: 1e-4
+    return Wc, scale, spread
+
+
+@pytest.mark.parametrize("factor", [0.5, 5.0, 20.0])
+def test_softmax_gate_scales_with_the_measured_spread(factor):
+    """The card passes within SOFTMAX_SPREAD_FACTOR permutation spreads of
+    the CPU route's weights and fails beyond; the tolerance is read from
+    the permuted fits, the largest of them."""
+    Wc, scale, spread = _softmax_weights()
+    small = Wc.copy()
+    small[0, 0] -= 0.3e-4 * scale
+    card = Wc.copy()
+    card[4, 4] += factor * 1e-4 * scale
+    tol, problems = chip_smoke.softmax_weight_gate(
+        card, 25, Wc, 25, [small, spread], {})
+    assert tol == pytest.approx(chip_smoke.SOFTMAX_SPREAD_FACTOR * 1e-4,
+                                rel=1e-3)
+    passes = factor < chip_smoke.SOFTMAX_SPREAD_FACTOR
+    assert (problems == []) == passes
+    if not passes:
+        assert "max |Δ| (relative)" in problems[0]
+
+
+def test_softmax_gate_must_reject_its_wrong_routes():
+    """A wrong route on the card (TF32 products, the bf16 wire) that lands
+    inside the gate, by weights and numIters, fails the gate itself; one
+    that stops at another iteration or lies outside is rejected."""
+    Wc, scale, spread = _softmax_weights()
+    far = Wc + 1e-2 * scale
+    near = Wc.copy()
+    near[2, 2] += 2e-4 * scale
+    _, problems = chip_smoke.softmax_weight_gate(
+        Wc, 25, Wc, 25, [spread], {"TF32": (far, 25), "bf16 wire":
+                                   (near, 24)})
+    assert problems == []
+    _, problems = chip_smoke.softmax_weight_gate(
+        Wc, 25, Wc, 25, [spread], {"TF32": (near, 25)})
+    assert len(problems) == 1 and "does not reject the TF32 route" \
+        in problems[0]
+    _, problems = chip_smoke.softmax_weight_gate(
+        Wc, 26, Wc, 25, [spread], {})
+    assert "numIters 26 on the card, 25" in problems[0]
+
+
+def test_fit_check_rejects_another_iteration_count():
+    c = np.ones((3, 4), np.float32)
+    assert "numIters 13 on the card, 12" in chip_smoke.fit_mismatch(
+        c, c, 13, 12, chip_smoke.CENTROID_ATOL)
+    assert "shape" in chip_smoke.fit_mismatch(c[:2], c, 12, 12, 1e-4)
+
+
+def test_floors_reject_purity_and_accuracy_below_them():
+    floor = chip_smoke.DIGITS_REFERENCE_ACC - chip_smoke.DIGITS_SLACK
+    assert chip_smoke.below_floor(floor, floor, "acc") is None
+    assert "below" in chip_smoke.below_floor(floor - 1e-9, floor, "acc")
+    assert "below" in chip_smoke.below_floor(float("nan"), floor, "acc")
+    pred = np.asarray([0, 0, 1, 1, 2, 2])
+    assert chip_smoke.purity(pred, ["a", "a", "b", "b", "c", "c"]) == 1.0
+    assert chip_smoke.purity(pred, ["a", "b", "a", "b", "c", "c"]) \
+        == pytest.approx(4 / 6)
+    assert chip_smoke.IRIS_REFERENCE_PURITY == 134 / 150
+
+
+def test_classical_data_keep_their_sources_layout():
+    """bench.py's Softmax problem and the sparse example's rows, from the
+    same seeds as their sources."""
+    table, feats = chip_smoke.softmax_table(50)
+    assert len(feats) == 784 and table.num_rows == 50
+    labels = np.asarray(table.col("label"))
+    assert labels.dtype == np.int64 and labels.min() >= 0 \
+        and labels.max() <= 9
+    rng = np.random.default_rng(1)
+    W = rng.normal(size=(784, 10)).astype(np.float32)
+    X = rng.normal(size=(50, 784)).astype(np.float32)
+    np.testing.assert_array_equal(table.col("p3"), X[:, 3])
+    y = (X @ W + 0.5 * rng.normal(size=(50, 10))).argmax(1)
+    np.testing.assert_array_equal(labels, y)
+    sparse = chip_smoke.sparse_table()
+    cells = sparse.col("vec")
+    assert sparse.num_rows == chip_smoke.SPARSE_ROWS
+    assert all(c.n == chip_smoke.SPARSE_DIM and c.indices[0] == 0
+               and c.indices.size == 8 for c in cells)
+    assert ((np.asarray([c.values[0] for c in cells]) > 0)
+            == (np.asarray(sparse.col("label")) == 1)).mean() > 0.99
+
+
+def test_torch_device_switches_and_restores(monkeypatch):
+    monkeypatch.delenv("ALINK_TORCH_DEVICE")
+    with chip_smoke.torch_device("cpu"):
+        assert os.environ["ALINK_TORCH_DEVICE"] == "cpu"
+    assert "ALINK_TORCH_DEVICE" not in os.environ
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cuda")
+    with chip_smoke.torch_device("cpu"):
+        pass
+    assert os.environ["ALINK_TORCH_DEVICE"] == "cuda"

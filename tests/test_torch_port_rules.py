@@ -1,7 +1,10 @@
 """Rules of the port: ``alink_tpu_torch`` imports nothing of JAX, flax,
-optax, orbax, msgpack, safetensors, TensorFlow or ``alink_tpu``, and its
-entry points never fall back to the CPU quietly."""
+optax, orbax, msgpack, safetensors, TensorFlow or ``alink_tpu``, at module
+level nothing but torch, numpy, scipy and the standard library (its only
+dependencies), and its entry points never fall back to the CPU
+quietly."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -49,7 +52,19 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.operator.batch.huge",
             "alink_tpu_torch.dl.train", "alink_tpu_torch.dl.checkpoint",
             "alink_tpu_torch.dl.data", "alink_tpu_torch.dl.pretrained",
-            "alink_tpu_torch.operator.batch.dl"} <= set(scanned.split(","))
+            "alink_tpu_torch.operator.batch.dl",
+            "alink_tpu_torch.common.staging",
+            "alink_tpu_torch.parallel.comqueue",
+            "alink_tpu_torch.optim.objfunc",
+            "alink_tpu_torch.optim.optimizers",
+            "alink_tpu_torch.optim.constrained",
+            "alink_tpu_torch.operator.batch.linear",
+            "alink_tpu_torch.operator.batch.clustering",
+            "alink_tpu_torch.pipeline.base",
+            "alink_tpu_torch.pipeline.pipeline",
+            "alink_tpu_torch.pipeline.estimators",
+            "alink_tpu_torch.pipeline.local_predictor"} \
+        <= set(scanned.split(","))
     smoke = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; print(','.join(sorted("
          "m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
@@ -57,6 +72,102 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
          "'alink_tpu'))))"], cwd=REPO, env=env, capture_output=True,
         text=True, timeout=120)
     assert smoke.returncode == 0 and smoke.stdout.strip() == "", smoke
+
+
+def _module_level_imports(tree):
+    """Root packages imported outside any function or class body (an
+    ``if``/``try`` at module level counts as module level)."""
+    roots = []
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            continue
+        if isinstance(node, ast.Import):
+            roots += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0:
+                roots.append(node.module.split(".")[0])
+        else:
+            stack.extend(ast.iter_child_nodes(node))
+    return roots
+
+
+def test_port_imports_only_torch_numpy_scipy_and_stdlib_at_module_level():
+    """Every module of the port imports, at module level, only torch, numpy,
+    scipy, the standard library and its own package: a GPU host with
+    PyTorch need have nothing else (no pandas: the CSV source reads with
+    ``csv``). Lazy imports inside a function, such as
+    ``MTable.to_dataframe``'s pandas, stay allowed."""
+    allowed = set(sys.stdlib_module_names) | {
+        "torch", "numpy", "scipy", "alink_tpu_torch", "__future__"}
+    root = os.path.join(REPO, "alink_tpu_torch")
+    bad, files = {}, 0
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            files += 1
+            extra = sorted(set(_module_level_imports(tree)) - allowed)
+            if extra:
+                bad[os.path.relpath(path, REPO)] = extra
+    assert files >= 60
+    assert bad == {}
+    with open(os.path.join(root, "common", "mtable.py")) as f:
+        mtable = f.read()
+    assert "import pandas" in mtable
+    assert "pandas" not in _module_level_imports(ast.parse(mtable))
+
+
+def test_classical_entry_points_refuse_cpu_without_request(monkeypatch):
+    import torch
+
+    from alink_tpu_torch.common.exceptions import AkIllegalStateException
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import (KMeansPredictBatchOp,
+                                                KMeansTrainBatchOp,
+                                                SoftmaxTrainBatchOp,
+                                                TableSourceBatchOp)
+    from alink_tpu_torch.optim import (constrained_optimize, logistic_obj,
+                                       optimize)
+    from alink_tpu_torch.parallel import IterativeComQueue
+    from alink_tpu_torch.pipeline import KMeans, Pipeline
+
+    monkeypatch.delenv("ALINK_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
+    y = np.where(X[:, 0] > 0, 1.0, -1.0).astype(np.float32)
+    src = TableSourceBatchOp(MTable({"a": X[:, 0], "b": X[:, 1],
+                                     "label": (y > 0).astype(np.int64)}))
+    queue = (IterativeComQueue().init_with_partitioned_data("x", X)
+             .init_with_broadcast_data("s", 0.0)
+             .add(lambda ctx, st, data: st).set_max_iter(1))
+    for run in (lambda: optimize(logistic_obj(3), X, y),
+                lambda: constrained_optimize(
+                    logistic_obj(3), X, y, A_ub=np.ones((1, 3), np.float32),
+                    b_ub=np.ones(1, np.float32)),
+                queue.exec,
+                lambda: KMeansTrainBatchOp(k=2, featureCols=["a", "b"])
+                .link_from(src).collect(),
+                lambda: SoftmaxTrainBatchOp(featureCols=["a", "b"],
+                                            labelCol="label")
+                .link_from(src).collect(),
+                lambda: Pipeline(KMeans(k=2, featureCols=["a", "b"]))
+                .fit(src)):
+        with pytest.raises(AkIllegalStateException):
+            run()
+    # asking for the CPU, either way, runs there
+    assert optimize(logistic_obj(3), X, y, device="cpu",
+                    max_iter=3).num_iters == 3
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    model = KMeansTrainBatchOp(k=2, featureCols=["a", "b"]).link_from(src)
+    out = KMeansPredictBatchOp(predictionCol="c").link_from(
+        model, src).collect()
+    assert out.num_rows == 40
 
 
 def test_entry_points_refuse_cpu_without_request(monkeypatch):
