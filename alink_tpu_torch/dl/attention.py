@@ -115,4 +115,4 @@ def ring_attention(q, k, v, mask=None, *, mesh=None, axis: str = "seq",
                    causal: bool = False):
     """Sequence-parallel attention over a device group: not ported yet."""
     raise AkUnsupportedOperationException(
-        "ring_attention is not ported yet (it needs the distributed slice)")
+        "ring_attention is not ported yet (the distributed slice, ROADMAP A3)")

@@ -14,7 +14,9 @@ Layout rules (flax leaf → torch parameter):
 - every ``LayerNorm`` ``scale``/``bias`` → that norm's ``weight``/``bias``.
 
 Values are copied exactly; dtypes are kept (fp32 for the reference's
-parameters).
+parameters, int8 for a quantized tree). :func:`keras_flax_to_torch` and
+:func:`keras_torch_to_flax` carry the KerasSequential variables;
+:func:`to_flax` and :func:`from_flax` pick the pair for a model.
 """
 
 from __future__ import annotations
@@ -101,3 +103,90 @@ def torch_to_flax(state_dict, cfg) -> dict:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(value)
     return {"params": tree}
+
+
+# ---------------------------------------------------------------------------
+# KerasSequential
+# ---------------------------------------------------------------------------
+
+
+def keras_flax_to_torch(variables) -> Dict[str, torch.Tensor]:
+    """State dict for :class:`~alink_tpu_torch.dl.modules.KerasSequential`
+    from the reference's KerasSequential variables ``{"params", and with a
+    BatchNorm "batch_stats"}`` of numpy arrays. Module names are flax's; a
+    2-D ``kernel`` (in, out) becomes the transposed ``weight``, a conv's
+    (k, in, out) the ``weight`` (out, in, k); ``scale`` becomes ``weight``;
+    the running ``mean``/``var`` keep their names. Any array dtype is
+    carried as it is (int8 included)."""
+    out: Dict[str, torch.Tensor] = {}
+    for coll, tree in variables.items():
+        if coll not in ("params", "batch_stats"):
+            raise AkIllegalDataException(f"unknown flax collection {coll!r}")
+        for path, leaf in _flatten(tree):
+            arr = np.asarray(leaf)
+            mod, name = ".".join(path[:-1]), path[-1]
+            if name == "kernel":
+                if arr.ndim == 3:
+                    arr = arr.transpose(2, 1, 0)
+                elif arr.ndim == 2:
+                    arr = arr.T
+                else:
+                    raise AkIllegalDataException(
+                        f"unexpected kernel shape {arr.shape} at "
+                        f"{'/'.join(path)}")
+                name = "weight"
+            elif name == "scale":
+                name = "weight"
+            elif name not in ("bias", "mean", "var"):
+                raise AkIllegalDataException(
+                    f"unknown flax parameter {'/'.join(path)}")
+            out[f"{mod}.{name}"] = torch.from_numpy(arr.copy())
+    return out
+
+
+def keras_torch_to_flax(state_dict) -> dict:
+    """The inverse of :func:`keras_flax_to_torch`: the reference's variables,
+    with ``batch_stats`` only when the model has a BatchNorm."""
+    out: dict = {"params": {}}
+    for key, t in state_dict.items():
+        arr = t.detach().cpu().numpy()
+        *mods, name = key.split(".")
+        coll = "params"
+        if name in ("mean", "var"):
+            coll = "batch_stats"
+        elif name == "weight":
+            if arr.ndim == 3:
+                name, arr = "kernel", arr.transpose(2, 1, 0)
+            elif arr.ndim == 2:
+                name, arr = "kernel", arr.T
+            else:
+                name = "scale"
+        node = out.setdefault(coll, {})
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# either model
+# ---------------------------------------------------------------------------
+
+
+def to_flax(model) -> dict:
+    """The reference's variables tree of ``model``'s state (BERT or
+    KerasSequential), as numpy arrays."""
+    from .modules import KerasSequential
+
+    if isinstance(model, KerasSequential):
+        return keras_torch_to_flax(model.state_dict())
+    return torch_to_flax(model.state_dict(), model.cfg)
+
+
+def from_flax(model, variables) -> Dict[str, torch.Tensor]:
+    """``model``'s state dict from the reference's variables tree."""
+    from .modules import KerasSequential
+
+    if isinstance(model, KerasSequential):
+        return keras_flax_to_torch(variables)
+    return flax_to_torch(variables)

@@ -28,9 +28,19 @@ PyTorch needs no program cache, no donation and no shape buckets. One
 process only: data parallelism over processes is the distributed slice
 (ROADMAP A3).
 
+Model state that is not a parameter (a BatchNorm's running statistics, the
+reference's ``batch_stats`` collection) lives in the model's buffers: the
+training-mode forward updates it, the optimizer never sees it, and it is
+saved, restored and returned with the parameters. Accumulation over chunks
+refuses such state, as the reference does.
+
 Inference (:func:`predict_model`) feeds rows in chunks of ``batch_size`` as
-they come. The reference's ``int8``/``bf16`` serving precision policies are
-not ported yet.
+they come, under the serving precision policy (:mod:`..common.quant`):
+``bf16`` rounds every float state entry through bf16; ``int8`` quantizes the
+reference's variables tree (:func:`~..common.quant.quantize_tree`: one scale
+per last flax axis of every leaf of two or more dimensions) and keeps the
+int8 tensors and their scales as the served state on the device, dequantized
+inside each forward (``q.float() * s``) as the reference's program does.
 """
 
 from __future__ import annotations
@@ -48,7 +58,7 @@ import torch.nn.functional as F
 from ..common.env import resolve_device
 from ..common.exceptions import (AkIllegalArgumentException,
                                  AkUnsupportedOperationException)
-from ..common.quant import resolve_precision
+from ..common import quant
 
 
 @dataclass
@@ -425,10 +435,15 @@ def train_model(model, inputs: Dict[str, np.ndarray], y: np.ndarray,
     if init_params is None:
         model.init_weights(cfg.seed)
     else:
-        from .convert import flax_to_torch
+        from .convert import from_flax
 
-        model.load_state_dict(flax_to_torch(init_params))
+        model.load_state_dict(from_flax(model, init_params))
     params = _trainable(model)
+    if accum > 1 and any(True for _ in model.buffers()):
+        raise AkIllegalArgumentException(
+            "accum_steps supports params-only models: non-parameter state "
+            "(e.g. BatchNorm's running statistics) has no well-defined "
+            "cross-chunk accumulation order")
     opt = make_optimizer(cfg, total_steps, params)
     if accum > 1:
         micro_prog, apply_prog, fused_prog = make_accum_programs(
@@ -574,7 +589,10 @@ def train_model(model, inputs: Dict[str, np.ndarray], y: np.ndarray,
 
 
 def _batched_apply(model, inputs: Dict[str, np.ndarray], bs: int,
-                   device) -> np.ndarray:
+                   device, served=None) -> np.ndarray:
+    """Logits of ``model`` over ``inputs`` in chunks of ``bs`` rows; with
+    ``served`` (:func:`served_state`) each chunk's forward runs on that
+    state, int8 entries dequantized in it."""
     names = sorted(inputs)
     n = inputs[names[0]].shape[0]
     outs = []
@@ -582,8 +600,74 @@ def _batched_apply(model, inputs: Dict[str, np.ndarray], bs: int,
         for s in range(0, n, bs):
             batch = {k: torch.as_tensor(np.asarray(inputs[k][s:s + bs]),
                                         device=device) for k in names}
-            outs.append(model(**batch).float().cpu().numpy())
+            if served is None:
+                out = model(**batch)
+            else:
+                state = {k: q if sc is None else q.float() * sc
+                         for k, (q, sc) in served.items()}
+                out = torch.func.functional_call(model, state, (), batch)
+            outs.append(out.float().cpu().numpy())
     return np.concatenate(outs, axis=0)
+
+
+def _int8_state(model) -> Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """The reference's ``quantize_tree`` over ``model``'s variables tree,
+    carried back to the state dict's layout: int8 tensors with fp32 scales
+    shaped to broadcast against them (along the axes the carry moved the
+    flax last axis to), the other entries as they are with scale None."""
+    from .convert import from_flax, to_flax
+
+    variables = to_flax(model)
+    q_tree, s_tree = quant.quantize_tree(variables)
+
+    def expand(s, leaf):
+        if isinstance(s, dict):
+            return {k: expand(s[k], leaf[k]) for k in s}
+        if s is None:
+            return np.zeros(np.shape(leaf), np.float32)
+        return np.broadcast_to(s, np.shape(leaf)).copy()
+
+    q_state = from_flax(model, q_tree)
+    s_state = from_flax(model, expand(s_tree, variables))
+    dev = next(iter(model.state_dict().values())).device
+    out = {}
+    for name, q in q_state.items():
+        sc = None
+        if q.dtype == torch.int8:
+            sc = s_state[name]
+            for ax in range(sc.dim()):   # keep one entry along equal axes
+                if bool((sc == sc.narrow(ax, 0, 1)).all()):
+                    sc = sc.narrow(ax, 0, 1)
+            sc = sc.contiguous().to(dev)
+        out[name] = (q.to(dev), sc)
+    return out
+
+
+def served_state(model, policy: Optional[str]):
+    """The state ``model`` serves under ``policy`` (None: its own, and this
+    returns None): ``{name: (tensor, scale or None)}`` on the model's
+    device. bf16 rounds every float entry through bf16; int8 is
+    :func:`_int8_state`. Built once per policy and kept on the model, one
+    per policy, until its state changes (tensor versions and storage)."""
+    if policy is None:
+        return None
+    sd = model.state_dict()
+    key = tuple((t.data_ptr(), t._version) for t in sd.values())
+    if not hasattr(model, "_served_states"):
+        model._served_states = {}
+    cached = model._served_states.get(policy)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    if policy == quant.BF16:
+        state = {k: (t.to(torch.bfloat16).to(t.dtype)
+                     if t.is_floating_point() else t, None)
+                 for k, t in sd.items()}
+    elif policy == quant.INT8:
+        state = _int8_state(model)
+    else:
+        raise AkIllegalArgumentException(f"unknown policy {policy!r}")
+    model._served_states[policy] = (key, state)
+    return state
 
 
 def predict_model(model: torch.nn.Module, inputs: Dict[str, np.ndarray], *,
@@ -594,8 +678,11 @@ def predict_model(model: torch.nn.Module, inputs: Dict[str, np.ndarray], *,
     ``model`` is moved to ``device`` (default: see
     :func:`~alink_tpu_torch.common.env.resolve_device`) and run in eval mode
     over ``inputs`` (name → ``(n, ...)`` array, the model's keyword
-    arguments) in chunks of ``batch_size`` rows."""
-    resolve_precision(precision)
+    arguments) in chunks of ``batch_size`` rows, under the serving
+    ``precision`` policy (None/"fp32", "bf16", "int8"; see
+    :func:`served_state`)."""
+    policy = quant.resolve_policy(precision)
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    return _batched_apply(model, inputs, batch_size, dev)
+    return _batched_apply(model, inputs, batch_size, dev,
+                          served_state(model, policy))

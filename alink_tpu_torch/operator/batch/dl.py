@@ -1,5 +1,11 @@
-"""BERT text classify/regress train and predict operators (port of the BERT
-half of ``alink_tpu/operator/batch/dl.py``).
+"""DL train and predict operators: KerasSequential and BERT text
+classify/regress (port of ``alink_tpu/operator/batch/dl.py``).
+
+A KerasSequential model table is the reference's: meta (``layers``,
+``outDim``, ``labels``, ``dim``, …) plus the flax variables (``params``, and
+``batch_stats`` with a BatchNorm) as flax msgpack bytes, carried by
+:func:`~alink_tpu_torch.dl.convert.keras_torch_to_flax`; so each package
+serves a KerasSequential model the other trained.
 
 A BERT model table — meta (``bertConfig``, vocab, labels, …) plus the flax
 parameter tree as ``flax.serialization.to_bytes`` bytes — is the one that
@@ -8,9 +14,11 @@ operators write the same table (the weights carried into the flax layout by
 :func:`~alink_tpu_torch.dl.convert.torch_to_flax`, encoded with
 :mod:`~alink_tpu_torch.common.flax_msgpack`), so each package serves a model
 the other trained. The mapper carries the weights into the torch encoder
-and computes in bf16, as the reference mapper does. Training runs on the
-session's device (``self.env.device``). Not ported yet: the KerasSequential
-family, and ``seqShards > 1`` (ring attention, ROADMAP A3).
+and computes in bf16, as the reference mapper does, under the stamped
+``inferencePrecision`` (fp32, bf16 or int8, see
+:func:`~alink_tpu_torch.dl.train.predict_model`). Training runs on the
+session's device (``self.env.device``). Not ported yet: ``seqShards > 1``
+(ring attention, ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -28,9 +36,11 @@ from ...common.model import model_to_table, table_to_model
 from ...common.mtable import AlinkTypes, MTable
 from ...common.params import InValidator, MinValidator, ParamInfo
 from ...common.quant import PRECISION_KEY
-from ...mapper import (HasPredictionCol, HasPredictionDetailCol,
-                       HasReservedCols, RichModelMapper, detail_json,
-                       np_labels, softmax_np)
+from ...mapper import (HasFeatureCols, HasPredictionCol,
+                       HasPredictionDetailCol, HasReservedCols, HasVectorCol,
+                       RichModelMapper, detail_json, get_feature_block,
+                       merge_feature_params, np_labels, resolve_feature_cols,
+                       softmax_np)
 from .base import BatchOperator
 from .utils import ModelMapBatchOp, ModelTrainOpMixin
 
@@ -53,6 +63,149 @@ class HasDLTrainParams:
     VALIDATION_SPLIT = ParamInfo("validationSplit", float, default=0.0)
     EARLY_STOPPING_PATIENCE = ParamInfo("earlyStoppingPatience", int, default=0)
     RANDOM_SEED = ParamInfo("randomSeed", int, default=0)
+
+
+# ---------------------------------------------------------------------------
+# KerasSequential
+# ---------------------------------------------------------------------------
+
+
+class BaseKerasSequentialTrainBatchOp(ModelTrainOpMixin, BatchOperator,
+                                      HasDLTrainParams,
+                                      HasFeatureCols, HasVectorCol):
+    """(reference: common/dl/BaseKerasSequentialTrainBatchOp.java:82)"""
+
+    LAYERS = ParamInfo("layers", list, optional=False,
+                       desc='e.g. ["Dense(64)", "Relu()", "Dropout(0.1)"]')
+    LABEL_COL = ParamInfo("labelCol", str, optional=False)
+
+    _min_inputs = 1
+    _max_inputs = 1
+
+    _regression = False
+
+    def _static_meta_keys(self, in_schema):
+        return {
+            "regression": self._regression,
+            "labelType": in_schema.type_of(self.get(self.LABEL_COL)),
+        }
+
+    def _execute_impl(self, t: MTable) -> MTable:
+        from ...dl.convert import keras_torch_to_flax
+        from ...dl.modules import KerasSequential
+        from ...dl.train import TrainConfig, train_model
+
+        label_col = self.get(self.LABEL_COL)
+        vec_col = self.get(HasVectorCol.VECTOR_COL)
+        feature_cols = (
+            None if vec_col else resolve_feature_cols(t, self,
+                                                      exclude=[label_col])
+        )
+        X = get_feature_block(t, self, exclude=[label_col]).astype(np.float32)
+        y_raw = t.col(label_col)
+
+        if self._regression:
+            y = np.asarray(y_raw, np.float32)
+            labels, out_dim = None, 1
+        else:
+            labels = sorted(set(np.asarray(y_raw).tolist()), key=str)
+            lab_to_idx = {v: i for i, v in enumerate(labels)}
+            y = np.asarray([lab_to_idx[v] for v in y_raw], np.int32)
+            out_dim = len(labels)
+
+        model = KerasSequential(tuple(self.get(self.LAYERS)), out_dim=out_dim,
+                                in_shape=X.shape[1])
+        cfg = TrainConfig(
+            num_epochs=self.get(self.NUM_EPOCHS),
+            batch_size=self.get(self.BATCH_SIZE),
+            learning_rate=self.get(self.LEARNING_RATE),
+            eval_ratio=self.get(self.VALIDATION_SPLIT),
+            early_stopping_patience=self.get(self.EARLY_STOPPING_PATIENCE),
+            seed=self.get(self.RANDOM_SEED),
+        )
+        state, history = train_model(model, {"x": X}, y, cfg,
+                                     regression=self._regression,
+                                     device=self.env.device)
+        meta = {
+            "modelName": "KerasSequentialModel",
+            "layers": list(self.get(self.LAYERS)),
+            "outDim": out_dim,
+            "regression": self._regression,
+            "vectorCol": vec_col,
+            "featureCols": feature_cols,
+            "labelCol": label_col,
+            "labelType": t.schema.type_of(label_col),
+            "labels": labels,
+            "dim": int(X.shape[1]),
+            "finalLoss": history.get("final_loss"),
+        }
+        return model_to_table(
+            meta, {"params": params_to_bytes(keras_torch_to_flax(state))})
+
+
+class KerasSequentialClassifierTrainBatchOp(BaseKerasSequentialTrainBatchOp):
+    _regression = False
+
+
+class KerasSequentialRegressorTrainBatchOp(BaseKerasSequentialTrainBatchOp):
+    _regression = True
+
+
+class KerasSequentialModelMapper(RichModelMapper, HasFeatureCols,
+                                 HasVectorCol):
+    def load_model(self, model: MTable):
+        from ...dl.convert import keras_flax_to_torch
+        from ...dl.modules import KerasSequential
+
+        self.meta, arrays = table_to_model(model)
+        self.model = KerasSequential(
+            tuple(self.meta["layers"]), out_dim=int(self.meta["outDim"]),
+            in_shape=int(self.meta["dim"]))
+        self.model.load_state_dict(
+            keras_flax_to_torch(params_from_bytes(arrays["params"])))
+        self.model.to(resolve_device(self.device)).eval()
+        return self
+
+    def _pred_type(self) -> str:
+        if self.meta["regression"]:
+            return AlinkTypes.DOUBLE
+        return self.meta.get("labelType", AlinkTypes.STRING)
+
+    def predict_block(self, t: MTable):
+        from ...dl.train import predict_model
+
+        meta = self.meta
+        p = merge_feature_params(self.get_params(), meta)
+        X = get_feature_block(t, p, vector_size=meta["dim"]).astype(np.float32)
+        logits = predict_model(self.model, {"x": X}, device=self.device)
+        if meta["regression"]:
+            return logits[:, 0].astype(np.float64), AlinkTypes.DOUBLE, None
+        probs = softmax_np(logits)
+        idx = probs.argmax(axis=1)
+        labels = meta["labels"]
+        pred = np_labels(labels, meta.get("labelType", AlinkTypes.STRING), idx)
+        detail = None
+        if self.get(HasPredictionDetailCol.PREDICTION_DETAIL_COL):
+            detail = detail_json(labels, probs)
+        return pred, self._pred_type(), detail
+
+
+class KerasSequentialClassifierPredictBatchOp(ModelMapBatchOp,
+                                              HasPredictionCol,
+                                              HasPredictionDetailCol,
+                                              HasReservedCols):
+    mapper_cls = KerasSequentialModelMapper
+
+
+class KerasSequentialRegressorPredictBatchOp(ModelMapBatchOp,
+                                             HasPredictionCol,
+                                             HasReservedCols):
+    mapper_cls = KerasSequentialModelMapper
+
+
+# ---------------------------------------------------------------------------
+# BERT text classifier / regressor
+# ---------------------------------------------------------------------------
 
 
 class BaseBertTextTrainBatchOp(ModelTrainOpMixin, BatchOperator,

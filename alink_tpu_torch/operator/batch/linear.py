@@ -14,8 +14,9 @@ Training runs the optimizer framework (optim/optimizers.py) on the session's
 device; standardization statistics are folded back into the stored weights
 exactly as the reference does, so the model predicts on raw features and a
 model table written by either package predicts the same in the other.
-Scoring is one product on the device per block (chunked for big blocks).
-Not ported yet: the quantized serving policies (int8/bf16 raise).
+Scoring is one product on the device per block (chunked for big blocks),
+under the stamped serving policy (:mod:`...common.quant`, see
+:class:`LinearModelMapper`).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ...common.exceptions import AkIllegalDataException
 from ...common.model import model_to_table, table_to_model
 from ...common.mtable import AlinkTypes, MTable
 from ...common.params import InValidator, MinValidator, ParamInfo
-from ...common.quant import policy_of
+from ...common import quant
 from ...mapper import (
     HasFeatureCols,
     HasPredictionCol,
@@ -343,7 +344,23 @@ class SoftmaxTrainBatchOp(BaseLinearModelTrainBatchOp):
 
 class LinearModelMapper(RichModelMapper):
     """(reference: operator/common/linear/LinearModelMapper.java +
-    SoftmaxModelMapper.java)"""
+    SoftmaxModelMapper.java)
+
+    Serving policies (``inferencePrecision``), as the reference's mapper:
+
+    - ``bf16``: the weights and intercept are rounded through bf16 at load,
+      and every dense feature block before its product;
+    - ``int8``: static W8A8 on the single staged push
+      (:func:`~...common.quant.int8_linear_score`): per-channel int8
+      weights, the activation scale ``calib_scale(params, site + ".x")``
+      from the stamped ``quantCalib`` (a missing site raises);
+    - the 4 MiB chunked route (blocks of STREAM_THRESHOLD_BYTES or more)
+      and the ELL sparse route keep fp32 products under either policy, on
+      the weights the policy loaded (bf16-rounded under ``bf16``, fp32
+      under ``int8``), as the reference's do.
+
+    Inside :func:`~...common.quant.calibration` each dense block is observed
+    under the site before any rounding."""
 
     # feature blocks at/above the threshold are scored in ~4 MiB row chunks
     # (the reference streams them so; each chunk is one staged push and one
@@ -359,12 +376,21 @@ class LinearModelMapper(RichModelMapper):
         self.meta, arrays = table_to_model(model)
         self.weights = arrays["weights"]      # host copies: ndim checks
         self.intercept = arrays["intercept"]
-        policy_of(self.get_params())  # fp32 only: bf16/int8 raise
+        self._policy = quant.policy_of(self.get_params())
+        self._site = quant.site_of(self.get_params(), "linear") + ".x"
+        if self._policy == quant.BF16:
+            self.weights = quant.bf16_round(self.weights)
+            self.intercept = quant.bf16_round(self.intercept)
         self._device = resolve_device(self.device)
+        dev = self._device
         self._w = torch.as_tensor(np.asarray(self.weights, np.float32),
-                                  device=self._device)
+                                  device=dev)
         self._b = torch.as_tensor(np.asarray(self.intercept, np.float32),
-                                  device=self._device)
+                                  device=dev)
+        if self._policy == quant.INT8:
+            wq, sw = quant.quantize_per_channel(self.weights)
+            self._wq = torch.as_tensor(wq, device=dev)
+            self._sw = torch.as_tensor(np.asarray(sw, np.float32), device=dev)
         return self
 
     def _pred_type(self) -> str:
@@ -400,6 +426,10 @@ class LinearModelMapper(RichModelMapper):
         X = get_feature_block(
             t, merged, vector_size=self.meta["dim"],
         ).astype(np.float32, copy=False)
+        if quant.capturing():
+            quant.observe(self._site, X)
+        if self._policy == quant.BF16:
+            X = quant.bf16_round(X)
         if X.nbytes >= self.STREAM_THRESHOLD_BYTES:
             # the reference's chunk: the largest power of two of rows
             # within STREAM_CHUNK_BYTES
@@ -411,6 +441,12 @@ class LinearModelMapper(RichModelMapper):
         # cached device staging: re-predicting the same table does not
         # re-push its (memoized, read-only) feature block host->device
         Xd = stage_replicated(X, self._device)
+        if self._policy == quant.INT8:
+            sx = torch.tensor(quant.calib_scale(self.get_params(),
+                                                self._site),
+                              dtype=torch.float32, device=self._device)
+            return quant.int8_linear_score(Xd, self._wq, self._b, self._sw,
+                                           sx).cpu().numpy()
         return (Xd @ self._w + self._b).cpu().numpy()
 
     def predict_proba_block(self, t: MTable):

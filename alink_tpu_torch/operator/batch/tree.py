@@ -1,16 +1,21 @@
-"""Tree ensemble operators: GBDT, RandomForest, DecisionTree (port of the
-histogram-tree part of ``alink_tpu/operator/batch/tree.py``).
+"""Tree ensemble operators: GBDT, RandomForest, DecisionTree, the
+impurity-criterion single trees (Cart = gini, C45 = infoGainRatio, Id3 =
+infoGain, CartReg) and the tree-model encoder family (port of
+``alink_tpu/operator/batch/tree.py``).
 
 Capability parity (reference: operator/batch/classification/
 GbdtTrainBatchOp.java, RandomForestTrainBatchOp.java,
-DecisionTreeTrainBatchOp.java; regression/GbdtRegTrainBatchOp.java,
-RandomForestRegTrainBatchOp.java, DecisionTreeRegTrainBatchOp.java; predict
-via operator/common/tree/predictors/*).
+DecisionTreeTrainBatchOp.java, C45TrainBatchOp.java, CartTrainBatchOp.java,
+Id3TrainBatchOp.java; regression/GbdtRegTrainBatchOp.java,
+RandomForestRegTrainBatchOp.java, DecisionTreeRegTrainBatchOp.java,
+CartRegTrainBatchOp.java; feature/*EncoderTrainBatchOp.java,
+TreeModelEncoderBatchOp.java; predict via
+operator/common/tree/predictors/*).
 
 Training runs on the session's device (``self.env.device``); a model table
-written by either package predicts the same in the other. Not ported yet:
-the impurity trees (Cart/C45/Id3) and the tree-model encoder family
-(ROADMAP A5), and the quantized serving policies (int8/bf16 raise).
+written by either package predicts the same in the other. The predict ops
+serve under the stamped precision policy (``inferencePrecision``: fp32,
+bf16 or int8, see :meth:`~...tree.grow.TreeEnsemble.raw_predict`).
 """
 
 from __future__ import annotations
@@ -22,14 +27,15 @@ import numpy as np
 from ...common.exceptions import AkIllegalDataException
 from ...common.model import model_to_table, table_to_model
 from ...common.mtable import AlinkTypes, MTable
-from ...common.params import MinValidator, ParamInfo
-from ...common.quant import policy_of
+from ...common.params import InValidator, MinValidator, ParamInfo
+from ...common import quant
 from ...mapper import (
     HasFeatureCols,
     HasPredictionCol,
     HasPredictionDetailCol,
     HasReservedCols,
     HasVectorCol,
+    ModelMapper,
     RichModelMapper,
     detail_json,
     get_feature_block,
@@ -201,11 +207,78 @@ class DecisionTreeRegTrainBatchOp(_BaseTreeTrainBatchOp):
     _force_num_trees = 1
 
 
+class _ImpurityTreeTrainBatchOp(_BaseTreeTrainBatchOp):
+    """Single tree with a classic impurity criterion: per-class count
+    histograms as one-hot products and the gini/entropy/gain-ratio split
+    search (:func:`~...tree.grow.train_tree_impurity`)."""
+
+    _algo = "forest"
+    _regression = False
+    _force_num_trees = 1
+    _criterion: str = "gini"
+
+    TREE_TYPE = ParamInfo(
+        "treeType", str, default=None,
+        validator=InValidator(None, "gini", "infoGain", "infoGainRatio"))
+
+    def _execute_impl(self, t: MTable) -> MTable:
+        from ...tree import train_tree_impurity
+
+        (X, y, labels, K, _task, feature_cols, vec_col,
+         label_col) = self._prep_data(t)
+        criterion = self.get(self.TREE_TYPE) or self._criterion
+        ens = train_tree_impurity(
+            X, np.asarray(y, np.int64),
+            criterion=criterion,
+            num_classes=K,
+            depth=self.get(self.MAX_DEPTH),
+            num_bins=self.get(self.MAX_BINS),
+            min_samples=float(self.get(self.MIN_SAMPLES_PER_LEAF)),
+            min_gain=self.get(self.MIN_INFO_GAIN),
+            subsample=self.get(self.SUBSAMPLING_RATIO),
+            feature_fraction=self.get(self.FEATURE_SUBSAMPLING_RATIO),
+            seed=self.get(self.RANDOM_SEED),
+            device=self.env.device,
+        )
+        meta = self._model_meta(t, ens, ens.task, labels, feature_cols,
+                                vec_col, label_col, 1, int(X.shape[1]),
+                                criterion=criterion)
+        return model_to_table(meta, ens.to_arrays())
+
+
+class CartTrainBatchOp(_ImpurityTreeTrainBatchOp):
+    """CART: Gini-impurity splits (reference: operator/batch/classification/
+    CartTrainBatchOp.java)."""
+
+    _criterion = "gini"
+
+
+class C45TrainBatchOp(_ImpurityTreeTrainBatchOp):
+    """C4.5: information-gain-ratio splits (reference: operator/batch/
+    classification/C45TrainBatchOp.java)."""
+
+    _criterion = "infoGainRatio"
+
+
+class Id3TrainBatchOp(_ImpurityTreeTrainBatchOp):
+    """ID3: information-gain splits (reference: operator/batch/
+    classification/Id3TrainBatchOp.java)."""
+
+    _criterion = "infoGain"
+
+
+class CartRegTrainBatchOp(DecisionTreeRegTrainBatchOp):
+    """CART regression tree: variance-reduction splits, the histogram
+    trainer's single-tree regression path (reference: operator/batch/
+    regression/CartRegTrainBatchOp.java)."""
+
+
 class TreeModelMapper(RichModelMapper):
     def load_model(self, model: MTable):
         self.meta, arrays = table_to_model(model)
         self.ensemble = TreeEnsemble.from_arrays(self.meta, arrays)
-        policy_of(self.get_params())  # fp32 only: bf16/int8 raise
+        self._policy = quant.policy_of(self.get_params())
+        self._site = quant.site_of(self.get_params(), "tree") + ".x"
         return self
 
     def _pred_type(self) -> str:
@@ -217,7 +290,10 @@ class TreeModelMapper(RichModelMapper):
         meta = self.meta
         p = merge_feature_params(self.get_params(), meta)
         X = get_feature_block(t, p, vector_size=meta["dim"]).astype(np.float32)
-        scores = self.ensemble.raw_predict(X, device=self.device)  # (n, K)
+        if quant.capturing():
+            quant.observe(self._site, X)
+        scores = self.ensemble.raw_predict(X, precision=self._policy,
+                                           device=self.device)  # (n, K)
         task = meta["task"]
         if task == "regression":
             return scores[:, 0].astype(np.float64), AlinkTypes.DOUBLE, None
@@ -271,3 +347,127 @@ class DecisionTreePredictBatchOp(_TreePredictBatchOp):
 
 class DecisionTreeRegPredictBatchOp(_TreePredictBatchOp):
     pass
+
+
+class C45PredictBatchOp(_TreePredictBatchOp):
+    """(reference: operator/batch/classification/C45PredictBatchOp.java)"""
+
+
+class CartPredictBatchOp(_TreePredictBatchOp):
+    """(reference: operator/batch/classification/CartPredictBatchOp.java)"""
+
+
+class CartRegPredictBatchOp(_TreePredictBatchOp):
+    """(reference: operator/batch/regression/CartRegPredictBatchOp.java)"""
+
+
+class Id3PredictBatchOp(_TreePredictBatchOp):
+    """(reference: operator/batch/classification/Id3PredictBatchOp.java)"""
+
+
+# ---------------------------------------------------------------------------
+# the tree-model encoder family
+# ---------------------------------------------------------------------------
+
+
+class GbdtEncoderMapper(ModelMapper, HasReservedCols):
+    """Rows → per-tree leaf indices as a sparse one-hot vector of dimension
+    T·2^depth, ones at ``t·2^depth + leaf`` (reference:
+    operator/common/tree/TreeModelEncoderModelMapper.java). The leaf ids
+    come from the device traversal that scoring uses
+    (:meth:`~...tree.grow.TreeEnsemble.leaf_ids`)."""
+
+    ENCODE_OUTPUT_COL = ParamInfo("encodeOutputCol", str,
+                                  default="gbdt_encode",
+                                  aliases=("outputCol", "predictionCol"))
+
+    def load_model(self, model: MTable):
+        self.meta, arrays = table_to_model(model)
+        self.ens = TreeEnsemble.from_arrays(self.meta, arrays)
+        return self
+
+    def output_schema(self, input_schema):
+        out = self.get(self.ENCODE_OUTPUT_COL)
+        return self._append_result_schema(
+            input_schema, [out], [AlinkTypes.SPARSE_VECTOR])
+
+    def map_table(self, t: MTable) -> MTable:
+        from ...common.linalg import SparseVector
+
+        p = merge_feature_params(self.get_params(), self.meta)
+        X = get_feature_block(
+            t, p, vector_size=self.meta["dim"]).astype(np.float32)
+        ens = self.ens
+        T = ens.feats.shape[0]
+        leaf_count = ens.leaves.shape[-1]
+        idx = self.ens.leaf_ids(X, device=self.device) \
+            + np.arange(T) * leaf_count
+        ones = np.ones(T, np.float64)
+        vecs = np.empty(X.shape[0], object)
+        for i in range(X.shape[0]):
+            vecs[i] = SparseVector(T * leaf_count, idx[i], ones)
+        out = self.get(self.ENCODE_OUTPUT_COL)
+        return self._append_result(
+            t, {out: vecs}, {out: AlinkTypes.SPARSE_VECTOR})
+
+
+class GbdtEncoderBatchOp(ModelMapBatchOp, HasReservedCols):
+    """link_from(tree_model, data) → leaf-index one-hot features
+    (reference: GbdtEncoderBatchOp.java)."""
+
+    mapper_cls = GbdtEncoderMapper
+    ENCODE_OUTPUT_COL = GbdtEncoderMapper.ENCODE_OUTPUT_COL
+
+
+class TreeModelEncoderBatchOp(GbdtEncoderBatchOp):
+    """The encoder over any model of the tree family (GBDT, forest, single
+    trees) (reference: operator/batch/feature/TreeModelEncoderBatchOp.java)."""
+
+
+class GbdtEncoderPredictBatchOp(TreeModelEncoderBatchOp):
+    """(reference: operator/batch/feature/GbdtEncoderPredictBatchOp.java)"""
+
+
+# Encoder trainers: the tree trainer whose leaves become categorical
+# features (reference: operator/batch/feature/GbdtEncoderTrainBatchOp.java
+# and siblings; the model feeds TreeModelEncoderBatchOp).
+class GbdtEncoderTrainBatchOp(GbdtTrainBatchOp):
+    """(reference: operator/batch/feature/GbdtEncoderTrainBatchOp.java)"""
+
+
+class GbdtRegEncoderTrainBatchOp(GbdtRegTrainBatchOp):
+    """(reference: operator/batch/feature/GbdtRegEncoderTrainBatchOp.java)"""
+
+
+class RandomForestEncoderTrainBatchOp(RandomForestTrainBatchOp):
+    """(reference: operator/batch/feature/RandomForestEncoderTrainBatchOp.java)"""
+
+
+class RandomForestRegEncoderTrainBatchOp(RandomForestRegTrainBatchOp):
+    """(reference: operator/batch/feature/
+    RandomForestRegEncoderTrainBatchOp.java)"""
+
+
+class DecisionTreeEncoderTrainBatchOp(DecisionTreeTrainBatchOp):
+    """(reference: operator/batch/feature/DecisionTreeEncoderTrainBatchOp.java)"""
+
+
+class DecisionTreeRegEncoderTrainBatchOp(DecisionTreeRegTrainBatchOp):
+    """(reference: operator/batch/feature/
+    DecisionTreeRegEncoderTrainBatchOp.java)"""
+
+
+class C45EncoderTrainBatchOp(C45TrainBatchOp):
+    """(reference: operator/batch/feature/C45EncoderTrainBatchOp.java)"""
+
+
+class CartEncoderTrainBatchOp(CartTrainBatchOp):
+    """(reference: operator/batch/feature/CartEncoderTrainBatchOp.java)"""
+
+
+class CartRegEncoderTrainBatchOp(CartRegTrainBatchOp):
+    """(reference: operator/batch/feature/CartRegEncoderTrainBatchOp.java)"""
+
+
+class Id3EncoderTrainBatchOp(Id3TrainBatchOp):
+    """(reference: operator/batch/feature/Id3EncoderTrainBatchOp.java)"""

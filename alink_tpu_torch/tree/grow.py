@@ -27,6 +27,9 @@ samples route left and both children inherit its statistics.
   one-hot, accumulated in fp32 — plain ``torch.matmul``, no kernel of its
   own. The reference's one fused program becomes Python loops over torch
   ops.
+- The impurity trees (:func:`train_tree_impurity`: Cart, C45, Id3) take
+  per-class count histograms the same way, as one-hot products, and split
+  on gini, information gain or gain ratio.
 - The binning is the reference's host numpy, so bins and thresholds are the
   reference's exactly.
 """
@@ -39,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import quant
 from ..common.env import kernel_knob_on, resolve_device
 from ..common.exceptions import AkIllegalArgumentException
 from .binning import apply_bins, quantile_bins
@@ -111,15 +115,12 @@ def _leaf_values(g, h, node, num_leaves: int, l2: float):
     return -sg / (sh + l2)
 
 
-def predict_raw(X, feats, thrs, leaves, base_score, depth: int):
-    """(n, K) raw scores: every tree's leaf value summed, plus the base.
-
-    All arguments are tensors on one device: X (n, d) fp32; feats (T,
-    2^D - 1) int; thrs (T, 2^D - 1) fp32 raw thresholds (x <= thr goes
-    left); leaves (T, K, 2^D); base_score (K,). The trees walk in parallel,
-    one gather per level."""
+def predict_leaves(X, feats, thrs, depth: int):
+    """(T, n) int64 leaf index of every row in every tree: the trees walk in
+    parallel, one gather per level. X (n, d) fp32; feats (T, 2^D - 1) int;
+    thrs (T, 2^D - 1) fp32 raw thresholds (x <= thr goes left, feature -1
+    goes left)."""
     T, n = feats.shape[0], X.shape[0]
-    K = leaves.shape[1]
     feats = feats.long()
     node = torch.zeros((T, n), dtype=torch.long, device=X.device)
     pos = torch.zeros((T, n), dtype=torch.long, device=X.device)
@@ -130,6 +131,16 @@ def predict_raw(X, feats, thrs, leaves, base_score, depth: int):
         right = (~((fs < 0) | (x <= ts))).long()
         node = node * 2 + right
         pos = 2 * pos + 1 + right
+    return node
+
+
+def predict_raw(X, feats, thrs, leaves, base_score, depth: int):
+    """(n, K) raw scores: every tree's leaf value summed, plus the base.
+
+    All arguments are tensors on one device: X (n, d) fp32; feats, thrs as
+    :func:`predict_leaves`; leaves (T, K, 2^D); base_score (K,)."""
+    node = predict_leaves(X, feats, thrs, depth)
+    T, K, n = feats.shape[0], leaves.shape[1], X.shape[0]
     scores = leaves.gather(2, node[:, None, :].expand(T, K, n))  # (T, K, n)
     return scores.sum(0).T + base_score[None, :]
 
@@ -153,23 +164,64 @@ class TreeEnsemble:
     labels: Optional[list] = None
     feature_cols: Optional[list] = None
     vector_col: Optional[str] = None
-    _staged: Optional[tuple] = field(default=None, init=False, repr=False,
-                                     compare=False)
+    _staged: Optional[dict] = field(default=None, init=False, repr=False,
+                                    compare=False)
 
-    def raw_predict(self, X: np.ndarray, device=None) -> np.ndarray:
-        """(n, K) raw scores — sum of leaf values + base, in fp32 on
+    def _device_arrays(self, policy, dev):
+        """The tree arrays staged on ``dev`` for ``policy``, once per
+        (policy, device): fp32 leaves; bf16-rounded leaves and base; or the
+        int8 leaves (:func:`~...common.quant.quantize_last_axis`) and their
+        (T, K) scales. Features and thresholds stay fp32 under every policy,
+        so routing is the fp32 ensemble's."""
+        key = (policy, dev)
+        if self._staged is None:
+            self._staged = {}
+        if key not in self._staged:
+            leaves, base = self.leaves, self.base_score
+            extra = ()
+            if policy == quant.BF16:
+                leaves, base = quant.bf16_round(leaves), \
+                    quant.bf16_round(base)
+            elif policy == quant.INT8:
+                leaves, scales = quant.quantize_last_axis(leaves)
+                extra = (scales,)
+            self._staged[key] = tuple(
+                torch.tensor(np.asarray(a), device=dev)
+                for a in (self.feats, self.thrs, leaves, base) + extra)
+        return self._staged[key]
+
+    def raw_predict(self, X: np.ndarray, precision=None,
+                    device=None) -> np.ndarray:
+        """(n, K) raw scores: sum of leaf values + base, in fp32 on
         ``device`` (default: see
-        :func:`~alink_tpu_torch.common.env.resolve_device`). The tree arrays
-        are staged on the device once per ensemble."""
+        :func:`~alink_tpu_torch.common.env.resolve_device`).
+
+        ``precision`` is the serving policy: ``int8`` dequantizes the leaves
+        per (tree, output) inside the call (``lq.float() * scale``);
+        ``bf16`` serves bf16-rounded leaves and base. Each policy keeps its
+        own staged device arrays."""
+        policy = quant.resolve_policy(precision)
         dev = resolve_device(device)
-        if self._staged is None or self._staged[0] != dev:
-            self._staged = (dev, tuple(
-                torch.as_tensor(np.asarray(a), device=dev) for a in (
-                    self.feats, self.thrs, self.leaves, self.base_score)))
+        arrays = self._device_arrays(policy, dev)
         Xt = torch.as_tensor(np.asarray(X, np.float32), device=dev)
         with torch.inference_mode():
-            out = predict_raw(Xt, *self._staged[1], depth=self.depth)
+            if policy == quant.INT8:
+                feats, thrs, lq, base, ls = arrays
+                out = predict_raw(Xt, feats, thrs, lq.float() * ls[..., None],
+                                  base, depth=self.depth)
+            else:
+                out = predict_raw(Xt, *arrays, depth=self.depth)
         return out.cpu().numpy()
+
+    def leaf_ids(self, X: np.ndarray, device=None) -> np.ndarray:
+        """(n, T) int64 leaf index of every row in every tree, from the
+        device traversal :func:`predict_leaves` that scoring uses."""
+        dev = resolve_device(device)
+        feats, thrs = self._device_arrays(None, dev)[:2]
+        Xt = torch.as_tensor(np.asarray(X, np.float32), device=dev)
+        with torch.inference_mode():
+            node = predict_leaves(Xt, feats, thrs, self.depth)
+        return node.T.cpu().numpy()
 
     def to_arrays(self) -> Dict[str, np.ndarray]:
         return {
@@ -292,23 +344,30 @@ def _vmat(node, g, h, w, L):
                       N * _bf16(w)[:, None]], dim=1).T
 
 
-def _gbdt_hists(bins, node, g, h, w, L, num_bins, num_chunks, onehot):
-    """(g, h, count) histograms (L, d, B) as products of the bf16-rounded
-    value matrix with the bins' one-hot, fp32 accumulation, over
+def _onehot_product(bins, vmat, rows_out, num_bins, num_chunks, onehot):
+    """(rows_out, d*B) product of the value matrix ``vmat(s)`` ((rows_out,
+    c) for the rows ``s``) with the bins' one-hot, fp32 accumulation, over
     ``num_chunks`` row chunks (``onehot`` holds the whole one-hot when
     there is one chunk)."""
     n, d = bins.shape
     if num_chunks == 1:
-        hist = torch.matmul(_vmat(node, g, h, w, L), onehot)
-    else:
-        chunk = n // num_chunks
-        hist = torch.zeros((3 * L, d * num_bins), dtype=torch.float32,
-                           device=bins.device)
-        for i in range(num_chunks):
-            s = slice(i * chunk, (i + 1) * chunk)
-            hist += torch.matmul(_vmat(node[s], g[s], h[s], w[s], L),
-                                 _onehot_bins(bins[s], num_bins))
-    hist = hist.reshape(3, L, d, num_bins)
+        return torch.matmul(vmat(slice(None)), onehot)
+    chunk = n // num_chunks
+    hist = torch.zeros((rows_out, d * num_bins), dtype=torch.float32,
+                       device=bins.device)
+    for i in range(num_chunks):
+        s = slice(i * chunk, (i + 1) * chunk)
+        hist += torch.matmul(vmat(s), _onehot_bins(bins[s], num_bins))
+    return hist
+
+
+def _gbdt_hists(bins, node, g, h, w, L, num_bins, num_chunks, onehot):
+    """(g, h, count) histograms (L, d, B) as products of the bf16-rounded
+    value matrix with the bins' one-hot (:func:`_onehot_product`)."""
+    hist = _onehot_product(
+        bins, lambda s: _vmat(node[s], g[s], h[s], w[s], L), 3 * L,
+        num_bins, num_chunks, onehot)
+    hist = hist.reshape(3, L, bins.shape[1], num_bins)
     return hist[0], hist[1], hist[2]
 
 
@@ -485,11 +544,220 @@ def train_gbdt(
 # ---------------------------------------------------------------------------
 
 
-def train_tree_impurity(X, y, *, criterion: str, num_classes: int, **kw):
-    """Not ported yet (ROADMAP A5: the impurity trees and their operators
-    Cart/C45/Id3 come with a later slice)."""
-    raise NotImplementedError(
-        "train_tree_impurity (Cart/C45/Id3) is not ported yet: ROADMAP A5")
+# the Cephes log polynomial that XLA's CPU backend emits for a fp32 log
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_INV_LN2 = float(np.float32(1.0) / np.float32(np.log(2.0)))
+
+
+def _log2(p):
+    """``jnp.log2`` of positive normal fp32 ``p`` as the reference computes
+    it on the CPU, bit for bit: XLA's fp32 log (the Cephes polynomial on the
+    mantissa in [√½ − 1, √2 − 1) and the exponent, with the multiply-adds
+    XLA fuses taken through :func:`_fma`) times fp32 1/ln 2. Every step is
+    an IEEE-exact operation, so the card gives the same bits as the CPU."""
+    f32 = torch.float32
+    bits = p.contiguous().view(torch.int32)
+    e = ((bits >> 23) - 0x7F).to(f32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(f32)   # in [0.5, 1)
+    low = m < 0.707106781186547524
+    m = (m - 1.0) + torch.where(low, m, 0.0)
+    e = e - low.to(f32)
+    x2 = m * m
+    x3 = x2 * m
+    c = [torch.tensor(v, dtype=f32, device=p.device) for v in _LOG_P]
+    y = _fma(_fma(m, c[0], c[1]), m, c[2])
+    y1 = _fma(_fma(m, c[3], c[4]), m, c[5])
+    y2 = _fma(_fma(m, c[6], c[7]), m, c[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, _LOG_Q1 * e)
+    r = _fma(torch.full_like(m, -0.5), x2, m) + y
+    ln = _fma(torch.full_like(e, _LOG_Q2), e, r)
+    return ln * _INV_LN2
+
+
+def _fma(a, b, c):
+    """``a·b + c`` with one rounding to fp32: the product of two fp32 values
+    is exact in float64, and so is the float64 sum up to one rounding
+    before the fp32 one. The same bits on the CPU and the card."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _class_dot(a, b):
+    """Σ_k a_k·b_k over the last (class) axis, left to right, each product
+    fused into the running sum (the first rounded on its own)."""
+    acc = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = _fma(a[..., k], b[..., k], acc)
+    return acc
+
+
+def _split_search_impurity(hk, fmask, min_samples, min_gain, criterion):
+    """Per-class count histograms (L, d, B, K) -> (feat (L,), thr (L,))
+    int32, the reference's formulas in fp32:
+
+    - ``gini``: parent Gini minus the children's weighted Gini;
+    - ``infoGain``: parent entropy minus the children's weighted entropy;
+    - ``infoGainRatio``: infoGain over the split entropy (C4.5).
+
+    Masks as :func:`_split_search` (min child count, not the last bin, the
+    feature mask); the flat argmax takes the first of equal gains; feat -1
+    = no split.
+
+    The arithmetic is the reference's as XLA compiles it on the CPU: each
+    product fused into the add it feeds (the class sums Σ p·p and Σ p·log2 p,
+    and the two weighted children's terms of the gain), done here exactly
+    through :func:`_fma`. Gains that tie in exact arithmetic (mirrored
+    splits, different partitions of one node) are then ordered by the same
+    roundings as the reference's and the same split wins. Counts are
+    integers below 2^24, exact in any order, and log2 is the reference's
+    (:func:`_log2`), so the port, on the CPU or the card, picks the
+    reference's splits."""
+    L, d, B, K = hk.shape
+    CLk = torch.cumsum(hk, dim=2)               # left class counts
+    Ck = CLk[:, :, -1:, :]                      # node class totals
+    CRk = Ck - CLk
+    nL, nR, ntot = CLk.sum(-1), CRk.sum(-1), Ck.sum(-1)  # integers: exact
+
+    def impurity(counts, total):
+        p = counts / torch.clamp(total[..., None], min=1.0)
+        if criterion == "gini":
+            return 1.0 - _class_dot(p, p)
+        lg = torch.where(p > 0, _log2(torch.clamp(p, min=1e-12)), 0.0)
+        return -_class_dot(p, lg)
+
+    n_safe = torch.clamp(ntot, min=1.0)
+    gain = _fma(-(nL / n_safe), impurity(CLk, nL), impurity(Ck, ntot))
+    gain = _fma(-(nR / n_safe), impurity(CRk, nR), gain)
+    if criterion == "infoGainRatio":
+        pL, pR = nL / n_safe, nR / n_safe
+        split_info = -(
+            torch.where(pL > 0, pL * _log2(torch.clamp(pL, min=1e-12)), 0.0)
+            + torch.where(pR > 0, pR * _log2(torch.clamp(pR, min=1e-12)),
+                          0.0))
+        gain = gain / torch.clamp(split_info, min=1e-6)
+
+    ok = (nL >= min_samples) & (nR >= min_samples)
+    ok = ok & (torch.arange(B, device=hk.device) < B - 1)[None, None, :]
+    gain = torch.where(ok & (fmask[None, :, None] > 0), gain, -torch.inf)
+    flat = gain.reshape(L, d * B)
+    best = torch.argmax(flat, dim=1)
+    best_gain = flat.gather(1, best[:, None])[:, 0]
+    split = best_gain > min_gain
+    feat = torch.where(split, best // B, -1).to(torch.int32)
+    thr = torch.where(split, best % B, B - 1).to(torch.int32)
+    return feat, thr
+
+
+def _class_hists(bins, node, W, L, num_bins, num_chunks, onehot):
+    """(L, d, B, K) per-class count histograms: the one-hot of (node ×
+    class weight) times the bins' one-hot (:func:`_onehot_product`). The
+    operands are 0/1 and the weights integers, so the fp32 product adds
+    integers below 2^24: exact in any order, as the reference's bf16
+    operands with fp32 accumulation are."""
+    K = W.shape[1]
+
+    def vmat(s):
+        N = (node[s][:, None] == torch.arange(L, device=node.device)
+             ).to(torch.float32)
+        return (N[:, :, None] * W[s][:, None, :]).reshape(-1, L * K).T
+
+    hist = _onehot_product(bins, vmat, L * K, num_bins, num_chunks, onehot)
+    return hist.reshape(L, K, bins.shape[1], num_bins).permute(0, 2, 3, 1)
+
+
+def train_tree_impurity(
+    X: np.ndarray,
+    y: np.ndarray,
+    *,
+    criterion: str,  # gini | infoGain | infoGainRatio
+    num_classes: int,
+    depth: int = 5,
+    num_bins: int = 64,
+    min_samples: float = 2.0,
+    min_gain: float = 0.0,
+    subsample: float = 1.0,
+    feature_fraction: float = 1.0,
+    seed: int = 0,
+    device=None,
+) -> TreeEnsemble:
+    """Single classification tree with a classic impurity criterion
+    (reference: C45TrainBatchOp.java / CartTrainBatchOp.java /
+    Id3TrainBatchOp.java). Leaves hold class probabilities; for K = 2 one
+    channel, p(positive).
+
+    Runs on ``device`` (default: see
+    :func:`~alink_tpu_torch.common.env.resolve_device`): per level the class
+    histograms (:func:`_class_hists`, row chunks under the reference's
+    one-hot budget), the split search (:func:`_split_search_impurity`) and
+    the routing, with the level's splits coming to the host once at the end.
+    The row subsample and the feature mask come from
+    ``np.random.default_rng(seed)`` in the reference's order, so both
+    packages draw the same tree."""
+    if criterion not in ("gini", "infoGain", "infoGainRatio"):
+        raise AkIllegalArgumentException(
+            f"criterion must be gini|infoGain|infoGainRatio, got {criterion}")
+    _check_depth(depth)
+    dev = resolve_device(device)
+    n, d = X.shape
+    K = int(num_classes)
+    rng = np.random.default_rng(seed)
+    X32 = np.asarray(X, np.float32)
+    edges = quantile_bins(X32, num_bins)
+    bins = apply_bins(X32, edges)
+
+    num_chunks = max(1, -(-(n * d * num_bins) // _HIST_ONEHOT_BUDGET_ELEMS))
+    bins_pad = _compact_bins(_pad_rows(bins, num_chunks), num_bins)
+    w = np.ones(n, np.float32)
+    if subsample < 1.0:
+        w *= (rng.random(n) < subsample).astype(np.float32)
+    w_pad = _pad_rows(w, num_chunks)  # padded rows get weight 0
+    fmask = np.ones(d, np.float32)
+    if feature_fraction < 1.0:
+        fmask = (rng.random(d) < feature_fraction).astype(np.float32)
+        if fmask.sum() == 0:
+            fmask[rng.integers(d)] = 1.0
+    W = (_pad_rows(np.eye(K, dtype=np.float32)[np.asarray(y, int)],
+                   num_chunks) * w_pad[:, None])
+
+    B = int(num_bins)
+    HEAP, LEAF = 2 ** depth - 1, 2 ** depth
+    # the reference passes these as one fp32 array of runtime scalars
+    min_s, min_g = (float(v) for v in np.asarray([min_samples, min_gain],
+                                                 np.float32))
+    with torch.inference_mode():
+        bins_t = torch.as_tensor(bins_pad, device=dev).to(torch.int32)
+        W_t = torch.as_tensor(W, device=dev)
+        fmask_t = torch.as_tensor(fmask, device=dev)
+        onehot = _onehot_bins(bins_t, B) if num_chunks == 1 else None
+        feats = torch.full((HEAP,), -1, dtype=torch.int32, device=dev)
+        thrs = torch.full((HEAP,), B - 1, dtype=torch.int32, device=dev)
+        node = torch.zeros(bins_t.shape[0], dtype=torch.int32, device=dev)
+        for level in range(depth):
+            L = 2 ** level
+            hk = _class_hists(bins_t, node, W_t, L, B, num_chunks, onehot)
+            feat, thr = _split_search_impurity(hk, fmask_t, min_s, min_g,
+                                               criterion)
+            feats[L - 1:2 * L - 1] = feat
+            thrs[L - 1:2 * L - 1] = thr
+            node = _route(bins_t, node, feat, thr)
+        NL = (node[:, None] == torch.arange(LEAF, device=dev)[None, :]
+              ).to(torch.float32)
+        counts = torch.matmul(NL.T, W_t)  # (LEAF, K)
+        probs = counts / torch.clamp(counts.sum(-1, keepdim=True), min=1.0)
+        fh, th, probs = (a.cpu().numpy() for a in (feats, thrs, probs))
+    thrs_raw = _bins_to_thresholds(edges, fh, th)
+
+    if K == 2:
+        leaves = probs[:, 1].reshape(1, 1, LEAF).astype(np.float32)
+        task = "binary"
+    else:
+        leaves = probs.T.reshape(1, K, LEAF).astype(np.float32)
+        task = "multiclass"
+    return TreeEnsemble(depth, fh.reshape(1, -1), thrs_raw.reshape(1, -1),
+                        leaves, np.zeros(leaves.shape[1], np.float32), task)
 
 
 # ---------------------------------------------------------------------------

@@ -137,7 +137,35 @@ non-zero:
     examples/sparse_highdim_logistic.py's LR on 300 rows of
     1,000,000-dimensional SparseVectors: accuracy and numIters equal to the
     CPU route's, peak device memory under a dense block's 1.2 GB;
-12. one JSON line of kernels, then the device line last.
+12. model families (``model_families``): (12.1) phase 4's BERT-base table
+    served under ``inferencePrecision`` bf16 and int8 through
+    ``BertTextClassifierPredictBatchOp`` on the 64-row request: 12 flash
+    launches per forward chunk under each, the logits within LOGIT_ATOL of
+    the same policy on the plain attention route, the int8 weights the card
+    serves equal to the host's ``quantize_tree`` arithmetic, the output
+    table inside the reference's accuracy band against phase 4's fp32 table
+    (``QUANT_BAND``, ``QUANT_TOL``), the warm forward timed per policy;
+    (12.2) the Softmax model of 11.3's configuration at n = 60,000 served at
+    fp32, bf16 and int8 (calibrated with ``quant.calibration`` on 1,024
+    training rows) in requests of 5,000 rows, under the mapper's 16 MiB
+    threshold, so that int8 takes the W8A8 product; rows/s and the band
+    per policy; the whole 60,000-row request under int8 (the chunked
+    route, fp32 as in the reference) equal to fp32's; and the card's
+    int32 accumulators (``torch._int_mm``) equal to the plain version's;
+    (12.3) Cart, C45 and Id3 through the ops on the Covertype cell
+    (maxDepth 12, maxBins 64), their trees on the first 60,000 rows at
+    maxDepth 8 identical to the CPU route's, the held-out rows served at
+    fp32, bf16 and int8 (int8's scores the dequantized leaves at fp32's
+    leaf ids);
+    (12.4) the held-out rows encoded with phase 7's GBDT through
+    ``GbdtEncoderPredictBatchOp``, leaf ids equal to a numpy traversal;
+    (12.5) KerasSequential with Keras's mnist_mlp layers: (a) the digits
+    holdout through the ops, ≥ KERAS_DIGITS_REFERENCE_ACC − 0.02; (b) two
+    epochs of 60,000 MNIST-layout rows through the ops, samples/s, ms a
+    step, idle share; (c) one epoch with a BatchNorm after each (gelu)
+    Dense and dropout 0, card against the CPU route
+    (``keras_route_problems``);
+13. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -219,6 +247,31 @@ or the gate fails: TF32 products, and the bf16 wire
 (``ALINK_WIRE_PRECISION=bf16``). Iris purity equal to the
 reference's; digits holdout accuracy ≥ DIGITS_REFERENCE_ACC − 0.02; the
 sparse route's accuracy and numIters equal to the CPU route's.
+Phase 12. Quantized BERT logits against the same policy's plain route:
+LOGIT_ATOL, as phase 4 (both routes serve the same int8 or bf16 weights).
+The int8 weights served: exactly the host's (q·s of the same fp32 values).
+The band: the reference's ModelServer defaults, label columns agree on all
+but 0.5 % of the rows, numeric columns within 5 % relative. int32
+accumulators: exactly equal (integer sums). Impurity trees, card against
+the CPU route: identical (count histograms are integers, the split search
+is IEEE-exact on both devices: tree/grow.py says how). Tree int8 scores:
+the dequantized leaf at fp32's leaf id exactly, within half a scale step
+plus two fp32 roundings of fp32's; bf16 within 2**-8 of the largest leaf.
+12.5(c), card against the CPU route, sgd at 0.01 from one carried init: the
+per-step loss history within KERAS_LOSS_ATOL = 1e-5 (the products and
+batch sums run in another order on the card, a rounding-level change per
+step that sgd, linear in the gradient, carries through 469 steps without
+the ±lr jumps adamw makes of zero gradients; three runs on an H100
+measured 1.79e-7 each, so the limit is 56x the reading); each
+BatchNorm's running mean and var with the initial values' share taken
+out (``debiased_stats``: the momentum-weighted mean of the batch
+statistics) within KERAS_STATS_RTOL = 2e-3 of its largest entry, which an
+unbiased batch variance misses by n/(n−1) − 1 = 7.9e-3 at batch 128 (the
+same three runs measured 6.9e-7); a training-mode forward of the first
+batch from the initial weights within KERAS_PROBE_ATOL = 2e-5, which the
+exact gelu misses by ~6e-4 (the two forms differ by up to 5e-4) while
+fp32 reordering moves it by 1.5e-6 (the three runs)
+(tests/test_torch_chip_smoke.py runs both mutants).
 """
 
 from __future__ import annotations
@@ -615,17 +668,18 @@ def request_texts(vocab, rng, n):
             for w in lens]
 
 
-def forward_ms(model, enc, reps: int = 3) -> float:
-    """Wall ms of one warm ``predict_model`` call (host clock, synced)."""
+def forward_ms(model, enc, reps: int = 3, precision=None) -> float:
+    """Wall ms of one warm ``predict_model`` call under ``precision`` (host
+    clock, synced)."""
     import torch
 
     from alink_tpu_torch.dl.train import predict_model
 
-    predict_model(model, enc)
+    predict_model(model, enc, precision=precision)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        predict_model(model, enc)
+        predict_model(model, enc, precision=precision)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3
 
@@ -758,7 +812,7 @@ def main_path(workdir, cfg):
           f"{gap:.3g}", flush=True)
     if not gap <= 0.02:
         fail(f"operator output disagrees with predict_model ({gap})")
-    return launches
+    return launches, dict(path=path, request=requests[-1], out=outs[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -1362,6 +1416,7 @@ def gbdt_path(X, y):
           flush=True)
     if not acc > base + 0.05:
         fail("gbdt held-out accuracy is no better than the majority class")
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -2971,6 +3026,571 @@ def classical_path(workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: model families (quantized serving, impurity trees, the tree
+# encoder, KerasSequential)
+# ---------------------------------------------------------------------------
+
+QUANT_BAND = 0.005          # the reference's ServingConfig.quant_band
+QUANT_TOL = 0.05            # ... and quant_tol (serving/router.py:123-124)
+POLICIES = ("bf16", "int8")
+CALIB_ROWS = 1_024          # real training rows of the calibration pass
+SOFTMAX_REQUEST_ROWS = 5_000  # 12.2's requests: 15.7 MB, under 16 MiB
+IMPURITY_OPS = (("Cart", "gini"), ("C45", "infoGainRatio"),
+                ("Id3", "infoGain"))
+IMPURITY = dict(maxDepth=12, maxBins=HIST_BINS, minSamplesPerLeaf=5)
+IMPURITY_CHECK = dict(maxDepth=8, maxBins=HIST_BINS, minSamplesPerLeaf=5)
+IMPURITY_CHECK_ROWS = 60_000
+# Keras's mnist_mlp example (Dense 512 relu, Dropout 0.2, twice); the op
+# adds the head of the label count
+KERAS_LAYERS = ["Dense(512, activation=relu)", "Dropout(0.2)",
+                "Dense(512, activation=relu)", "Dropout(0.2)"]
+KERAS_DIGITS = dict(numEpochs=20, batchSize=128, learningRate=1e-3,
+                    randomSeed=0)
+KERAS_DIGITS_REFERENCE_ACC = 354 / 360  # tests/test_torch_keras_digits.py
+KERAS_MNIST = dict(numEpochs=2, batchSize=128, learningRate=1e-3)
+# 12.5(c): dropout 0, a BatchNorm after each Dense, gelu so that the
+# activation's form is on the checked path
+KERAS_BN_LAYERS = ["Dense(512, activation=gelu)", "BatchNorm()",
+                   "Dropout(0.0)", "Dense(512, activation=gelu)",
+                   "BatchNorm()", "Dropout(0.0)"]
+KERAS_BN_TRAIN = dict(num_epochs=1, batch_size=128, learning_rate=0.01,
+                      optimizer="sgd", seed=0, log_every=1, feed="sync")
+KERAS_LOSS_ATOL = 1e-5      # the loss history, card vs CPU route
+KERAS_STATS_RTOL = 2e-3     # debiased running statistics, card vs CPU
+KERAS_PROBE_ATOL = 2e-5     # one training-mode forward from the init
+
+
+def band_report(base, cand):
+    """The reference's accuracy band of output table ``cand`` against the
+    fp32 table ``base`` (label columns agree on all but QUANT_BAND of the
+    rows, numeric columns within QUANT_TOL relative, detail JSON
+    skipped)."""
+    from alink_tpu_torch.common.quant import accuracy_band_report
+
+    return accuracy_band_report(list(base.rows()), list(cand.rows()),
+                                list(cand.schema.types), band=QUANT_BAND,
+                                tol=QUANT_TOL)
+
+
+def flash_rise_problem(launches, chunks, layers, label):
+    """Why the flash kernel's launches do not show one launch per attention
+    call (``layers`` per forward chunk), or None."""
+    if launches != chunks * layers:
+        return (f"{label}: flash_block_update launched {launches} times, "
+                f"expected {chunks * layers} ({layers} per forward chunk)")
+    return None
+
+
+def dequant_mismatch(model, served):
+    """Largest |Δ| between the int8 state the card serves, dequantized as
+    its forward does (``q.float() * s``), and the reference's arithmetic on
+    the host: ``quantize_tree`` of the flax variables, each leaf's q times
+    its per-last-axis scale, carried to the state layout. 0 unless a scale
+    sits on the wrong axis or the quantization differs."""
+    import torch
+
+    from alink_tpu_torch.common.quant import dequantize, quantize_tree
+    from alink_tpu_torch.dl.convert import from_flax, to_flax
+
+    q_tree, s_tree = quantize_tree(to_flax(model))
+
+    def deq(q, s):
+        if isinstance(q, dict):
+            return {k: deq(q[k], s[k]) for k in q}
+        return np.asarray(q, np.float32) if s is None else dequantize(q, s)
+
+    want = from_flax(model, deq(q_tree, s_tree))
+    worst = 0.0
+    for name, (q, s) in served.items():
+        got = (q if s is None else q.float() * s).cpu()
+        if got.shape != want[name].shape:
+            return float("inf")
+        worst = max(worst, float((got - want[name].to(got.dtype)).abs()
+                                 .max()) if got.numel() else 0.0)
+    return worst
+
+
+def quantized_bert(served_main):
+    """12.1: phase 4's BERT-base table served under bf16 and int8 through
+    ``BertTextClassifierPredictBatchOp`` on the 64-row request."""
+    import torch
+
+    from alink_tpu_torch.dl.train import (_int8_state, predict_model,
+                                          served_state)
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.operator.batch import (
+        AkSourceBatchOp, BertTextClassifierPredictBatchOp,
+        BertTextModelMapper, TableSourceBatchOp)
+
+    request, base = served_main["request"], served_main["out"]
+    model_src = AkSourceBatchOp(filePath=served_main["path"])
+    n = request.num_rows
+    chunks = -(-n // 256)
+    mapper = BertTextModelMapper(None, request.schema, None)
+    mapper.load_model(model_src.collect())
+    model = mapper.model
+    layers = model.cfg.num_layers
+    enc = mapper.tokenizer.encode_batch(
+        list(request.col("text")), max_len=int(mapper.meta["maxSeqLength"]))
+    out, problems = {}, []
+    for policy in POLICIES:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        table = BertTextClassifierPredictBatchOp(
+            predictionCol="pred", predictionDetailCol="detail",
+            inferencePrecision=policy).link_from(
+            model_src, TableSourceBatchOp(request)).collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launches()["flash_block_update"]
+        p = flash_rise_problem(launches, chunks, layers, f"12.1 {policy}")
+        if p:
+            problems.append(p)
+        band = band_report(base, table)
+        if not band["ok"]:
+            problems.append(f"12.1 {policy}: outside the band {band}")
+        logits = predict_model(model, enc, precision=policy)
+        plain = plain_route(lambda: predict_model(model, enc,
+                                                  precision=policy))
+        err = float(np.abs(logits - plain).max())
+        if not (np.isfinite(logits).all() and err <= LOGIT_ATOL):
+            problems.append(f"12.1 {policy}: logits {err} from the plain "
+                            f"route (tol {LOGIT_ATOL})")
+        out[policy] = dict(launches=launches, request_s=wall, band=band,
+                           plain_route_max_abs_err=err)
+    fp32 = predict_model(model, enc)
+    for policy in POLICIES:
+        out[policy]["logits_vs_fp32_max_abs"] = float(np.abs(
+            predict_model(model, enc, precision=policy) - fp32).max())
+    worst = dequant_mismatch(model, served_state(model, "int8"))
+    out["int8"]["dequant_vs_host_max_abs"] = worst
+    if worst != 0.0:
+        problems.append(f"12.1 int8: served weights {worst} from the "
+                        "host's quantize_tree")
+    for turn in range(2):
+        for policy in (None,) + POLICIES:
+            out.setdefault("forward_ms", {}).setdefault(
+                policy or "fp32", []).append(
+                forward_ms(model, enc, precision=policy))
+    for policy in (None,) + POLICIES:    # device busy time of one forward
+        warm = min(out["forward_ms"][policy or "fp32"]) / 1e3
+        out.setdefault("forward_profile", {})[policy or "fp32"] = \
+            device_profile(lambda: predict_model(model, enc,
+                                                 precision=policy), warm)
+    # the host's part of an int8 load: quantize_tree and the carry back
+    out["int8"]["state_build_s"], _ = timed(lambda: _int8_state(model))
+    return out, problems
+
+
+def linear_policies():
+    """12.2: the Softmax model of phase 11.3's configuration at n = 60,000
+    (fitted again here) served at fp32, bf16 and int8, calibrated on
+    CALIB_ROWS training rows, in requests of SOFTMAX_REQUEST_ROWS rows: a
+    block under the mapper's STREAM_THRESHOLD_BYTES takes the single
+    staged push, the only route where int8 is the W8A8 product, so their
+    int8 scores must move from fp32's (the chunked route scores fp32 under
+    int8, as the reference's does, and the whole 60,000-row int8 request
+    must equal fp32's). Then the card's int32 accumulators against the
+    plain version's (``int8_matmul_ref``: exact sums on the host)."""
+    import torch
+
+    from alink_tpu_torch.common import quant
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.operator.batch import (LinearModelMapper,
+                                                SoftmaxPredictBatchOp,
+                                                SoftmaxTrainBatchOp,
+                                                TableSourceBatchOp)
+
+    n = SOFTMAX_ROWS[-1]
+    table, feats = softmax_table(n)
+    src = TableSourceBatchOp(table)
+    model = SoftmaxTrainBatchOp(featureCols=feats, labelCol="label",
+                                maxIter=SOFTMAX_ITERS).link_from(src).collect()
+    site = "softmax"
+    calib = {}
+    with quant.calibration(calib):
+        SoftmaxPredictBatchOp(quantSite=site).link_from(
+            TableSourceBatchOp(model),
+            TableSourceBatchOp(table.take(np.arange(CALIB_ROWS)))).collect()
+    out, problems = {"calib": calib}, []
+    block_bytes = SOFTMAX_REQUEST_ROWS * len(feats) * 4
+    if block_bytes >= LinearModelMapper.STREAM_THRESHOLD_BYTES:
+        problems.append(f"12.2: requests of {block_bytes} bytes take the "
+                        "chunked route")
+    parts = [TableSourceBatchOp(table.slice(i, i + SOFTMAX_REQUEST_ROWS))
+             for i in range(0, n, SOFTMAX_REQUEST_ROWS)]
+
+    def serve(extra, sources):      # the request's output columns only
+        return MTable.concat([SoftmaxPredictBatchOp(
+            predictionCol="pred", predictionDetailCol="detail",
+            reservedCols=[], **extra).link_from(
+            TableSourceBatchOp(model), part).collect() for part in sources])
+
+    tables, whole = {}, {}
+    for policy in (None,) + POLICIES:
+        extra = {} if policy is None else dict(
+            inferencePrecision=policy, quantCalib=calib, quantSite=site)
+        walls = []
+        for _ in range(2):
+            wall, tables[policy] = timed(lambda: serve(extra, parts))
+            walls.append(wall)
+        out[policy or "fp32"] = dict(rows_per_s=n / min(walls),
+                                     walls_s=walls,
+                                     requests=len(parts))
+        if policy != "bf16":
+            whole[policy] = serve(extra, [src])
+    for policy in POLICIES:
+        band = band_report(tables[None], tables[policy])
+        out[policy]["band"] = band
+        if not band["ok"]:
+            problems.append(f"12.2 {policy}: outside the band {band}")
+    moved = sum(a != b for a, b in zip(tables[None].col("detail"),
+                                       tables["int8"].col("detail")))
+    out["int8"]["rows_moved_from_fp32"] = int(moved)
+    if not moved:
+        problems.append("12.2: the int8 requests scored as fp32 (no W8A8)")
+    unequal = sum(a != b for a, b in zip(whole[None].col("detail"),
+                                         whole["int8"].col("detail")))
+    out["int8"]["chunked_rows_unequal_to_fp32"] = int(unequal)
+    if unequal:
+        problems.append(f"12.2: the chunked route scored {unequal} rows of "
+                        "the whole int8 request otherwise than fp32")
+    _, arrays = table_to_model(model)
+    wq, _ = quant.quantize_per_channel(arrays["weights"])
+    X = np.stack([np.asarray(table.col(f), np.float32) for f in feats], 1)
+    sx = torch.tensor(quant.calib_scale(Params(quantCalib=calib),
+                                        site + ".x"),
+                      dtype=torch.float32, device="cuda")
+    xq = quant.quantize_act(torch.as_tensor(X, device="cuda"), sx)
+    wq_t = torch.as_tensor(wq, device="cuda")
+    acc = quant.int8_matmul(xq, wq_t)
+    want = quant.int8_matmul_ref(xq.cpu(), wq_t.cpu())
+    out["int8"]["accumulators"] = dict(shape=list(acc.shape),
+                                       unequal=accumulator_mismatch(acc, want))
+    if out["int8"]["accumulators"]["unequal"]:
+        problems.append(f"12.2: {out['int8']['accumulators']['unequal']} "
+                        "int32 accumulators differ from the plain version")
+    out["int8"]["int_mm_ms"] = cuda_ms(lambda: quant.int8_matmul(xq, wq_t))
+    return out, problems
+
+
+def accumulator_mismatch(got, want) -> int:
+    """Entries of the card's int32 accumulators unequal to the plain
+    version's."""
+    got = got.cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return max(got.numel(), want.numel())
+    return int((got != want).sum())
+
+
+def tree_mismatch(a, b):
+    """Heap nodes whose split feature or raw threshold differ between two
+    ensembles (both must have one tree of one depth)."""
+    if a.feats.shape != b.feats.shape:
+        return [-1]
+    return np.nonzero((a.feats != b.feats) | (a.thrs != b.thrs))[1].tolist()
+
+
+def leaf_ids_numpy(ens, X):
+    """(n, T) leaf index of every row in every tree: the reference
+    encoder's numpy traversal (alink_tpu/operator/batch/tree.py:393-406)."""
+    n = X.shape[0]
+    ids = np.zeros((n, ens.feats.shape[0]), np.int64)
+    for t, (f, thr) in enumerate(zip(ens.feats, ens.thrs)):
+        node = np.zeros(n, np.int64)
+        pos = np.zeros(n, np.int64)
+        for _ in range(ens.depth):
+            fs, ts = f[pos], thr[pos]
+            x = X[np.arange(n), np.maximum(fs, 0)]
+            right = (~((fs < 0) | (x <= ts))).astype(np.int64)
+            node = node * 2 + right
+            pos = 2 * pos + 1 + right
+        ids[:, t] = node
+    return ids
+
+
+def impurity_trees(X, y):
+    """12.3: Cart, C45 and Id3 through the ops on the Covertype cell, the
+    first IMPURITY_CHECK_ROWS rows at maxDepth 8 on the card and the CPU
+    route (identical trees), and the held-out rows served at fp32, bf16 and
+    int8 (int8 routes as fp32: its scores are the dequantized leaves at
+    fp32's leaf ids, within half a scale step of fp32's)."""
+    import torch
+
+    import alink_tpu_torch.operator.batch as B
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.common.quant import quantize_last_axis
+    from alink_tpu_torch.tree import TreeEnsemble
+
+    n_tr = COVTYPE_TRAIN
+    X_test, y_test = X[n_tr:], y[n_tr:]
+    test = covertype_table(X_test, y_test)
+    out, problems = {}, []
+    check = covertype_table(X[:IMPURITY_CHECK_ROWS], y[:IMPURITY_CHECK_ROWS])
+    full = covertype_table(X[:n_tr], y[:n_tr])
+    for name, criterion in IMPURITY_OPS:
+        train_op = getattr(B, f"{name}TrainBatchOp")
+        model, wall = train_trees(train_op, IMPURITY, full)
+        card, _ = train_trees(train_op, IMPURITY_CHECK, check)
+        with torch_device("cpu"):
+            cpu = train_op(labelCol="label", **IMPURITY_CHECK).link_from(
+                B.TableSourceBatchOp(check)).collect()
+        ens = [TreeEnsemble.from_arrays(*table_to_model(m))
+               for m in (model, card, cpu)]
+        diff = tree_mismatch(ens[1], ens[2])
+        if diff:
+            problems.append(f"12.3 {name}: {len(diff)} nodes differ from "
+                            f"the CPU route (first {diff[0]})")
+        scores, walls, preds = {}, {}, {}
+        for policy in (None,) + POLICIES:
+            extra = {} if policy is None else {"inferencePrecision": policy}
+            walls[policy or "fp32"], t = timed(
+                lambda: getattr(B, f"{name}PredictBatchOp")(
+                    predictionCol="pred", **extra).link_from(
+                    B.TableSourceBatchOp(model),
+                    B.TableSourceBatchOp(test)).collect())
+            preds[policy] = np.asarray(t.col("pred"))
+            scores[policy] = ens[0].raw_predict(X_test, precision=policy)
+        acc = float(np.mean(preds[None] == y_test))
+        lq, ls = quantize_last_axis(ens[0].leaves)
+        deq = lq.astype(np.float32) * ls[..., None]
+        ids = ens[0].leaf_ids(X_test)[:, 0]
+        routed = float(np.abs(scores["int8"][:, 0] - deq[0, 0, ids]
+                              - ens[0].base_score[0]).max())
+        dq_err = float(np.abs(scores["int8"] - scores[None]).max())
+        # half a scale step, plus the fp32 roundings of q·s and of w / s
+        dq_bound = float(ls.max()) / 2 + 2.0 ** -22 * float(
+            np.abs(ens[0].leaves).max())
+        if routed != 0.0 or not dq_err <= dq_bound:
+            problems.append(f"12.3 {name} int8: routed {routed}, "
+                            f"|Δ| {dq_err} vs its bound {dq_bound}")
+        bf_err = float(np.abs(scores["bf16"] - scores[None]).max())
+        if not bf_err <= 2.0 ** -8 * float(np.abs(ens[0].leaves).max()):
+            problems.append(f"12.3 {name} bf16: |Δ| {bf_err}")
+        out[name] = dict(criterion=criterion, train_s=wall,
+                         check_nodes_differing=len(diff),
+                         check_split_nodes=int((ens[1].feats >= 0).sum()),
+                         serve_s=walls, held_out_acc=acc,
+                         int8_max_abs=dq_err, int8_bound=dq_bound,
+                         bf16_max_abs=bf_err)
+    return out, problems
+
+
+def gbdt_encoder(gbdt_model, X, y):
+    """12.4: the held-out rows encoded with phase 7's GBDT through
+    ``GbdtEncoderPredictBatchOp``; leaf ids against ``leaf_ids_numpy``."""
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.operator.batch import (GbdtEncoderPredictBatchOp,
+                                                TableSourceBatchOp)
+    from alink_tpu_torch.tree import TreeEnsemble
+
+    X_test = X[COVTYPE_TRAIN:]
+    ens = TreeEnsemble.from_arrays(*table_to_model(gbdt_model))
+    wall, enc = timed(lambda: GbdtEncoderPredictBatchOp(
+        encodeOutputCol="leaf").link_from(
+        TableSourceBatchOp(gbdt_model),
+        TableSourceBatchOp(covertype_table(X_test, y[COVTYPE_TRAIN:])))
+        .collect())
+    leaves = ens.leaves.shape[-1]
+    T = ens.feats.shape[0]
+    got = np.stack([np.asarray(v.indices) for v in enc.col("leaf")]) \
+        - np.arange(T) * leaves
+    want = leaf_ids_numpy(ens, X_test)
+    unequal = int((got != want).sum()) if got.shape == want.shape \
+        else want.size
+    problems = [f"12.4: {unequal} leaf ids differ from the numpy "
+                "traversal"] if unequal else []
+    dims = {v.size() for v in enc.col("leaf")}
+    if dims != {T * leaves}:
+        problems.append(f"12.4: encoded dimensions {dims}")
+    return dict(rows=len(X_test), trees=T, dim=T * leaves, wall_s=wall,
+                rows_per_s=len(X_test) / wall, unequal=unequal), problems
+
+
+def digits_table():
+    """data/digits.csv with bench.py's 80/20 split of ``shuffle(seed=0)``."""
+    from alink_tpu_torch.operator.batch import CsvSourceBatchOp
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    dcols = [f"p{i}" for i in range(64)]
+    digits = CsvSourceBatchOp(
+        filePath=os.path.join(here, "data", "digits.csv"),
+        schemaStr=", ".join(f"{c} double" for c in dcols)
+        + ", label long").collect()
+    return digits.shuffle(seed=0).split_at(int(digits.num_rows * 0.8))
+
+
+def keras_digits_acc():
+    """12.5(a): ``KerasSequentialClassifierTrainBatchOp`` with KERAS_LAYERS
+    on the digits split, holdout accuracy through the predict op."""
+    from alink_tpu_torch.operator.batch import (
+        KerasSequentialClassifierPredictBatchOp,
+        KerasSequentialClassifierTrainBatchOp, TableSourceBatchOp)
+
+    tr, te = digits_table()
+    model = KerasSequentialClassifierTrainBatchOp(
+        layers=KERAS_LAYERS, labelCol="label", **KERAS_DIGITS).link_from(
+        TableSourceBatchOp(tr))
+    pred = KerasSequentialClassifierPredictBatchOp(
+        predictionCol="pred").link_from(model, TableSourceBatchOp(te)) \
+        .collect()
+    return float(np.mean(np.asarray(pred.col("pred"))
+                         == np.asarray(te.col("label"))))
+
+
+def debiased_stats(state, steps, momentum=0.99):
+    """Each BatchNorm's running mean and var with the initial values' share
+    taken out: the momentum-weighted mean of the batch statistics, which an
+    unbiased batch variance moves by n/(n - 1) however few the steps."""
+    keep = momentum ** steps
+    out = {}
+    for k, v in state.items():
+        if k.endswith(".mean"):
+            out[k] = v.double().cpu().numpy() / (1 - keep)
+        elif k.endswith(".var"):
+            out[k] = (v.double().cpu().numpy() - keep) / (1 - keep)
+    return out
+
+
+def keras_route(X, y, init, device, steps_per_epoch):
+    """12.5(c) on one route: ``train_model`` of KERAS_BN_LAYERS from the
+    carried ``init`` state; the loss history, the debiased running
+    statistics, and a training-mode forward of the first batch from
+    ``init`` (its logits and debiased statistics after that one step)."""
+    import torch
+
+    from alink_tpu_torch.dl.convert import keras_torch_to_flax
+    from alink_tpu_torch.dl.modules import KerasSequential
+    from alink_tpu_torch.dl.train import TrainConfig, train_model
+
+    dev = torch.device(device)
+    probe = KerasSequential(KERAS_BN_LAYERS, 2, X.shape[1]).to(dev)
+    probe.load_state_dict(init)
+    with torch.no_grad():
+        logits = probe(torch.as_tensor(X[:KERAS_BN_TRAIN["batch_size"]],
+                                       device=dev), deterministic=False)
+    model = KerasSequential(KERAS_BN_LAYERS, 2, X.shape[1])
+    state, hist = train_model(model, {"x": X}, y.astype(np.int32),
+                              TrainConfig(**KERAS_BN_TRAIN), device=dev,
+                              init_params=keras_torch_to_flax(init))
+    return dict(loss=list(hist["loss"]),
+                stats=debiased_stats(state, steps_per_epoch),
+                probe_logits=logits.cpu().numpy(),
+                probe_stats=debiased_stats(probe.state_dict(), 1))
+
+
+def keras_route_problems(card, cpu):
+    """Where the card's 12.5(c) route parts from the CPU route's: the loss
+    history beyond KERAS_LOSS_ATOL, a debiased running statistic beyond
+    KERAS_STATS_RTOL of its largest entry, the probe's logits beyond
+    KERAS_PROBE_ATOL or its debiased statistics beyond KERAS_STATS_RTOL."""
+    problems = []
+    if len(card["loss"]) != len(cpu["loss"]):
+        return ["loss histories of different lengths"]
+    err = float(np.abs(np.subtract(card["loss"], cpu["loss"])).max())
+    if not err <= KERAS_LOSS_ATOL:
+        problems.append(f"loss history {err} apart")
+    for kind in ("stats", "probe_stats"):
+        for k, want in cpu[kind].items():
+            rel = float(np.abs(card[kind][k] - want).max()
+                        / np.abs(want).max())
+            if not rel <= KERAS_STATS_RTOL:
+                problems.append(f"{kind} {k} {rel:.3g} apart (relative)")
+    err = float(np.abs(card["probe_logits"] - cpu["probe_logits"]).max())
+    if not err <= KERAS_PROBE_ATOL:
+        problems.append(f"probe logits {err} apart")
+    return problems
+
+
+def keras_path():
+    """12.5: (a) the digits holdout through the ops; (b) two epochs of
+    60,000 MNIST-layout rows through the ops: samples/s, ms a step, idle
+    share; (c) one epoch with BatchNorm, card against the CPU route."""
+    import torch
+
+    from alink_tpu_torch.dl.modules import KerasSequential
+    from alink_tpu_torch.operator.batch import (
+        KerasSequentialClassifierTrainBatchOp, TableSourceBatchOp)
+
+    out, problems = {}, []
+    out["digits_acc"] = keras_digits_acc()
+    p = below_floor(out["digits_acc"],
+                    KERAS_DIGITS_REFERENCE_ACC - DIGITS_SLACK,
+                    "12.5 digits holdout accuracy")
+    if p:
+        problems.append(p)
+
+    X, y = mnist_layout(WIDE_ROWS, SEED)
+    X /= 255.0                       # mnist_mlp's scaling
+    cols = {f"p{i}": X[:, i] for i in range(X.shape[1])}
+    cols["label"] = y
+    from alink_tpu_torch.common.mtable import MTable
+
+    src = TableSourceBatchOp(MTable(cols))
+
+    def fit():
+        return KerasSequentialClassifierTrainBatchOp(
+            layers=KERAS_LAYERS, labelCol="label", **KERAS_MNIST).link_from(
+            src).collect()
+
+    cold, _ = timed(fit)
+    warm, _ = timed(fit)
+    steps = KERAS_MNIST["numEpochs"] * -(-WIDE_ROWS
+                                         // KERAS_MNIST["batchSize"])
+    prof = device_profile(fit, warm)
+    out["mnist"] = dict(cold_s=cold, warm_s=warm,
+                        samples_per_s=WIDE_ROWS * KERAS_MNIST["numEpochs"]
+                        / warm, ms_per_step=warm / steps * 1e3, steps=steps,
+                        **prof)
+
+    init = KerasSequential(KERAS_BN_LAYERS, 2, X.shape[1]).init_weights(
+        SEED).state_dict()
+    spe = -(-WIDE_ROWS // KERAS_BN_TRAIN["batch_size"])
+    card = keras_route(X, y, init, "cuda", spe)
+    with torch_device("cpu"):
+        cpu = keras_route(X, y, init, "cpu", spe)
+    bad = keras_route_problems(card, cpu)
+    problems += [f"12.5(c): {p}" for p in bad]
+    out["bn_route"] = dict(
+        loss_max_abs=float(np.abs(np.subtract(card["loss"],
+                                              cpu["loss"])).max()),
+        stats_max_rel=max(float(np.abs(card["stats"][k] - v).max()
+                                / np.abs(v).max())
+                          for k, v in cpu["stats"].items()),
+        probe_max_abs=float(np.abs(card["probe_logits"]
+                                   - cpu["probe_logits"]).max()),
+        final_loss=card["loss"][-1], losses=len(card["loss"]))
+    return out, problems
+
+
+def model_families(served_main, X, y, gbdt_model, card):
+    """Phase 12; any failed check fails the run after all are reported.
+    Returns the numbers and 12.1's flash launches."""
+    t = {}
+    out, problems = {}, []
+    for label, fn, args in (
+            ("12.1 quantized BERT-base", quantized_bert, (served_main,)),
+            ("12.2 linear", linear_policies, ()),
+            ("12.3 impurity trees", impurity_trees, (X, y)),
+            ("12.4 GbdtEncoder", gbdt_encoder, (gbdt_model, X, y)),
+            ("12.5 KerasSequential", keras_path, ())):
+        t0 = time.perf_counter()
+        res, bad = fn(*args)
+        t[label] = time.perf_counter() - t0
+        out[label.split()[0]] = res
+        problems += bad
+        print(f"[{card}] phase {label} ({t[label]:.1f} s): "
+              + json.dumps(res, default=str), flush=True)
+    out["seconds"] = t
+    if problems:
+        fail("phase 12: " + "; ".join(problems))
+    launches = sum(out["12.1"][p]["launches"] for p in POLICIES)
+    return out, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3011,7 +3631,7 @@ def main() -> int:
     marks.append(("phase 3 flash kernel", time.perf_counter()))
     workdir = os.path.join(here, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
-    launches = main_path(workdir, serving_config())
+    launches, served_main = main_path(workdir, serving_config())
     marks.append(("phase 4 BERT serving", time.perf_counter()))
 
     from alink_tpu_torch.tree.binning import apply_bins, quantile_bins
@@ -3039,9 +3659,8 @@ def main() -> int:
     wide_forest = wide_forest_path()
     hist.update(errors=errors, max_abs_err=max(errors.values()),
                 bound_by="bytes")
-    gbdt_path(X, y)
+    gbdt_model = gbdt_path(X, y)
     marks.append(("phases 5-7 trees", time.perf_counter()))
-    del X, y
 
     t0 = time.perf_counter()
     docs = text8_corpus(W2V_TOKENS, SEED)
@@ -3061,6 +3680,10 @@ def main() -> int:
     marks.append(("phase 10 BERT training", time.perf_counter()))
     classical_path(workdir)
     marks.append(("phase 11 classical path", time.perf_counter()))
+    families, quant_launches = model_families(served_main, X, y, gbdt_model,
+                                              card)
+    marks.append(("phase 12 model families", time.perf_counter()))
+    del X, y
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -3075,13 +3698,16 @@ def main() -> int:
             "shape": shape, "errors": st["errors"]}
 
     line = {"kernels": [
-        dict(entry("flash_block_update", launches, stats,
+        dict(entry("flash_block_update", launches + quant_launches, stats,
                    "scaled_dot_product_attention over all 512 keys, "
                    "contiguous (B, H, S, D), unmasked (yardstick)",
                    "one attention call: (B, S, H, D) = (32, 512, 12, 64) "
                    "bf16, blocks of 128, q/k/v as unbind views of the qkv "
                    "product; ms is the fused launch, plain_ms the plain "
                    "route (ALINK_ATTN_PALLAS=0)"),
+             launches_by_path={"phase 4 serving": launches,
+                               **{f"12.1 {p}": families["12.1"][p]["launches"]
+                                  for p in POLICIES}},
              library_views_ms=stats["library_views_ms"],
              block_ms=stats["block_ms"],
              block_plain_ms=stats["block_plain_ms"],

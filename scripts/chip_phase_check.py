@@ -10,7 +10,10 @@ and 2048), ``hist`` (the level call at d = 300 and 784), ``bwd`` (the flash
 route's backward against the plain route's autograd, and its timings),
 ``record`` (bench.py's BERT-base fine-tune configuration), ``kernel`` (5
 training steps on the flash route at seq 512), ``sst2`` (the operator's
-fine-tune of data/sst2_mini.csv), ``forest`` (the 784-column forest). Each
+fine-tune of data/sst2_mini.csv), ``forest`` (the 784-column forest),
+``families`` (phase 12, the model families, with the inputs it takes from
+phase 4's BERT-base serving and phase 7's GBDT on the Covertype-layout
+rows, both run first). Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
 """
@@ -26,7 +29,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest")
+PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
+          "families")
 
 
 def main() -> int:
@@ -42,9 +46,10 @@ def main() -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         cs.fail(f"unknown phases {sorted(unknown)}; choose from {PHASES}")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -60,12 +65,19 @@ def main() -> int:
         return cs.check_wide_histograms(
             peaks, apply_bins(X, quantile_bins(X, cs.HIST_BINS)))
 
+    def families():
+        _, served = cs.main_path(workdir, cs.serving_config())
+        X, y = cs.covertype_data(cs.COVTYPE_TRAIN + cs.COVTYPE_TEST, cs.SEED)
+        gbdt = cs.gbdt_path(X, y)
+        return cs.model_families(served, X, y, gbdt,
+                                 card.splitlines()[0])
+
     run = {"sgns": cs.check_sgns_wide, "hist": wide_hist,
            "bwd": lambda: cs.check_backward(peaks),
            "record": lambda: cs.train_metric_of_record(peaks),
            "kernel": cs.train_kernel_route,
            "sst2": lambda: cs.finetune_sst2(workdir),
-           "forest": cs.wide_forest_path}
+           "forest": cs.wide_forest_path, "families": families}
     out = {}
     for name in phases:
         t0 = time.perf_counter()

@@ -11,7 +11,11 @@ zero keys of a ragged last block or the causal offset must not. Shapes are cut t
 chip_smoke's own (fp32 atol 1e-5, bf16 bound of its module docstring).
 Phase 11's checks (the card's fit against the CPU route, the floors) must
 pass a match and reject a perturbation past the tolerance, another
-iteration count and a value under the floor.
+iteration count and a value under the floor. Phase 12's checks must pass a
+match and reject: an int8 accumulator off by one, an int8 scale on the
+wrong axis, one flipped split, a flash counter that did not rise, a label
+flipped past the band, and a KerasSequential route with an unbiased BN
+variance or the exact gelu.
 """
 
 import os
@@ -750,3 +754,180 @@ def test_torch_device_switches_and_restores(monkeypatch):
     with chip_smoke.torch_device("cpu"):
         pass
     assert os.environ["ALINK_TORCH_DEVICE"] == "cuda"
+
+
+# -- phase 12: model families -------------------------------------------------
+def test_model_family_case_list():
+    """The bands are the reference's ServingConfig defaults; the cells are
+    the issue's: mnist_mlp's layers, Covertype at maxDepth 12, the check at
+    60,000 rows and maxDepth 8."""
+    from alink_tpu.serving.router import ServingConfig
+
+    cfg = ServingConfig()
+    assert (chip_smoke.QUANT_BAND, chip_smoke.QUANT_TOL) == (
+        cfg.quant_band, cfg.quant_tol)
+    assert chip_smoke.POLICIES == ("bf16", "int8")
+    assert chip_smoke.CALIB_ROWS == 1_024
+    assert [n for n, _ in chip_smoke.IMPURITY_OPS] == ["Cart", "C45", "Id3"]
+    assert chip_smoke.IMPURITY["maxDepth"] == 12 \
+        and chip_smoke.IMPURITY["maxBins"] == 64
+    assert chip_smoke.IMPURITY_CHECK["maxDepth"] == 8 \
+        and chip_smoke.IMPURITY_CHECK_ROWS == 60_000
+    assert chip_smoke.KERAS_LAYERS == [
+        "Dense(512, activation=relu)", "Dropout(0.2)",
+        "Dense(512, activation=relu)", "Dropout(0.2)"]
+    assert chip_smoke.KERAS_MNIST["batchSize"] == 128 \
+        and chip_smoke.KERAS_MNIST["numEpochs"] == 2
+    assert sum("BatchNorm" in s for s in chip_smoke.KERAS_BN_LAYERS) == 2
+    assert all("gelu" in s for s in chip_smoke.KERAS_BN_LAYERS
+               if s.startswith("Dense"))
+
+
+def test_accumulator_check_rejects_an_off_by_one():
+    from alink_tpu_torch.common import quant
+
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(-127, 128, (40, 24), dtype=torch.int8, generator=g)
+    b = torch.randint(-127, 128, (24, 10), dtype=torch.int8, generator=g)
+    want = quant.int8_matmul_ref(a, b)
+    assert chip_smoke.accumulator_mismatch(torch._int_mm(a, b), want) == 0
+    off = want.clone()
+    off[3, 7] += 1
+    assert chip_smoke.accumulator_mismatch(off, want) == 1
+
+
+def _tiny_bert():
+    from alink_tpu_torch.dl.modules import BertConfig, TransformerEncoder
+
+    return TransformerEncoder(BertConfig.tiny(
+        dtype=torch.float32, vocab_size=64, max_position=16)).init_weights(0)
+
+
+def test_dequant_check_rejects_a_scale_on_the_wrong_axis():
+    from alink_tpu_torch.dl.train import served_state
+
+    model = _tiny_bert()
+    served = dict(served_state(model, "int8"))
+    assert chip_smoke.dequant_mismatch(model, served) == 0.0
+    name = "layers.0.attention.out.weight"           # (hd, hd): square
+    q, s = served[name]
+    assert s.shape == (q.shape[0], 1)
+    served[name] = (q, s.reshape(1, -1))             # per input column
+    assert chip_smoke.dequant_mismatch(model, served) > 0.0
+    q, s = served["layers.0.attention.qkv.weight"]
+    assert s.shape == (q.shape[0], 1)                # rows r mod h·d
+
+
+def test_tree_check_rejects_a_flipped_split():
+    from alink_tpu_torch.tree import train_tree_impurity
+
+    X, y = chip_smoke.covertype_data(2_000, seed=0)
+    ens = train_tree_impurity(X, y, criterion="gini", num_classes=2,
+                              depth=5, device="cpu")
+    again = train_tree_impurity(X, y, criterion="gini", num_classes=2,
+                                depth=5, device="cpu")
+    assert chip_smoke.tree_mismatch(ens, again) == []
+    node = int(np.nonzero(ens.feats[0] >= 0)[0][-1])
+    again.feats = again.feats.copy()
+    again.feats[0, node] = (again.feats[0, node] + 1) % X.shape[1]
+    assert chip_smoke.tree_mismatch(ens, again) == [node]
+
+
+def test_leaf_id_oracle_is_the_device_traversal():
+    from alink_tpu_torch.tree import train_gbdt
+
+    X, y = chip_smoke.covertype_data(1_500, seed=1)
+    ens = train_gbdt(X, y, task="binary", num_trees=4, depth=4,
+                     device="cpu")
+    np.testing.assert_array_equal(chip_smoke.leaf_ids_numpy(ens, X),
+                                  ens.leaf_ids(X, device="cpu"))
+
+
+def test_flash_rise_check_rejects_a_counter_that_did_not_rise():
+    assert chip_smoke.flash_rise_problem(12, 1, 12, "x") is None
+    assert chip_smoke.flash_rise_problem(24, 2, 12, "x") is None
+    assert chip_smoke.flash_rise_problem(0, 1, 12, "x")
+    assert chip_smoke.flash_rise_problem(11, 1, 12, "x")
+
+
+def test_band_rejects_a_flipped_label():
+    from alink_tpu_torch.common.mtable import MTable
+
+    n = 64
+    base = MTable({"text": np.asarray(["t"] * n, object),
+                   "pred": np.zeros(n, np.int64),
+                   "detail": np.asarray(['{"0": 0.6}'] * n, object)})
+    assert chip_smoke.band_report(base, base)["ok"]
+    flipped = base.take(np.arange(n))
+    pred = np.zeros(n, np.int64)
+    pred[5] = 1
+    flipped = MTable({"text": base.col("text"), "pred": pred,
+                      "detail": base.col("detail")})
+    rep = chip_smoke.band_report(base, flipped)
+    assert not rep["ok"] and rep["agreement"] < 1.0
+
+
+KERAS_ROWS = 1_024
+
+
+@pytest.fixture(scope="module")
+def keras_routes():
+    """12.5(c)'s route on the CPU at 1,024 MNIST-layout rows (8 steps), the
+    port as it is and two mutants: the running variance unbiased, and the
+    exact gelu for the tanh form."""
+    import torch.nn.functional as F
+
+    from alink_tpu_torch.dl import modules
+
+    X, y = chip_smoke.mnist_layout(KERAS_ROWS, seed=0)
+    X /= 255.0
+    init = modules.KerasSequential(chip_smoke.KERAS_BN_LAYERS, 2, 784) \
+        .init_weights(0).state_dict()
+    spe = -(-KERAS_ROWS // chip_smoke.KERAS_BN_TRAIN["batch_size"])
+
+    def run():
+        return chip_smoke.keras_route(X, y, init, "cpu", spe)
+
+    out = {"port": run()}
+    with pytest.MonkeyPatch.context() as mp:
+        real = modules.BatchNorm.forward
+
+        def unbiased(self, x, deterministic=True):
+            if deterministic:
+                return real(self, x, deterministic)
+            n = x.shape[0]
+            mean = x.mean(0)
+            var = x.var(0, unbiased=True)
+            with torch.no_grad():
+                self.mean.copy_(0.99 * self.mean + 0.01 * mean)
+                self.var.copy_(0.99 * self.var + 0.01 * var)
+            biased = var * (n - 1) / n
+            return (x - mean) * (torch.rsqrt(biased + self.EPS)
+                                 * self.weight) + self.bias
+
+        mp.setattr(modules.BatchNorm, "forward", unbiased)
+        out["unbiased_var"] = run()
+    with pytest.MonkeyPatch.context() as mp:
+        real_act = modules.activation
+        mp.setattr(modules, "activation", lambda name, x: F.gelu(x)
+                   if name == "gelu" else real_act(name, x))
+        out["exact_gelu"] = run()
+    # a small systematic drift of the loss history, 2x KERAS_LOSS_ATOL
+    out["loss_drift"] = dict(out["port"], loss=[
+        v + 2 * chip_smoke.KERAS_LOSS_ATOL for v in out["port"]["loss"]])
+    return out
+
+
+def test_keras_route_check_passes_the_port(keras_routes):
+    port = keras_routes["port"]
+    assert chip_smoke.keras_route_problems(port, port) == []
+    noisy = dict(port, loss=[v + 1e-6 for v in port["loss"]],
+                 probe_logits=port["probe_logits"] + 1e-7)
+    assert chip_smoke.keras_route_problems(noisy, port) == []
+
+
+@pytest.mark.parametrize("mutant", ["unbiased_var", "exact_gelu",
+                                    "loss_drift"])
+def test_keras_route_check_rejects_mutants(keras_routes, mutant):
+    assert chip_smoke.keras_route_problems(keras_routes[mutant],
+                                           keras_routes["port"])

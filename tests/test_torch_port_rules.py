@@ -196,10 +196,10 @@ def test_entry_points_refuse_cpu_without_request(monkeypatch):
 
 
 @pytest.mark.parametrize("precision,exc", [
-    ("int8", "AkUnsupportedOperationException"),
-    ("bf16", "AkUnsupportedOperationException"),
-    ("fp16", "AkIllegalArgumentException")])
+    ("int8", None), ("bf16", None), ("fp16", "AkIllegalArgumentException")])
 def test_unported_precision_policies_raise(precision, exc):
+    """The quantized policies are ported: int8 and bf16 serve (and change
+    the logits); an unknown precision raises."""
     import torch
 
     from alink_tpu_torch.common import exceptions
@@ -207,9 +207,14 @@ def test_unported_precision_policies_raise(precision, exc):
     from alink_tpu_torch.dl.train import predict_model
 
     model = TransformerEncoder(BertConfig.tiny(dtype=torch.float32))
-    with pytest.raises(getattr(exceptions, exc)):
-        predict_model(model, {"input_ids": np.zeros((1, 4), np.int32)},
-                      device="cpu", precision=precision)
+    ids = {"input_ids": np.arange(8, dtype=np.int32).reshape(2, 4)}
+    if exc is not None:
+        with pytest.raises(getattr(exceptions, exc)):
+            predict_model(model, ids, device="cpu", precision=precision)
+        return
+    got = predict_model(model, ids, device="cpu", precision=precision)
+    assert got.shape == (2, 2) and np.isfinite(got).all()
+    assert not np.array_equal(got, predict_model(model, ids, device="cpu"))
 
 
 def _tree_table(pkg_mtable):
@@ -259,11 +264,11 @@ def test_tree_entry_points_refuse_cpu_without_request(monkeypatch):
 
 
 @pytest.mark.parametrize("precision,exc", [
-    ("int8", "AkUnsupportedOperationException"),
-    ("bf16", "AkUnsupportedOperationException"),
-    ("fp16", "AkIllegalArgumentException")])
+    ("int8", None), ("bf16", None), ("fp16", "AkIllegalArgumentException")])
 def test_tree_mapper_unported_precision_policies_raise(monkeypatch,
                                                        precision, exc):
+    """The tree mapper serves int8 and bf16 now; an unknown precision
+    raises."""
     from alink_tpu_torch.common import exceptions
     from alink_tpu_torch.common.mtable import MTable
     from alink_tpu_torch.operator.batch import (GbdtPredictBatchOp,
@@ -275,8 +280,11 @@ def test_tree_mapper_unported_precision_policies_raise(monkeypatch,
     model = GbdtTrainBatchOp(labelCol="label", numTrees=2,
                              maxDepth=2).link_from(src)
     op = GbdtPredictBatchOp(predictionCol="p", inferencePrecision=precision)
-    with pytest.raises(getattr(exceptions, exc)):
-        op.link_from(model, src).collect()
+    if exc is not None:
+        with pytest.raises(getattr(exceptions, exc)):
+            op.link_from(model, src).collect()
+        return
+    assert op.link_from(model, src).collect().num_rows == 64
 
 
 def test_embedding_entry_points_refuse_cpu_without_request(monkeypatch):

@@ -311,8 +311,16 @@ def test_ak_tree_models_cross_packages(tmp_path, algo, writer):
 
 
 def test_impurity_trees_not_ported():
+    """The impurity trees are ported now: the entry grows a tree, and an
+    unknown criterion raises as the reference's does."""
+    from alink_tpu_torch.common.exceptions import AkIllegalArgumentException
     from alink_tpu_torch.tree import train_tree_impurity
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        train_tree_impurity(np.zeros((4, 2)), np.zeros(4), criterion="gini",
-                            num_classes=2)
+    X = np.arange(8, dtype=np.float32).reshape(4, 2)
+    ens = train_tree_impurity(X, np.array([0, 0, 1, 1]), criterion="gini",
+                              num_classes=2, depth=1, min_samples=1.0,
+                              device="cpu")
+    assert ens.feats[0, 0] >= 0 and ens.task == "binary"
+    with pytest.raises(AkIllegalArgumentException):
+        train_tree_impurity(X, np.zeros(4), criterion="entropy",
+                            num_classes=2, device="cpu")
