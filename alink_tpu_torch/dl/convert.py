@@ -15,8 +15,12 @@ Layout rules (flax leaf → torch parameter):
 
 Values are copied exactly; dtypes are kept (fp32 for the reference's
 parameters, int8 for a quantized tree). :func:`keras_flax_to_torch` and
-:func:`keras_torch_to_flax` carry the KerasSequential variables;
-:func:`to_flax` and :func:`from_flax` pick the pair for a model.
+:func:`keras_torch_to_flax` carry the KerasSequential variables, and the
+ResNet variables under the names :func:`resnet_flax_to_torch` and
+:func:`resnet_torch_to_flax` (``params`` and ``batch_stats``: HWIO kernels
+→ OIHW weights, ``conv_proj``/``norm_proj`` and the zero-initialised last
+scale included); :func:`to_flax` and :func:`from_flax` pick the pair for a
+model.
 """
 
 from __future__ import annotations
@@ -106,18 +110,19 @@ def torch_to_flax(state_dict, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# KerasSequential
+# KerasSequential and ResNet
 # ---------------------------------------------------------------------------
 
 
 def keras_flax_to_torch(variables) -> Dict[str, torch.Tensor]:
     """State dict for :class:`~alink_tpu_torch.dl.modules.KerasSequential`
-    from the reference's KerasSequential variables ``{"params", and with a
-    BatchNorm "batch_stats"}`` of numpy arrays. Module names are flax's; a
-    2-D ``kernel`` (in, out) becomes the transposed ``weight``, a conv's
-    (k, in, out) the ``weight`` (out, in, k); ``scale`` becomes ``weight``;
-    the running ``mean``/``var`` keep their names. Any array dtype is
-    carried as it is (int8 included)."""
+    or :class:`~alink_tpu_torch.dl.resnet.ResNet` from the reference's
+    variables ``{"params", and with a BatchNorm "batch_stats"}`` of numpy
+    arrays. Module names are flax's; a 2-D ``kernel`` (in, out) becomes the
+    transposed ``weight``, a conv's (*window, in, out) the ``weight`` (out,
+    in, *window); ``scale`` becomes ``weight``; the running ``mean``/``var``
+    keep their names. Any array dtype is carried as it is (int8
+    included)."""
     out: Dict[str, torch.Tensor] = {}
     for coll, tree in variables.items():
         if coll not in ("params", "batch_stats"):
@@ -126,14 +131,12 @@ def keras_flax_to_torch(variables) -> Dict[str, torch.Tensor]:
             arr = np.asarray(leaf)
             mod, name = ".".join(path[:-1]), path[-1]
             if name == "kernel":
-                if arr.ndim == 3:
-                    arr = arr.transpose(2, 1, 0)
-                elif arr.ndim == 2:
-                    arr = arr.T
-                else:
+                if arr.ndim < 2:
                     raise AkIllegalDataException(
                         f"unexpected kernel shape {arr.shape} at "
                         f"{'/'.join(path)}")
+                arr = arr.transpose((arr.ndim - 1, arr.ndim - 2)
+                                    + tuple(range(arr.ndim - 2)))
                 name = "weight"
             elif name == "scale":
                 name = "weight"
@@ -155,10 +158,9 @@ def keras_torch_to_flax(state_dict) -> dict:
         if name in ("mean", "var"):
             coll = "batch_stats"
         elif name == "weight":
-            if arr.ndim == 3:
-                name, arr = "kernel", arr.transpose(2, 1, 0)
-            elif arr.ndim == 2:
-                name, arr = "kernel", arr.T
+            if arr.ndim >= 2:
+                name, arr = "kernel", arr.transpose(
+                    tuple(range(2, arr.ndim)) + (1, 0))
             else:
                 name = "scale"
         node = out.setdefault(coll, {})
@@ -168,17 +170,23 @@ def keras_torch_to_flax(state_dict) -> dict:
     return out
 
 
+# ResNet's variables follow the same rules (its conv kernels are 4-D)
+resnet_flax_to_torch = keras_flax_to_torch
+resnet_torch_to_flax = keras_torch_to_flax
+
+
 # ---------------------------------------------------------------------------
-# either model
+# any model
 # ---------------------------------------------------------------------------
 
 
 def to_flax(model) -> dict:
-    """The reference's variables tree of ``model``'s state (BERT or
-    KerasSequential), as numpy arrays."""
+    """The reference's variables tree of ``model``'s state (BERT,
+    KerasSequential or ResNet), as numpy arrays."""
     from .modules import KerasSequential
+    from .resnet import ResNet
 
-    if isinstance(model, KerasSequential):
+    if isinstance(model, (KerasSequential, ResNet)):
         return keras_torch_to_flax(model.state_dict())
     return torch_to_flax(model.state_dict(), model.cfg)
 
@@ -186,7 +194,8 @@ def to_flax(model) -> dict:
 def from_flax(model, variables) -> Dict[str, torch.Tensor]:
     """``model``'s state dict from the reference's variables tree."""
     from .modules import KerasSequential
+    from .resnet import ResNet
 
-    if isinstance(model, KerasSequential):
+    if isinstance(model, (KerasSequential, ResNet)):
         return keras_flax_to_torch(variables)
     return flax_to_torch(variables)

@@ -25,6 +25,10 @@ class HasReservedCols:
     )
 
 
+class HasSelectedCols:
+    SELECTED_COLS = ParamInfo("selectedCols", list, desc="input columns used")
+
+
 class HasPredictionCol:
     PREDICTION_COL = ParamInfo("predictionCol", str, default="pred")
 

@@ -1,5 +1,6 @@
-"""Model-mapper batch operator and the train-op mixin (port of
-``alink_tpu.operator.batch.utils``).
+"""Mapper and model-mapper batch operators and the train-op mixin (port of
+``alink_tpu.operator.batch.utils``; the executor's mapper-chain fusion
+contract is not ported).
 
 Capability parity with reference operator/batch/utils/ModelMapBatchOp.java:62:
 the mapper loads the model MTable once and maps the data table with it.
@@ -14,6 +15,35 @@ from ...common.model import MODEL_SCHEMA
 from ...common.mtable import MTable, TableSchema
 from ..base import AlgoOperator
 from .base import BatchOperator
+
+
+class MapBatchOp(BatchOperator):
+    """Wrap a stateless Mapper class as an operator; the mapper runs on the
+    session's device (``MLEnvironment.device``)."""
+
+    _min_inputs = 1
+    _max_inputs = 1
+
+    mapper_cls: Type = None
+
+    def _make_mapper(self, data_schema):
+        # cached per input schema: foreign-model mappers (modelpredict) load
+        # and convert whole model files, so schema access + execute must
+        # share one instance
+        key = data_schema.to_str()
+        cached = getattr(self, "_mapper_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        mapper = self.mapper_cls(data_schema, self.get_params())
+        mapper.device = self.env.device
+        self._mapper_cache = (key, mapper)
+        return mapper
+
+    def _execute_impl(self, t: MTable) -> MTable:
+        return self._make_mapper(t.schema).map_table(t)
+
+    def _out_schema(self, in_schema: TableSchema) -> TableSchema:
+        return self._make_mapper(in_schema).output_schema(in_schema)
 
 
 class ModelMapBatchOp(BatchOperator):

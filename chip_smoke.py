@@ -165,7 +165,41 @@ non-zero:
     step, idle share; (c) one epoch with a BatchNorm after each (gelu)
     Dense and dropout 0, card against the CPU route
     (``keras_route_problems``);
-13. one JSON line of kernels, then the device line last.
+13. foreign-model ingest (``ingest_path``; no kernel of the port: the
+    launch counters, set to 0 first, must read 0 after it): (13.1)
+    BASELINE #3 through torch.export, bench.py:355-513's ResNet-50 (1000
+    classes, ``torch.manual_seed(0)``, its definition copied here as
+    ``bench_resnet50``) exported at (256, 3, 224, 224) and run by
+    ``load_torch_fn`` on the card at float32, with TF32 turned on for
+    cuBLAS and cuDNN around it (the pinned route must not use it, and must
+    leave the flags as it found them), and at bfloat16; the fp32 logits
+    held against the same seeded model exported at 8 rows and run by its
+    ``module()`` on the CPU in float64, beside the error of a TF32 run of
+    ``ep.module()`` on the card, which the check must reject; bf16 against
+    fp32 in a band, top-1 agreement out of 256; rows/s on batches staged
+    on the card; then 1,000 seeded NCHW fp32 images (three full batches
+    and a 232-row tail) through ``TableSourceBatchOp`` →
+    ``TorchModelPredictBatchOp(predictBatchSize=256)`` → ``collect()`` per
+    policy: request wall, warm rows/s of the loaded mapper, peak device
+    memory, idle share (``torch.profiler``); (13.2) dl/resnet.py's
+    ResNet-50 from seeded flax-layout variables carried by
+    ``resnet_flax_to_torch``, NHWC batches of 256 at fp32 (held against the
+    same module on the CPU) and bf16, then the bf16 module through
+    ``torch.export`` → ``.pt2`` → ``TorchModelPredictBatchOp``, which must
+    give the module's logits (the port's stand-in for the reference's
+    StableHLO route); (13.3) 13.1's ResNet-50 written as ONNX by the
+    port's proto writer (``onnx_resnet50``) through
+    ``OnnxModelPredictBatchOp`` at fp32 (held to 13.1's fp32 op logits)
+    and bf16; (13.4) BASELINE #5 as bench.py:549-582 runs it, the MLP
+    16→64→1 as ``.pt2`` over 16,384 seeded rows, ``TableSourceStreamOp
+    (chunkSize=4096)`` → ``TorchModelPredictStreamOp(predictBatchSize=
+    4096)`` → ``collect()``, cold and warm rows/s, scores against the
+    module on the CPU, and the same MLP as ONNX through
+    ``OnnxModelPredictStreamOp``; (13.5) ``StableHloModelPredictBatchOp``
+    raises as designed, and the SavedModel route is not driven (no
+    TensorFlow on the card's machine); ``scripts/chip_phase_check.py
+    ingest`` runs this phase alone;
+14. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -272,10 +306,28 @@ batch from the initial weights within KERAS_PROBE_ATOL = 2e-5, which the
 exact gelu misses by ~6e-4 (the two forms differ by up to 5e-4) while
 fp32 reordering moves it by 1.5e-6 (the three runs)
 (tests/test_torch_chip_smoke.py runs both mutants).
+Phase 13. fp32 ingest routes against float64 on the CPU: max|Δ| ≤
+INGEST_RTOL = 1e-4 of the largest |logit|. fp32 rounds each product and
+sum at 2**-24; over ResNet-50's ~50 layers such errors grow as a random
+walk to ~1e-6 of the logits, while TF32 rounds the products' inputs at
+2**-11, ~2e-4 a layer and ~1e-3 over the network: the bound sits ~100x
+above the first and ~10x below the second, and the run shows the TF32
+error beside it. bf16 against fp32: INGEST_BF16_BAND = 0.05 of the
+largest |logit| (2**-8 a rounding, ~0.03 as a random walk over the
+layers). A ``.pt2`` route against the module it was exported from:
+ROUTE_RTOL = 2**-8 of the largest |logit|, one bf16 rounding: the route
+runs the module's own aten ops, so only the fp32 head (one fused product
+and bias in the module, two ops in the route) or another cuDNN algorithm
+could part them. A one-ulp change upstream is not small here: the route
+once took aten.rsqrt as 1/sqrt, one ulp off in some BatchNorm scales, and
+the bf16 network grew that to 2.5e-3 of the largest logit. The ONNX
+ResNet-50 against 13.1's torch.export logits, both fp32: INGEST_RTOL.
+MLP scores (13.4) against the module on the CPU: STREAM_ATOL = 1e-5.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
 import os
@@ -3591,6 +3643,553 @@ def model_families(served_main, X, y, gbdt_model, card):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: foreign-model ingest (BASELINE #3 and #5; no kernel of the port)
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH = 256          # bench.py's bench_resnet50 batch
+RESNET_ROWS = 1_000         # three full batches and a 232-row tail
+RESNET_SIDE = 224
+F64_ROWS = 8                # rows held against float64 on the CPU
+INGEST_RTOL = 1e-4          # fp32 routes vs float64, of the largest |logit|
+INGEST_BF16_BAND = 0.05     # bf16 vs fp32, of the largest |logit|
+ROUTE_RTOL = 2.0 ** -8      # a .pt2 route vs the module it was exported from
+STREAM_ROWS = 16_384        # bench.py:549-582
+STREAM_CHUNK = 4_096
+STREAM_ATOL = 1e-5          # MLP scores vs the module on the CPU, fp32
+INGEST_CASES = (
+    ("13.1 ResNet-50 through torch.export (BASELINE #3)", "bench.py:355-513"),
+    ("13.2 flax-layout ResNet-50 through dl/resnet.py",
+     "alink_tpu/dl/resnet.py"),
+    ("13.3 ResNet-50 as ONNX, the port's proto writer",
+     "chip_smoke.onnx_resnet50"),
+    ("13.4 MLP 16-64-1 stream predict (BASELINE #5)", "bench.py:549-582"),
+    ("13.5 the StableHLO and SavedModel departures", "ROADMAP.md"),
+)
+
+
+def bench_resnet50():
+    """bench.py's ResNet-50 (``_resnet50_torch``, copied: this script
+    imports nothing of bench.py), 1000 classes, ``torch.manual_seed(0)``."""
+    import torch
+    import torch.nn as nn
+
+    class Bottleneck(nn.Module):
+        def __init__(self, cin, planes, stride=1):
+            super().__init__()
+            cout = planes * 4
+            self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+            self.bn1 = nn.BatchNorm2d(planes)
+            self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
+                                   padding=1, bias=False)
+            self.bn2 = nn.BatchNorm2d(planes)
+            self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
+            self.bn3 = nn.BatchNorm2d(cout)
+            self.relu = nn.ReLU()
+            self.down = None
+            if stride != 1 or cin != cout:
+                self.down = nn.Sequential(
+                    nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
+                    nn.BatchNorm2d(cout))
+
+        def forward(self, x):
+            identity = self.down(x) if self.down is not None else x
+            out = self.relu(self.bn1(self.conv1(x)))
+            out = self.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            return self.relu(out + identity)
+
+    class ResNet50(nn.Module):
+        def __init__(self, num_classes=1000):
+            super().__init__()
+            self.stem = nn.Sequential(
+                nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
+                nn.BatchNorm2d(64), nn.ReLU(),
+                nn.MaxPool2d(3, stride=2, padding=1))
+            layers = []
+            cin = 64
+            for planes, blocks, stride in ((64, 3, 1), (128, 4, 2),
+                                           (256, 6, 2), (512, 3, 2)):
+                for b in range(blocks):
+                    layers.append(Bottleneck(cin, planes,
+                                             stride if b == 0 else 1))
+                    cin = planes * 4
+            self.layers = nn.Sequential(*layers)
+            self.head = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Flatten(),
+                                      nn.Linear(2048, num_classes))
+
+        def forward(self, x):
+            return self.head(self.layers(self.stem(x)))
+
+    torch.manual_seed(0)
+    return ResNet50().eval()
+
+
+def resnet_images(n, side=RESNET_SIDE, seed=SEED, layout="NCHW"):
+    shape = (n, 3, side, side) if layout == "NCHW" else (n, side, side, 3)
+    return np.random.default_rng(seed).standard_normal(shape,
+                                                       dtype=np.float32)
+
+
+def logit_check(got, want, rtol):
+    """(max |got − want|, the bound rtol · max |want|): the check passes
+    when the first is at most the second."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()), float(rtol * np.abs(want).max())
+
+
+def check_logits(label, got, want, rtol, problems, out):
+    err, bound = logit_check(got, want, rtol)
+    out[label] = dict(max_abs_err=err, bound=bound)
+    if not (np.isfinite(got).all() and err <= bound):
+        problems.append(f"{label}: max|Δ| {err:.4g} above {bound:.4g}")
+
+
+def top1_agreement(a, b) -> int:
+    return int((np.argmax(a, axis=1) == np.argmax(b, axis=1)).sum())
+
+
+def image_table(X):
+    from alink_tpu_torch.common.mtable import MTable
+
+    col = np.empty(len(X), dtype=object)
+    col[:] = list(X)
+    return MTable({"img": col})
+
+
+def serve_images(op_cls, table, **params):
+    """One predict op over ``table`` on the card: the cold request (model
+    load included), then the loaded mapper's warm ``map_table``: rows/s,
+    peak device memory and the idle share (``torch.profiler``). Returns
+    the logits and the numbers."""
+    import torch
+
+    from alink_tpu_torch.operator.batch import TableSourceBatchOp
+
+    op = op_cls(selectedCols=["img"], outputCols=["logits"],
+                predictBatchSize=RESNET_BATCH, **params).link_from(
+        TableSourceBatchOp(table))
+    cold, out = timed(op.collect)
+    mapper = op._mapper_cache[1]
+    torch.cuda.reset_peak_memory_stats()
+    warm, _ = timed(lambda: mapper.map_table(table))
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: mapper.map_table(table), warm)
+    logits = np.stack(list(out.col("logits")))
+    return logits, dict(request_s=cold, warm_s=warm,
+                        rows_per_s=table.num_rows / warm,
+                        peak_gb=peak / 1e9, **prof)
+
+
+def staged_rows_per_s(fn, x_dev, reps=3):
+    """Rows/s of the served function on a batch already on the card."""
+    import torch
+
+    fn(x_dev)
+    torch.cuda.synchronize()
+    wall, _ = timed(lambda: [fn(x_dev) for _ in range(reps)])
+    return reps * x_dev.shape[0] / wall
+
+
+def tf32_flags():
+    import torch
+
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def set_tf32(on: bool):
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def resnet_export_route(workdir, X, problems):
+    """13.1: bench.py's ResNet-50 exported at (256, 3, 224, 224), run by the
+    port's ``load_torch_fn`` on the card under float32 and bfloat16, then
+    1,000 rows through ``TorchModelPredictBatchOp``. Returns the numbers,
+    the model and the fp32 op's logits (13.3 is held to them)."""
+    import torch
+
+    from alink_tpu_torch.onnx import load_torch_fn
+    from alink_tpu_torch.operator.batch import TorchModelPredictBatchOp
+
+    out = {}
+    model = bench_resnet50()
+    x = torch.from_numpy(X[:RESNET_BATCH])
+    t0 = time.perf_counter()
+    ep = torch.export.export(model, (x,))
+    pt2 = os.path.join(workdir, "resnet50.pt2")
+    torch.export.save(ep, pt2)
+    out["export_s"] = time.perf_counter() - t0
+    # the float64 reference: the same seeded model exported at F64_ROWS (an
+    # exported program's module() checks its batch; a module's .to() and
+    # .cuda() convert the parameters it shares with its program in place,
+    # so each side gets its own), on the CPU
+    t0 = time.perf_counter()
+    ep_check = torch.export.export(bench_resnet50(), (x[:F64_ROWS],))
+    with torch.no_grad():
+        ref64 = ep_check.module().to(torch.float64)(
+            x[:F64_ROWS].double()).numpy()
+    out["float64_s"] = time.perf_counter() - t0
+
+    # TF32 on for cuBLAS and cuDNN, as a user's process may have it: the
+    # pinned fp32 route must not use it, and must hand it back as it was
+    set_tf32(True)
+    try:
+        t0 = time.perf_counter()
+        fn32, _ = load_torch_fn(ep)
+        out["load_s"] = time.perf_counter() - t0
+        xd = x.cuda()
+        l32 = fn32(xd)[0].cpu().numpy()
+        flags = tf32_flags()
+        with torch.no_grad():
+            tf32 = copy.deepcopy(ep.module()).cuda()(xd)[:F64_ROWS] \
+                .cpu().numpy()
+    finally:
+        set_tf32(False)
+    if flags != (True, True):
+        problems.append(f"13.1: the fp32 route left TF32 at {flags}")
+    check_logits("fp32 vs float64", l32[:F64_ROWS], ref64, INGEST_RTOL,
+                 problems, out)
+    tf32_err, bound = logit_check(tf32, ref64, INGEST_RTOL)
+    out["tf32 control"] = dict(max_abs_err=tf32_err, bound=bound)
+    if tf32_err <= bound:
+        problems.append(f"13.1: a TF32 run ({tf32_err:.4g}) passes the fp32 "
+                        f"check ({bound:.4g}): the check cannot see TF32")
+
+    fn16, _ = load_torch_fn(ep, dtype="bfloat16")
+    l16 = fn16(xd)[0].cpu().numpy()
+    check_logits("bf16 vs fp32", l16, l32, INGEST_BF16_BAND, problems, out)
+    out["bf16 top-1 agreement"] = f"{top1_agreement(l16, l32)}/{len(l32)}"
+    out["staged_rows_per_s"] = {"float32": staged_rows_per_s(fn32, xd),
+                                "bfloat16": staged_rows_per_s(fn16, xd)}
+    del fn16, xd
+
+    table = image_table(X)
+    ops = {}
+    for prec in ("float32", "bfloat16"):
+        logits, ops[prec] = serve_images(TorchModelPredictBatchOp, table,
+                                         modelPath=pt2, precision=prec)
+        if logits.shape != (RESNET_ROWS, 1000):
+            problems.append(f"13.1: op logits of shape {logits.shape}")
+        if prec == "float32":
+            op32 = logits
+            check_logits("op fp32 vs float64", logits[:F64_ROWS], ref64,
+                         INGEST_RTOL, problems, out)
+        else:
+            check_logits("op bf16 vs op fp32", logits, op32,
+                         INGEST_BF16_BAND, problems, out)
+    out["op"] = ops
+    return out, model, op32
+
+
+def flax_resnet50_variables(rng, classes=1000, width=64):
+    """A variables tree of the reference's flax ResNet-50 (``params`` and
+    ``batch_stats``, flax's names and HWIO kernels) drawn from ``rng``:
+    He-normal kernels; BatchNorm scales in [0.5, 1] (the last of each block
+    in [0.1, 0.3], so the residual stream grows slowly), biases and means
+    N(0, 0.1²), variances in [0.5, 1.5]; a head of N(0, 1/2048)."""
+    params, stats = {}, {}
+
+    def conv(kh, kw, cin, cout):
+        return {"kernel": (rng.standard_normal((kh, kw, cin, cout))
+                           * np.sqrt(2.0 / (kh * kw * cin)))
+                .astype(np.float32)}
+
+    def norm(c, lo=0.5, hi=1.0):
+        return ({"scale": rng.uniform(lo, hi, c).astype(np.float32),
+                 "bias": (0.1 * rng.standard_normal(c)).astype(np.float32)},
+                {"mean": (0.1 * rng.standard_normal(c)).astype(np.float32),
+                 "var": rng.uniform(0.5, 1.5, c).astype(np.float32)})
+
+    params["conv_init"] = conv(7, 7, 3, width)
+    params["bn_init"], stats["bn_init"] = norm(width)
+    cin, k = width, 0
+    for i, blocks in enumerate((3, 4, 6, 3)):
+        f = width * 2 ** i
+        for j in range(blocks):
+            p, s = {}, {}
+            p["Conv_0"] = conv(1, 1, cin, f)
+            p["BatchNorm_0"], s["BatchNorm_0"] = norm(f)
+            p["Conv_1"] = conv(3, 3, f, f)
+            p["BatchNorm_1"], s["BatchNorm_1"] = norm(f)
+            p["Conv_2"] = conv(1, 1, f, 4 * f)
+            p["BatchNorm_2"], s["BatchNorm_2"] = norm(4 * f, 0.1, 0.3)
+            if j == 0:
+                p["conv_proj"] = conv(1, 1, cin, 4 * f)
+                p["norm_proj"], s["norm_proj"] = norm(4 * f)
+            params[f"BottleneckBlock_{k}"], stats[f"BottleneckBlock_{k}"] = \
+                p, s
+            cin, k = 4 * f, k + 1
+    params["head"] = {
+        "kernel": (rng.standard_normal((cin, classes)) / np.sqrt(cin))
+        .astype(np.float32),
+        "bias": np.zeros(classes, np.float32)}
+    return {"params": params, "batch_stats": stats}
+
+
+def flax_resnet_route(workdir, problems):
+    """13.2: dl/resnet.py's ResNet-50 from seeded flax-layout variables
+    (``dl/convert.py``'s carry) on NHWC batches of 256 at fp32 and bf16,
+    fp32 held against the same module on the CPU; then the bf16 module
+    through ``torch.export`` → ``TorchModelPredictBatchOp``, the port's
+    stand-in for the reference's StableHLO route."""
+    import torch
+
+    from alink_tpu_torch.dl.convert import resnet_flax_to_torch
+    from alink_tpu_torch.dl.resnet import resnet50
+    from alink_tpu_torch.operator.batch import TorchModelPredictBatchOp
+
+    out = {}
+    state = resnet_flax_to_torch(flax_resnet50_variables(
+        np.random.default_rng(SEED)))
+    X = resnet_images(RESNET_BATCH, seed=SEED + 1, layout="NHWC")
+    x = torch.from_numpy(X)
+    mods = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        m = resnet50(dtype=dtype)
+        m.load_state_dict(state)
+        mods[name] = m.eval()
+    with torch.no_grad():
+        cpu32 = mods["float32"](x[:F64_ROWS]).numpy()
+        logits = {}
+        for name, m in mods.items():
+            m.cuda()
+            xd = x.cuda()
+            logits[name] = m(xd).cpu().numpy()
+            out[f"{name} staged_rows_per_s"] = staged_rows_per_s(m, xd)
+    check_logits("fp32 card vs CPU", logits["float32"][:F64_ROWS], cpu32,
+                 INGEST_RTOL, problems, out)
+    check_logits("bf16 vs fp32", logits["bfloat16"], logits["float32"],
+                 INGEST_BF16_BAND, problems, out)
+    out["bf16 top-1 agreement"] = \
+        f"{top1_agreement(logits['bfloat16'], logits['float32'])}/" \
+        f"{RESNET_BATCH}"
+
+    t0 = time.perf_counter()
+    ep = torch.export.export(mods["bfloat16"], (x.cuda(),))
+    pt2 = os.path.join(workdir, "resnet50_flax.pt2")
+    torch.export.save(ep, pt2)
+    out["export_s"] = time.perf_counter() - t0
+    served, out["op"] = serve_images(TorchModelPredictBatchOp,
+                                     image_table(X), modelPath=pt2)
+    check_logits(".pt2 route vs module", served, logits["bfloat16"],
+                 ROUTE_RTOL, problems, out)
+    return out
+
+
+def onnx_resnet50(model, path):
+    """Write bench.py's ResNet-50 (``model``'s weights) as an ONNX graph with
+    the port's proto writer: Conv (pads, strides), BatchNormalization,
+    Relu, MaxPool, Add, GlobalAveragePool, Flatten, Gemm."""
+    from alink_tpu_torch.onnx import NodeProto, OnnxGraph, OnnxModel, ValueInfo
+    from alink_tpu_torch.onnx.proto import AttributeProto
+
+    inits, nodes = {}, []
+
+    def ints(name, v):
+        return AttributeProto(name, ints=tuple(int(a) for a in v))
+
+    def add(op, inputs, name, **attrs):
+        nodes.append(NodeProto(op, inputs, [name], attrs=attrs))
+        return name
+
+    def weight(name, t):
+        inits[name] = t.detach().float().cpu().numpy().copy()
+        return name
+
+    def conv(x, c, name):
+        p, s = c.padding[0], c.stride[0]
+        return add("Conv", [x, weight(name + ".w", c.weight)], name,
+                   pads=ints("pads", (p,) * 4), strides=ints("strides", (s, s)))
+
+    def bn(x, b, name):
+        return add("BatchNormalization", [
+            x, weight(name + ".g", b.weight), weight(name + ".b", b.bias),
+            weight(name + ".m", b.running_mean),
+            weight(name + ".v", b.running_var)], name,
+            epsilon=AttributeProto("epsilon", f=b.eps))
+
+    conv0, bn0, _, pool = model.stem
+    h = add("Relu", [bn(conv("x", conv0, "c0"), bn0, "bn0")], "r0")
+    h = add("MaxPool", [h], "pool", kernel_shape=ints("kernel_shape", (3, 3)),
+            strides=ints("strides", (2, 2)), pads=ints("pads", (1,) * 4))
+    for i, blk in enumerate(model.layers):
+        p = f"l{i}"
+        y = add("Relu", [bn(conv(h, blk.conv1, p + "c1"), blk.bn1, p + "b1")],
+                p + "r1")
+        y = add("Relu", [bn(conv(y, blk.conv2, p + "c2"), blk.bn2, p + "b2")],
+                p + "r2")
+        y = bn(conv(y, blk.conv3, p + "c3"), blk.bn3, p + "b3")
+        if blk.down is not None:
+            h = bn(conv(h, blk.down[0], p + "d"), blk.down[1], p + "db")
+        h = add("Relu", [add("Add", [y, h], p + "add")], p + "out")
+    h = add("Flatten", [add("GlobalAveragePool", [h], "gap")], "flat")
+    fc = model.head[2]
+    add("Gemm", [h, weight("fc.w", fc.weight), weight("fc.b", fc.bias)],
+        "logits", transB=AttributeProto("transB", i=1))
+    OnnxModel(OnnxGraph(
+        nodes=nodes, initializers=inits,
+        inputs=[ValueInfo("x", 1, (None, 3, RESNET_SIDE, RESNET_SIDE))],
+        outputs=[ValueInfo("logits", 1, (None, 1000))])).save(path)
+    return len(nodes)
+
+
+def onnx_route(workdir, model, X, op32, problems):
+    """13.3: 13.1's ResNet-50 as ONNX through ``OnnxModelPredictBatchOp`` at
+    fp32 (held to 13.1's op logits at 13.1's tolerance) and bf16."""
+    from alink_tpu_torch.operator.batch import OnnxModelPredictBatchOp
+
+    out = {}
+    path = os.path.join(workdir, "resnet50.onnx")
+    t0 = time.perf_counter()
+    out["nodes"] = onnx_resnet50(model, path)
+    out["write_s"] = time.perf_counter() - t0
+    out["file_mb"] = os.path.getsize(path) / 1e6
+    table = image_table(X)
+    ops, logits = {}, {}
+    for prec in ("float32", "bfloat16"):
+        logits[prec], ops[prec] = serve_images(
+            OnnxModelPredictBatchOp, table, modelPath=path, precision=prec)
+    out["op"] = ops
+    check_logits("ONNX fp32 vs torch.export fp32", logits["float32"], op32,
+                 INGEST_RTOL, problems, out)
+    check_logits("ONNX bf16 vs ONNX fp32", logits["bfloat16"],
+                 logits["float32"], INGEST_BF16_BAND, problems, out)
+    return out
+
+
+def stream_mlp_route(workdir, problems):
+    """13.4: BASELINE #5 as bench.py:549-582 runs it — the MLP 16→64→1 from
+    ``torch.manual_seed(0)``, exported at (4, 16); 16,384 seeded rows
+    through ``TableSourceStreamOp(chunkSize=4096)`` →
+    ``TorchModelPredictStreamOp(predictBatchSize=4096)`` → ``collect()``,
+    cold and warm; then the same MLP as ONNX through
+    ``OnnxModelPredictStreamOp``. Scores held against the module on the
+    CPU within STREAM_ATOL."""
+    import torch
+    import torch.nn as nn
+
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.onnx import NodeProto, OnnxGraph, OnnxModel, ValueInfo
+    from alink_tpu_torch.onnx.proto import AttributeProto
+    from alink_tpu_torch.operator.stream import (OnnxModelPredictStreamOp,
+                                                 TableSourceStreamOp,
+                                                 TorchModelPredictStreamOp)
+
+    torch.manual_seed(0)
+    model = nn.Sequential(nn.Linear(16, 64), nn.ReLU(),
+                          nn.Linear(64, 1)).eval()
+    pt2 = os.path.join(workdir, "mlp.pt2")
+    torch.export.save(torch.export.export(model, (torch.randn(4, 16),)), pt2)
+    tb = AttributeProto("transB", i=1)
+    w = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+    onnx = os.path.join(workdir, "mlp.onnx")
+    OnnxModel(OnnxGraph(
+        nodes=[NodeProto("Gemm", ["x", "0.weight", "0.bias"], ["h"],
+                         attrs={"transB": tb}),
+               NodeProto("Relu", ["h"], ["r"]),
+               NodeProto("Gemm", ["r", "2.weight", "2.bias"], ["score"],
+                         attrs={"transB": tb})],
+        initializers=w, inputs=[ValueInfo("x", 1, (None, 16))],
+        outputs=[ValueInfo("score", 1, (None, 1))])).save(onnx)
+
+    X = np.random.RandomState(0).randn(STREAM_ROWS, 16).astype(np.float64)
+    cols = {f"f{i}": X[:, i] for i in range(16)}
+    with torch.no_grad():
+        want = model(torch.from_numpy(X.astype(np.float32))).numpy()[:, 0]
+    out = {}
+    for label, op_cls, path in (("torch", TorchModelPredictStreamOp, pt2),
+                                ("onnx", OnnxModelPredictStreamOp, onnx)):
+        def run():
+            src = TableSourceStreamOp(MTable(cols), chunkSize=STREAM_CHUNK)
+            return op_cls(modelPath=path,
+                          selectedCols=[f"f{i}" for i in range(16)],
+                          outputCols=["score"],
+                          predictBatchSize=STREAM_CHUNK).link_from(
+                src).collect()
+
+        cold, _ = timed(run)
+        warm, res = timed(run)
+        got = np.asarray(res.col("score"))
+        err = float(np.abs(got - want).max()) if got.shape == want.shape \
+            else float("inf")
+        out[label] = dict(rows_per_s=STREAM_ROWS / warm,
+                          rows_per_s_cold=STREAM_ROWS / cold,
+                          max_abs_err=err)
+        if not err <= STREAM_ATOL:
+            problems.append(f"13.4 {label}: scores {err:.4g} from the "
+                            f"module (atol {STREAM_ATOL})")
+    return out
+
+
+def departures(problems):
+    """13.5: ``StableHloModelPredictBatchOp`` raises on the card as designed
+    (a jax.export artifact runs only on XLA); the SavedModel route needs
+    TensorFlow to load, which that machine lacks, so it is not driven."""
+    from alink_tpu_torch.common.exceptions import \
+        AkUnsupportedOperationException
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import (StableHloModelPredictBatchOp,
+                                                TableSourceBatchOp)
+
+    op = StableHloModelPredictBatchOp(modelPath="model.hlo",
+                                      selectedCols=["a"]).link_from(
+        TableSourceBatchOp(MTable({"a": np.zeros(2)})))
+    try:
+        op.collect()
+    except AkUnsupportedOperationException as e:
+        stablehlo = f"raises as designed: {e}"
+    else:
+        stablehlo = "did not raise"
+        problems.append("13.5: StableHloModelPredictBatchOp served a model")
+    return {"StableHloModelPredictBatchOp": stablehlo,
+            "TFSavedModelPredictBatchOp": "not driven: no TensorFlow on this "
+            "machine (held against the JAX package on the CPU, "
+            "tests/test_torch_tfsaved.py)"}
+
+
+def ingest_path(workdir, card):
+    """Phase 13: every case of INGEST_CASES; none launches a kernel of the
+    port (the counters, set to 0 first, are read after to show it). Any
+    failed check fails the run after all are reported."""
+    from alink_tpu_torch.native import kernels
+
+    kernels.reset_launches()
+    problems, out, t = [], {}, {}
+    X = resnet_images(RESNET_ROWS)
+
+    def step(n, fn, *args):
+        label = INGEST_CASES[n][0]
+        t0 = time.perf_counter()
+        res = fn(*args)
+        t[label] = time.perf_counter() - t0
+        out[label.split()[0]] = res[0] if isinstance(res, tuple) else res
+        print(f"[{card}] phase {label} ({t[label]:.1f} s): "
+              + json.dumps(out[label.split()[0]], default=str), flush=True)
+        return res
+
+    _, model, op32 = step(0, resnet_export_route, workdir, X, problems)
+    step(1, flax_resnet_route, workdir, problems)
+    step(2, onnx_route, workdir, model, X, op32, problems)
+    step(3, stream_mlp_route, workdir, problems)
+    step(4, departures, problems)
+    out["seconds"] = t
+    out["launches"] = kernels.launches()
+    print(f"[{card}] phase 13 kernel launches: {out['launches']}",
+          flush=True)
+    if any(out["launches"].values()):
+        problems.append(f"phase 13 launched kernels of the port: "
+                        f"{out['launches']}")
+    if problems:
+        fail("phase 13: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3684,6 +4283,8 @@ def main() -> int:
                                               card)
     marks.append(("phase 12 model families", time.perf_counter()))
     del X, y
+    ingest_path(workdir, card)
+    marks.append(("phase 13 ingest", time.perf_counter()))
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]

@@ -13,7 +13,8 @@ training steps on the flash route at seq 512), ``sst2`` (the operator's
 fine-tune of data/sst2_mini.csv), ``forest`` (the 784-column forest),
 ``families`` (phase 12, the model families, with the inputs it takes from
 phase 4's BERT-base serving and phase 7's GBDT on the Covertype-layout
-rows, both run first). Each
+rows, both run first), ``ingest`` (phase 13, foreign-model ingest:
+BASELINE #3 and #5; it builds no kernel). Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
 """
@@ -30,7 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
-          "families")
+          "families", "ingest")
 
 
 def main() -> int:
@@ -54,8 +55,9 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels.build()
-    print(f"build {kernels.build_seconds:.1f} s", flush=True)
+    if phases != ["ingest"]:
+        kernels.build()
+        print(f"build {kernels.build_seconds:.1f} s", flush=True)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
@@ -77,7 +79,8 @@ def main() -> int:
            "record": lambda: cs.train_metric_of_record(peaks),
            "kernel": cs.train_kernel_route,
            "sst2": lambda: cs.finetune_sst2(workdir),
-           "forest": cs.wide_forest_path, "families": families}
+           "forest": cs.wide_forest_path, "families": families,
+           "ingest": lambda: cs.ingest_path(workdir, card.splitlines()[0])}
     out = {}
     for name in phases:
         t0 = time.perf_counter()

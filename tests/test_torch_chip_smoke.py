@@ -15,7 +15,11 @@ iteration count and a value under the floor. Phase 12's checks must pass a
 match and reject: an int8 accumulator off by one, an int8 scale on the
 wrong axis, one flipped split, a flash counter that did not rise, a label
 flipped past the band, and a KerasSequential route with an unbiased BN
-variance or the exact gelu.
+variance or the exact gelu. Phase 13's fp32 check must pass bench.py's
+ResNet-50 in fp32 and reject it with TF32 products (operands rounded to
+TF32's 10-bit mantissa before every convolution and the head), at 32×32
+images; its ONNX writer must give the model's logits; its flax-layout
+variables must have the reference's tree.
 """
 
 import os
@@ -931,3 +935,89 @@ def test_keras_route_check_passes_the_port(keras_routes):
 def test_keras_route_check_rejects_mutants(keras_routes, mutant):
     assert chip_smoke.keras_route_problems(keras_routes[mutant],
                                            keras_routes["port"])
+
+
+def test_ingest_case_list():
+    """Phase 13's cells: BASELINE #3 at bench.py's batch, 1,000 rows (three
+    full batches and a 232-row tail), BASELINE #5's 16,384 rows in chunks
+    of 4,096; the five cases in order."""
+    assert [label.split()[0] for label, _ in chip_smoke.INGEST_CASES] == [
+        "13.1", "13.2", "13.3", "13.4", "13.5"]
+    assert [src for _, src in chip_smoke.INGEST_CASES][0] == \
+        "bench.py:355-513"
+    assert chip_smoke.INGEST_CASES[3][1] == "bench.py:549-582"
+    assert (chip_smoke.RESNET_BATCH, chip_smoke.RESNET_SIDE) == (256, 224)
+    assert chip_smoke.RESNET_ROWS == 3 * 256 + 232
+    assert (chip_smoke.STREAM_ROWS, chip_smoke.STREAM_CHUNK) == (16_384,
+                                                                 4_096)
+    assert chip_smoke.INGEST_RTOL == 1e-4
+
+
+def _tf32(t):
+    """``t`` rounded to TF32 (10 mantissa bits, to nearest)."""
+    i = t.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.fixture(scope="module")
+def small_resnet50():
+    """bench.py's ResNet-50 (chip_smoke's copy) on 2 seeded 32×32 images:
+    the model, the images, its float64 logits."""
+    import copy
+
+    model = chip_smoke.bench_resnet50()
+    x = torch.from_numpy(chip_smoke.resnet_images(2, side=32))
+    with torch.no_grad():
+        ref64 = copy.deepcopy(model).double()(x.double()).numpy()
+    return model, x, ref64
+
+
+def test_fp32_check_rejects_tf32_products(small_resnet50):
+    import copy
+
+    model, x, ref64 = small_resnet50
+    with torch.no_grad():
+        fp32 = model(x).numpy()
+        tf32 = copy.deepcopy(model)
+        for m in tf32.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.weight.copy_(_tf32(m.weight))
+                m.register_forward_pre_hook(
+                    lambda mod, args: (_tf32(args[0]),))
+        tf32 = tf32(x).numpy()
+    err, bound = chip_smoke.logit_check(fp32, ref64, chip_smoke.INGEST_RTOL)
+    assert err <= bound
+    err, bound = chip_smoke.logit_check(tf32, ref64, chip_smoke.INGEST_RTOL)
+    assert err > bound
+    problems, out = [], {}
+    chip_smoke.check_logits("tf32", tf32, ref64, chip_smoke.INGEST_RTOL,
+                            problems, out)
+    assert problems and out["tf32"]["max_abs_err"] == err
+
+
+def test_onnx_writer_gives_the_models_logits(small_resnet50, tmp_path,
+                                             monkeypatch):
+    from alink_tpu_torch.onnx import load_onnx_fn
+
+    model, x, ref64 = small_resnet50
+    path = str(tmp_path / "r.onnx")
+    assert chip_smoke.onnx_resnet50(model, path) == 175
+    fn, conv = load_onnx_fn(path)
+    got = fn(x=x)["logits"].numpy()
+    err, bound = chip_smoke.logit_check(got, ref64, chip_smoke.INGEST_RTOL)
+    assert got.shape == (2, 1000) and err <= bound
+
+
+def test_flax_resnet50_variables_have_the_reference_tree():
+    import jax
+
+    from alink_tpu.dl.resnet import resnet50
+
+    want = jax.eval_shape(resnet50(dtype=np.float32).init,
+                          jax.random.PRNGKey(0),
+                          np.zeros((1, 32, 32, 3), np.float32))
+    got = chip_smoke.flax_resnet50_variables(np.random.default_rng(0))
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(want)
+    assert jax.tree_util.tree_all(jax.tree_util.tree_map(
+        lambda a, b: a.shape == b.shape and a.dtype == b.dtype, got, want))

@@ -63,7 +63,14 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.pipeline.base",
             "alink_tpu_torch.pipeline.pipeline",
             "alink_tpu_torch.pipeline.estimators",
-            "alink_tpu_torch.pipeline.local_predictor"} \
+            "alink_tpu_torch.pipeline.local_predictor",
+            "alink_tpu_torch.common.streaming",
+            "alink_tpu_torch.onnx.proto", "alink_tpu_torch.onnx.precision",
+            "alink_tpu_torch.onnx.convert", "alink_tpu_torch.onnx.torchfx",
+            "alink_tpu_torch.onnx.tfsaved", "alink_tpu_torch.dl.resnet",
+            "alink_tpu_torch.operator.batch.modelpredict",
+            "alink_tpu_torch.operator.stream.base",
+            "alink_tpu_torch.operator.stream.modelpredict"} \
         <= set(scanned.split(","))
     smoke = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; print(','.join(sorted("
@@ -360,3 +367,83 @@ def test_training_entry_points_refuse_cpu_without_request(monkeypatch):
     monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
     assert BertTextClassifierTrainBatchOp(**kw).link_from(
         src).collect().num_rows > 0
+
+
+def test_tensorflow_is_imported_only_inside_require_tf():
+    """The SavedModel ingest imports TensorFlow in ``_require_tf`` alone:
+    no other function of the port names it, and no module level does."""
+    root = os.path.join(REPO, "alink_tpu_torch")
+    where = []
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            assert "tensorflow" not in _module_level_imports(tree)
+            for fn in ast.walk(tree):
+                if not isinstance(fn, (ast.FunctionDef,
+                                       ast.AsyncFunctionDef)):
+                    continue
+                for node in ast.walk(fn):
+                    mods = [a.name for a in node.names] \
+                        if isinstance(node, ast.Import) else \
+                        [node.module or ""] \
+                        if isinstance(node, ast.ImportFrom) else []
+                    if any(m.split(".")[0] == "tensorflow" for m in mods):
+                        where.append((os.path.relpath(path, REPO), fn.name))
+    assert set(where) == {("alink_tpu_torch/onnx/tfsaved.py", "_require_tf"),
+                          ("alink_tpu_torch/onnx/tfsaved.py",
+                           "load_saved_model_fn")}
+
+
+def test_ingest_entry_points_refuse_cpu_without_request(monkeypatch,
+                                                        tmp_path):
+    import torch
+
+    from alink_tpu_torch.common.exceptions import AkIllegalStateException
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.streaming import stream_map
+    from alink_tpu_torch.onnx import (NodeProto, OnnxGraph, OnnxModel,
+                                      OnnxToTorch, ValueInfo, load_onnx_fn,
+                                      load_torch_fn)
+    from alink_tpu_torch.operator.batch import (OnnxModelPredictBatchOp,
+                                                TableSourceBatchOp,
+                                                TorchModelPredictBatchOp)
+    from alink_tpu_torch.operator.stream import (TableSourceStreamOp,
+                                                 TorchModelPredictStreamOp)
+
+    model = torch.nn.Linear(3, 1).eval()
+    ep = torch.export.export(model, (torch.ones(2, 3),))
+    pt2 = str(tmp_path / "m.pt2")
+    torch.export.save(ep, pt2)
+    onnx = str(tmp_path / "m.onnx")
+    OnnxModel(OnnxGraph(
+        nodes=[NodeProto("Relu", ["x"], ["y"])], initializers={},
+        inputs=[ValueInfo("x", 1, (None, 3))],
+        outputs=[ValueInfo("y", 1, (None, 3))])).save(onnx)
+    X = np.ones((4, 3))
+    t = MTable({"a": X[:, 0], "b": X[:, 1], "c": X[:, 2]})
+    kw = dict(selectedCols=["a", "b", "c"], outputCols=["y"])
+
+    monkeypatch.delenv("ALINK_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in (lambda: load_torch_fn(ep),
+                lambda: load_onnx_fn(onnx),
+                lambda: OnnxToTorch(OnnxModel.load(onnx)),
+                lambda: list(stream_map(lambda a: a, iter([(0, [X])]))),
+                lambda: TorchModelPredictBatchOp(modelPath=pt2, **kw)
+                .link_from(TableSourceBatchOp(t)).collect(),
+                lambda: OnnxModelPredictBatchOp(modelPath=onnx, **kw)
+                .link_from(TableSourceBatchOp(t)).collect(),
+                lambda: TorchModelPredictStreamOp(modelPath=pt2, **kw)
+                .link_from(TableSourceStreamOp(t)).collect()):
+        with pytest.raises(AkIllegalStateException):
+            run()
+    # asking for the CPU, either way, runs there
+    out = load_torch_fn(ep, device="cpu")[0](X.astype(np.float32))[0]
+    assert out.device.type == "cpu" and out.shape == (4, 1)
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    assert TorchModelPredictStreamOp(modelPath=pt2, **kw).link_from(
+        TableSourceStreamOp(t, chunkSize=3)).collect().num_rows == 4
