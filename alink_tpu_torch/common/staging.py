@@ -219,14 +219,16 @@ def _frozen(arr: np.ndarray) -> bool:
 # ---------------------------------------------------------------------------
 
 def _staged(kind: str, arr: np.ndarray, device, pad_rows_to=None):
-    """``arr`` (padded to ``pad_rows_to`` rows) on ``device``: from the
-    cache when ``arr`` is frozen, else pushed."""
+    """``arr`` (zero-padded to ``pad_rows_to`` rows) on ``device``: from the
+    cache when ``arr`` is frozen, else pushed. The padding is made on the
+    device: the host copies and sends only ``arr``'s own rows."""
     def push():
-        padded = arr
+        out = _to_device(arr, device)
         if pad_rows_to is not None and pad_rows_to != arr.shape[0]:
-            padded = np.pad(arr, [(0, pad_rows_to - arr.shape[0])]
-                            + [(0, 0)] * (arr.ndim - 1))
-        return _to_device(padded, device)
+            padded = out.new_zeros((pad_rows_to,) + tuple(out.shape[1:]))
+            padded[:arr.shape[0]] = out
+            out = padded
+        return out
 
     if not _frozen(arr):
         _cache.note(uncached=1)
@@ -266,10 +268,10 @@ def stage_sharded(arr: np.ndarray, device, num_shards: int = 1, *,
     return out, mask
 
 
-def stage_replicated(arr: np.ndarray, device):
+def stage_replicated(arr: np.ndarray, device, pad_rows_to=None):
     """Stage ``arr`` whole on ``device`` (every rank's copy), via the
-    cache."""
-    return _staged("repl", _canonical(arr), device)
+    cache; with ``pad_rows_to``, zero-padded to that many rows."""
+    return _staged("repl", _canonical(arr), device, pad_rows_to)
 
 
 def push_block(arr: np.ndarray, device):

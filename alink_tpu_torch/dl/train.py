@@ -588,25 +588,53 @@ def train_model(model, inputs: Dict[str, np.ndarray], y: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
+def _pad_tail(arrs: List[np.ndarray], target: int) -> List[np.ndarray]:
+    """Pad row-aligned arrays to ``target`` rows by repeating the last real
+    row — numerically safe for any model (no all-padding attention rows, no
+    degenerate inputs), and exact under a zero loss-weight."""
+    m = arrs[0].shape[0]
+    if m == target:
+        return arrs
+    return [np.concatenate([a, np.repeat(a[-1:], target - m, axis=0)])
+            for a in arrs]
+
+
 def _batched_apply(model, inputs: Dict[str, np.ndarray], bs: int,
-                   device, served=None) -> np.ndarray:
+                   device, served=None,
+                   kernel_id: str = "dl.apply_logits",
+                   **forward_kw) -> np.ndarray:
     """Logits of ``model`` over ``inputs`` in chunks of ``bs`` rows; with
     ``served`` (:func:`served_state`) each chunk's forward runs on that
-    state, int8 entries dequantized in it."""
+    state, int8 entries dequantized in it.
+
+    Each chunk is padded up the bucket ladder (``bucket_rows``) with its
+    last row repeated and trimmed after, as the reference's is: the forward
+    is row-wise, so the real rows are the unpadded run's, and every request
+    size meets one of a few batch shapes (each recorded under
+    ``kernel_id``, see ``common/jitcache.note_signature``)."""
+    from ..common.jitcache import bucket_rows, bucketing_enabled, \
+        note_signature
+
     names = sorted(inputs)
     n = inputs[names[0]].shape[0]
     outs = []
     with torch.inference_mode():
         for s in range(0, n, bs):
-            batch = {k: torch.as_tensor(np.asarray(inputs[k][s:s + bs]),
-                                        device=device) for k in names}
+            chunk = [np.asarray(inputs[k][s:s + bs]) for k in names]
+            m = chunk[0].shape[0]
+            target = bucket_rows(m) if bucketing_enabled() else m
+            chunk = _pad_tail(chunk, target)
+            note_signature(kernel_id, chunk)
+            batch = {k: torch.as_tensor(v, device=device)
+                     for k, v in zip(names, chunk)}
             if served is None:
-                out = model(**batch)
+                out = model(**batch, **forward_kw)
             else:
                 state = {k: q if sc is None else q.float() * sc
                          for k, (q, sc) in served.items()}
-                out = torch.func.functional_call(model, state, (), batch)
-            outs.append(out.float().cpu().numpy())
+                out = torch.func.functional_call(model, state, (),
+                                                 {**batch, **forward_kw})
+            outs.append(out.float()[:m].cpu().numpy())
     return np.concatenate(outs, axis=0)
 
 
@@ -648,7 +676,8 @@ def served_state(model, policy: Optional[str]):
     returns None): ``{name: (tensor, scale or None)}`` on the model's
     device. bf16 rounds every float entry through bf16; int8 is
     :func:`_int8_state`. Built once per policy and kept on the model, one
-    per policy, until its state changes (tensor versions and storage)."""
+    per policy, until its state changes (tensor versions and storage); each
+    build counts in ``dl.served_state_builds``."""
     if policy is None:
         return None
     sd = model.state_dict()
@@ -658,6 +687,9 @@ def served_state(model, policy: Optional[str]):
     cached = model._served_states.get(policy)
     if cached is not None and cached[0] == key:
         return cached[1]
+    from ..common.metrics import metrics
+
+    metrics.incr("dl.served_state_builds")
     if policy == quant.BF16:
         state = {k: (t.to(torch.bfloat16).to(t.dtype)
                      if t.is_floating_point() else t, None)
@@ -672,7 +704,8 @@ def served_state(model, policy: Optional[str]):
 
 def predict_model(model: torch.nn.Module, inputs: Dict[str, np.ndarray], *,
                   batch_size: int = 256, device=None,
-                  precision: Optional[str] = None) -> np.ndarray:
+                  precision: Optional[str] = None,
+                  return_pooled: bool = False) -> np.ndarray:
     """Batched inference returning fp32 logits ``(n, out_dim)``.
 
     ``model`` is moved to ``device`` (default: see
@@ -680,9 +713,14 @@ def predict_model(model: torch.nn.Module, inputs: Dict[str, np.ndarray], *,
     over ``inputs`` (name → ``(n, ...)`` array, the model's keyword
     arguments) in chunks of ``batch_size`` rows, under the serving
     ``precision`` policy (None/"fp32", "bf16", "int8"; see
-    :func:`served_state`)."""
+    :func:`served_state`). ``return_pooled`` returns the pooled states the
+    head reads instead (``(n, hidden)``, BERT embedding serving)."""
     policy = quant.resolve_policy(precision)
     dev = resolve_device(device)
     model = model.to(dev).eval()
+    kernel_id = "dl.apply_pooled" if return_pooled else "dl.apply_logits"
+    extra = {"return_pooled": True} if return_pooled else {}
     return _batched_apply(model, inputs, batch_size, dev,
-                          served_state(model, policy))
+                          served_state(model, policy),
+                          kernel_id=kernel_id + ("." + policy if policy
+                                                 else ""), **extra)

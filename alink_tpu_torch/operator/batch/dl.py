@@ -32,6 +32,7 @@ from ...common import flax_msgpack
 from ...common.env import resolve_device
 from ...common.exceptions import (AkIllegalArgumentException,
                                   AkUnsupportedOperationException)
+from ...common.linalg import DenseVector
 from ...common.model import model_to_table, table_to_model
 from ...common.mtable import AlinkTypes, MTable
 from ...common.params import InValidator, MinValidator, ParamInfo
@@ -413,6 +414,10 @@ class BertTextPairClassifierTrainBatchOp(BaseBertTextTrainBatchOp):
 class BertTextModelMapper(RichModelMapper):
     TEXT_COL = ParamInfo("textCol", str)
     TEXT_PAIR_COL = ParamInfo("textPairCol", str)
+    # int8 serving quantizes the encoder's weights only (``served_state``)
+    # and reads no activation scale, so a calibration predict records no
+    # range here; ``ModelServer`` gates such a load on its band alone
+    INT8_WEIGHT_ONLY = True
 
     def load_model(self, model: MTable):
         from ...dl.convert import flax_to_torch
@@ -475,3 +480,60 @@ class BertTextClassifierPredictBatchOp(ModelMapBatchOp, HasPredictionCol,
 class BertTextRegressorPredictBatchOp(ModelMapBatchOp, HasPredictionCol,
                                       HasReservedCols):
     mapper_cls = BertTextModelMapper
+
+
+# ---------------------------------------------------------------------------
+# BERT embedding and the text-pair serving names (the reference's io2.py)
+# ---------------------------------------------------------------------------
+
+
+class BertTextEmbeddingMapper(BertTextModelMapper):
+    """Pooled encoder output as the embedding vector (reference:
+    operator/batch/classification/BertTextEmbeddingBatchOp.java; any model
+    the BertText trainers wrote serves, its pre-head pooled states)."""
+
+    def output_schema(self, input_schema):
+        return self._append_result_schema(
+            input_schema, ["embedding"], [AlinkTypes.DENSE_VECTOR])
+
+    def map_table(self, t: MTable) -> MTable:
+        from ...dl.train import predict_model
+
+        meta = self.meta
+        text_col = self.get(self.TEXT_COL) or meta["textCol"]
+        texts = [str(v) for v in t.col(text_col)]
+        enc = self.tokenizer.encode_batch(
+            texts, None, max_len=int(meta["maxSeqLength"]))
+        pooled = predict_model(self.model, enc, device=self.device,
+                               precision=self._precision, return_pooled=True)
+        out = "embedding"
+        vecs = np.empty(t.num_rows, object)
+        for i in range(t.num_rows):
+            vecs[i] = DenseVector(pooled[i].astype(np.float64))
+        return self._append_result(
+            t, {out: vecs}, {out: AlinkTypes.DENSE_VECTOR})
+
+
+class BertTextEmbeddingBatchOp(ModelMapBatchOp, HasReservedCols):
+    """(reference: operator/batch/classification/
+    BertTextEmbeddingBatchOp.java)"""
+
+    mapper_cls = BertTextEmbeddingMapper
+
+
+class BertTextPairClassifierPredictBatchOp(BertTextClassifierPredictBatchOp):
+    """(reference: operator/batch/classification/
+    BertTextPairClassifierPredictBatchOp.java — the shared mapper reads
+    textPairCol from the model meta)."""
+
+
+class BertTextPairRegressorTrainBatchOp(BertTextRegressorTrainBatchOp):
+    """(reference: operator/batch/regression/
+    BertTextPairRegressorTrainBatchOp.java)"""
+
+    TEXT_PAIR_COL = BertTextPairClassifierTrainBatchOp.TEXT_PAIR_COL
+
+
+class BertTextPairRegressorPredictBatchOp(BertTextRegressorPredictBatchOp):
+    """(reference: operator/batch/regression/
+    BertTextPairRegressorPredictBatchOp.java)"""

@@ -402,6 +402,7 @@ class LinearModelMapper(RichModelMapper):
     def _scores(self, t: MTable) -> np.ndarray:
         import torch
 
+        from ...common.jitcache import bucket_rows, note_signature
         from ...common.staging import push_block, stage_replicated
 
         merged = merge_feature_params(self.get_params(), self.meta)
@@ -439,15 +440,20 @@ class LinearModelMapper(RichModelMapper):
                      + self._b for i in range(0, X.shape[0], rows)]
             return torch.cat(parts).cpu().numpy()
         # cached device staging: re-predicting the same table does not
-        # re-push its (memoized, read-only) feature block host->device
-        Xd = stage_replicated(X, self._device)
+        # re-push its (memoized, read-only) feature block host->device. The
+        # block is zero-padded to its row bucket, as the reference's is
+        # (X @ w + b is row-wise; the padded scores are sliced off), so a
+        # row scores the same whatever batch it came in
+        n = X.shape[0]
+        Xd = stage_replicated(X, self._device, pad_rows_to=bucket_rows(n))
+        note_signature("linear.score", [Xd])
         if self._policy == quant.INT8:
             sx = torch.tensor(quant.calib_scale(self.get_params(),
                                                 self._site),
                               dtype=torch.float32, device=self._device)
             return quant.int8_linear_score(Xd, self._wq, self._b, self._sw,
-                                           sx).cpu().numpy()
-        return (Xd @ self._w + self._b).cpu().numpy()
+                                           sx)[:n].cpu().numpy()
+        return (Xd @ self._w + self._b)[:n].cpu().numpy()
 
     def predict_proba_block(self, t: MTable):
         mtype = self.meta["linearModelType"]

@@ -36,7 +36,8 @@ from .pipeline import Pipeline, PipelineModel
 
 # the generated stages (estimators.GENERATED) and their models
 globals().update({n: getattr(_estimators, n) for n in (
-    *_estimators.GENERATED, *(m for *_, m in _estimators.GENERATED.values()))})
+    *_estimators.GENERATED, *(m for *_, m in _estimators.GENERATED.values()),
+    *_estimators.GENERATED_MODELS)})
 
 __all__ = [
     "DecisionTreeClassifier", "DecisionTreeModel", "EstimatorBase",
@@ -49,4 +50,5 @@ __all__ = [
     "Id3Model",
     *_estimators.GENERATED,
     *(m for *_, m in _estimators.GENERATED.values()),
+    *_estimators.GENERATED_MODELS,
 ]

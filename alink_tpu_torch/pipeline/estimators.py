@@ -11,8 +11,9 @@ Cart.java, Id3.java, pipeline/nlp/Word2Vec.java — thin Trainer wrappers over
 the corresponding BatchOps). Class names are the reference's: a saved
 pipeline model names its stages by class. The stages that the reference's
 ``pipeline/generated.py`` builds from its spec tables (KerasSequential,
-CartReg, the tree encoders) are built here from the same entries
-(:data:`GENERATED`).
+CartReg, the tree encoders, the BERT text stages and the model-only BERT
+stages) are built here from the same entries (:data:`GENERATED`,
+:data:`GENERATED_MODELS`).
 """
 
 from __future__ import annotations
@@ -244,12 +245,32 @@ GENERATED: Dict[str, tuple] = {
         _dl.KerasSequentialRegressorTrainBatchOp,
         _dl.KerasSequentialRegressorPredictBatchOp,
         "KerasSequentialRegressorModel"),
+    "BertTextClassifier": (_dl.BertTextClassifierTrainBatchOp,
+                           _dl.BertTextClassifierPredictBatchOp,
+                           "BertTextClassifierModel"),
+    "BertTextPairClassifier": (_dl.BertTextPairClassifierTrainBatchOp,
+                               _dl.BertTextPairClassifierPredictBatchOp,
+                               "BertTextPairClassifierModel"),
+    "BertTextPairRegressor": (_dl.BertTextPairRegressorTrainBatchOp,
+                              _dl.BertTextPairRegressorPredictBatchOp,
+                              "BertTextPairRegressorModel"),
+    "BertTextRegressor": (_dl.BertTextRegressorTrainBatchOp,
+                          _dl.BertTextRegressorPredictBatchOp,
+                          "BertTextRegressorModel"),
     "RandomForestEncoder": (_tree.RandomForestEncoderTrainBatchOp,
                             _tree.TreeModelEncoderBatchOp,
                             "RandomForestEncoderModel"),
     "RandomForestRegEncoder": (_tree.RandomForestRegEncoderTrainBatchOp,
                                _tree.TreeModelEncoderBatchOp,
                                "RandomForestRegEncoderModel"),
+}
+
+# model-only stage -> its predict op, the entries of the reference's
+# pipeline/generated.py MODELS table whose ops the port has
+GENERATED_MODELS: Dict[str, type] = {
+    "BertClassificationModel": _dl.BertTextClassifierPredictBatchOp,
+    "BertRegressionModel": _dl.BertTextRegressorPredictBatchOp,
+    "BertTextEmbedding": _dl.BertTextEmbeddingBatchOp,
 }
 
 # serving-only param names: the predict op's definition wins, as in the
@@ -275,6 +296,11 @@ def _mirror_params(*op_classes) -> Dict[str, ParamInfo]:
 
 
 def _generate():
+    for name, predict_op in GENERATED_MODELS.items():
+        globals()[name] = type(name, (ModelBase,), {
+            "__doc__": f"(reference: pipeline/**/{name}.java, generated)",
+            "__module__": __name__, "_predict_op_cls": predict_op,
+            **_mirror_params(predict_op)})
     for name, (train_op, predict_op, model_name) in GENERATED.items():
         doc = f"(reference: pipeline/**/{name}.java, generated)"
         model = type(model_name, (ModelBase,), {

@@ -199,7 +199,34 @@ non-zero:
     raises as designed, and the SavedModel route is not driven (no
     TensorFlow on the card's machine); ``scripts/chip_phase_check.py
     ingest`` runs this phase alone;
-14. one JSON line of kernels, then the device line last.
+14. BERT-base serving through ``ModelServer`` (``serving_path``; the
+    flash kernel on every batch): phase 4's model table as a one-stage
+    ``BertClassificationModel`` pipeline ``.ak`` (written in the
+    background while 14.5 and 14.7, which serve in-memory pipelines, run
+    first); (14.1) ``load`` with 8
+    real texts warms the 8 rungs 8 … 64 (12 flash launches each) and
+    writes the sidecar with its ladder and shape signatures; (14.2) 8
+    client threads send 512 single-row requests beside 4 predict_many of
+    32 rows: no new shape signature (``jit.trace``), 12 launches per batch
+    the entry reports, every row against a serial predict of its text
+    (rung 8) through a cached ``LocalPredictor`` — rows served at that
+    rung bit-identical, the others counted and their logit gap within
+    MARGIN_BOUND — and the first 8 serial rows against one rung-8 batch
+    of ``cache_plan=False``, which decodes the model per predict; rows/s,
+    the latency
+    quantiles, the batch-size histogram, warm forward ms at rungs 8 and 64;
+    (14.3) a queue of 16 under a burst of 200 submits sheds (counted in
+    ``serving.shed``), every accepted request equal to its serial row, a
+    1 ms deadline behind a full queue expires; (14.4) a hot-swap to a new
+    head under 2 client threads: nothing dropped, rows after it the new
+    model's; (14.5) bf16 and int8 loads calibrated on the warmup rows pass
+    the band gate, build the quantized state once, and serve 12.1's
+    request as 12.1's op does; (14.6) the HTTP surface (load by path from
+    the sidecar, one-row and many-row predicts, ``/api/serving``,
+    ``/metrics``, DELETE twice: 404); (14.7) a batch that raises fails its
+    futures with that error and opens the breaker. ``scripts/
+    chip_phase_check.py serving`` runs it after phase 4;
+15. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -323,6 +350,15 @@ once took aten.rsqrt as 1/sqrt, one ulp off in some BatchNorm scales, and
 the bf16 network grew that to 2.5e-3 of the largest logit. The ONNX
 ResNet-50 against 13.1's torch.export logits, both fp32: INGEST_RTOL.
 MLP scores (13.4) against the module on the CPU: STREAM_ATOL = 1e-5.
+Phase 14. Rows served at the rung of their serial predict (8 rows)
+bit-identical: one batch shape, one cuBLAS algorithm and one reduction
+order per output, and the flash kernel works row by row. At another rung
+cuBLAS may choose another algorithm for the products (M = rows × 512
+tokens): the row's logit gap log(p1/p0) must lie within MARGIN_BOUND =
+2 × LOGIT_ATOL = 0.02 of the serial predict's (each logit within
+LOGIT_ATOL, the bound phase 4 holds between attention routes), labels
+equal wherever the serial gap exceeds it. Quantized loads against 12.1's
+op outputs under the same policy: the same gap bound, and the band.
 """
 
 from __future__ import annotations
@@ -3211,6 +3247,7 @@ def quantized_bert(served_main):
                             f"route (tol {LOGIT_ATOL})")
         out[policy] = dict(launches=launches, request_s=wall, band=band,
                            plain_route_max_abs_err=err)
+        served_main.setdefault("policy_tables", {})[policy] = table
     fp32 = predict_model(model, enc)
     for policy in POLICIES:
         out[policy]["logits_vs_fp32_max_abs"] = float(np.abs(
@@ -4190,6 +4227,555 @@ def ingest_path(workdir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: BERT-base serving through ModelServer
+# ---------------------------------------------------------------------------
+
+SERVING = dict(max_batch_rows=64, flush_deadline_s=0.005)
+SERVING_RUNGS = [8, 16, 24, 32, 40, 48, 56, 64]
+SERVING_CLIENTS = 8
+SERVING_SINGLE = 512        # single-row requests, spread over the clients
+SERVING_MANY = (4, 32)      # predict_many calls, rows each
+SERVING_QUEUE = 16          # 14.3's queue depth
+SERVING_BURST = 200         # 14.3's burst of submits
+SWAP_ROWS = 16              # rows served after the hot-swap
+UNCACHED_ROWS = 8           # one rung-8 batch also run with cache_plan=False
+MARGIN_BOUND = 2 * LOGIT_ATOL   # cross-rung |Δ(logit1 − logit0)|
+SERVING_CASES = (
+    "14.1 load: 8 rungs warmed, 12 launches each, the sidecar",
+    "14.2 mixed traffic: 8 clients x 64 rows + 4 predict_many of 32",
+    "14.3 overload: queue 16, burst 200, shed; a 1 ms deadline",
+    "14.4 hot-swap under traffic: 2 threads, a new head",
+    "14.5 bf16 load", "14.5 int8 load",
+    "14.6 HTTP: load by path, predicts, stats, metrics, delete",
+    "14.7 a failing batch fails its futures and feeds the breaker")
+
+
+def margin(row):
+    """A served row's logit gap, log(p1 / p0), from its detail JSON."""
+    d = json.loads(row[-1])
+    return float(np.log(d["1"]) - np.log(d["0"]))
+
+
+def rung_report(served, serial, label, bound=MARGIN_BOUND):
+    """Served rows against serial predicts: ``served`` is (row, batch
+    rows) pairs, ``serial`` the rows of serial predicts (each at the
+    smallest rung). Rows served at that rung must be bit-identical; rows at
+    other rungs are counted (bit-identical or not), their largest logit-gap
+    difference must lie within ``bound``, and their labels must equal
+    wherever the serial gap exceeds ``bound``. Returns (report,
+    problems)."""
+    from alink_tpu_torch.common.jitcache import bucket_rows
+
+    rep = {"same_rung": 0, "same_rung_identical": 0, "cross_rung": 0,
+           "cross_rung_identical": 0, "cross_rung_max_margin_diff": 0.0,
+           "cross_rung_label_flips": 0, "by_rung": {}}
+    for (row, n), want in zip(served, serial):
+        rung = bucket_rows(n)
+        rep["by_rung"][rung] = rep["by_rung"].get(rung, 0) + 1
+        same = tuple(row) == tuple(want)
+        if rung == bucket_rows(1):
+            rep["same_rung"] += 1
+            rep["same_rung_identical"] += same
+            continue
+        rep["cross_rung"] += 1
+        rep["cross_rung_identical"] += same
+        rep["cross_rung_max_margin_diff"] = max(
+            rep["cross_rung_max_margin_diff"],
+            abs(margin(row) - margin(want)))
+        if abs(margin(want)) > bound and row[1] != want[1]:
+            rep["cross_rung_label_flips"] += 1
+    problems = []
+    if rep["same_rung_identical"] != rep["same_rung"]:
+        problems.append(
+            f"{label}: {rep['same_rung'] - rep['same_rung_identical']} of "
+            f"{rep['same_rung']} rows served at the serial predict's rung "
+            "differ from it")
+    if not rep["cross_rung_max_margin_diff"] <= bound:
+        problems.append(f"{label}: a cross-rung row's logit gap moved "
+                        f"{rep['cross_rung_max_margin_diff']} > {bound}")
+    if rep["cross_rung_label_flips"]:
+        problems.append(f"{label}: {rep['cross_rung_label_flips']} labels "
+                        "differ where the serial gap exceeds the bound")
+    return rep, problems
+
+
+def failing_predictor(error):
+    """A LocalPredictor whose every batch raises ``error``, as a CUDA fault
+    inside the forward would."""
+    from alink_tpu_torch.common.mtable import TableSchema
+    from alink_tpu_torch.pipeline import LocalPredictor
+
+    class Failing(LocalPredictor):
+        def __init__(self):
+            self.input_schema = TableSchema.parse("text string")
+            self._cache_plan = False
+
+        def predict_table(self, t):
+            raise error
+
+    return Failing()
+
+
+def check_batch_errors(wait_s=30.0):
+    """14.7: a batch that raises fails each of its requests' futures with
+    that very error, counts in the entry's errors, and opens the breaker
+    after ``breaker_threshold`` failures, after which requests are refused
+    fast. Each answer is awaited ``wait_s``. Returns the problems: a server
+    that swallows the error, or completes the futures some other way, has
+    some."""
+    from alink_tpu_torch.common.exceptions import (AkCircuitOpenException,
+                                                   AkDeadlineExceededException)
+    from alink_tpu_torch.serving import ModelServer, ServingConfig
+
+    err = RuntimeError("CUDA error: an illegal memory access was "
+                       "encountered (injected by chip_smoke 14.7)")
+    srv = ModelServer(ServingConfig(max_batch_rows=8, flush_deadline_s=0.001,
+                                    breaker_threshold=2,
+                                    breaker_reset_s=3600.0))
+    problems = []
+    try:
+        srv.load("failing", failing_predictor(err))
+        for i in range(2):
+            fut = srv.submit("failing", (f"row {i}",))
+            try:
+                fut.result(timeout=wait_s)
+                problems.append("14.7: a failing batch completed its "
+                                "request with a row")
+            except AkDeadlineExceededException:
+                problems.append("14.7: a failing batch left its request "
+                                "hanging")
+            except BaseException as e:  # noqa: BLE001 — the check itself
+                if e is not err:
+                    problems.append(f"14.7: the request failed with {e!r}, "
+                                    "not the batch's error")
+        st = srv.stats()["models"][0]
+        if st["errors"] != 2 or not st["breaker_open"]:
+            problems.append(f"14.7: errors {st['errors']} (expected 2), "
+                            f"breaker open {st['breaker_open']}")
+        try:
+            srv.submit("failing", ("row 2",)).result(timeout=wait_s)
+            problems.append("14.7: the open breaker let a request through")
+        except AkCircuitOpenException:
+            pass
+        except BaseException as e:  # noqa: BLE001
+            problems.append(f"14.7: the open breaker answered {e!r}")
+    finally:
+        srv.close()
+    return problems
+
+
+def http_json(port, path, method="GET", body=None, text=False):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=120) as r:
+        raw = r.read().decode()
+    return raw if text else json.loads(raw)
+
+
+def http_status(port, path, method="GET", body=None):
+    import urllib.error
+
+    try:
+        http_json(port, path, method, body)
+        return 200
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def serving_pipeline(model_table, path=None):
+    """``model_table`` as a one-stage BertClassificationModel pipeline;
+    with ``path``, saved there and any old sidecar removed."""
+    from alink_tpu_torch.pipeline import BertClassificationModel, PipelineModel
+    from alink_tpu_torch.serving import warmup_sidecar_path
+
+    pm = PipelineModel(BertClassificationModel(
+        predictionCol="pred", predictionDetailCol="detail").set_model_data(
+        model_table))
+    if path is not None:
+        if os.path.exists(warmup_sidecar_path(path)):
+            os.remove(warmup_sidecar_path(path))
+        pm.save(path)
+    return pm
+
+
+def swapped_head(model_table, seed):
+    """The same BERT-base table with the head drawn again from ``seed``."""
+    from alink_tpu_torch.common.model import model_to_table, table_to_model
+    from alink_tpu_torch.operator.batch.dl import (params_from_bytes,
+                                                   params_to_bytes)
+
+    meta, arrays = table_to_model(model_table)
+    tree = params_from_bytes(arrays["params"])
+    rng = np.random.default_rng(seed)
+    tree["params"]["head"] = {
+        k: (rng.standard_normal(np.shape(v), np.float32) * 0.02)
+        .astype(np.float32) for k, v in tree["params"]["head"].items()}
+    return model_to_table(meta, {"params": params_to_bytes(tree)})
+
+
+def serve_mixed(srv, name, texts):
+    """14.2's traffic: SERVING_CLIENTS threads send the single-row requests
+    (each waits for its answer before its next), while SERVING_MANY's
+    predict_many-shaped calls (all rows submitted, then awaited) go in
+    from threads of their own. Returns ((text index, row, batch rows) per
+    request in text order, window s)."""
+    import threading
+
+    out, errors = [], []
+    lock = threading.Lock()
+    n_single = len(texts) - SERVING_MANY[0] * SERVING_MANY[1]
+
+    def single(c):
+        for i in range(c, n_single, SERVING_CLIENTS):
+            fut = srv.submit(name, texts[i])
+            row = fut.result(timeout=120)
+            with lock:
+                out.append((i, row, fut.batch_rows))
+
+    def many(k):
+        lo = n_single + k * SERVING_MANY[1]
+        futs = [(i, srv.submit(name, texts[i]))
+                for i in range(lo, lo + SERVING_MANY[1])]
+        got = [(i, f.result(timeout=120), f.batch_rows) for i, f in futs]
+        with lock:
+            out.extend(got)
+
+    def guarded(fn, arg):
+        def run():
+            try:
+                fn(arg)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+        return run
+
+    threads = [threading.Thread(target=guarded(single, c))
+               for c in range(SERVING_CLIENTS)]
+    threads += [threading.Thread(target=guarded(many, k))
+                for k in range(SERVING_MANY[0])]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    window = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"14.2: traffic failed: {errors[:3]}")
+    return sorted(out, key=lambda r: r[0]), window
+
+
+def kept_model(predictor):
+    """The torch encoder a LocalPredictor's plan serves."""
+    for op in predictor._plan[2]:
+        kept = getattr(op, "_kept_mapper", None)
+        if kept is not None:
+            return kept[2].model, kept[2].tokenizer
+    fail("14: no loaded mapper in the predictor's plan")
+
+
+def serving_path(workdir, served_main, card):
+    """Phase 14; any failed check fails the run after all are reported.
+    Returns (flash launches, numbers)."""
+    import threading
+
+    import torch
+
+    from alink_tpu_torch.common import quant
+    from alink_tpu_torch.common.exceptions import (AkDeadlineExceededException,
+                                                   AkServingOverloadException)
+    from alink_tpu_torch.common.jitcache import clear_signatures
+    from alink_tpu_torch.common.metrics import metrics
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.operator.batch import (
+        AkSourceBatchOp, BertTextClassifierPredictBatchOp, TableSourceBatchOp)
+    from alink_tpu_torch.pipeline import LocalPredictor
+    from alink_tpu_torch.serving import (ModelServer, ServingConfig,
+                                         load_warmup_spec)
+    from alink_tpu_torch.webui import ExperimentStore, WebUIServer
+
+    cfg = serving_config()
+    layers = cfg.num_layers
+    rng = np.random.default_rng(SEED + 14)
+    texts = [(t,) for t in request_texts(
+        synthetic_vocab(cfg), rng,
+        SERVING_SINGLE + SERVING_MANY[0] * SERVING_MANY[1])]
+    warm_rows = texts[:8]
+    table = AkSourceBatchOp(filePath=served_main["path"]).collect()
+    path = os.path.join(workdir, "bert_serving.ak")
+    problems, out = [], {"bound_margin": MARGIN_BOUND, "load_s": {}}
+
+    def check(cond, msg):
+        if not cond:
+            problems.append(msg)
+
+    def flash():
+        return kernels.launches()["flash_block_update"]
+
+    # the deflated write of the 406 MB pipeline (about half a minute of
+    # one core, in zlib, which releases the GIL) runs beside 14.5 and
+    # 14.7, which serve pipelines held in memory; 14.1 loads it by path
+    saved = []
+
+    def save():
+        t0 = time.perf_counter()
+        try:
+            serving_pipeline(table, path)
+            saved.append(time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 — reported on the join
+            saved.append(e)
+
+    saver = threading.Thread(target=save, daemon=True)
+    saver.start()
+    kernels.reset_launches()
+
+    # 14.5: bf16 and int8 loads, calibrated on the warmup rows, gated
+    request = served_main["request"]
+    req_rows = [(t,) for t in request.col("text")]
+    for policy in POLICIES:
+        b0 = metrics.counter("dl.served_state_builds")
+        q = ModelServer(ServingConfig(**SERVING))
+        t0 = time.perf_counter()
+        qi = q.load("bert", serving_pipeline(table), "text string",
+                    warmup_rows=warm_rows, precision=policy)["precision"]
+        out["load_s"][policy] = time.perf_counter() - t0
+        got = q.predict_many("bert", req_rows, timeout=300)
+        q.predict_many("bert", req_rows[:8], timeout=300)
+        builds = metrics.counter("dl.served_state_builds") - b0
+        op = served_main.get("policy_tables", {}).get(policy)
+        if op is None:        # phase 12 did not run: the op as 12.1 runs it
+            op = BertTextClassifierPredictBatchOp(
+                predictionCol="pred", predictionDetailCol="detail",
+                inferencePrecision=policy).link_from(
+                AkSourceBatchOp(filePath=served_main["path"]),
+                TableSourceBatchOp(request)).collect()
+        want = [r[-2:] for r in op.rows()]
+        gap = max(abs(margin(g) - margin(w)) for g, w in zip(got, want))
+        band = quant.accuracy_band_report(
+            [w[:1] for w in want], [g[1:2] for g in got],
+            [op.schema.types[-2]], band=QUANT_BAND, tol=QUANT_TOL)
+        out[f"14.5 {policy}"] = dict(
+            precision={k: v for k, v in qi.items() if k != "calib"},
+            state_builds=builds, margin_vs_op_max=gap, band_vs_op=band)
+        check(qi["policy"] == policy and qi["band_report"]["ok"],
+              f"14.5 {policy}: the load did not pass its gate: {qi}")
+        check(builds == 1, f"14.5 {policy}: {builds} quantized state builds "
+                           "for one load")
+        check(gap <= MARGIN_BOUND and band["ok"],
+              f"14.5 {policy}: served rows {gap} from phase 12.1's op "
+              f"(bound {MARGIN_BOUND}), band {band}")
+        q.close()
+    torch.cuda.synchronize()
+
+    # 14.7: a failing batch
+    problems += check_batch_errors()
+    saver.join(timeout=600)
+    if saver.is_alive() or not saved or not isinstance(saved[0], float):
+        fail(f"14: the serving pipeline was not written: {saved}")
+    out["save_s"] = saved[0]
+
+    # 14.1: load, the ladder warmup, the sidecar; the shape record and the
+    # serving histograms (14.2's quantiles) start empty, as in a fresh
+    # serving process
+    clear_signatures()
+    metrics.reset()
+    srv = ModelServer(ServingConfig(**SERVING))
+    l0 = flash()
+    t0 = time.perf_counter()
+    info = srv.load("bert", path, "text string", warmup_rows=warm_rows)
+    out["load_s"]["fp32"] = time.perf_counter() - t0
+    warm = flash() - l0
+    out["14.1"] = dict(warmup=info["warmup"], launches=warm,
+                       sidecar=info["warmup_sidecar"])
+    check(info["warmup"]["rungs"] == len(SERVING_RUNGS),
+          f"14.1: warmup ran {info['warmup']['rungs']} rungs")
+    p = flash_rise_problem(warm, len(SERVING_RUNGS), layers, "14.1 warmup")
+    if p:
+        problems.append(p)
+    spec = load_warmup_spec(path)
+    check(spec is not None and spec["ladder"] == SERVING_RUNGS
+          and sorted(s[0][0][0] for k, s in spec["kernels"]
+                     if k == "dl.apply_logits") == SERVING_RUNGS,
+          f"14.1: sidecar {None if spec is None else (spec['ladder'], spec['kernels'])}")
+
+    # 14.2: mixed traffic; no new shape, 12 launches a batch
+    traces0 = metrics.counter("jit.trace")
+    before = srv.stats()["models"][0]["batches"]
+    l0 = flash()
+    served, window = serve_mixed(srv, "bert", texts)
+    batches = srv.stats()["models"][0]["batches"] - before
+    launches = flash() - l0
+    st = srv.stats()
+    hist = {h: st["histograms"].get(h) for h in (
+        "serving.request_s", "serving.queue_s", "serving.batch_rows")}
+    hist_state = metrics.histogram_states().get("serving.batch_rows")
+    out["14.2"] = dict(rows=len(served), batches=batches, launches=launches,
+                       window_s=window, rows_per_s=len(served) / window,
+                       histograms=hist, batch_rows_buckets=hist_state,
+                       new_signatures=metrics.counter("jit.trace") - traces0)
+    check(len(served) == len(texts), f"14.2: {len(served)} rows answered")
+    check(metrics.counter("jit.trace") == traces0,
+          "14.2: traffic met a batch shape the warmup did not run")
+    p = flash_rise_problem(launches, batches, layers, "14.2 traffic")
+    if p:
+        problems.append(p)
+    serial_lp = LocalPredictor(path, "text string")
+    t0 = time.perf_counter()
+    serial = [serial_lp.predict_row(t) for t in texts]
+    out["14.2"]["serial_s"] = time.perf_counter() - t0
+    # one rung-8 batch through the route that rebuilds the plan and
+    # decodes the model on every predict: the kept mapper changes nothing
+    uncached = LocalPredictor(path, "text string", cache_plan=False)
+    got = uncached.predict_table(
+        MTable.from_rows(texts[:UNCACHED_ROWS], uncached.input_schema))
+    same = sum(tuple(got.get_row(i)) == tuple(serial[i])
+               for i in range(UNCACHED_ROWS))
+    out["14.2"]["uncached_identical"] = [same, UNCACHED_ROWS]
+    check(same == UNCACHED_ROWS,
+          f"14.2: {UNCACHED_ROWS - same} of {UNCACHED_ROWS} rows of the "
+          "kept-mapper predictor differ from cache_plan=False")
+    del uncached
+    rep, bad = rung_report([(r, n) for _, r, n in served], serial, "14.2")
+    out["14.2"]["rows_vs_serial"] = rep
+    problems += bad
+    predictor = srv._entry("bert").predictor
+    model, tok = kept_model(predictor)
+    enc = tok.encode_batch([t for (t,) in texts[:64]], max_len=512)
+    out["forward_ms"] = {n: [forward_ms(model, {k: v[:n] for k, v in
+                                                 enc.items()})
+                             for _ in range(2)] for n in (8, 64)}
+    srv.close()
+
+    # 14.3: overload and deadlines (14.1's predictor, warmed again)
+    over = ModelServer(ServingConfig(queue_depth=SERVING_QUEUE, **SERVING))
+    over.load("bert", predictor, warmup_rows=warm_rows)
+    shed0 = metrics.counter("serving.shed")
+    accepted, shed = [], 0
+    for i in range(SERVING_BURST):
+        try:
+            accepted.append((i, over.submit("bert",
+                                            texts[i % len(texts)])))
+        except AkServingOverloadException:
+            shed += 1
+    rows = [(f.result(timeout=120), f.batch_rows) for _, f in accepted]
+    rep, bad = rung_report(rows, [serial[i % len(texts)]
+                                  for i, _ in accepted], "14.3")
+    problems += bad
+    check(shed > 0 and metrics.counter("serving.shed") - shed0 == shed
+          and over.stats()["models"][0]["shed"] == shed,
+          f"14.3: burst shed {shed}, counted "
+          f"{metrics.counter('serving.shed') - shed0}")
+    while over.stats()["models"][0]["queued"] >= SERVING_QUEUE:
+        time.sleep(0.001)
+    for i in range(SERVING_QUEUE - 1):
+        over.submit("bert", texts[i])
+    late = over.submit("bert", texts[0], deadline_s=0.001)
+    try:
+        late.result(timeout=120)
+        deadline = "answered"
+    except AkDeadlineExceededException:
+        deadline = "expired"
+    check(deadline == "expired", "14.3: the 1 ms request was answered")
+    out["14.3"] = dict(accepted=len(accepted), shed=shed,
+                       rows_vs_serial=rep, deadline=deadline,
+                       expired=over.stats()["models"][0]["deadline_expired"])
+    over.close()
+
+    # 14.4: hot-swap under traffic, to a model held in memory
+    t0 = time.perf_counter()
+    model2 = serving_pipeline(swapped_head(table, SEED + 141))
+    build_s = time.perf_counter() - t0
+    swap = ModelServer(ServingConfig(**SERVING))
+    swap.load("bert", predictor, warmup_rows=warm_rows)
+    stop, errors, during = threading.Event(), [], []
+
+    def hammer(c):
+        i = c
+        while not stop.is_set():
+            try:
+                during.append(swap.predict("bert", texts[i % 64],
+                                           timeout=120))
+            except BaseException as e:  # noqa: BLE001 — checked below
+                errors.append(e)
+            i += 2
+
+    ths = [threading.Thread(target=hammer, args=(c,)) for c in range(2)]
+    for th in ths:
+        th.start()
+    t0 = time.perf_counter()
+    swap.load("bert", model2, "text string", warmup_rows=warm_rows)
+    swap_s = time.perf_counter() - t0
+    stop.set()
+    for th in ths:
+        th.join(timeout=120)
+    after = []
+    for i in range(SWAP_ROWS):
+        fut = swap.submit("bert", texts[i])
+        after.append((fut.result(timeout=120), fut.batch_rows))
+    lp2 = LocalPredictor(model2, "text string")
+    serial2 = [lp2.predict_row(texts[i]) for i in range(SWAP_ROWS)]
+    rep, bad = rung_report(after, serial2, "14.4")
+    problems += bad
+    check(not errors, f"14.4: {len(errors)} requests failed across the "
+                      f"swap: {errors[:2]}")
+    check(any(a[0] != serial[i] for i, a in enumerate(after)),
+          "14.4: the swapped model serves the old model's rows")
+    out["14.4"] = dict(build_s=build_s, swap_load_s=swap_s,
+                       served_during=len(during), errors=len(errors),
+                       rows_vs_new_serial=rep)
+    swap.close()
+    del lp2, model2, predictor, model, serial_lp
+
+    # 14.6: the HTTP surface
+    hs = ModelServer(ServingConfig(**SERVING))
+    web = WebUIServer(port=0, store=ExperimentStore(
+        os.path.join(workdir, "experiments.json")), model_server=hs)
+    web.start(background=True)
+    try:
+        loaded = http_json(web.port, "/api/serving/models", "POST",
+                           {"name": "bert", "path": path})
+        one = http_json(web.port, "/api/serving/predict/bert", "POST",
+                        {"row": list(texts[0])})
+        many = http_json(web.port, "/api/serving/predict/bert", "POST",
+                         {"rows": [list(t) for t in texts[:8]]})
+        stats = http_json(web.port, "/api/serving")
+        text = http_json(web.port, "/metrics", text=True)
+        gone = http_json(web.port, "/api/serving/models/bert", "DELETE")
+        again = http_status(web.port, "/api/serving/models/bert", "DELETE")
+    finally:
+        web.stop()
+        hs.close()
+    series = ("alink_serving_request_seconds", "alink_serving_batch_rows",
+              "alink_serving_completed_total")
+    check(loaded.get("warmup_source") == "sidecar",
+          f"14.6: the load by path did not warm from the sidecar: {loaded}")
+    check(tuple(one["row"]) == tuple(serial[0]),
+          "14.6: the one-row answer differs from its serial predict")
+    check(len(many["rows"]) == 8 and all(
+        r[1] == s[1] or abs(margin(s)) <= MARGIN_BOUND
+        for r, s in zip(many["rows"], serial[:8])),
+        "14.6: the many-row answer differs from the serial predicts")
+    check(stats["models"] and stats["models"][0]["completed"] >= 9,
+          f"14.6: /api/serving {stats.get('models')}")
+    check(all(s in text for s in series), "14.6: /metrics lacks a series")
+    check(gone == {"unloaded": "bert"} and again == 404,
+          f"14.6: DELETE answered {gone}, then {again}")
+    out["14.6"] = dict(warmup_source=loaded.get("warmup_source"),
+                       completed=stats["models"][0]["completed"],
+                       second_delete=again)
+
+    launches = flash()
+    out["launches"] = launches
+    print(f"[{card}] phase 14 serving: " + json.dumps(out, default=str),
+          flush=True)
+    if problems:
+        fail("phase 14: " + "; ".join(problems))
+    return launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -4285,6 +4871,8 @@ def main() -> int:
     del X, y
     ingest_path(workdir, card)
     marks.append(("phase 13 ingest", time.perf_counter()))
+    serve_launches, _ = serving_path(workdir, served_main, card)
+    marks.append(("phase 14 serving", time.perf_counter()))
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -4299,7 +4887,8 @@ def main() -> int:
             "shape": shape, "errors": st["errors"]}
 
     line = {"kernels": [
-        dict(entry("flash_block_update", launches + quant_launches, stats,
+        dict(entry("flash_block_update",
+                   launches + quant_launches + serve_launches, stats,
                    "scaled_dot_product_attention over all 512 keys, "
                    "contiguous (B, H, S, D), unmasked (yardstick)",
                    "one attention call: (B, S, H, D) = (32, 512, 12, 64) "
@@ -4308,7 +4897,8 @@ def main() -> int:
                    "route (ALINK_ATTN_PALLAS=0)"),
              launches_by_path={"phase 4 serving": launches,
                                **{f"12.1 {p}": families["12.1"][p]["launches"]
-                                  for p in POLICIES}},
+                                  for p in POLICIES},
+                               "phase 14 serving": serve_launches},
              library_views_ms=stats["library_views_ms"],
              block_ms=stats["block_ms"],
              block_plain_ms=stats["block_plain_ms"],

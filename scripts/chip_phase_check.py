@@ -14,7 +14,9 @@ fine-tune of data/sst2_mini.csv), ``forest`` (the 784-column forest),
 ``families`` (phase 12, the model families, with the inputs it takes from
 phase 4's BERT-base serving and phase 7's GBDT on the Covertype-layout
 rows, both run first), ``ingest`` (phase 13, foreign-model ingest:
-BASELINE #3 and #5; it builds no kernel). Each
+BASELINE #3 and #5; it builds no kernel), ``serving`` (phase 14, BERT-base
+serving through ``ModelServer``, with phase 4's model and request, run
+first). Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
 """
@@ -31,7 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
-          "families", "ingest")
+          "families", "ingest", "serving")
 
 
 def main() -> int:
@@ -74,13 +76,18 @@ def main() -> int:
         return cs.model_families(served, X, y, gbdt,
                                  card.splitlines()[0])
 
+    def serving():
+        _, served = cs.main_path(workdir, cs.serving_config())
+        return cs.serving_path(workdir, served, card.splitlines()[0])[1]
+
     run = {"sgns": cs.check_sgns_wide, "hist": wide_hist,
            "bwd": lambda: cs.check_backward(peaks),
            "record": lambda: cs.train_metric_of_record(peaks),
            "kernel": cs.train_kernel_route,
            "sst2": lambda: cs.finetune_sst2(workdir),
            "forest": cs.wide_forest_path, "families": families,
-           "ingest": lambda: cs.ingest_path(workdir, card.splitlines()[0])}
+           "ingest": lambda: cs.ingest_path(workdir, card.splitlines()[0]),
+           "serving": serving}
     out = {}
     for name in phases:
         t0 = time.perf_counter()

@@ -22,6 +22,7 @@ images; its ONNX writer must give the model's logits; its flax-layout
 variables must have the reference's tree.
 """
 
+import json
 import os
 
 import numpy as np
@@ -1021,3 +1022,92 @@ def test_flax_resnet50_variables_have_the_reference_tree():
         jax.tree_util.tree_structure(want)
     assert jax.tree_util.tree_all(jax.tree_util.tree_map(
         lambda a, b: a.shape == b.shape and a.dtype == b.dtype, got, want))
+
+
+# ---------------------------------------------------------------------------
+# phase 14: BERT-base serving through ModelServer
+# ---------------------------------------------------------------------------
+
+
+def test_serving_case_list():
+    """Phase 14's cell: batches of up to 64 rows flushed
+    after 5 ms, warmed at the 8 rungs 8 … 64; 8 clients sending 512
+    single-row requests beside 4 predict_many of 32; a queue of 16 under a
+    burst of 200; the cases in order, both policies."""
+    from alink_tpu_torch.serving import serving_bucket_ladder
+
+    assert chip_smoke.SERVING == dict(max_batch_rows=64,
+                                      flush_deadline_s=0.005)
+    assert chip_smoke.SERVING_RUNGS == serving_bucket_ladder(64)
+    assert (chip_smoke.SERVING_CLIENTS, chip_smoke.SERVING_SINGLE,
+            chip_smoke.SERVING_MANY) == (8, 512, (4, 32))
+    assert (chip_smoke.SERVING_QUEUE, chip_smoke.SERVING_BURST) == (16, 200)
+    assert [c.split()[0] for c in chip_smoke.SERVING_CASES] == [
+        "14.1", "14.2", "14.3", "14.4", "14.5", "14.5", "14.6", "14.7"]
+    assert [c for c in chip_smoke.SERVING_CASES if c.startswith("14.5")] \
+        == [f"14.5 {p} load" for p in chip_smoke.POLICIES]
+    assert chip_smoke.MARGIN_BOUND == 2 * chip_smoke.LOGIT_ATOL
+
+
+def _served_row(p1, label=None):
+    detail = json.dumps({"0": 1.0 - p1, "1": p1})
+    return ("t", int(p1 > 0.5) if label is None else label, detail)
+
+
+def test_rung_report_holds_same_rung_rows_exactly():
+    serial = [_served_row(0.7), _served_row(0.2), _served_row(0.5001)]
+    same = [(serial[0], 1), (serial[1], 8), (serial[2], 3)]
+    rep, bad = chip_smoke.rung_report(same, serial, "t")
+    assert not bad and rep["same_rung_identical"] == 3
+    # one bit off at the serial predict's rung fails
+    nudged = _served_row(0.7 + 1e-12)
+    rep, bad = chip_smoke.rung_report([(nudged, 5)], serial[:1], "t")
+    assert bad and rep["same_rung"] == 1
+    # the same nudge at another rung passes, counted as not identical
+    rep, bad = chip_smoke.rung_report([(nudged, 40)], serial[:1], "t")
+    assert not bad and rep["cross_rung"] == 1 \
+        and rep["cross_rung_identical"] == 0
+    # past the bound, or a flipped label where the gap is decisive, fails
+    far = _served_row(0.71)
+    assert chip_smoke.rung_report([(far, 64)], serial[:1], "t")[1]
+    flip = _served_row(0.7, label=0)
+    assert chip_smoke.rung_report([(flip, 64)], serial[:1], "t")[1]
+    # a flip inside the bound (a near tie) is allowed
+    tie = _served_row(0.5001, label=0)
+    assert not chip_smoke.rung_report([(tie, 64)], serial[2:], "t")[1]
+
+
+def test_batch_error_check_passes_the_server():
+    assert chip_smoke.check_batch_errors() == []
+
+
+def test_batch_error_check_rejects_a_server_that_swallows(monkeypatch):
+    """A batcher that catches the batch's error and completes its requests
+    with no row, or drops them (they hang), must fail 14.7."""
+    from alink_tpu_torch.serving import router
+
+    def answers_none(self, batch):
+        try:
+            self.predictor.predict_table(None)
+        except BaseException:
+            for req in batch:
+                req.future._complete(None, None)
+
+    def drops(self, batch):
+        try:
+            self.predictor.predict_table(None)
+        except BaseException:
+            pass
+
+    for mutant in (answers_none, drops):
+        monkeypatch.setattr(router._ModelEntry, "_run_batch", mutant)
+        assert chip_smoke.check_batch_errors(wait_s=0.5)
+
+
+def test_serving_launch_check_rejects_a_server_without_the_kernel():
+    """14.1 and 14.2 hold the flash counter to 12 launches a served
+    forward: a server whose batches ran without the kernel (the counter
+    did not rise) fails."""
+    assert chip_smoke.flash_rise_problem(96, 8, 12, "14.1") is None
+    assert chip_smoke.flash_rise_problem(0, 8, 12, "14.1")
+    assert chip_smoke.flash_rise_problem(12 * 40, 41, 12, "14.2")

@@ -70,7 +70,17 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.onnx.tfsaved", "alink_tpu_torch.dl.resnet",
             "alink_tpu_torch.operator.batch.modelpredict",
             "alink_tpu_torch.operator.stream.base",
-            "alink_tpu_torch.operator.stream.modelpredict"} \
+            "alink_tpu_torch.operator.stream.modelpredict",
+            "alink_tpu_torch.common.jitcache",
+            "alink_tpu_torch.common.metrics",
+            "alink_tpu_torch.common.tracing",
+            "alink_tpu_torch.common.resilience",
+            "alink_tpu_torch.common.catalog",
+            "alink_tpu_torch.analysis.plancheck",
+            "alink_tpu_torch.analysis.diagnostics",
+            "alink_tpu_torch.serving.router",
+            "alink_tpu_torch.serving.warmup_store",
+            "alink_tpu_torch.webui.server"} \
         <= set(scanned.split(","))
     smoke = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; print(','.join(sorted("
