@@ -135,6 +135,40 @@ _TRANSIENT_XLA_MARKERS = (
 )
 
 
+# PyTorch raises no XlaRuntimeError: its device errors are RuntimeErrors
+# (torch.OutOfMemoryError, torch.AcceleratorError) whose messages carry the
+# CUDA error. Out of memory is the XLA RESOURCE_EXHAUSTED of the card: the
+# allocation may fit once other work frees memory. These errors are sticky
+# instead: the CUDA context is unusable after them, and every later call in
+# the process fails, so a retry cannot succeed.
+_STICKY_CUDA_MARKERS = (
+    "ILLEGAL MEMORY ACCESS", "ILLEGAL ADDRESS", "DEVICE-SIDE ASSERT",
+    "UNSPECIFIED LAUNCH FAILURE", "ILLEGAL INSTRUCTION", "MISALIGNED ADDRESS",
+    "HARDWARE STACK ERROR", "UNCORRECTABLE ECC ERROR", "LAUNCH TIMED OUT",
+)
+_TRANSIENT_CUDA_MARKERS = ("OUT OF MEMORY",)
+
+
+def _torch_device_retryable(exc: BaseException) -> "bool | None":
+    """True for a PyTorch out-of-memory error, False for a sticky CUDA
+    error, None for anything else (the types are looked up by name: they
+    moved between torch releases)."""
+    if not isinstance(exc, RuntimeError):
+        return None
+    import torch
+
+    msg = str(exc).upper()
+    if any(m in msg for m in _STICKY_CUDA_MARKERS):
+        return False
+    oom = tuple(t for t in (getattr(torch, "OutOfMemoryError", None),
+                            getattr(torch.cuda, "OutOfMemoryError", None))
+                if isinstance(t, type))
+    if (oom and isinstance(exc, oom)) \
+            or any(m in msg for m in _TRANSIENT_CUDA_MARKERS):
+        return True
+    return None
+
+
 def mark_retryable(exc: BaseException) -> BaseException:
     """Tag any exception instance as retryable without changing its type
     (for call sites that know a specific library error is transient)."""
@@ -147,9 +181,11 @@ def is_retryable(exc: BaseException) -> bool:
     backed-off retry: explicit :class:`AkRetryableException`, exceptions
     tagged via :func:`mark_retryable`, connector client errors that declare
     themselves retriable (kafka-python's ``KafkaError.retriable``),
-    timeouts/connection drops/transient OS errors, and XLA runtime errors
-    whose status marks a device/transfer hiccup. Everything else — in
-    particular every other classified ``Ak*`` error — is fatal."""
+    timeouts/connection drops/transient OS errors, XLA runtime errors
+    whose status marks a device/transfer hiccup, and PyTorch's out-of-memory
+    errors (the card's ``RESOURCE_EXHAUSTED``). Everything else — in
+    particular every other classified ``Ak*`` error, and a sticky CUDA
+    error such as an illegal memory access — is fatal."""
     if isinstance(exc, AkRetryableException):
         return True
     if getattr(exc, "__alink_retryable__", False):
@@ -174,7 +210,7 @@ def is_retryable(exc: BaseException) -> bool:
     if name == "XlaRuntimeError":
         msg = str(exc).upper()
         return any(m in msg for m in _TRANSIENT_XLA_MARKERS)
-    return False
+    return bool(_torch_device_retryable(exc))
 
 
 class AkPreconditions:

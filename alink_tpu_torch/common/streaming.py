@@ -16,11 +16,17 @@ Knob (env): ``ALINK_STREAM_DEPTH`` — in-flight transfers (default 2: batch
 one device buffer, so the batch the function sees is bit-identical and its
 shape is untouched.
 
-Left out of the port: the reference's ``use_cache`` staging-cache route and
-custom ``put`` (the port has no content-keyed device cache and no
-``wire_is_slow`` probe), its ``ALINK_H2D_STREAMS`` thread pool, and its
-retry, fault-injection, metrics and tracing hooks, which wait for A10's
-modules.
+``put=`` replaces the copy with the caller's own transfer function (the
+pretraining feed tokenizes and masks a batch there, on the transfer
+thread); it runs on the same side stream, so its copies are ordered the
+same way. Every batch observes the ``stream.transfer_s``, ``stream.wait_s``
+and ``stream.compute_s`` histograms (``common/metrics.py``).
+
+Left out of the port: the reference's ``use_cache`` staging-cache route
+(the port has no content-keyed device cache and no ``wire_is_slow``
+probe), its ``ALINK_H2D_STREAMS`` thread pool, its retry and
+fault-injection hooks (they wait for A10's ``common/faults.py``) and the
+executor's node-phase accounting (A1).
 On a CPU device a "transfer" wraps the host array as a tensor, and the
 pipeline order, depth and phases are the same.
 """
@@ -72,34 +78,44 @@ def _chunk_bounds(n: int, split: int):
 
 class _Transfer:
     """One batch's copy to the card on ``stream``: staged into pinned host
-    memory, copied in ``split`` row chunks, its end recorded as ``done``.
-    ``run`` blocks the transfer thread (never the consumer) until the copy
-    has landed, so its wall time is the batch's transfer time."""
+    memory, copied in ``split`` row chunks (or handed to ``put``), its end
+    recorded as ``done``. ``run`` blocks the transfer thread (never the
+    consumer) until the copy has landed, so its wall time is the batch's
+    transfer time."""
 
-    def __init__(self, device, stream, split):
+    def __init__(self, device, stream, split, put=None):
         self.device, self.stream, self.split = device, stream, split
+        self.put = put
+
+    def _copy(self, arrays):
+        import torch
+
+        devs = []
+        for a in arrays:
+            host = _pinned(a)
+            out = torch.empty(host.shape, dtype=host.dtype,
+                              device=self.device)
+            parts = _chunk_bounds(host.shape[0], self.split) \
+                if host.ndim and host.shape[0] >= self.split else None
+            if parts is None:
+                out.copy_(host, non_blocking=True)
+            else:
+                for s, e in parts:
+                    out[s:e].copy_(host[s:e], non_blocking=True)
+            devs.append(out)
+        return devs
 
     def run(self, arrays):
         import torch
 
         t0 = time.perf_counter()
         if self.device.type != "cuda":
-            devs = [_host_tensor(a) for a in arrays]
+            devs = list(self.put(arrays)) if self.put is not None \
+                else [_host_tensor(a) for a in arrays]
             return devs, None, time.perf_counter() - t0
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            devs = []
-            for a in arrays:
-                host = _pinned(a)
-                out = torch.empty(host.shape, dtype=host.dtype,
-                                  device=self.device)
-                parts = _chunk_bounds(host.shape[0], self.split) \
-                    if host.ndim and host.shape[0] >= self.split else None
-                if parts is None:
-                    out.copy_(host, non_blocking=True)
-                else:
-                    for s, e in parts:
-                        out[s:e].copy_(host[s:e], non_blocking=True)
-                devs.append(out)
+            devs = list(self.put(arrays)) if self.put is not None \
+                else self._copy(arrays)
             done = torch.cuda.Event()
             done.record(self.stream)
         done.synchronize()
@@ -111,6 +127,7 @@ def stream_map(
     batches: Iterable[Tuple[Any, Sequence[Any]]],
     *,
     depth: Optional[int] = None,
+    put: Optional[Callable[[Sequence[Any]], Sequence[Any]]] = None,
     split: int = 1,
     phases: Optional[dict] = None,
     device=None,
@@ -120,18 +137,24 @@ def stream_map(
     and results in input order. ``device`` defaults to
     :func:`~alink_tpu_torch.common.env.resolve_device`.
 
-    ``split=k`` copies each batch as *k* row chunks into one device buffer
-    (bit-identical input). ``phases`` (optional dict) accumulates
+    ``put(host_arrays) -> device tensors`` replaces the default pinned
+    copy (the transfer thread runs it on the side stream; its tensors must
+    be on ``device``); ``split=k`` copies each batch of the default copy as
+    *k* row chunks into one device buffer (bit-identical input). The
+    ``stream.transfer_s``, ``stream.wait_s`` and ``stream.compute_s``
+    histograms observe every batch. ``phases`` (optional dict) accumulates
     ``transfer_s`` (the transfer thread's wall per batch: pinning and the
     copy until it landed), ``wait_s`` (the consumer's stall on an in-flight
     transfer — ~0 when the pipeline overlaps), ``compute_s`` (host time in
     ``fn``: issue, or the whole call where ``fn`` syncs) and ``batches``."""
     import torch
 
+    from .metrics import metrics
+
     dev = resolve_device(device)
     depth = stream_depth(DEFAULT_DEPTH) if depth is None else max(1, depth)
     stream = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
-    transfer = _Transfer(dev, stream, max(1, int(split)))
+    transfer = _Transfer(dev, stream, max(1, int(split)), put)
     it = iter(batches)
     inflight: deque = deque()
     with ThreadPoolExecutor(max_workers=1,
@@ -161,6 +184,9 @@ def stream_map(
             t0 = time.perf_counter()
             out = fn(*devs)
             dt_fn = time.perf_counter() - t0
+            metrics.observe("stream.transfer_s", dt_put)
+            metrics.observe("stream.wait_s", dt_wait)
+            metrics.observe("stream.compute_s", dt_fn)
             if phases is not None:
                 phases["transfer_s"] = phases.get("transfer_s", 0.0) + dt_put
                 phases["wait_s"] = phases.get("wait_s", 0.0) + dt_wait

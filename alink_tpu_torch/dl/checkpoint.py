@@ -42,7 +42,10 @@ class TrainCheckpointManager:
 
     def save(self, step: int, params, opt_state, extra: Dict[str, Any]):
         """Persists the training state at ``step`` (written to a temporary
-        file, then renamed); prunes past the retention bound."""
+        file, then renamed); prunes past the retention bound. Each save
+        counts in ``train.ckpt_saves``."""
+        from ..common.metrics import metrics
+
         tmp = self._path(step) + ".tmp"
         torch.save({"params": params, "opt_state": opt_state,
                     "extra": dict(extra)}, tmp)
@@ -50,6 +53,7 @@ class TrainCheckpointManager:
         if self.max_to_keep is not None:
             for old in self.all_steps()[:-self.max_to_keep]:
                 os.remove(self._path(old))
+        metrics.incr("train.ckpt_saves")
 
     def all_steps(self) -> List[int]:
         """The step numbers retained on disk, ascending."""
@@ -63,7 +67,9 @@ class TrainCheckpointManager:
     def restore_latest(self) -> Optional[Tuple[Any, Any, Dict[str, Any]]]:
         """``(params, opt_state, extra)`` of the newest checkpoint, on the
         host, or None when there is none (``torch.load`` restores the saved
-        structure: the reference's structure targets are not needed)."""
+        structure: the reference's structure targets are not needed, and
+        every ``extra`` key round-trips, such as the pretraining loop's
+        ``mid_epoch``, ``next_batch`` and ``step``)."""
         step = self.latest_step()
         if step is None:
             return None

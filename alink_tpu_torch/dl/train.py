@@ -46,8 +46,7 @@ inside each forward (``q.float() * s``) as the reference's program does.
 from __future__ import annotations
 
 import os
-from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -56,6 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from ..common.env import resolve_device
+from ..common.metrics import metrics
+from ..common.tracing import trace_span
 from ..common.exceptions import (AkIllegalArgumentException,
                                  AkUnsupportedOperationException)
 from ..common import quant
@@ -336,35 +337,68 @@ def new_accumulators(params: Sequence[torch.Tensor]):
 
 def _feed(build: Callable[[int], Sequence[np.ndarray]],
           place: Callable[[Sequence[np.ndarray]], List[torch.Tensor]],
-          steps: int, *, mode: str = "async", depth: int = 0
+          steps: int, *, mode: str = "async", depth: int = 0,
+          phases: Optional[dict] = None, device=None
           ) -> Iterator[Tuple[int, List[torch.Tensor]]]:
     """Yield ``(step, tensors)`` for ``place(build(step))``. ``async`` runs
-    both on one thread, up to ``depth`` (default 2) batches ahead; ``sync``
-    inline. Both call the same functions in the same step order."""
+    both on :func:`~alink_tpu_torch.common.streaming.stream_map`'s transfer
+    thread (its ``put``), up to ``depth`` (default ``ALINK_STREAM_DEPTH``, 2)
+    batches ahead of compute, accumulating its ``phases``; ``sync`` inline.
+    Both call the same functions in the same step order."""
     if mode not in ("async", "sync"):
         raise AkIllegalArgumentException(f"unknown feed mode {mode!r}")
     if mode == "sync":
         for s in range(steps):
             yield s, place(build(s))
         return
-    pending: deque = deque()
-    with ThreadPoolExecutor(1, thread_name_prefix="alink-feed") as pool:
+    from ..common.streaming import stream_map
+
+    def put(args):
+        # the "host arrays" slot carries only the step number: the batch is
+        # assembled inside put, on the transfer thread
+        return place(build(int(args[0])))
+
+    yield from stream_map(lambda *devs: list(devs),
+                          ((s, (s,)) for s in range(steps)), put=put,
+                          depth=depth or None, phases=phases, device=device)
+
+
+def _placer(dev: torch.device):
+    """Host arrays → tensors on ``dev`` (pinned and copied non-blocking on
+    the card)."""
+    pinned = dev.type == "cuda"
+
+    def place(arrs):
+        out = []
+        for a in arrs:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if pinned:
+                t = t.pin_memory().to(dev, non_blocking=True)
+            out.append(t)
+        return out
+    return place
+
+
+def _timed_feed(it):
+    """Drain a feed iterator, observing ``train.feed_wait_s``: the time the
+    step loop blocked waiting for the next device batch (~0 when the async
+    feed overlaps; ~assembly + transfer when the host is the bottleneck).
+    ``train.step_s`` stays with the callers: its unit is the optimizer
+    step, which under accumulation spans several feed items."""
+    while True:
+        t0 = time.perf_counter()
         try:
-            nxt = 0
-            for s in range(steps):
-                while nxt < steps and len(pending) < (depth or 2):
-                    pending.append(pool.submit(
-                        lambda i=nxt: place(build(i))))
-                    nxt += 1
-                yield s, pending.popleft().result()
-        finally:
-            for f in pending:
-                f.cancel()
+            item = next(it)
+        except StopIteration:
+            return
+        metrics.observe("train.feed_wait_s", time.perf_counter() - t0)
+        yield item
 
 
 def _pad_tail(arrs: List[np.ndarray], target: int) -> List[np.ndarray]:
     """Pad row-aligned arrays to ``target`` rows by repeating the last real
-    row (exact under a zero loss weight)."""
+    row: numerically safe for any model (no all-padding attention rows, no
+    degenerate inputs), and exact under a zero loss weight."""
     m = arrs[0].shape[0]
     if m == target:
         return arrs
@@ -372,13 +406,13 @@ def _pad_tail(arrs: List[np.ndarray], target: int) -> List[np.ndarray]:
             for a in arrs]
 
 
-def _check_single_process() -> None:
+def _check_single_process(what: str = "train_model") -> None:
     multi = int(os.environ.get("NUM_PROCESSES", "1") or 1) > 1
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         multi = multi or torch.distributed.get_world_size() > 1
     if multi:
         raise AkUnsupportedOperationException(
-            "train_model runs in one process: multi-process data parallelism "
+            f"{what} runs in one process: multi-process data parallelism "
             "is not ported yet (ROADMAP A3)")
 
 
@@ -473,31 +507,37 @@ def train_model(model, inputs: Dict[str, np.ndarray], y: np.ndarray,
                 start_epoch = int(extra.get("epoch", -1)) + 1
 
     names = sorted(tr_inputs)
-    pinned = dev.type == "cuda"
-
-    def place(arrs):
-        out = []
-        for a in arrs:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if pinned:
-                t = t.pin_memory().to(dev, non_blocking=True)
-            out.append(t)
-        return out
+    place = _placer(dev)
 
     micro_rows = bs // accum
     acc = new_accumulators(opt.params) \
         if accum > 1 and cfg.accum_mode == "micro" else None
+    feed_phases: Dict[str, Any] = {}
+    feed_kw = dict(mode=cfg.feed, depth=cfg.feed_depth, phases=feed_phases,
+                   device=dev)
+    t_start = time.perf_counter()
+    start_step = step   # resume restores the counter; the rate uses deltas
 
     def after_step(s, loss, epoch):
         nonlocal step
         step += 1
+        metrics.incr("train.steps")
+        metrics.incr("train.rows", int(min(bs, n_train - s * bs))
+                     if n_train >= bs else bs)
         if ckpt is not None and cfg.checkpoint_every \
                 and step % cfg.checkpoint_every == 0:
             # mid-epoch save: resume restarts this epoch with this state
             ckpt.save(step, _host_state(model), opt.state_dict(),
                       {"step": step, "epoch": epoch - 1})
         if cfg.log_every and step % cfg.log_every == 0:
-            history["loss"].append(float(loss))
+            log_loss(float(loss))
+
+    def log_loss(lv):
+        history["loss"].append(lv)
+        elapsed = time.perf_counter() - t_start
+        metrics.record("dl.train", step=step, loss=lv,
+                       samples_per_sec=(step - start_step) * bs
+                       / max(elapsed, 1e-9))
 
     def full_batch(order, s):
         idx = order[s * bs:(s + 1) * bs]
@@ -508,95 +548,112 @@ def train_model(model, inputs: Dict[str, np.ndarray], y: np.ndarray,
             w = np.concatenate([w, np.zeros(bs - len(idx), np.float32)])
         return arrs + [w]
 
+    def timed_step(run):
+        # host wall from one step's issue to the next: no sync per step
+        nonlocal t_step
+        out = run()
+        now = time.perf_counter()
+        metrics.observe("train.step_s", now - t_step)
+        t_step = now
+        return out
+
     loss = None
     for epoch in range(start_epoch, cfg.num_epochs):
-        # per-(seed, epoch) generator: a resumed run replays the shuffle
-        order = np.random.default_rng((cfg.seed, epoch)).permutation(n_train)
-        if n_train < bs:  # tile tiny datasets up to one full batch
-            order = np.resize(order, bs)
+        with trace_span("train.epoch", epoch=epoch, rank=0, shards=1):
+            # per-(seed, epoch) generator: a resumed run replays the shuffle
+            order = np.random.default_rng((cfg.seed, epoch)).permutation(
+                n_train)
+            if n_train < bs:  # tile tiny datasets up to one full batch
+                order = np.resize(order, bs)
 
-        if accum == 1:
-            for s, devs in _feed(lambda s, o=order: full_batch(o, s), place,
-                                 steps_per_epoch, mode=cfg.feed,
-                                 depth=cfg.feed_depth):
-                batch = dict(zip(names, devs[:-2]))
-                loss = train_step(batch, devs[-2], devs[-1],
-                                  dropout_generator(cfg.seed, step, dev))
-                after_step(s, loss, epoch)
-        elif cfg.accum_mode == "fused":
-            def build_fused(s, o=order):
-                return [a.reshape((accum, micro_rows) + a.shape[1:])
-                        for a in full_batch(o, s)]
-
-            for s, devs in _feed(build_fused, place, steps_per_epoch,
-                                 mode=cfg.feed, depth=cfg.feed_depth):
-                batch = dict(zip(names, devs[:-2]))
-                rngs = [dropout_generator(cfg.seed, step, dev, k)
-                        for k in range(accum)]
-                loss = fused_prog(batch, devs[-2], devs[-1], rngs)
-                after_step(s, loss, epoch)
-        else:
-            def build_micro(m, o=order):
-                s, k = divmod(m, accum)
-                start = s * bs
-                m_real = min(bs, len(o) - start)
-                pos = np.arange(k * micro_rows, (k + 1) * micro_rows)
-                # positions past the real rows repeat the effective batch's
-                # last real row with zero loss weight
-                idx = o[start + np.minimum(pos, m_real - 1)]
-                arrs = [tr_inputs[k2][idx] for k2 in names] + [tr_y[idx]]
-                return arrs + [(pos < m_real).astype(np.float32)]
-
-            for m, devs in _feed(build_micro, place, steps_per_epoch * accum,
-                                 mode=cfg.feed, depth=cfg.feed_depth):
-                s, k = divmod(m, accum)
-                batch = dict(zip(names, devs[:-2]))
-                micro_prog(acc, batch, devs[-2], devs[-1],
-                           dropout_generator(cfg.seed, step, dev, k))
-                if k == accum - 1:
-                    loss = apply_prog(acc)
+            t_step = time.perf_counter()
+            if accum == 1:
+                for s, devs in _timed_feed(_feed(
+                        lambda s, o=order: full_batch(o, s), place,
+                        steps_per_epoch, **feed_kw)):
+                    batch = dict(zip(names, devs[:-2]))
+                    loss = timed_step(lambda: train_step(
+                        batch, devs[-2], devs[-1],
+                        dropout_generator(cfg.seed, step, dev)))
                     after_step(s, loss, epoch)
-        if not cfg.log_every:
-            history["loss"].append(float(loss))
+            elif cfg.accum_mode == "fused":
+                def build_fused(s, o=order):
+                    return [a.reshape((accum, micro_rows) + a.shape[1:])
+                            for a in full_batch(o, s)]
 
-        if ckpt is not None:
-            ckpt.save(step, _host_state(model), opt.state_dict(),
-                      {"step": step, "epoch": epoch})
-        if n_eval:
-            logits = _batched_apply(model, ev_inputs, bs, dev)
-            if regression:
-                metric = -float(np.mean((logits.squeeze(-1) - ev_y) ** 2))
+                for s, devs in _timed_feed(_feed(
+                        build_fused, place, steps_per_epoch, **feed_kw)):
+                    batch = dict(zip(names, devs[:-2]))
+                    rngs = [dropout_generator(cfg.seed, step, dev, k)
+                            for k in range(accum)]
+                    loss = timed_step(lambda: fused_prog(
+                        batch, devs[-2], devs[-1], rngs))
+                    after_step(s, loss, epoch)
             else:
-                metric = float(np.mean(np.argmax(logits, -1) == ev_y))
-            history["eval_metric"].append(metric)
-            if best_metric is None or metric > best_metric:
-                best_metric, best_params = metric, _host_state(model)
-                patience_left = cfg.early_stopping_patience
-            elif cfg.early_stopping_patience:
-                patience_left -= 1
-                if patience_left <= 0:
-                    break
+                def build_micro(m, o=order):
+                    s, k = divmod(m, accum)
+                    start = s * bs
+                    m_real = min(bs, len(o) - start)
+                    pos = np.arange(k * micro_rows, (k + 1) * micro_rows)
+                    # positions past the real rows repeat the effective
+                    # batch's last real row with zero loss weight
+                    idx = o[start + np.minimum(pos, m_real - 1)]
+                    arrs = [tr_inputs[k2][idx] for k2 in names] + [tr_y[idx]]
+                    return arrs + [(pos < m_real).astype(np.float32)]
+
+                for m, devs in _timed_feed(_feed(
+                        build_micro, place, steps_per_epoch * accum,
+                        **feed_kw)):
+                    s, k = divmod(m, accum)
+                    batch = dict(zip(names, devs[:-2]))
+                    micro_prog(acc, batch, devs[-2], devs[-1],
+                               dropout_generator(cfg.seed, step, dev, k))
+                    metrics.incr("train.micro_steps")
+                    if k == accum - 1:
+                        t_f = time.perf_counter()
+                        loss = timed_step(lambda: apply_prog(acc))
+                        metrics.observe("train.accum_flush_s",
+                                        time.perf_counter() - t_f)
+                        after_step(s, loss, epoch)
+            if not cfg.log_every:
+                log_loss(float(loss))
+
+            if ckpt is not None:
+                ckpt.save(step, _host_state(model), opt.state_dict(),
+                          {"step": step, "epoch": epoch})
+            if n_eval:
+                logits = _batched_apply(model, ev_inputs, bs, dev)
+                if regression:
+                    metric = -float(np.mean((logits.squeeze(-1) - ev_y)
+                                            ** 2))
+                else:
+                    metric = float(np.mean(np.argmax(logits, -1) == ev_y))
+                history["eval_metric"].append(metric)
+                if best_metric is None or metric > best_metric:
+                    best_metric, best_params = metric, _host_state(model)
+                    patience_left = cfg.early_stopping_patience
+                elif cfg.early_stopping_patience:
+                    patience_left -= 1
+                    if patience_left <= 0:
+                        break
 
     if best_params is not None:
         model.load_state_dict(best_params)
     history["final_loss"] = history["loss"][-1] if history["loss"] else None
+    if feed_phases:
+        # compute runs in this loop (the feed's function is the identity),
+        # so only the transfer side carries signal here
+        history["feed"] = {
+            "mode": cfg.feed,
+            "transfer_s": round(feed_phases.get("transfer_s", 0.0), 4),
+            "batches": feed_phases.get("batches", 0),
+        }
     return _host_state(model), history
 
 
 # ---------------------------------------------------------------------------
 # inference
 # ---------------------------------------------------------------------------
-
-
-def _pad_tail(arrs: List[np.ndarray], target: int) -> List[np.ndarray]:
-    """Pad row-aligned arrays to ``target`` rows by repeating the last real
-    row — numerically safe for any model (no all-padding attention rows, no
-    degenerate inputs), and exact under a zero loss-weight."""
-    m = arrs[0].shape[0]
-    if m == target:
-        return arrs
-    return [np.concatenate([a, np.repeat(a[-1:], target - m, axis=0)])
-            for a in arrs]
 
 
 def _batched_apply(model, inputs: Dict[str, np.ndarray], bs: int,
@@ -687,8 +744,6 @@ def served_state(model, policy: Optional[str]):
     cached = model._served_states.get(policy)
     if cached is not None and cached[0] == key:
         return cached[1]
-    from ..common.metrics import metrics
-
     metrics.incr("dl.served_state_builds")
     if policy == quant.BF16:
         state = {k: (t.to(torch.bfloat16).to(t.dtype)

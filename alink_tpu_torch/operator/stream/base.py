@@ -16,21 +16,25 @@ dispatch/finalize overlap across chunks), ``ModelMapStreamOp``, ``_drain``
 and ``CsvSourceStreamOp``. Not yet (ROADMAP A7): the checkpoint hooks
 (``state_snapshot``/``state_restore``), the elastic keyed-state hooks and
 ``GlobalElasticStateMixin``/``CumulativeEvalStateMixin``,
-``make_per_chunk_twin``, and the metrics, tracing and pre-flight of
-``collect``.
+``make_per_chunk_twin``, and ``collect``'s pre-flight (A10). ``collect``
+keeps the reference's ``stream.collect`` span and ``stream.chunk_s``
+histogram.
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 from typing import Callable, Iterator, List, Optional
 
 from ...common.exceptions import (
     AkIllegalOperationException,
     AkIllegalStateException,
 )
+from ...common.metrics import metrics
 from ...common.mtable import MTable
 from ...common.params import ParamInfo, WithParams
+from ...common.tracing import trace_span
 
 
 class StreamOperator(WithParams):
@@ -78,11 +82,24 @@ class StreamOperator(WithParams):
 
     # -- results -----------------------------------------------------------
     def collect(self) -> MTable:
-        """Run the stream to exhaustion and concatenate all micro-batches."""
-        chunks = list(self._stream())
-        if not chunks:
-            raise AkIllegalStateException("stream produced no data")
-        return MTable.concat(chunks)
+        """Run the stream to exhaustion and concatenate all micro-batches.
+
+        Each chunk's end-to-end latency (source pull through this
+        operator's transform) lands in the ``stream.chunk_s`` histogram;
+        the whole drain is one ``stream.collect`` span."""
+        chunks = []
+        with trace_span("stream.collect", op=type(self).__name__) as sp:
+            t_prev = time.perf_counter()
+            for chunk in self._stream():
+                now = time.perf_counter()
+                metrics.observe("stream.chunk_s", now - t_prev)
+                t_prev = now
+                chunks.append(chunk)
+            if sp is not None:
+                sp.attrs["chunks"] = len(chunks)
+            if not chunks:   # inside the span: a failed collect records so
+                raise AkIllegalStateException("stream produced no data")
+            return MTable.concat(chunks)
 
     def print(self, n: int = 20) -> "StreamOperator":
         t = self.collect()

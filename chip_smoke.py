@@ -59,13 +59,15 @@ non-zero:
    rise by 12·20 = 240, one per level (each level call timed with CUDA
    events), the first tree's 12 level calls are held against the plain
    version again and timed on their own inputs (the numbers of the kernels
-   line), the ``ALINK_GBDT_PALLAS=0`` route must grow identical trees, the
+   line); then the training walls in turns, plain
+   (``ALINK_GBDT_PALLAS=0``), kernel, kernel, plain, none instrumented,
+   each kernel run 240 launches and every run the same trees; the
    card's predict must match a numpy traversal, and
    the model goes to ``.ak`` and back into ``RandomForestPredictBatchOp``
    for requests of 1, 1,000 and 58,101 held-out rows; held-out accuracy
    must beat the majority class by 0.05; then a forest of 4 trees (depth
    10) on 60,000 MNIST-layout rows of 784 columns, one launch a level,
-   must grow the ``ALINK_GBDT_PALLAS=0`` route's trees;
+   timed in the same turns, must grow the plain route's trees;
 7. GBDT path: ``GbdtTrainBatchOp(numTrees=20, maxDepth=6, maxBins=64)`` on
    the same data, then ``GbdtPredictBatchOp`` on the held-out requests,
    under the same accuracy floor;
@@ -226,7 +228,31 @@ non-zero:
     ``/metrics``, DELETE twice: 404); (14.7) a batch that raises fails its
     futures with that error and opens the breaker. ``scripts/
     chip_phase_check.py serving`` runs it after phase 4;
-15. one JSON line of kernels, then the device line last.
+15. MLM pretraining (``pretraining_path``; no kernel of the port: the
+    encoder takes ``full_attention``, and the launch counters, set to 0
+    first, must read 0 after it): (15.1) ``pretrain_mlm`` at BERT-base
+    width (hidden 768, 12 layers, 12 heads, 3072; seq 128, batch 32,
+    vocab_size 30522 asked, the vocabulary the corpus reaches printed) on
+    the first 1,024 lines of data/reviews_unlabeled.txt for 2 epochs:
+    samples/s and the median ms a step from step 2 on (CUDA events around
+    each step, no host sync), MFU (``train_step_flops`` plus the tied
+    head's 6·B·S·H·V), peak memory, and the device ms by group and idle
+    share from 6 profiled steps; every epoch's loss finite and the second
+    below the first; (15.2) the same model over a ``CorpusStream`` of those
+    lines (blocks of 256, a buffer of 512) with ``accum_steps=2`` and a
+    checkpoint every 16 steps: rows/s, the registry's p50 of
+    ``train.accum_flush_s``, ``train.feed_wait_s``, ``train.step_s``, and
+    ``train.ckpt_saves``; loss finite, resident rows within the buffer;
+    (15.3) at the CPU tests' configuration (hidden 32, 1 layer, 300 rows):
+    async ≡ sync, streaming ≡ in-memory and a mid-epoch crash-resume ≡ the
+    straight run, bitwise; the loss history against the port's CPU route
+    from the same carried weights in bf16 and fp32; (15.4) bench.py's
+    ``bench_bert_quality`` route (``bert_quality_route``): pretraining on
+    all 4,400 lines, the HF checkpoint, the fine-tune through
+    ``checkpointFilePath`` and the sst2_mini holdout accuracy, which must
+    reach BERT_QUALITY_FLOOR; ``scripts/chip_phase_check.py pretrain``
+    runs this phase alone;
+16. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -359,6 +385,18 @@ tokens): the row's logit gap log(p1/p0) must lie within MARGIN_BOUND =
 LOGIT_ATOL, the bound phase 4 holds between attention routes), labels
 equal wherever the serial gap exceeds it. Quantized loads against 12.1's
 op outputs under the same policy: the same gap bound, and the band.
+Phase 15. Feed, streaming and resume pairs on the card: bitwise (the same
+batches and masks, the same kernels in the same order). The card's loss
+history against the port's CPU route from the same carried weights: fp32
+within PRETRAIN_FP32_ATOL = 1e-5 an epoch, the bound the CPU tests hold
+the reference to (the products, softmax and LayerNorm sums run in another
+order, ~1e-7 relative an op); bf16 within LOSS_ROUTE_ATOL, as phase 10.3
+holds two bf16 routes (each rounds products to bf16 at the same points,
+and a sum taken in another order can cross a rounding boundary).
+Quality (15.4): real_holdout_accuracy ≥ BERT_QUALITY_REFERENCE_ACC − 0.05,
+the reference's accuracy at the same settings on the CPU
+(scripts/reference_bert_quality.py); the two packages start from
+different seeded weights (JAX's threefry stream cannot be reproduced).
 """
 
 from __future__ import annotations
@@ -367,6 +405,7 @@ import copy
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1209,10 +1248,9 @@ def wide_forest_path():
     """Phase 6, wide table: a forest of 4 trees (depth 10) through
     ``RandomForestTrainBatchOp`` on 60,000 MNIST-layout rows of 784 columns,
     one histogram launch a level, the same trees as the
-    ``ALINK_GBDT_PALLAS=0`` route. Returns the launches and the walls."""
-    from alink_tpu_torch.common.model import table_to_model
+    ``ALINK_GBDT_PALLAS=0`` route; the two routes timed in turns (plain,
+    kernel, kernel, plain). Returns the launches and the walls."""
     from alink_tpu_torch.common.mtable import MTable
-    from alink_tpu_torch.native import kernels
     from alink_tpu_torch.operator.batch import RandomForestTrainBatchOp
     from alink_tpu_torch.tree import grow
 
@@ -1220,31 +1258,73 @@ def wide_forest_path():
     cols = {f"pixel{j}": X[:, j].astype(np.float64) for j in range(784)}
     cols["label"] = y
     table = MTable(cols)
-    kernels.reset_launches()
-    model, wall = train_trees(RandomForestTrainBatchOp, WIDE_FOREST, table)
-    launches = kernels.launches()["tree_histogram"]
-    os.environ[grow.HIST_KERNEL_ENV] = "0"
-    try:
-        plain_model, plain_wall = train_trees(RandomForestTrainBatchOp,
-                                              WIDE_FOREST, table)
-    finally:
-        del os.environ[grow.HIST_KERNEL_ENV]
-    (_, arrays), (_, plain_arrays) = (table_to_model(m)
-                                      for m in (model, plain_model))
-    same = {k: np.array_equal(arrays[k], plain_arrays[k])
-            for k in ("feats", "thrs", "leaves")}
     expect = WIDE_FOREST["numTrees"] * WIDE_FOREST["maxDepth"]
-    print(f"wide forest ({WIDE_ROWS} rows x 784 columns, {WIDE_FOREST}): "
-          f"{wall:.2f} s wall, {launches} tree_histogram launches (expected "
-          f"{expect}); plain route {plain_wall:.2f} s; trees identical "
-          f"{same}", flush=True)
-    if launches != expect:
-        fail(f"tree_histogram launched {launches} times on the wide forest, "
-             f"expected {expect}")
+    turns = forest_turns(RandomForestTrainBatchOp, WIDE_FOREST, table, grow,
+                         expect)
+    same = same_trees(turns)
+    print(f"wide forest ({WIDE_ROWS} rows x 784 columns, {WIDE_FOREST}) "
+          f"in turns: walls {turn_walls(turns)} s; median kernel "
+          f"{turns['kernel_median_s']:.3f} s, plain "
+          f"{turns['plain_median_s']:.3f} s; {turns['launches']} "
+          f"tree_histogram launches per kernel run (expected {expect}); "
+          f"trees identical {same}", flush=True)
     if not all(same.values()):
         fail("the kernel route grew other trees than the plain route on the "
              "784-column table")
-    return dict(launches=launches, wall_s=wall, plain_wall_s=plain_wall)
+    return dict(launches=turns["launches"], walls_s=turn_walls(turns),
+                wall_s=turns["kernel_median_s"],
+                plain_wall_s=turns["plain_median_s"])
+
+
+FOREST_TURNS = ("plain", "kernel", "kernel", "plain")
+
+
+def forest_turns(op_cls, params, table, grow, expect):
+    """Trains through ``op_cls`` in FOREST_TURNS order, the plain route under
+    ``ALINK_GBDT_PALLAS=0``, none of the runs instrumented; each kernel run
+    must launch ``tree_histogram`` ``expect`` times. Returns the turns as
+    (route, wall s, model table), the median wall of each route and the
+    kernel runs' launches."""
+    from alink_tpu_torch.native import kernels
+
+    turns = []
+    for route in FOREST_TURNS:
+        kernels.reset_launches()
+        if route == "plain":
+            os.environ[grow.HIST_KERNEL_ENV] = "0"
+        try:
+            model, wall = train_trees(op_cls, params, table)
+        finally:
+            os.environ.pop(grow.HIST_KERNEL_ENV, None)
+        launches = kernels.launches()["tree_histogram"]
+        if launches != (expect if route == "kernel" else 0):
+            fail(f"tree_histogram launched {launches} times in a {route} "
+                 f"run of {params}, expected "
+                 f"{expect if route == 'kernel' else 0}")
+        turns.append((route, wall, model))
+    return dict(turns=turns, launches=expect, **{
+        f"{r}_median_s": float(np.median([w for rt, w, _ in turns
+                                          if rt == r]))
+        for r in ("kernel", "plain")})
+
+
+def turn_walls(turns):
+    return [(route, round(wall, 3)) for route, wall, _ in turns["turns"]]
+
+
+def same_trees(turns, model=None):
+    """Whether every turn's trees (and ``model``'s) are the first turn's."""
+    from alink_tpu_torch.common.model import table_to_model
+
+    models = [m for _, _, m in turns["turns"]] + \
+        ([model] if model is not None else [])
+    first = table_to_model(models[0])[1]
+    same = {k: True for k in ("feats", "thrs", "leaves")}
+    for m in models[1:]:
+        arrays = table_to_model(m)[1]
+        for k in same:
+            same[k] = same[k] and bool(np.array_equal(arrays[k], first[k]))
+    return same
 
 
 def main_path_histograms(peaks, kept):
@@ -1387,10 +1467,13 @@ def serve_trees(op_cls, model_src, X_test, y_test, label):
 
 
 def forest_path(workdir, X, y, peaks):
-    """Phase 6: the forest at full size through the operators on the card.
-    Returns the main path's tree_histogram launches, the device ms of its
-    level calls and level programs there, and the kernel's timings on the
-    first tree's inputs."""
+    """Phase 6: the forest at full size through the operators on the card:
+    one instrumented kernel run (launches, CUDA events at every level, the
+    first tree's level inputs), then the walls of both routes timed in
+    turns without instrumentation (plain, kernel, kernel, plain). Returns
+    the main path's tree_histogram launches, the device ms of its level
+    calls and level programs there, the walls, and the kernel's timings on
+    the first tree's inputs."""
     import torch
 
     from alink_tpu_torch.common.model import table_to_model
@@ -1403,6 +1486,9 @@ def forest_path(workdir, X, y, peaks):
     n_tr = COVTYPE_TRAIN
     train = covertype_table(X[:n_tr], y[:n_tr])
     X_test, y_test = X[n_tr:], y[n_tr:]
+    # the main path's run: CUDA events at every level and level call, and
+    # the first tree's level inputs kept; its wall is not a timing (the
+    # walls are timed below, in turns, with no instrumentation)
     levels, launch_ev, kept, restore = instrument_forest(grow)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1418,7 +1504,8 @@ def forest_path(workdir, X, y, peaks):
     for i, (lv, a, b) in enumerate(levels):
         (first if i < depth else rest)[lv] += a.elapsed_time(b)
     launch_ms = [a.elapsed_time(b) for a, b in launch_ev]
-    print(f"forest train ({n_tr} rows, {FOREST}): {wall:.2f} s wall; "
+    print(f"forest train ({n_tr} rows, {FOREST}), the instrumented run: "
+          f"{wall:.2f} s wall (not a timing); "
           f"{launches} tree_histogram launches, {sum(launch_ms):.1f} ms of "
           f"device time in the level calls, sort of node included (mean "
           f"{np.mean(launch_ms):.4f} ms, by level of the first tree "
@@ -1435,19 +1522,16 @@ def forest_path(workdir, X, y, peaks):
     stats = main_path_histograms(peaks, kept)
     del kept
 
-    os.environ[grow.HIST_KERNEL_ENV] = "0"
-    try:
-        plain_model, plain_wall = train_trees(RandomForestTrainBatchOp,
-                                              FOREST, train)
-    finally:
-        del os.environ[grow.HIST_KERNEL_ENV]
-    (meta, arrays), (_, plain_arrays) = (table_to_model(m)
-                                         for m in (model, plain_model))
-    same = {k: np.array_equal(arrays[k], plain_arrays[k])
-            for k in ("feats", "thrs", "leaves")}
-    print(f"forest trees vs the ALINK_GBDT_PALLAS=0 route "
-          f"({plain_wall:.2f} s wall): identical {same}; split features "
-          f"sha1 {hashlib.sha1(arrays['feats'].tobytes()).hexdigest()}",
+    turns = forest_turns(RandomForestTrainBatchOp, FOREST, train, grow,
+                         expect)
+    same = same_trees(turns, model)
+    arrays = table_to_model(model)[1]
+    print(f"forest walls in turns, no instrumentation: "
+          f"{turn_walls(turns)} s; median kernel "
+          f"{turns['kernel_median_s']:.3f} s, plain (ALINK_GBDT_PALLAS=0) "
+          f"{turns['plain_median_s']:.3f} s; trees of every run identical "
+          f"{same}; split features sha1 "
+          f"{hashlib.sha1(arrays['feats'].tobytes()).hexdigest()}",
           flush=True)
     if not all(same.values()):
         fail("the kernel route grew other trees than the plain route")
@@ -1476,8 +1560,11 @@ def forest_path(workdir, X, y, peaks):
         level_calls_total_ms=float(sum(launch_ms)),
         first_tree_level_call_ms=launch_ms[:depth],
         level_program_total_ms=sum(first) + sum(rest),
-        level_program_first_tree_ms=first, train_wall_s=wall,
-        plain_train_wall_s=plain_wall), stats
+        level_program_first_tree_ms=first,
+        instrumented_train_wall_s=wall,
+        train_wall_s=turns["kernel_median_s"],
+        plain_train_wall_s=turns["plain_median_s"],
+        train_walls_in_turns_s=turn_walls(turns)), stats
 
 
 def gbdt_path(X, y):
@@ -4776,6 +4863,461 @@ def serving_path(workdir, served_main, card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: MLM pretraining (no kernel of the port on the path)
+# ---------------------------------------------------------------------------
+
+# 15.1/15.2: BERT-base width on the first 1,024 review lines
+PRETRAIN_BASE = dict(hidden_size=768, num_layers=12, num_heads=12,
+                     intermediate_size=3072, max_len=128, batch_size=32,
+                     vocab_size=30522, seed=SEED)
+PRETRAIN_ROWS = 1_024
+PRETRAIN_EPOCHS = 2
+PRETRAIN_PROFILE_ROWS = 256            # 8 steps; steps 2-7 profiled
+PRETRAIN_PROFILE_STEPS = (1, 6)        # first and last profiled, from 0
+PRETRAIN_STREAM = dict(block_rows=256, buffer_rows=512, limit=PRETRAIN_ROWS)
+PRETRAIN_CKPT_EVERY = 16               # 15.2: one mid-epoch save
+# 15.3: the CPU tests' configuration (tests/test_torch_pretrain.py)
+PRETRAIN_TINY = dict(hidden_size=32, num_layers=1, num_heads=2,
+                     intermediate_size=64, max_len=24, epochs=2,
+                     batch_size=32, seed=SEED)
+PRETRAIN_TINY_ROWS = 300
+PRETRAIN_TINY_VOCAB = 300
+PRETRAIN_FP32_ATOL = 1e-5     # loss history, card vs CPU route, fp32
+# 15.4: bench.py's bench_bert_quality configuration (bench.py:639-650)
+BERT_QUALITY_PRETRAIN = dict(
+    vocab_size=2000, hidden_size=96, num_layers=2, num_heads=4,
+    intermediate_size=192, max_len=32, epochs=5, batch_size=64,
+    learning_rate=3e-4, seed=0)
+BERT_QUALITY_FINETUNE = dict(
+    maxSeqLength=32, numEpochs=14, batchSize=32, learningRate=5e-4,
+    randomSeed=0, poolingStrategy="mean")
+# alink_tpu's real_holdout_accuracy at this configuration on the CPU, one
+# device (77 of 101 rows; scripts/reference_bert_quality.py)
+BERT_QUALITY_REFERENCE_ACC = 77 / 101
+BERT_QUALITY_FLOOR = BERT_QUALITY_REFERENCE_ACC - 0.05
+
+
+def pretrain_step_events(pre, prof=None):
+    """Wraps ``pre.make_train_step`` (the in-memory loop's one-step
+    function) so that each step records CUDA events around itself, on the
+    stream, without a host sync; with ``prof`` (a ``torch.profiler``
+    profile), the profiler runs over steps PRETRAIN_PROFILE_STEPS, synced
+    at both ends, and the window's host seconds are appended to the events
+    list's ``window_s``. Returns (events, restore)."""
+    import torch
+
+    orig = pre.make_train_step
+    events = _Events()
+    first, last = PRETRAIN_PROFILE_STEPS
+
+    def make(*args, **kw):
+        step = orig(*args, **kw)
+
+        def timed(*a, **k):
+            i = len(events)
+            if prof is not None and i == first:
+                torch.cuda.synchronize()
+                prof.start()
+                events.t_window = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*a, **k)
+            end.record()
+            events.append((start, end))
+            if prof is not None and i == last:
+                torch.cuda.synchronize()
+                events.window_s = time.perf_counter() - events.t_window
+                prof.stop()
+            return out
+        return timed
+
+    def restore():
+        pre.make_train_step = orig
+
+    pre.make_train_step = make
+    return events, restore
+
+
+class _Events(list):
+    """A list of (start, end) CUDA events with the profiled window's host
+    seconds beside it."""
+    t_window = window_s = None
+
+
+def pretrain_split(prof, steps):
+    """Device ms a step by group from ``prof`` (a finished ``torch.profiler``
+    run over ``steps`` steps, CUDA activity): products (cuBLAS), the
+    optimizer's multi-tensor kernels, copies and fills, elementwise and the
+    rest; their sum (``busy``) and the 8 kernels of most device time."""
+    from torch.autograd import DeviceType
+
+    groups = {"products": 0.0, "optimizer": 0.0, "copies": 0.0,
+              "elementwise": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        name = ev.key.lower()
+        ms = ev.self_device_time_total / 1e3 / steps
+        if any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet",
+                                   "cublas", "matmul")):
+            key = "products"
+        elif "multi_tensor" in name or "foreach" in name:
+            key = "optimizer"
+        elif "memcpy" in name or "memset" in name:
+            key = "copies"
+        else:
+            key = "elementwise"
+        groups[key] += ms
+        top.append((ms, ev.count / steps, ev.key[:60]))
+    groups["busy"] = sum(groups.values())
+    groups["top"] = [(round(ms, 3), n, k) for ms, n, k in sorted(top)[-8:]]
+    return groups
+
+
+def pretrain_full_width(peaks, problems):
+    """15.1: ``pretrain_mlm`` at BERT-base width on the in-memory loop (2
+    epochs of 1,024 rows, batch 32, seq 128): per-step device-clock times
+    from CUDA events, samples/s, MFU, peak memory; then steps 2-7 of an
+    8-step run of the same model under ``torch.profiler`` for the device
+    time by group and the idle share (1 − busy / the main run's median
+    step). Returns the row and the tokenizer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import alink_tpu_torch.dl.pretrain as pre
+    from alink_tpu_torch.dl.data import load_reviews
+    from alink_tpu_torch.dl.tokenizer import Tokenizer
+
+    texts = load_reviews(limit=PRETRAIN_ROWS)
+    tok = Tokenizer.build(texts, vocab_size=PRETRAIN_BASE["vocab_size"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, restore = pretrain_step_events(pre)
+    t0 = time.perf_counter()
+    try:
+        cfg, params, _, hist = pre.pretrain_mlm(
+            texts, tokenizer=tok, epochs=PRETRAIN_EPOCHS, **PRETRAIN_BASE)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    starts = [a for a, _ in events]
+    step_ms = [a.elapsed_time(b) for a, b in zip(starts[1:-1], starts[2:])]
+    step_ms.append(events[-1][0].elapsed_time(events[-1][1]))
+    span_s = starts[1].elapsed_time(events[-1][1]) / 1e3
+    B, S = PRETRAIN_BASE["batch_size"], PRETRAIN_BASE["max_len"]
+    ms = float(np.median(step_ms))
+    enc_flops = train_step_flops(cfg, B, S)
+    head_flops = 6.0 * B * S * cfg.hidden_size * cfg.vocab_size
+    flops = enc_flops + head_flops
+    # a short run of the same model with the profiler over 6 of its steps
+    # (not the first, not the last)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    pevents, restore = pretrain_step_events(pre, prof)
+    try:
+        pre.pretrain_mlm(texts[:PRETRAIN_PROFILE_ROWS], tokenizer=tok,
+                         epochs=1, **PRETRAIN_BASE)
+    finally:
+        restore()
+    n_prof = PRETRAIN_PROFILE_STEPS[1] - PRETRAIN_PROFILE_STEPS[0] + 1
+    split = pretrain_split(prof, n_prof)
+    split["traced_ms_per_step"] = pevents.window_s * 1e3 / n_prof
+    split["idle_share"] = 1.0 - split["busy"] / ms
+    row = dict(
+        rows=len(texts), vocab_reached=tok.vocab_size, steps=len(events),
+        loss_by_epoch=hist, wall_s=wall,
+        samples_per_s=B * (len(events) - 1) / span_s,
+        ms_per_step_median=ms, ms_per_step_min=float(min(step_ms)),
+        ms_per_step_max=float(max(step_ms)), peak_gib=peak / 2**30,
+        step_tflop=flops / 1e12, head_tflop=head_flops / 1e12,
+        mfu=flops / (ms / 1e3) / peaks[1], device_ms_by_group=split,
+        params=sum(int(t.numel()) for t in params.values()))
+    print(f"15.1 MLM pretraining (hidden {cfg.hidden_size}, "
+          f"{cfg.num_layers} layers, {cfg.num_heads} heads, "
+          f"{cfg.intermediate_size}; seq {S}, batch {B}, {len(texts)} rows, "
+          f"{PRETRAIN_EPOCHS} epochs, vocab_size "
+          f"{PRETRAIN_BASE['vocab_size']} asked, {tok.vocab_size} reached "
+          f"by the corpus): {row['samples_per_s']:.1f} samples/s from step "
+          f"2 on (device clock), {ms:.2f} ms a step (median of "
+          f"{len(step_ms)}, {row['ms_per_step_min']:.2f}–"
+          f"{row['ms_per_step_max']:.2f}); {flops / 1e12:.3f} TFLOP a step "
+          f"(tied head {head_flops / 1e12:.4f}), MFU {row['mfu']:.4f} of "
+          f"{peaks[1] / 1e12:.0f} TFLOP/s; peak device memory "
+          f"{row['peak_gib']:.2f} GiB; loss by epoch {hist}; wall "
+          f"{wall:.1f} s; device ms a step by group over steps "
+          f"{PRETRAIN_PROFILE_STEPS[0] + 1}-{PRETRAIN_PROFILE_STEPS[1] + 1} "
+          f"of a profiled run of {PRETRAIN_PROFILE_ROWS // B} " +
+          ", ".join(f"{k} {v}" for k, v in split.items()), flush=True)
+    if not (len(hist) == PRETRAIN_EPOCHS and all(np.isfinite(hist))
+            and hist[1] < hist[0]):
+        problems.append(f"15.1: the loss is not finite or not falling: {hist}")
+    return row, tok
+
+
+def pretrain_scale_loop(workdir, problems):
+    """15.2: the same model over a ``CorpusStream`` of the first 1,024
+    lines (blocks of 256, a buffer of 512) with ``accum_steps=2``, one
+    epoch, checkpointing every 16 steps (one mid-epoch save and the epoch's;
+    one kept): rows/s in the step loop and over the call, the registry's
+    p50 of ``train.accum_flush_s``, ``train.feed_wait_s`` and
+    ``train.step_s``, and ``train.ckpt_saves``."""
+    import torch
+
+    import alink_tpu_torch.dl.pretrain as pre
+    from alink_tpu_torch.common.metrics import metrics
+    from alink_tpu_torch.dl import checkpoint as ckpt_mod
+    from alink_tpu_torch.dl.data import CorpusStream, data_path
+
+    metrics.reset()   # the p50s below read this run alone
+    cs = CorpusStream(data_path("reviews_unlabeled.txt"), **PRETRAIN_STREAM)
+    real_save = ckpt_mod.TrainCheckpointManager.save
+    save_s = []
+
+    def timed_save(self, *a, **k):
+        t = time.perf_counter()
+        real_save(self, *a, **k)
+        save_s.append(time.perf_counter() - t)
+
+    ckpt_mod.TrainCheckpointManager.save = timed_save
+    d = os.path.join(workdir, "pretrain_ckpt")
+    t0 = time.perf_counter()
+    try:
+        _, _, tok, hist = pre.pretrain_mlm(
+            cs, epochs=1, accum_steps=2, checkpoint_dir=d,
+            checkpoint_every=PRETRAIN_CKPT_EVERY, checkpoint_keep=1,
+            resume=False, **PRETRAIN_BASE)
+    finally:
+        ckpt_mod.TrainCheckpointManager.save = real_save
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p50 = {k: metrics.histogram(k)["p50"] for k in (
+        "train.accum_flush_s", "train.feed_wait_s", "train.step_s")}
+    loop_s = metrics.histogram("train.step_s")["sum"]
+    counters = {k: metrics.counter(k) for k in (
+        "train.steps", "train.micro_steps", "train.rows", "train.ckpt_saves")}
+    row = dict(rows=len(cs), wall_s=wall, save_s=save_s, loop_s=loop_s,
+               rows_per_s=len(cs) / loop_s,
+               rows_per_s_with_saves=len(cs) / wall,
+               max_resident_rows=cs.max_resident_rows,
+               buffer_rows=cs.buffer_rows, loss=hist, p50_s=p50,
+               counters=counters, vocab_reached=tok.vocab_size)
+    print(f"15.2 the corpus-scale loop, 15.1's model ({len(cs)} rows "
+          f"streamed in blocks of {cs.block_rows}, buffer {cs.buffer_rows}, "
+          f"accum_steps 2, checkpoint_every {PRETRAIN_CKPT_EVERY}): "
+          f"{row['rows_per_s']:.1f} rows/s in the step loop (the sum of "
+          f"train.step_s, {loop_s:.2f} s), {row['rows_per_s_with_saves']:.1f}"
+          f" over the call's wall ({wall:.1f} s: set-up, the saves "
+          f"{[round(t, 2) for t in save_s]} s); p50 (metrics "
+          f"registry) {p50}; counters {counters}; max resident rows "
+          f"{cs.max_resident_rows}; loss {hist}", flush=True)
+    if not all(np.isfinite(hist)):
+        problems.append(f"15.2: the loss is not finite: {hist}")
+    if not cs.max_resident_rows <= cs.buffer_rows:
+        problems.append(f"15.2: {cs.max_resident_rows} resident rows exceed "
+                        f"the buffer of {cs.buffer_rows}")
+    if counters["train.ckpt_saves"] != 2 or \
+            counters["train.micro_steps"] != 2 * counters["train.steps"]:
+        problems.append(f"15.2: counters {counters}")
+    shutil.rmtree(d, ignore_errors=True)
+    return row
+
+
+def state_gap(a, b):
+    """(bitwise equal, largest |Δ|) of two state dicts."""
+    import torch
+
+    if sorted(a) != sorted(b):
+        return False, float("inf")
+    gap = max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+    return all(torch.equal(a[k], b[k]) for k in a), gap
+
+
+def pretrain_contracts(workdir, problems):
+    """15.3: at the CPU tests' configuration, on the card: async feed ≡
+    sync; streaming ≡ in-memory under the same block schedule; a run
+    resumed from a mid-epoch checkpoint ≡ the straight run, each bitwise;
+    the card's loss history against the port's CPU route from the same
+    carried weights, at the default bf16 compute (LOSS_ROUTE_ATOL) and in
+    fp32 (PRETRAIN_FP32_ATOL)."""
+    import functools
+
+    import torch
+
+    import alink_tpu_torch.dl.pretrain as pre
+    from alink_tpu_torch.dl import checkpoint as ckpt_mod
+    from alink_tpu_torch.dl.convert import torch_to_flax
+    from alink_tpu_torch.dl.data import CorpusStream, load_reviews
+    from alink_tpu_torch.dl.modules import BertConfig, TransformerEncoder
+    from alink_tpu_torch.dl.tokenizer import Tokenizer
+
+    texts = load_reviews(limit=PRETRAIN_TINY_ROWS)
+    path = os.path.join(workdir, "pretrain_tiny.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(texts) + "\n")
+    tok = Tokenizer.build(texts, vocab_size=PRETRAIN_TINY_VOCAB)
+
+    def run(data, **kw):
+        return pre.pretrain_mlm(data, tokenizer=tok, **{**PRETRAIN_TINY,
+                                                        **kw})
+
+    def stream():
+        return CorpusStream(path, block_rows=48, buffer_rows=96)
+
+    out = {}
+
+    def bitwise(label, a, b):
+        (_, pa, _, ha), (_, pb, _, hb) = a, b
+        same, gap = state_gap(pa, pb)
+        out[label] = dict(bitwise=same and ha == hb, max_abs_diff=gap,
+                          loss=ha)
+        if not (same and ha == hb):
+            problems.append(f"15.3 {label}: not bitwise (parameters max|Δ| "
+                            f"{gap}, histories {ha} / {hb})")
+
+    bitwise("async = sync", run(texts, feed="async"), run(texts, feed="sync"))
+    straight = run(stream())
+    bitwise("streaming = in-memory", straight, run(texts, block_rows=48))
+
+    d = os.path.join(workdir, "pretrain_resume")
+    shutil.rmtree(d, ignore_errors=True)
+    real_save = ckpt_mod.TrainCheckpointManager.save
+    saves = []
+
+    def crashing(self, step, params, opt_state, extra):
+        real_save(self, step, params, opt_state, extra)
+        saves.append(dict(extra))
+        if len(saves) == 3:
+            raise RuntimeError("injected mid-epoch crash")
+
+    ckpt_mod.TrainCheckpointManager.save = crashing
+    try:
+        run(stream(), checkpoint_dir=d, checkpoint_every=3)
+        problems.append("15.3: the injected crash did not happen")
+    except RuntimeError as e:
+        if "injected" not in str(e):
+            raise
+    finally:
+        ckpt_mod.TrainCheckpointManager.save = real_save
+    resumed = run(stream(), checkpoint_dir=d, checkpoint_every=3)
+    bitwise("resumed mid-epoch = straight",
+            (None, resumed[1], None, resumed[3][-1:]),
+            (None, straight[1], None, straight[3][-1:]))
+    out["resumed mid-epoch = straight"]["crash_after"] = saves[-1]
+    shutil.rmtree(d, ignore_errors=True)
+
+    # the card against the port's CPU route from the same carried weights
+    for label, dtype, bound in (("bf16", torch.bfloat16, LOSS_ROUTE_ATOL),
+                                ("fp32", torch.float32, PRETRAIN_FP32_ATOL)):
+        cfg = BertConfig(vocab_size=tok.vocab_size, hidden_size=32,
+                         num_layers=1, num_heads=2, intermediate_size=64,
+                         max_position=24, dropout=0.0, pool="cls",
+                         dtype=dtype)
+        init = torch_to_flax(TransformerEncoder(cfg).init_weights(SEED)
+                             .state_dict(), cfg)
+        init["params"].pop("type_emb")
+        real_cfg = pre.BertConfig
+        pre.BertConfig = functools.partial(real_cfg, dtype=dtype)
+        try:
+            card = run(texts, init_params=init)[3]
+            with torch_device("cpu"):
+                cpu = run(texts, init_params=init)[3]
+        finally:
+            pre.BertConfig = real_cfg
+        gap = float(np.max(np.abs(np.subtract(card, cpu))))
+        out[f"card vs CPU, {label}"] = dict(card=card, cpu=cpu, gap=gap,
+                                            bound=bound)
+        if not gap <= bound:
+            problems.append(f"15.3: the card's {label} loss history {card} "
+                            f"is {gap} from the CPU route's {cpu} (bound "
+                            f"{bound})")
+    print("15.3 pretraining contracts on the card (hidden 32, 1 layer, "
+          f"{PRETRAIN_TINY_ROWS} rows): " + json.dumps(out), flush=True)
+    return out
+
+
+def bert_quality_route(workdir):
+    """15.4: bench.py's ``bench_bert_quality`` on the port: MLM pretraining
+    on data/reviews_unlabeled.txt (``pretrain_and_save``), the fine-tune
+    ``BertTextClassifierTrainBatchOp(checkpointFilePath=...)`` on
+    ``sst2_split(seed=0)``'s train rows, and the holdout's accuracy through
+    ``BertTextClassifierPredictBatchOp``. Runs on the port's default device
+    (``ALINK_TORCH_DEVICE``). Returns the accuracy, the MLM losses and each
+    stage's wall."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.dl.data import load_reviews, sst2_split
+    from alink_tpu_torch.dl.pretrain import pretrain_and_save
+    from alink_tpu_torch.operator.batch import (
+        BertTextClassifierPredictBatchOp, BertTextClassifierTrainBatchOp,
+        TableSourceBatchOp)
+
+    d = os.path.join(workdir, "bert_quality_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    pre = pretrain_and_save(load_reviews(), d, **BERT_QUALITY_PRETRAIN)
+    t1 = time.perf_counter()
+    tr_t, tr_y, ho_t, ho_y = sst2_split(seed=0)
+    model = BertTextClassifierTrainBatchOp(
+        textCol="text", labelCol="label", checkpointFilePath=d,
+        **BERT_QUALITY_FINETUNE).link_from(
+        TableSourceBatchOp(MTable({"text": tr_t, "label": tr_y}))).collect()
+    t2 = time.perf_counter()
+    pred = BertTextClassifierPredictBatchOp(predictionCol="p").link_from(
+        TableSourceBatchOp(model),
+        TableSourceBatchOp(MTable({"text": ho_t, "label": ho_y}))).collect()
+    t3 = time.perf_counter()
+    shutil.rmtree(d, ignore_errors=True)
+    return dict(
+        real_holdout_accuracy=float(np.mean(np.asarray(pred.col("p"))
+                                            == ho_y)),
+        train_rows=len(tr_t), holdout_rows=len(ho_t),
+        mlm_initial_loss=pre["initial_loss"],
+        mlm_final_loss=pre["final_loss"], vocab_size=pre["vocab_size"],
+        pretrain_s=t1 - t0, finetune_s=t2 - t1, predict_s=t3 - t2)
+
+
+def pretraining_path(workdir, peaks, card):
+    """Phase 15: 15.1–15.4. No kernel of the port runs here (the
+    pretraining encoder takes ``full_attention``): the launch counters,
+    set to 0 first, must read 0 after it."""
+    from alink_tpu_torch.native import kernels
+
+    problems = []
+    kernels.reset_launches()
+    out = {}
+    t = time.perf_counter()
+    out["15.1"], _ = pretrain_full_width(peaks, problems)
+    out["15.2"] = pretrain_scale_loop(workdir, problems)
+    out["15.3"] = pretrain_contracts(workdir, problems)
+    q = bert_quality_route(workdir)
+    out["15.4"] = q
+    print(f"15.4 bench.py's quality route on the card: real_holdout_accuracy "
+          f"{q['real_holdout_accuracy']:.4f} (floor {BERT_QUALITY_FLOOR:.4f},"
+          f" the reference's {BERT_QUALITY_REFERENCE_ACC:.4f} on the CPU "
+          f"less 0.05; {q['holdout_rows']} holdout rows); MLM loss "
+          f"{q['mlm_initial_loss']} -> {q['mlm_final_loss']} (vocab "
+          f"{q['vocab_size']}); walls: pretrain {q['pretrain_s']:.1f} s, "
+          f"fine-tune {q['finetune_s']:.1f} s, predict "
+          f"{q['predict_s']:.1f} s", flush=True)
+    if not q["real_holdout_accuracy"] >= BERT_QUALITY_FLOOR:
+        problems.append(f"15.4: holdout accuracy "
+                        f"{q['real_holdout_accuracy']} is below "
+                        f"{BERT_QUALITY_FLOOR}")
+    out["launches"] = kernels.launches()
+    out["seconds"] = time.perf_counter() - t
+    print(f"[{card}] phase 15 kernel launches: {out['launches']}",
+          flush=True)
+    if any(out["launches"].values()):
+        problems.append(f"phase 15 launched kernels of the port: "
+                        f"{out['launches']}")
+    if problems:
+        fail("phase 15: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4873,6 +5415,10 @@ def main() -> int:
     marks.append(("phase 13 ingest", time.perf_counter()))
     serve_launches, _ = serving_path(workdir, served_main, card)
     marks.append(("phase 14 serving", time.perf_counter()))
+    pretraining = pretraining_path(workdir, peaks, card)
+    print(f"[{card}] phase 15: " + json.dumps(pretraining, default=str),
+          flush=True)
+    marks.append(("phase 15 pretraining", time.perf_counter()))
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]

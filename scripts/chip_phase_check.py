@@ -16,7 +16,9 @@ phase 4's BERT-base serving and phase 7's GBDT on the Covertype-layout
 rows, both run first), ``ingest`` (phase 13, foreign-model ingest:
 BASELINE #3 and #5; it builds no kernel), ``serving`` (phase 14, BERT-base
 serving through ``ModelServer``, with phase 4's model and request, run
-first). Each
+first), ``pretrain`` (phase 15, MLM pretraining: BERT-base width, the
+corpus-scale loop, the contracts, bench.py's quality route; it builds no
+kernel). Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
 """
@@ -33,7 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
-          "families", "ingest", "serving")
+          "families", "ingest", "serving", "pretrain")
 
 
 def main() -> int:
@@ -57,7 +59,7 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if phases != ["ingest"]:
+    if not set(phases) <= {"ingest", "pretrain"}:
         kernels.build()
         print(f"build {kernels.build_seconds:.1f} s", flush=True)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
@@ -87,7 +89,9 @@ def main() -> int:
            "sst2": lambda: cs.finetune_sst2(workdir),
            "forest": cs.wide_forest_path, "families": families,
            "ingest": lambda: cs.ingest_path(workdir, card.splitlines()[0]),
-           "serving": serving}
+           "serving": serving,
+           "pretrain": lambda: cs.pretraining_path(workdir, peaks,
+                                                   card.splitlines()[0])}
     out = {}
     for name in phases:
         t0 = time.perf_counter()

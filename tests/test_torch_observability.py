@@ -183,6 +183,66 @@ def test_retry_policy_delays_match_reference(seed):
     assert ref[2] == 4 and len(ref[3]) == 3
 
 
+def _xla_error(status):
+    """An exception classified as jaxlib's runtime error (the taxonomy
+    matches the type by name), carrying ``status``."""
+    return type("XlaRuntimeError", (RuntimeError,), {})(
+        f"{status}: device event")
+
+
+# (PyTorch device error, the reference's XLA status for the same event,
+# retryable in both)
+_DEVICE_ERRORS = [
+    ("torch.OutOfMemoryError",
+     lambda t: t.OutOfMemoryError("CUDA out of memory. Tried to allocate "
+                                  "2.00 GiB"),
+     "RESOURCE_EXHAUSTED", True),
+    ("torch.cuda.OutOfMemoryError",
+     lambda t: t.cuda.OutOfMemoryError("CUDA out of memory"),
+     "RESOURCE_EXHAUSTED", True),
+    ("AcceleratorError out of memory",
+     lambda t: t.AcceleratorError("CUDA error: out of memory"),
+     "RESOURCE_EXHAUSTED", True),
+    ("RuntimeError out of memory",
+     lambda t: RuntimeError("CUDA error: out of memory\nCUDA kernel errors "
+                            "might be asynchronously reported"),
+     "RESOURCE_EXHAUSTED", True),
+    ("illegal memory access",
+     lambda t: t.AcceleratorError("CUDA error: an illegal memory access was "
+                                  "encountered"),
+     "INTERNAL", False),
+    ("device-side assert",
+     lambda t: t.AcceleratorError("CUDA error: device-side assert "
+                                  "triggered"),
+     "INTERNAL", False),
+    ("unspecified launch failure",
+     lambda t: RuntimeError("CUDA error: unspecified launch failure"),
+     "INTERNAL", False),
+    ("program error",
+     lambda t: RuntimeError("mat1 and mat2 shapes cannot be multiplied "
+                            "(4x3 and 5x2)"),
+     "INVALID_ARGUMENT", False),
+]
+
+
+@pytest.mark.parametrize("label,make,status,retry", _DEVICE_ERRORS,
+                         ids=[c[0] for c in _DEVICE_ERRORS])
+def test_device_errors_classify_as_the_reference_classifies_xla(
+        label, make, status, retry):
+    """An out-of-memory error is transient, as the reference's
+    RESOURCE_EXHAUSTED is; a sticky CUDA error (the context is unusable
+    after it) and a program error are fatal, as the reference's INTERNAL
+    and INVALID_ARGUMENT are."""
+    import torch
+
+    ref = _mod("alink_tpu", "exceptions").is_retryable
+    port = _mod("alink_tpu_torch", "exceptions").is_retryable
+    assert ref(_xla_error(status)) is retry
+    assert port(make(torch)) is retry
+    # the reference's own XLA classification stays as it was in the port
+    assert port(_xla_error(status)) is retry
+
+
 def test_dead_letters_and_summary_keys_match_reference():
     out = {}
     for pkg in PKGS:

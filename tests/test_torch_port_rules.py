@@ -51,6 +51,7 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.parallel.aps",
             "alink_tpu_torch.operator.batch.huge",
             "alink_tpu_torch.dl.train", "alink_tpu_torch.dl.checkpoint",
+            "alink_tpu_torch.dl.pretrain", "alink_tpu_torch.graft_entry",
             "alink_tpu_torch.dl.data", "alink_tpu_torch.dl.pretrained",
             "alink_tpu_torch.operator.batch.dl",
             "alink_tpu_torch.common.staging",
@@ -343,7 +344,9 @@ def test_training_entry_points_refuse_cpu_without_request(monkeypatch):
     from alink_tpu_torch.common.exceptions import AkIllegalStateException
     from alink_tpu_torch.common.mtable import MTable
     from alink_tpu_torch.dl.modules import BertConfig, TransformerEncoder
+    from alink_tpu_torch.dl.pretrain import pretrain_and_save, pretrain_mlm
     from alink_tpu_torch.dl.train import TrainConfig, train_model
+    from alink_tpu_torch.graft_entry import entry
     from alink_tpu_torch.operator.batch import (
         BertTextClassifierTrainBatchOp, BertTextPairClassifierTrainBatchOp,
         BertTextRegressorTrainBatchOp, TableSourceBatchOp)
@@ -358,6 +361,8 @@ def test_training_entry_points_refuse_cpu_without_request(monkeypatch):
                                      "label": np.asarray([0, 1] * 2)}))
     kw = dict(textCol="text", labelCol="label", bertSize="tiny",
               maxSeqLength=8, numEpochs=1, batchSize=2)
+    pre_kw = dict(hidden_size=8, num_layers=1, num_heads=2,
+                  intermediate_size=16, max_len=8, epochs=1, batch_size=2)
     for run in (lambda: train_model(
                     TransformerEncoder(BertConfig.tiny(dtype=torch.float32)),
                     inputs, y, tc),
@@ -366,7 +371,11 @@ def test_training_entry_points_refuse_cpu_without_request(monkeypatch):
                 lambda: BertTextRegressorTrainBatchOp(**kw)
                 .link_from(src).collect(),
                 lambda: BertTextPairClassifierTrainBatchOp(
-                    textPairCol="pair", **kw).link_from(src).collect()):
+                    textPairCol="pair", **kw).link_from(src).collect(),
+                lambda: pretrain_mlm(["a b c", "d e f"], **pre_kw),
+                lambda: pretrain_and_save(["a b c", "d e f"],
+                                          os.devnull, **pre_kw),
+                entry):
         with pytest.raises(AkIllegalStateException):
             run()
     # asking for the CPU, either way, runs there
@@ -374,9 +383,13 @@ def test_training_entry_points_refuse_cpu_without_request(monkeypatch):
         TransformerEncoder(BertConfig.tiny(dtype=torch.float32)), inputs, y,
         tc, device="cpu")
     assert all(t.device.type == "cpu" for t in state.values())
+    _, params, _, hist = pretrain_mlm(["a b c", "d e f"], device="cpu",
+                                      **pre_kw)
+    assert all(t.device.type == "cpu" for t in params.values())
     monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
     assert BertTextClassifierTrainBatchOp(**kw).link_from(
         src).collect().num_rows > 0
+    assert len(pretrain_mlm(["a b c", "d e f"], **pre_kw)[3]) == 1
 
 
 def test_tensorflow_is_imported_only_inside_require_tf():

@@ -375,6 +375,11 @@ def test_async_feed_gives_the_sync_run(reference_runs):
     params, _ = reference_runs
     sync, _, hist = _port_train(params, feed="sync", optimizer="sgd")
     asyn, _, hist_a = _port_train(params, feed="async", optimizer="sgd")
+    # the async feed reports its transfer phases under "feed", as the
+    # reference's does; the rest of the history is the sync run's
+    feed = hist_a.pop("feed")
+    assert "feed" not in hist
+    assert feed["mode"] == "async" and feed["batches"] == 2 * 3
     assert hist == hist_a
     assert all(torch.equal(sync[k], asyn[k]) for k in sync)
 
