@@ -1,8 +1,8 @@
 """Diagnostic/report model of the static-analysis layer (port of the part of
-``alink_tpu.analysis.diagnostics`` that rule ALK111 needs). The report dict
-keeps the reference's keys for what it carries; the file:line locations,
-the info severity and the ordering of the source linter's findings come
-back with the other rules of ROADMAP A10.
+``alink_tpu.analysis.diagnostics`` that rules ALK110 and ALK111 need). The
+report dict keeps the reference's keys for what it carries; the file:line
+locations, the info severity and the ordering of the source linter's
+findings come back with the other rules of ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -16,6 +16,12 @@ WARNING = "warning"
 # rule id -> (default severity, one-line description), the reference's
 # entries for the rules the port checks
 RULES: Dict[str, tuple] = {
+    "ALK110": (WARNING,
+               "model loaded into a serving fleet without a readable "
+               ".ak.warmup.json sidecar — a respawned replica would fall "
+               "back to trace-on-first-traffic bring-up, breaking the "
+               "fleet's zero-trace steady-state contract (error severity "
+               "when the fleet respawns replicas)"),
     "ALK111": (WARNING,
                "quantized serving load without a real calibration sample "
                "or with the accuracy band disabled — int8/bf16 numerics "
@@ -66,10 +72,18 @@ class Report:
     def errors(self) -> List[Diagnostic]:
         return [d for d in self.diagnostics if d.severity == ERROR]
 
-    def to_dict(self) -> Dict[str, Any]:
-        by_rule: Dict[str, int] = {}
+    @property
+    def ok(self) -> bool:
+        return not self.diagnostics
+
+    def by_rule(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
         for d in self.diagnostics:
-            by_rule[d.rule] = by_rule.get(d.rule, 0) + 1
+            out[d.rule] = out.get(d.rule, 0) + 1
+        return out
+
+    def to_dict(self) -> Dict[str, Any]:
+        by_rule = self.by_rule()
         return {
             "engine": self.engine,
             "target": self.target,

@@ -1,15 +1,16 @@
 """Pre-flight checks of the port (port of the part of
 ``alink_tpu.analysis.plancheck`` that the serving tier calls): the
-validation mode, the last report, and rule ALK111's pre-flight of a
-quantized serving load. The reference's DAG validator (``validate_plan``,
-ALK101–ALK110) waits for ROADMAP A10.
+validation mode, the last report, rule ALK110's pre-flight of a model
+entering a serving fleet, and rule ALK111's pre-flight of a quantized
+serving load. The reference's DAG validator (``validate_plan``,
+ALK101–ALK109) waits for ROADMAP A10.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 from ..common.env import env_str
 from ..common.metrics import metrics
@@ -87,6 +88,55 @@ def preflight_quantized_load(name: str, *, policy: str, real_sample: bool,
     except Exception as e:
         metrics.incr("analysis.validator_errors")
         logger.debug("quantized-load pre-flight failed at %s: %r", where, e)
+        return None
+    _record_report(report, mode)
+    if report.diagnostics:
+        logger.warning("plan validation (%s, %s):\n%s",
+                       where, mode, report.render())
+    if mode == "error" and report.errors():
+        raise AkPlanValidationException(report)
+    return report
+
+
+def preflight_fleet_models(models: Sequence, *, recovery: bool = False,
+                           where: str = "fleet.load"
+                           ) -> Optional[Report]:
+    """Pre-flight for models entering a serving fleet (**ALK110**):
+    each ``(name, path)`` must carry a readable ``.ak.warmup.json``
+    sidecar, or a respawned replica would silently fall back to
+    trace-on-first-traffic bring-up. Warning severity by default;
+    ``recovery=True`` (a fleet that respawns replicas — the production
+    shape) escalates to error, refusing the load under
+    ``ALINK_VALIDATE_PLAN=error``. Same conventions as
+    :func:`preflight_quantized_load`: ``off`` skips, findings are counted,
+    a validator crash is counted and never propagated."""
+    from ..common.exceptions import AkPlanValidationException
+
+    mode = validation_mode()
+    if mode == "off":
+        return None
+    report = Report(engine="plan", target="ServingFleet")
+    try:
+        from ..serving.warmup_store import load_warmup_spec
+
+        for name, path in models:
+            spec = load_warmup_spec(path) if isinstance(path, str) else None
+            if spec is None:
+                report.add(
+                    "ALK110",
+                    f"model {name!r} ({path}) has no readable warmup "
+                    "sidecar — a respawned replica would warm from live "
+                    "traffic instead of disk, tracing on its first "
+                    "requests",
+                    where=f"fleet:{name}",
+                    severity=ERROR if recovery else "",
+                    hint="persist one by loading the model through "
+                         "ModelServer.load(..., persist_warmup=True) "
+                         "once, or write it with "
+                         "serving.save_warmup_spec()")
+    except Exception as e:
+        metrics.incr("analysis.validator_errors")
+        logger.debug("fleet pre-flight failed at %s: %r", where, e)
         return None
     _record_report(report, mode)
     if report.diagnostics:

@@ -3,9 +3,12 @@
 
 The recorder is the reference's, copied: named series, timers,
 fixed-bucket histograms (the same ``le`` edges, so the same quantiles),
-counters, gauges, and the Prometheus text exposition with the same series
-names. :func:`profile_trace` writes a ``torch.profiler`` Chrome trace where
-the reference starts ``jax.profiler``. The executor's node-phase accounting
+counters, gauges, the labeled histogram families that other processes'
+states merge into (``merge_histogram``: exact per-bucket count sums, so a
+fleet's quantiles are the quantiles of the union), export hooks, and the
+Prometheus text exposition with the same series names.
+:func:`profile_trace` writes a ``torch.profiler`` Chrome trace where the
+reference starts ``jax.profiler``. The executor's node-phase accounting
 (``node_phase_context``, ``executor_trace``) waits for the DAG executor
 (ROADMAP A1).
 
@@ -194,6 +197,10 @@ class StepMetrics:
         self._series: Dict[str, List[Dict[str, Any]]] = defaultdict(list)
         self._timers: Dict[str, List[float]] = defaultdict(list)
         self._hists: Dict[str, _Histogram] = {}
+        # merged-in histograms of other processes (fleet replicas), one
+        # series per label set, kept apart from this process's own
+        self._labeled_hists: Dict[str, Dict[tuple, _Histogram]] = {}
+        self._export_hooks: List[Any] = []
         self._gauges: Dict[str, Dict[tuple, float]] = {}
         self._counters: Dict[str, int] = defaultdict(int)
         self._counter_lock = threading.Lock()
@@ -255,6 +262,14 @@ class StepMetrics:
         with self._data_lock:
             return self._gauges.get(name, {}).get(key)
 
+    def register_export_hook(self, fn):
+        """Register a callable invoked at the top of every
+        ``export_prometheus()`` — the mechanism for a subsystem to refresh
+        its gauges exactly when a scraper looks. Hook failures are counted
+        (``metrics.dropped``), never raised into the exposition."""
+        if fn not in self._export_hooks:
+            self._export_hooks.append(fn)
+
     def incr(self, name: str, n: int = 1):
         """Monotonic event counter (retries, dead-letter drops, defusions).
         Counters count even while recording is disabled — they are the
@@ -307,6 +322,50 @@ class StepMetrics:
         with self._data_lock:
             return {n: h.state() for n, h in self._hists.items()}
 
+    def merge_histogram(self, name: str, state: Any, **labels) -> None:
+        """Merge a serialized histogram state delta (from another
+        process's :meth:`histogram_states`) into the labeled family
+        ``name`` — per-bucket count sums, so the labeled series stays an
+        exact histogram of that sender's observations. Raises
+        ``ValueError`` on malformed state or bucket-edge mismatch; the
+        caller decides how loudly to drop."""
+        incoming = _Histogram.from_state(state)
+        key = tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+        with self._data_lock:
+            fam = self._labeled_hists.setdefault(name, {})
+            h = fam.get(key)
+            if h is None:
+                fam[key] = incoming
+            else:
+                h.merge(incoming)
+
+    def labeled_histogram(self, name: str, **labels
+                          ) -> Optional[Dict[str, Any]]:
+        key = tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+        with self._data_lock:
+            h = self._labeled_hists.get(name, {}).get(key)
+            h = h.snapshot() if h is not None else None
+        return h.stats() if h is not None else None
+
+    def merged_histogram(self, name: str, include_local: bool = False
+                         ) -> Optional[Dict[str, Any]]:
+        """Stats of the EXACT merge of every labeled series of ``name``
+        (optionally folding in the local unlabeled histogram): bucket
+        counts sum across senders, so p50/p90/p99 are quantiles of the
+        pooled distribution — never averaged averages. None when nothing
+        was ever merged."""
+        with self._data_lock:
+            parts = [h.snapshot()
+                     for h in self._labeled_hists.get(name, {}).values()]
+            if include_local and name in self._hists:
+                parts.append(self._hists[name].snapshot())
+        if not parts:
+            return None
+        out = parts[0]
+        for h in parts[1:]:
+            out.merge(h)
+        return out.stats()
+
     def summary(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
         with self._data_lock:
@@ -337,6 +396,12 @@ class StepMetrics:
         Names are stable ``alink_``-prefixed translations of the in-process
         dotted names; a name claimed by an earlier family is skipped rather
         than emitted twice (exposition must not repeat a metric)."""
+        for hook in list(self._export_hooks):
+            try:
+                hook()
+            except Exception as e:
+                _count_drop("export_hook", e)
+
         lines: List[str] = []
         seen: set = set()
 
@@ -352,6 +417,8 @@ class StepMetrics:
             timers = {n: (len(ts), sum(ts))
                       for n, ts in self._timers.items() if ts}
             hists = {n: h.snapshot() for n, h in self._hists.items()}
+            lhists = {n: {k: h.snapshot() for k, h in fam.items()}
+                      for n, fam in self._labeled_hists.items()}
             gauges = {n: dict(vals) for n, vals in self._gauges.items()}
 
         for name, vals in sorted(gauges.items()):
@@ -366,20 +433,34 @@ class StepMetrics:
                     if lkey else "")
                 lines.append(f"{m}{lbl} {_prom_float(v)}")
 
-        for name, h in sorted(hists.items()):
+        # one exposition family per histogram name: the local unlabeled
+        # series first, then every labeled (e.g. replica="r1") series —
+        # a single # TYPE header covers them all, as the format requires
+        fams: Dict[str, List[tuple]] = {}
+        for name, h in hists.items():
+            fams.setdefault(name, []).append(((), h))
+        for name, fam in lhists.items():
+            for lkey, h in sorted(fam.items()):
+                fams.setdefault(name, []).append((lkey, h))
+        for name, series in sorted(fams.items()):
             m = _prom_name(name, seconds=True)
             if m in seen:
                 continue
             seen.add(m)
             lines.append(f"# TYPE {m} histogram")
-            cum = 0
-            for edge, c in zip(h.buckets, h.counts):
-                cum += c
-                lines.append(f'{m}_bucket{{le="{_prom_float(edge)}"}} {cum}')
-            cum += h.counts[-1]
-            lines.append(f'{m}_bucket{{le="+Inf"}} {cum}')
-            lines.append(f"{m}_sum {_prom_float(h.sum)}")
-            lines.append(f"{m}_count {cum}")
+            for lkey, h in series:
+                base = [f'{k}="{_prom_label_value(x)}"' for k, x in lkey]
+                sfx = "{" + ",".join(base) + "}" if base else ""
+                cum = 0
+                for edge, c in zip(h.buckets, h.counts):
+                    cum += c
+                    lbl = ",".join(base + [f'le="{_prom_float(edge)}"'])
+                    lines.append(f"{m}_bucket{{{lbl}}} {cum}")
+                cum += h.counts[-1]
+                lbl = ",".join(base + ['le="+Inf"'])
+                lines.append(f"{m}_bucket{{{lbl}}} {cum}")
+                lines.append(f"{m}_sum{sfx} {_prom_float(h.sum)}")
+                lines.append(f"{m}_count{sfx} {cum}")
 
         for name, (count, total) in sorted(timers.items()):
             m = _prom_name(name, seconds=True)
@@ -397,6 +478,7 @@ class StepMetrics:
             self._series.clear()
             self._timers.clear()
             self._hists.clear()
+            self._labeled_hists.clear()
             self._gauges.clear()
         with self._counter_lock:
             self._counters.clear()

@@ -24,9 +24,10 @@ The policy travels to mappers as stamped op params:
 - ``quantCalib``: ``{site: activation absmax}`` fixed by calibration;
 - ``quantSite``: the op's site prefix.
 
-Not ported yet: the Naive-Bayes, FM and MLP int8 programs (their operators
-come with ROADMAP A4), and ModelServer's quantized load, stamping and band
-gate (ROADMAP A9).
+``ModelServer.load(..., precision=...)`` stamps these, calibrates and
+gates the load on the accuracy band (``serving/router.py``); a fleet's
+replicas each do so on their own load. Not ported yet: the Naive-Bayes, FM
+and MLP int8 programs (their operators come with ROADMAP A4).
 """
 
 from __future__ import annotations

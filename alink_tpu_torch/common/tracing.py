@@ -8,7 +8,10 @@ and analysis blocks, which read the port's own modules).
   :func:`capture_context` + :func:`attach_context` carry the parent across
   explicit thread handoffs (the serving batcher thread re-attaches the
   submitting request's span), and :func:`wire_context` /
-  :func:`adopt_context` carry it across a process boundary.
+  :func:`adopt_context` carry it across a process boundary;
+  :func:`set_process_identity` stamps a worker's spans (a fleet replica's
+  id), and :meth:`Tracer.enable_export` / :meth:`~Tracer.drain_export` /
+  :meth:`~Tracer.ingest` relay them to the supervisor's ring.
 - :class:`Tracer` — process-wide finished-span sink: a bounded in-memory
   ring (``ALINK_TRACE_RING``, default 4096 spans) plus an optional append-
   only JSONL event log (``ALINK_TRACE_LOG=<path>``; one JSON object per
@@ -16,7 +19,8 @@ and analysis blocks, which read the port's own modules).
 - :func:`job_report` — one dict per job run: the span tree, the phase
   split, retries absorbed, outcome counts, and the shape-signature and
   staging-cache hit rates; :func:`chrome_trace` — the ring as a
-  chrome://tracing / Perfetto JSON object.
+  chrome://tracing / Perfetto JSON object, with a process lane per
+  relayed process.
 
 Everything is gated behind ``ALINK_TRACING`` (default **on**; ``off``
 restores zero-span execution), read per span open. Tracing NEVER changes
@@ -39,12 +43,38 @@ from .env import env_flag, env_float, env_int, env_str
 from .metrics import metrics
 
 _RING_DEFAULT = 4096
+_EXPORT_DEFAULT = 512
 
-# span ids carry a per-process random prefix: a span parented under
-# another process's (adopt_context) must never alias two processes'
-# counters into one parent link
+# span ids carry a per-process random prefix: cross-process stitching
+# (fleet replicas relaying span batches to the supervisor) must never
+# alias two processes' counters into one parent link
 _SPAN_PREFIX = uuid.uuid4().hex[:6]
 _span_ids = itertools.count(1)
+
+# optional process identity (replica id / train rank) — when set, every
+# finished span is stamped with it so cross-process readouts
+# (job_report / chrome_trace) can lay spans out in real process lanes
+_proc_label: Optional[str] = None
+_proc_pid: Optional[int] = None
+
+
+def set_process_identity(label: Optional[str],
+                         pid: Optional[int] = None) -> None:
+    """Tag every span finished in this process with ``proc=label`` (and
+    the OS pid). Called once at worker startup — a fleet replica sets its
+    replica id. ``None`` clears the tag (spans revert to the local,
+    untagged shape that keeps single-process readouts byte-stable)."""
+    global _proc_label, _proc_pid
+    if label is None:
+        _proc_label, _proc_pid = None, None
+    else:
+        _proc_label = str(label)
+        _proc_pid = int(pid) if pid is not None else os.getpid()
+
+
+def process_identity() -> Optional[str]:
+    return _proc_label
+
 
 def tracing_enabled() -> bool:
     """``ALINK_TRACING=off`` disables span recording entirely (the
@@ -99,6 +129,9 @@ class Span:
             d["attrs"] = self.attrs
         if self.error:
             d["error"] = self.error
+        if _proc_label is not None:
+            d["proc"] = _proc_label
+            d["pid"] = _proc_pid
         return d
 
 
@@ -163,7 +196,7 @@ def wire_context() -> Optional[Dict[str, Any]]:
     if sp is None:
         return None
     ctx: Dict[str, Any] = {"trace_id": sp.trace_id, "span_id": sp.span_id}
-    origin = getattr(sp, "proc", None)
+    origin = _proc_label or getattr(sp, "proc", None)
     if origin is not None:
         ctx["proc"] = origin
     return ctx
@@ -211,6 +244,7 @@ class Tracer:
         self._log_file = None
         self._log_bytes = 0
         self._log_rotated = False
+        self._export: Optional[deque] = None
 
     # -- span lifecycle ------------------------------------------------------
     def start(self, name: str, **attrs) -> Span:
@@ -234,7 +268,67 @@ class Tracer:
         d = span.to_dict()
         with self._lock:
             self._ring.append(d)
+            if self._export is not None:
+                e = dict(d)
+                e.pop("start_perf", None)  # process-local; dead on the wire
+                self._export.append(e)
         self._log(span)
+
+    # -- cross-process relay -------------------------------------------------
+    def enable_export(self, maxlen: int = _EXPORT_DEFAULT) -> None:
+        """Arm the export buffer: every finished span is ALSO queued
+        (bounded, oldest dropped) for :meth:`drain_export` — the replica
+        side of the heartbeat span relay. Off by default: a single-process
+        run pays nothing."""
+        with self._lock:
+            self._export = deque(maxlen=max(16, int(maxlen)))
+
+    def drain_export(self) -> List[Dict[str, Any]]:
+        """Take (and clear) the finished spans queued since the last
+        drain. Empty list when export was never enabled."""
+        with self._lock:
+            if not self._export:
+                return []
+            out = list(self._export)
+            self._export.clear()
+        return out
+
+    def ingest(self, span_dicts: Any, proc: Optional[str] = None,
+               pid: Optional[int] = None) -> int:
+        """Merge a relayed span batch (dicts from another process's
+        :meth:`drain_export`) into this ring, stamped with the sender's
+        process identity. Validates EVERY entry before admitting ANY —
+        raises ``ValueError`` on garbage so the caller can count and drop
+        the whole payload loudly; a half-ingested batch would corrupt the
+        stitched tree silently."""
+        if not isinstance(span_dicts, (list, tuple)):
+            raise ValueError("span batch is not a list")
+        accepted: List[Dict[str, Any]] = []
+        for s in span_dicts:
+            if not isinstance(s, dict):
+                raise ValueError("span batch entry is not a dict")
+            if not all(isinstance(s.get(k), str) and s.get(k)
+                       for k in ("trace_id", "span_id", "name")):
+                raise ValueError("span entry missing trace_id/span_id/name")
+            d = {k: v for k, v in s.items() if k != "start_perf"}
+            try:
+                d["t_start"] = float(d.get("t_start", 0.0))
+                d["wall_s"] = float(d.get("wall_s", 0.0))
+            except (TypeError, ValueError):
+                raise ValueError("span entry times are not numeric")
+            pid_in = d.get("parent_id")
+            if pid_in is not None and not isinstance(pid_in, str):
+                raise ValueError("span entry parent_id is not a string")
+            d.setdefault("parent_id", None)
+            d.setdefault("outcome", "ok")
+            if proc is not None:
+                d["proc"] = str(proc)
+                if pid is not None:
+                    d["pid"] = int(pid)
+            accepted.append(d)
+        with self._lock:
+            self._ring.extend(accepted)
+        return len(accepted)
 
     @staticmethod
     def _max_log_bytes() -> int:
@@ -401,10 +495,18 @@ def _span_tree(spans: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
             parent["children"].append(s)
         else:
             roots.append(s)
-    # rel time base: perf_counter (sub-µs, immune to clock steps)
-    base = min((s["start_perf"] for s in by_id.values()), default=0.0)
+    # rel time base: perf_counter within one process (sub-µs, immune to
+    # clock steps); ingested cross-process spans have no start_perf, so a
+    # stitched tree falls back to the wall-clock epoch every process shares
+    key = "start_perf" if all(
+        "start_perf" in s for s in by_id.values()) else "t_start"
+    base = min((s[key] for s in by_id.values()), default=0.0)
     for s in by_id.values():
-        s["rel_start_s"] = round(s.pop("start_perf") - base, 6)
+        s["rel_start_s"] = round(s.get(key, base) - base, 6)
+        s.pop("start_perf", None)
+    # second pass: a remote child can sit AFTER its parent in ring order
+    # (it arrived by heartbeat relay long after the parent finished), so
+    # children only sort once every span has its rel_start_s
     for s in by_id.values():
         s["children"].sort(key=lambda c: c["rel_start_s"])
     roots.sort(key=lambda c: c["rel_start_s"])
@@ -516,31 +618,56 @@ def chrome_trace(trace_id: Optional[str] = None) -> Dict[str, Any]:
     Each span becomes one complete ("X") event with its phases, attrs,
     outcome, and span/parent ids under ``args``; threads map to stable
     integer tids with thread_name metadata so the waterfall groups by the
-    thread that ran the work (the serving batchers, the callers). Load
-    the file via ui.perfetto.dev or chrome://tracing."""
+    thread that ran the work (the serving batchers, the callers). Spans
+    relayed from other processes (fleet replicas — tagged ``proc``/``pid``
+    by :meth:`Tracer.ingest`) get their OWN process lane, named by its
+    process identity, so a stitched fleet trace reads
+    frontdoor-over-here, batcher-over-there. Local spans stay on the
+    canonical ``pid: 1`` lane — single-process output is byte-stable.
+    Load the file via ui.perfetto.dev or chrome://tracing."""
     spans = tracer.spans(trace_id)
     events: List[Dict[str, Any]] = [{
         "ph": "M", "pid": 1, "tid": 0, "name": "process_name",
         "args": {"name": "alink_tpu_torch"},
     }]
-    tids: Dict[str, int] = {}
+    lanes: Dict[str, int] = {}
+
+    def _lane(s: Dict[str, Any]) -> int:
+        proc = s.get("proc")
+        if proc is None:
+            return 1
+        lane = lanes.get(proc)
+        if lane is None:
+            pid = s.get("pid")
+            lane = pid if isinstance(pid, int) and pid > 1 \
+                and pid not in lanes.values() else 10_000 + len(lanes)
+            lanes[proc] = lane
+            events.append({"ph": "M", "pid": lane, "tid": 0,
+                           "name": "process_name",
+                           "args": {"name": str(proc)}})
+        return lane
+
+    tids: Dict[Any, int] = {}
+    per_lane: Dict[int, int] = {}
     for s in spans:
+        lane = _lane(s)
         thread = s.get("thread") or "?"
-        tid = tids.get(thread)
+        tid = tids.get((lane, thread))
         if tid is None:
-            tids[thread] = tid = len(tids) + 1
-            events.append({"ph": "M", "pid": 1, "tid": tid,
+            per_lane[lane] = tid = per_lane.get(lane, 0) + 1
+            tids[(lane, thread)] = tid
+            events.append({"ph": "M", "pid": lane, "tid": tid,
                            "name": "thread_name",
                            "args": {"name": thread}})
         args: Dict[str, Any] = {
             "trace_id": s["trace_id"], "span_id": s["span_id"],
             "parent_id": s.get("parent_id"), "outcome": s.get("outcome"),
         }
-        for key in ("phases", "attrs", "retries", "error"):
+        for key in ("phases", "attrs", "retries", "error", "proc"):
             if s.get(key):
                 args[key] = s[key]
         events.append({
-            "ph": "X", "pid": 1, "tid": tid,
+            "ph": "X", "pid": lane, "tid": tid,
             "name": s["name"],
             "cat": s.get("outcome") or "ok",
             "ts": round(s["t_start"] * 1e6, 3),

@@ -12,6 +12,12 @@ the repository root (``build/`` is the kernel cache, listed in
 ``.gitignore``) and loads the library, which registers the kernels as
 ``torch.ops.alink_tpu_torch.*``. It runs at a wrapper's first launch, never
 at import: the CPU tests import every module on hosts without ``nvcc``.
+
+A process started by one that has already built the library (a serving
+fleet's replica) gets its path in ``ALINK_TORCH_KERNELS_LIB`` and loads it
+as it is: ``load`` takes a file lock in the build directory on every call,
+even with the library up to date, and a replica killed while holding it
+would stall every later replica's first launch.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ REPO_ROOT = os.path.dirname(_PKG_DIR)
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
 BINDING = "csrc/bind.cpp"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+PREBUILT_ENV = "ALINK_TORCH_KERNELS_LIB"
 
 
 @dataclass
@@ -84,10 +91,20 @@ def reset_launches() -> None:
 
 def build(verbose: bool = False) -> str:
     """Compile and load every kernel (once per process); returns the path of
-    the loaded library. Raises if the toolchain or the card is missing."""
+    the loaded library. Raises if the toolchain or the card is missing,
+    or if ``ALINK_TORCH_KERNELS_LIB`` names a library that does not load."""
     global _built, build_seconds
     with _build_lock:
         if _built is not None:
+            return _built
+        prebuilt = os.environ.get(PREBUILT_ENV)
+        if prebuilt:
+            import torch
+
+            t0 = time.perf_counter()
+            torch.ops.load_library(prebuilt)
+            build_seconds = time.perf_counter() - t0
+            _built = prebuilt
             return _built
         from torch.utils.cpp_extension import load
 

@@ -1,6 +1,5 @@
 """Online serving tier — concurrent request router with dynamic
-micro-batching (port of ``alink_tpu.serving``, without the fleet, which
-waits for ROADMAP A9).
+micro-batching (port of ``alink_tpu.serving``).
 
 The front end over :class:`~alink_tpu_torch.pipeline.LocalPredictor`:
 concurrent predict requests are queued per loaded model and a batcher thread
@@ -10,6 +9,14 @@ per-request deadlines. Admission control sheds load past a bounded queue's
 high-water mark, a per-model circuit breaker degrades a failing model to
 fast rejects, and the whole path is instrumented with ``serving.*`` spans,
 histograms, and counters exported at ``GET /metrics``.
+
+Above the single-process server sits the fault-tolerant fleet
+(:mod:`.fleet`): N worker processes, each running a ModelServer on its own
+CUDA context behind a real socket, a failover load balancer
+(:mod:`.fleet_frontend`) that re-dispatches requests off dead replicas,
+health-driven respawn with zero-trace sidecar warmup, graceful drain,
+fleet-wide hot-swap, and backpressure autoscaling — results bit-identical
+to the single-process server.
 """
 
 from .router import (  # noqa: F401
@@ -19,6 +26,11 @@ from .router import (  # noqa: F401
     default_server,
     serving_bucket_ladder,
     serving_summary,
+)
+from .fleet_frontend import (  # noqa: F401
+    FleetFrontend,
+    FrontendListener,
+    ReplicaClient,
 )
 from .warmup_store import (  # noqa: F401
     load_warmup_spec,
@@ -30,3 +42,16 @@ from ..common.exceptions import (  # noqa: F401
     AkDeadlineExceededException,
     AkServingOverloadException,
 )
+
+_FLEET_NAMES = ("FleetConfig", "ServingFleet", "active_fleet_summary")
+
+
+def __getattr__(name):
+    # the fleet's names resolve on first use: a replica runs
+    # ``python -m alink_tpu_torch.serving.fleet``, and importing the module
+    # here first would make that run a second copy of it
+    if name in _FLEET_NAMES:
+        from . import fleet
+
+        return getattr(fleet, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

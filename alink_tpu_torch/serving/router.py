@@ -1,6 +1,7 @@
 """Concurrent request router + dynamic micro-batcher over LocalPredictor
-(port of ``alink_tpu.serving.router``; the fleet's summary block waits for
-the fleet, ROADMAP A9).
+(port of ``alink_tpu.serving.router``). Each replica of a
+:class:`~alink_tpu_torch.serving.fleet.ServingFleet` runs one
+:class:`ModelServer`.
 
 One :class:`ModelServer` owns N loaded models. Each model gets:
 
@@ -1022,12 +1023,23 @@ def serving_summary(server: Optional[ModelServer] = None) -> Dict[str, Any]:
     """One-call readout: per-model stats, latency histograms, ``serving.*``
     counters, and the shape-signature counters (``jit.trace``: first-seen
     batch shapes). Reads the given server, defaulting to the process-wide
-    one (empty stats if none was ever created). The reference's ``fleet``
-    block waits for the fleet (ROADMAP A9)."""
+    one (empty stats if none was ever created). When a
+    :class:`~alink_tpu_torch.serving.fleet.ServingFleet` is live in this
+    process, its summary joins in as the ``fleet`` block."""
     if server is None:
         server = _default_server
     out = server.stats() if server is not None else \
         {"models": [], "histograms": {}, "counters": metrics.counters("serving.")}
     out["jit"] = {k: v for k, v in metrics.counters("jit.").items()
                   if k in ("jit.trace", "jit.compile")}
+    try:
+        # lazy import: fleet imports this module; the join must not cycle
+        from .fleet import active_fleet_summary
+
+        fleet_block = active_fleet_summary()
+    except Exception:
+        metrics.incr("serving.summary_fleet_errors")
+        fleet_block = None
+    if fleet_block is not None:
+        out["fleet"] = fleet_block
     return out

@@ -252,7 +252,37 @@ non-zero:
     ``checkpointFilePath`` and the sst2_mini holdout accuracy, which must
     reach BERT_QUALITY_FLOOR; ``scripts/chip_phase_check.py pretrain``
     runs this phase alone;
-16. one JSON line of kernels, then the device line last.
+16. the serving fleet (``fleet_path``; the flash kernel in every
+    replica, each replica a process with its own CUDA context, spawned
+    with ``subprocess.Popen`` after the parent built the kernels, which
+    it loads from the parent's library): phase 14's pipeline ``.ak`` and
+    sidecar through ``ServingFleet(replicas=2)`` with the kill drill's
+    fault armed in the workers' env; (16.1) start, ``fleet.load``: both
+    replicas warm from the sidecar, seconds from spawn to ready, device
+    memory per replica (the replica's own ``torch.cuda`` readings, and
+    nvidia-smi's per-process use); (16.3) the kill drill: 128 single-row
+    requests from 8 clients while r1's first incarnation dies inside its
+    first batch (``replica:count=1,kinds=kill_mid_batch,match=r1.g2.batch``)
+    — every request answered correctly or shed with a typed error,
+    ``fleet.failovers`` ≥ 1, r1 back at generation 3, warmed from the
+    sidecar, seconds from the death to full strength; (16.2) phase 14.2's
+    mix through the front end at N = 2 (and at N = 1 after 16.5): rows/s,
+    ``fleet.request_s`` p50/p99 over the window, batches per replica,
+    each replica's flash launches equal to 12 × its batches over the
+    window (the replicas' own counters, relayed by heartbeat), no new
+    batch shape in any replica (``trace_delta`` 0), every row against its
+    serial predict as phase 14 holds them, then 16 sequential one-row
+    requests through the frame front door (``open_frontdoor``), each a
+    batch of one on the serial rung: bit-identical; (16.4) a second
+    version (the same pipeline, committed to a ``ModelStreamStore``) bound
+    as the model source and broadcast by ``fleet.load``: ``fleet.swap_ok``
+    rises by 2; (16.5) r1 decommissioned under 8 clients' load: every
+    request completes; then a third version committed while a replica
+    comes back (``scale_to(2)``: r2 boots on version 2, the broadcast of
+    version 3 reaches r0 only) and r2 re-syncs to version 3 from the
+    store before it reports ready; the fleet stops and no replica process
+    is left; ``scripts/chip_phase_check.py fleet`` runs this phase alone;
+17. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -385,6 +415,11 @@ tokens): the row's logit gap log(p1/p0) must lie within MARGIN_BOUND =
 LOGIT_ATOL, the bound phase 4 holds between attention routes), labels
 equal wherever the serial gap exceeds it. Quantized loads against 12.1's
 op outputs under the same policy: the same gap bound, and the band.
+Phase 16. Fleet rows against the serial predicts as phase 14 holds its
+rows (the fleet does not report a row's rung: a row is bit-identical, or
+within MARGIN_BOUND with labels equal where the serial gap exceeds it);
+the quiet one-row requests (the serial predict's rung) bit-identical.
+Flash launches: exactly 12 per batch in every replica.
 Phase 15. Feed, streaming and resume pairs on the card: bitwise (the same
 batches and masks, the same kernels in the same order). The card's loss
 history against the port's CPU route from the same carried weights: fp32
@@ -416,6 +451,7 @@ SEED = 0
 REQUEST_ROWS = (1, 8, 32, 64)
 WORDS = (5, 700)
 SLICE = dict(B=32, H=12, Q=512, K=128, D=64)
+SERVING_RUNG_BATCHES = (8, 16, 64)   # phase 3: the fused call at serving rungs
 FUSED_CASES = (          # (label, S, causal, q/k/v as the main path's views)
     ("S=512", 512, False, False),
     ("S=512, causal, views", 512, True, True),
@@ -724,10 +760,46 @@ def check_kernel(peaks):
           f"{lib_ms:.4f} ms (contiguous (B, H, S, D)), {lib_views_ms:.4f} ms "
           f"(the same views, unmasked); the kernel takes "
           f"{kern_ms / lib_ms:.3f}x the first", flush=True)
+    rungs = {b: serving_rung_times(b, S, H, D, bs, peaks)
+             for b in SERVING_RUNG_BATCHES}
     return dict(max_abs_err=max(results.values()), ms=kern_ms,
                 plain_ms=plain_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
                 library_ms=lib_ms, library_views_ms=lib_views_ms,
-                block_ms=blk[1], block_plain_ms=blk[0], errors=results)
+                block_ms=blk[1], block_plain_ms=blk[0], errors=results,
+                serving_rungs=rungs)
+
+
+def serving_rung_times(B, S, H, D, bs, peaks):
+    """The fused call (one launch) at a serving rung's batch, bf16, on the
+    main path's views, in turns with the plain route (plain, kernel,
+    kernel, plain), beside SDPA over all S keys and the call's bound: the
+    batches ``ModelServer`` mostly runs (rung 8 in phase 14) are not the
+    32 timed above."""
+    import torch
+
+    from alink_tpu_torch.dl.attention import blockwise_attention
+
+    bw, bf16_peak, _ = peaks
+    q, k, v, mask = attn_inputs(B, S, H, D, torch.bfloat16, SEED + B)
+    q, k, v = qkv_views(q, k, v)
+    kern = lambda: blockwise_attention(q, k, v, mask, block_size=bs)  # noqa: E731
+    t = [plain_route(cuda_ms, kern), cuda_ms(kern), cuda_ms(kern),
+         plain_route(cuda_ms, kern)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qf, kf, vf = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: sdpa(qf, kf, vf))
+    nbytes, flops = call_bytes_flops(B, S, H, D, itemsize=2)
+    bound_ms = max(nbytes / bw, flops / bf16_peak) * 1e3
+    out = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+               library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by="bytes" if nbytes / bw >= flops / bf16_peak
+               else "operations", turns=[round(x, 4) for x in t])
+    print(f"flash_blockwise bf16 at the serving rung B={B} (S, H, D) = "
+          f"({S}, {H}, {D}), block {bs}: kernel {out['ms']:.4f} ms, plain "
+          f"route {out['plain_ms']:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+          f"{bound_ms * 1e3:.1f} us ({out['bound_by']}); turns "
+          f"plain,kernel,kernel,plain = {out['turns']}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4860,7 +4932,7 @@ def serving_path(workdir, served_main, card):
           flush=True)
     if problems:
         fail("phase 14: " + "; ".join(problems))
-    return launches, out
+    return launches, out, serial
 
 
 # ---------------------------------------------------------------------------
@@ -5318,6 +5390,507 @@ def pretraining_path(workdir, peaks, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serving fleet (replicas of phase 14's model, each a process)
+# ---------------------------------------------------------------------------
+
+FLEET = dict(heartbeat_s=0.25, heartbeat_timeout_s=30.0, hang_grace_s=120.0,
+             ready_timeout_s=300.0, swap_timeout_s=300.0,
+             drain_timeout_s=120.0)
+FLEET_KILL = "replica:count=1,kinds=kill_mid_batch,match=r1.g2.batch"
+FLEET_KILL_REQUESTS = 128   # 16.3's single-row requests across the clients
+FLEET_DRAIN_REQUESTS = 128  # 16.5's, with r1 decommissioned among them
+FLEET_QUIET = 16            # sequential one-row requests: batches of one
+FLEET_WAIT_S = 300.0
+
+
+def fleet_inputs(workdir, served_main, serial=None):
+    """Phase 14's pipeline ``.ak`` with its sidecar, 14.2's texts, and their
+    serial predicts; built here when phase 14 did not run in this
+    process (``scripts/chip_phase_check.py fleet``)."""
+    from alink_tpu_torch.operator.batch import AkSourceBatchOp
+    from alink_tpu_torch.pipeline import LocalPredictor
+    from alink_tpu_torch.serving import (ModelServer, ServingConfig,
+                                         load_warmup_spec)
+
+    cfg = serving_config()
+    rng = np.random.default_rng(SEED + 14)
+    texts = [(t,) for t in request_texts(
+        synthetic_vocab(cfg), rng,
+        SERVING_SINGLE + SERVING_MANY[0] * SERVING_MANY[1])]
+    path = os.path.join(workdir, "bert_serving.ak")
+    if serial is None or load_warmup_spec(path) is None:
+        table = AkSourceBatchOp(filePath=served_main["path"]).collect()
+        serving_pipeline(table, path)
+        srv = ModelServer(ServingConfig(**SERVING))
+        srv.load("bert", path, "text string", warmup_rows=texts[:8])
+        srv.close()
+        lp = LocalPredictor(path, "text string")
+        serial = [lp.predict_row(t) for t in texts]
+        del lp
+    return path, texts, serial
+
+
+def fleet_mix(fleet, texts, n_single, many=(0, 0),
+              clients=SERVING_CLIENTS):
+    """Requests through the fleet's front end: ``clients`` threads send the
+    first ``n_single`` texts one row each (each waits for its answer),
+    beside ``many`` predict_many calls of the texts after them. Returns
+    ((text index, row or None, error or None) in text order, window s)."""
+    import threading
+
+    out, lock = [], threading.Lock()
+
+    def single(c):
+        for i in range(c, n_single, clients):
+            try:
+                got = (fleet.predict("bert", texts[i], timeout=FLEET_WAIT_S),
+                       None)
+            except Exception as e:  # noqa: BLE001 — reported by the caller
+                got = (None, e)
+            with lock:
+                out.append((i, *got))
+
+    def batch(k):
+        idx = list(range(n_single + k * many[1], n_single + (k + 1) * many[1]))
+        try:
+            rows = fleet.predict_many("bert", [texts[i] for i in idx],
+                                      timeout=FLEET_WAIT_S)
+            got = [(i, r, None) for i, r in zip(idx, rows)]
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            got = [(i, None, e) for i in idx]
+        with lock:
+            out.extend(got)
+
+    threads = [threading.Thread(target=single, args=(c,))
+               for c in range(clients)]
+    threads += [threading.Thread(target=batch, args=(k,))
+                for k in range(many[0])]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=2 * FLEET_WAIT_S)
+    window = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        fail("16: a client thread did not finish")
+    return sorted(out, key=lambda r: r[0]), window
+
+
+def fleet_rows_report(served, serial, label):
+    """Served rows against serial predicts, as phase 14 holds rows whose
+    rung it does not know: bit-identical, or the logit gap within
+    MARGIN_BOUND and the label equal where the serial gap exceeds it."""
+    rep = {"rows": 0, "identical": 0, "max_margin_diff": 0.0,
+           "label_flips": 0}
+    for i, row, err in served:
+        if row is None:
+            continue
+        want = serial[i]
+        rep["rows"] += 1
+        if tuple(row) == tuple(want):
+            rep["identical"] += 1
+            continue
+        rep["max_margin_diff"] = max(rep["max_margin_diff"],
+                                     abs(margin(row) - margin(want)))
+        if abs(margin(want)) > MARGIN_BOUND and row[1] != want[1]:
+            rep["label_flips"] += 1
+    problems = []
+    if not rep["max_margin_diff"] <= MARGIN_BOUND:
+        problems.append(f"{label}: a row's logit gap moved "
+                        f"{rep['max_margin_diff']} > {MARGIN_BOUND}")
+    if rep["label_flips"]:
+        problems.append(f"{label}: {rep['label_flips']} labels differ where "
+                        "the serial gap exceeds the bound")
+    return rep, problems
+
+
+def fleet_reading(fleet):
+    """Per live replica: generation, state, completed requests, batches and
+    flash launches (the replica's own counters, from its last heartbeat),
+    trace delta."""
+    return {r["replica"]: dict(
+        gen=r["gen"], state=r["state"], completed=r["completed"] or 0,
+        batches=r["batches"] or 0,
+        flash=(r["launches"] or {}).get("flash_block_update", 0),
+        trace_delta=r["trace_delta"])
+        for r in fleet.fleet_summary()["replicas"]}
+
+
+def wait_for(pred, what, timeout=FLEET_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    fail(f"16: timed out after {timeout} s waiting for {what}")
+
+
+def fleet_settled(fleet, before, rows):
+    """Wait until the replicas' heartbeats account for ``rows`` more
+    completed requests than ``before`` and two readings a few heartbeats
+    apart agree; returns the reading."""
+    def done():
+        now = fleet_reading(fleet)
+        return sum(r["completed"] - before.get(rid, {}).get("completed", 0)
+                   for rid, r in now.items()) >= rows
+
+    wait_for(done, f"{rows} completed requests in the heartbeats")
+    for _ in range(100):
+        first = fleet_reading(fleet)
+        time.sleep(4 * FLEET["heartbeat_s"])
+        if fleet_reading(fleet) == first:
+            return first
+    fail("16: the replicas' heartbeat readings never settled")
+
+
+def hist_window(name, before):
+    """Stats of histogram ``name`` over the observations since ``before``
+    (its state then): bucket counts subtracted, so the quantiles are the
+    window's (interpolated in the buckets; min and max clamp them to the
+    whole run's)."""
+    from alink_tpu_torch.common.metrics import _Histogram, metrics
+
+    h = _Histogram.from_state(metrics.histogram_states()[name])
+    if before is not None:
+        b = _Histogram.from_state(before)
+        h.counts = [x - y for x, y in zip(h.counts, b.counts)]
+        h.count -= b.count
+        h.sum -= b.sum
+    return h.stats()
+
+
+def gpu_apps_mib():
+    """nvidia-smi's device memory by process (MiB; pids of the machine's
+    namespace, so a container may show none)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    out = {}
+    for line in smi.stdout.strip().splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            out[int(parts[0])] = parts[1]
+    return out
+
+
+def fleet_window(fleet, texts, serial, label, problems):
+    """16.2 at the fleet's current size: the mix, rows/s, the window's
+    ``fleet.request_s`` quantiles, and per replica the batches, launches
+    and trace delta over the window."""
+    from alink_tpu_torch.common.metrics import metrics
+
+    n_single = SERVING_SINGLE
+    before = fleet_settled(fleet, {}, 0)
+    h0 = metrics.histogram_states().get("fleet.request_s")
+    served, window = fleet_mix(fleet, texts, n_single, SERVING_MANY)
+    errors = [(i, repr(e)) for i, _, e in served if e is not None]
+    after = fleet_settled(fleet, before, len(served) - len(errors))
+    rep, bad = fleet_rows_report(served, serial, label)
+    problems += bad
+    per = {}
+    for rid, r in after.items():
+        b = before.get(rid)
+        if b is None or b["gen"] != r["gen"]:
+            problems.append(f"{label}: replica {rid} changed during the "
+                            "window")
+            continue
+        per[rid] = dict(batches=r["batches"] - b["batches"],
+                        launches=r["flash"] - b["flash"],
+                        trace_delta=r["trace_delta"])
+        if per[rid]["launches"] != 12 * per[rid]["batches"]:
+            problems.append(f"{label}: {rid} launched the flash kernel "
+                            f"{per[rid]['launches']} times in "
+                            f"{per[rid]['batches']} batches")
+        if r["trace_delta"] != 0:
+            problems.append(f"{label}: {rid} met {r['trace_delta']} new "
+                            "batch shapes")
+        if per[rid]["batches"] == 0:
+            problems.append(f"{label}: {rid} served no batch")
+    if errors:
+        problems.append(f"{label}: {len(errors)} requests failed: "
+                        f"{errors[:2]}")
+    req = hist_window("fleet.request_s", h0)
+    out = dict(replicas=len(after), rows=len(served), errors=len(errors),
+               window_s=window, rows_per_s=len(served) / window,
+               request_p50_s=req["p50"], request_p99_s=req["p99"],
+               request_count=req["count"], per_replica=per,
+               rows_vs_serial=rep)
+    print(f"16.2 N={len(after)}: {len(served)} rows in {window:.2f} s = "
+          f"{out['rows_per_s']:.1f} rows/s; fleet.request_s p50 "
+          f"{req['p50']} s, p99 {req['p99']} s over {req['count']} "
+          f"requests; per replica {per}; rows {rep}", flush=True)
+    return out
+
+
+def frontdoor_quiet(fleet, texts, serial, problems):
+    """FLEET_QUIET requests through the frame front door, one at a time:
+    each a batch of one, on the serial predict's rung: bit-identical."""
+    import socket
+
+    from alink_tpu_torch.serving.fleet_frontend import recv_frame, send_frame
+
+    lsn = fleet.open_frontdoor()
+    same = 0
+    try:
+        with socket.create_connection((lsn.host, lsn.port),
+                                      timeout=FLEET_WAIT_S) as sock:
+            for i in range(FLEET_QUIET):
+                send_frame(sock, {"op": "predict", "name": "bert",
+                                  "row": texts[i]})
+                resp = recv_frame(sock)
+                if not resp.get("ok"):
+                    problems.append(f"16.2 front door: {resp}")
+                    continue
+                same += tuple(resp["value"]) == tuple(serial[i])
+    finally:
+        lsn.close()
+    if same != FLEET_QUIET:
+        problems.append(f"16.2 front door: {FLEET_QUIET - same} of "
+                        f"{FLEET_QUIET} one-row requests differ from their "
+                        "serial predicts")
+    return same
+
+
+def commit_version(store, epoch, path):
+    """The pipeline re-committed to the store as ``epoch``: blob, sidecar
+    (byte copies: the sidecar's model digest holds), manifest."""
+    from alink_tpu_torch.serving import warmup_sidecar_path
+
+    return store.publish(
+        epoch, lambda tmp: shutil.copyfile(path, tmp),
+        write_sidecar=lambda blob, side: shutil.copyfile(
+            warmup_sidecar_path(path), side),
+        meta={"model": "bert", "source": os.path.basename(path)})
+
+
+def fleet_path(workdir, card, inputs):
+    """Phase 16; any failed check fails the run after all are reported.
+    Returns the numbers, with the replicas' flash launches over the
+    traffic windows under ``launches``."""
+    import threading
+
+    from alink_tpu_torch.common.exceptions import (
+        AkCircuitOpenException, AkDeadlineExceededException,
+        AkServingOverloadException)
+    from alink_tpu_torch.common.metrics import metrics
+    from alink_tpu_torch.modelstream import ModelStreamStore
+    from alink_tpu_torch.serving import (FleetConfig, ServingConfig,
+                                         ServingFleet)
+
+    path, texts, serial = inputs
+    problems, out = [], {}
+    t_phase = time.perf_counter()
+
+    def check(cond, msg):
+        if not cond:
+            problems.append(msg)
+
+    def c(name):
+        return metrics.counter(name)
+
+    store_dir = os.path.join(workdir, "fleet_store")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    fleet = ServingFleet(FleetConfig(
+        replicas=2, serving=ServingConfig(**SERVING),
+        worker_env={"ALINK_FAULT_SPEC": FLEET_KILL},
+        worker_log_dir=os.path.join(workdir, "fleet_logs"), **FLEET))
+    pids = []
+    try:
+        # 16.1: start, load, memory
+        t0 = time.perf_counter()
+        fleet.start()
+        start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = fleet.load("bert", path, "text string")
+        load_s = time.perf_counter() - t0
+        hb0 = {rid: rep.last_hb for rid, rep in fleet._replicas.items()}
+        wait_for(lambda: all(fleet._replicas[rid].last_hb != t
+                             for rid, t in hb0.items()),
+                 "a heartbeat after the load (its device memory)")
+        apps = gpu_apps_mib()
+        reps = {r["replica"]: r for r in fleet.fleet_summary()["replicas"]}
+        pids = [r["pid"] for r in reps.values()]
+        out["16.1"] = dict(start_s=start_s, load_s=load_s, replicas={
+            rid: dict(gen=r["gen"], pid=r["pid"], device=r["device"],
+                      ready_s=r["ready_s"],
+                      warmup_source=loaded["replicas"][rid]
+                      .get("warmup_source"),
+                      gpu_mem_mib={k: v / 2 ** 20 for k, v in
+                                   (r["gpu_mem"] or {}).items()},
+                      nvidia_smi_mib=apps.get(r["pid"]))
+            for rid, r in reps.items()})
+        print(f"16.1 fleet of 2 started in {start_s:.1f} s, model loaded in "
+              f"{load_s:.1f} s: {json.dumps(out['16.1']['replicas'])}",
+              flush=True)
+        check(set(loaded["replicas"]) == {"r0", "r1"} and all(
+            o["ok"] and o["warmup_source"] == "sidecar"
+            for o in loaded["replicas"].values()),
+            f"16.1: load outcomes {loaded['replicas']}")
+        check(all(str(r["device"]).startswith("cuda")
+                  for r in reps.values()),
+              f"16.1: replicas on {[r['device'] for r in reps.values()]}")
+
+        # 16.3: the kill drill (r1's first incarnation dies mid-batch)
+        f0, d0 = c("fleet.failovers"), c("fleet.replica_deaths")
+        back = {}
+
+        def watch():
+            while "ready" not in back and time.monotonic() < deadline:
+                if "death" not in back and c("fleet.replica_deaths") > d0:
+                    back["death"] = time.monotonic()
+                if "death" in back and [
+                        (r["gen"], r["state"]) for r in
+                        fleet.fleet_summary()["replicas"]] == [
+                        (1, "ready"), (3, "ready")]:
+                    back["ready"] = time.monotonic()
+                time.sleep(0.02)
+
+        deadline = time.monotonic() + FLEET_WAIT_S
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        served, window = fleet_mix(fleet, texts, FLEET_KILL_REQUESTS)
+        typed = (AkServingOverloadException, AkCircuitOpenException,
+                 AkDeadlineExceededException)
+        lost = [(i, repr(e)) for i, _, e in served
+                if e is not None and not isinstance(e, typed)]
+        shed = [i for i, _, e in served if isinstance(e, typed)]
+        watcher.join(timeout=FLEET_WAIT_S + 5)
+        rep, bad = fleet_rows_report(served, serial, "16.3")
+        problems += bad
+        respawned = {r["replica"]: r
+                     for r in fleet.fleet_summary()["replicas"]}.get("r1", {})
+        out["16.3"] = dict(
+            requests=len(served), answered=rep["rows"], shed=len(shed),
+            lost=lost[:3], failovers=c("fleet.failovers") - f0,
+            deaths=c("fleet.replica_deaths") - d0,
+            death_to_ready_s=(back["ready"] - back["death"])
+            if "ready" in back else None,
+            respawn=dict(gen=respawned.get("gen"),
+                         ready_s=respawned.get("ready_s"),
+                         loads=respawned.get("loads")),
+            rows_vs_serial=rep)
+        print(f"16.3 kill drill: {json.dumps(out['16.3'], default=str)}",
+              flush=True)
+        pids += [r["pid"] for r in fleet.fleet_summary()["replicas"]]
+        check(not lost and rep["rows"] + len(shed) == FLEET_KILL_REQUESTS,
+              f"16.3: requests lost: {lost[:3]}")
+        check(out["16.3"]["failovers"] >= 1 and out["16.3"]["deaths"] == 1,
+              f"16.3: failovers {out['16.3']['failovers']}, deaths "
+              f"{out['16.3']['deaths']}")
+        check("ready" in back and respawned.get("gen") == 3 and [
+            ld.get("warmup_source") for ld in respawned.get("loads") or []]
+            == ["sidecar"], f"16.3: r1 did not come back warm: {respawned}")
+
+        # 16.2 at N = 2 (the fault is spent: r1 is generation 3)
+        out["16.2 N=2"] = fleet_window(fleet, texts, serial, "16.2 N=2",
+                                       problems)
+        out["16.2 front door identical"] = frontdoor_quiet(
+            fleet, texts, serial, problems)
+
+        # 16.4: a second version into every replica
+        store = ModelStreamStore(store_dir, keep=3)
+        fleet.bind_model_source(
+            "bert", lambda: store.blob_path(store.latest()[0]))
+        ok0 = c("fleet.swap_ok")
+        t0 = time.perf_counter()
+        v2 = fleet.load("bert", commit_version(store, 2, path),
+                        "text string")
+        out["16.4"] = dict(swap_s=time.perf_counter() - t0,
+                           swap_ok=c("fleet.swap_ok") - ok0,
+                           outcomes=v2["replicas"])
+        check(out["16.4"]["swap_ok"] == 2 and all(
+            o["ok"] and o["warmup_source"] == "sidecar"
+            for o in v2["replicas"].values()),
+            f"16.4: the swap reached {out['16.4']}")
+
+        # 16.5: r1 decommissioned under load
+        dr0, rd0 = c("fleet.drains"), c("fleet.drain_redirects")
+        mix = {}
+        runner = threading.Thread(target=lambda: mix.update(zip(
+            ("served", "window"),
+            fleet_mix(fleet, texts, FLEET_DRAIN_REQUESTS))))
+        runner.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        fleet.decommission("r1")
+        drain_s = time.perf_counter() - t0
+        runner.join(timeout=2 * FLEET_WAIT_S)
+        served = mix.get("served", [])
+        errs = [(i, repr(e)) for i, _, e in served if e is not None]
+        rep, bad = fleet_rows_report(served, serial, "16.5")
+        problems += bad
+        out["16.5"] = dict(requests=len(served), errors=errs[:3],
+                           drain_s=drain_s, drains=c("fleet.drains") - dr0,
+                           redirects=c("fleet.drain_redirects") - rd0,
+                           states=fleet.replica_states(),
+                           rows_vs_serial=rep)
+        check(len(served) == FLEET_DRAIN_REQUESTS and not errs
+              and out["16.5"]["drains"] == 1
+              and out["16.5"]["states"] == {"r0": "ready"},
+              f"16.5: {out['16.5']}")
+
+        # 16.2 at N = 1
+        out["16.2 N=1"] = fleet_window(fleet, texts, serial, "16.2 N=1",
+                                       problems)
+
+        # 16.4, the re-sync: a replica comes back while version 3 is
+        # broadcast; it boots on version 2 and re-syncs before ready
+        commit_version(store, 3, path)
+        rs0, ok0 = c("fleet.resyncs"), c("fleet.swap_ok")
+        scaler = threading.Thread(target=fleet.scale_to, args=(2,))
+        scaler.start()
+        wait_for(lambda: "r2" in fleet.replica_states(), "r2's spawn")
+        v3 = fleet.load("bert", store.blob_path(3), "text string")
+        scaler.join(timeout=FLEET_WAIT_S + 30)
+
+        def r2_synced():
+            return {r["replica"]: r for r in fleet.fleet_summary()
+                    ["replicas"]}.get("r2", {}).get("synced", {}).get(
+                "bert") == v3["seq"]
+
+        # heartbeats queued while the supervisor ran the re-sync carry the
+        # boot version; the next ones carry the re-synced one
+        wait_for(r2_synced, "r2's heartbeats at the re-synced version")
+        summ = {r["replica"]: r for r in fleet.fleet_summary()["replicas"]}
+        r2 = summ.get("r2", {})
+        out["16.4 resync"] = dict(
+            broadcast_to=sorted(v3["replicas"]),
+            swap_ok=c("fleet.swap_ok") - ok0,
+            resyncs=c("fleet.resyncs") - rs0, r2_state=r2.get("state"),
+            r2_synced=r2.get("synced"), seq=v3["seq"],
+            r2_ready_s=r2.get("ready_s"),
+            r2_boot=[ld.get("warmup_source") for ld in r2.get("loads")
+                     or []])
+        print(f"16.4 swap {json.dumps(out['16.4'], default=str)}; re-sync "
+              f"{json.dumps(out['16.4 resync'], default=str)}", flush=True)
+        check(out["16.4 resync"]["broadcast_to"] == ["r0"]
+              and out["16.4 resync"]["resyncs"] == 1
+              and r2.get("state") == "ready"
+              and (r2.get("synced") or {}).get("bert") == v3["seq"],
+              f"16.4: r2 did not re-sync: {out['16.4 resync']}")
+        pids += [r["pid"] for r in summ.values()]
+        quiet = [fleet.predict("bert", texts[i], timeout=FLEET_WAIT_S)
+                 for i in range(4)]
+        check(all(tuple(q) == tuple(serial[i]) for i, q in enumerate(quiet)),
+              "16.4: rows after the re-sync differ from the serial ones")
+    finally:
+        fleet.stop()
+    gone = [p for p in set(pids) if os.path.exists(f"/proc/{p}")]
+    check(not gone, f"16: replica processes left running: {gone}")
+    launches = sum(out[k]["per_replica"][rid]["launches"]
+                   for k in ("16.2 N=2", "16.2 N=1")
+                   for rid in out[k]["per_replica"])
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 16 fleet: " + json.dumps(out, default=str),
+          flush=True)
+    if problems:
+        fail("phase 16: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5413,12 +5986,15 @@ def main() -> int:
     del X, y
     ingest_path(workdir, card)
     marks.append(("phase 13 ingest", time.perf_counter()))
-    serve_launches, _ = serving_path(workdir, served_main, card)
+    serve_launches, _, serial = serving_path(workdir, served_main, card)
     marks.append(("phase 14 serving", time.perf_counter()))
     pretraining = pretraining_path(workdir, peaks, card)
     print(f"[{card}] phase 15: " + json.dumps(pretraining, default=str),
           flush=True)
     marks.append(("phase 15 pretraining", time.perf_counter()))
+    fleet = fleet_path(workdir, card, fleet_inputs(workdir, served_main,
+                                                   serial))
+    marks.append(("phase 16 fleet", time.perf_counter()))
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -5434,7 +6010,8 @@ def main() -> int:
 
     line = {"kernels": [
         dict(entry("flash_block_update",
-                   launches + quant_launches + serve_launches, stats,
+                   launches + quant_launches + serve_launches
+                   + fleet["launches"], stats,
                    "scaled_dot_product_attention over all 512 keys, "
                    "contiguous (B, H, S, D), unmasked (yardstick)",
                    "one attention call: (B, S, H, D) = (32, 512, 12, 64) "
@@ -5444,8 +6021,11 @@ def main() -> int:
              launches_by_path={"phase 4 serving": launches,
                                **{f"12.1 {p}": families["12.1"][p]["launches"]
                                   for p in POLICIES},
-                               "phase 14 serving": serve_launches},
+                               "phase 14 serving": serve_launches,
+                               "phase 16 fleet (replicas' counters)":
+                               fleet["launches"]},
              library_views_ms=stats["library_views_ms"],
+             serving_rungs=stats["serving_rungs"],
              block_ms=stats["block_ms"],
              block_plain_ms=stats["block_plain_ms"],
              train_launches=kernel_train["kernel"]["launches"],

@@ -18,7 +18,9 @@ BASELINE #3 and #5; it builds no kernel), ``serving`` (phase 14, BERT-base
 serving through ``ModelServer``, with phase 4's model and request, run
 first), ``pretrain`` (phase 15, MLM pretraining: BERT-base width, the
 corpus-scale loop, the contracts, bench.py's quality route; it builds no
-kernel). Each
+kernel), ``fleet`` (phase 16, the serving fleet: two BERT-base replicas
+of phase 4's model as a pipeline ``.ak`` with its sidecar, both written
+first, with the serial predicts the rows are held against). Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
 """
@@ -35,7 +37,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
-          "families", "ingest", "serving", "pretrain")
+          "families", "ingest", "serving", "pretrain", "fleet")
 
 
 def main() -> int:
@@ -82,6 +84,11 @@ def main() -> int:
         _, served = cs.main_path(workdir, cs.serving_config())
         return cs.serving_path(workdir, served, card.splitlines()[0])[1]
 
+    def fleet():
+        _, served = cs.main_path(workdir, cs.serving_config())
+        return cs.fleet_path(workdir, card.splitlines()[0],
+                             cs.fleet_inputs(workdir, served))
+
     run = {"sgns": cs.check_sgns_wide, "hist": wide_hist,
            "bwd": lambda: cs.check_backward(peaks),
            "record": lambda: cs.train_metric_of_record(peaks),
@@ -89,7 +96,7 @@ def main() -> int:
            "sst2": lambda: cs.finetune_sst2(workdir),
            "forest": cs.wide_forest_path, "families": families,
            "ingest": lambda: cs.ingest_path(workdir, card.splitlines()[0]),
-           "serving": serving,
+           "serving": serving, "fleet": fleet,
            "pretrain": lambda: cs.pretraining_path(workdir, peaks,
                                                    card.splitlines()[0])}
     out = {}

@@ -81,6 +81,14 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.analysis.diagnostics",
             "alink_tpu_torch.serving.router",
             "alink_tpu_torch.serving.warmup_store",
+            "alink_tpu_torch.serving.fleet",
+            "alink_tpu_torch.serving.fleet_frontend",
+            "alink_tpu_torch.common.faults",
+            "alink_tpu_torch.common.telemetry",
+            "alink_tpu_torch.common.elastic",
+            "alink_tpu_torch.parallel.distributed",
+            "alink_tpu_torch.modelstream.store",
+            "alink_tpu_torch.modelstream.publisher",
             "alink_tpu_torch.webui.server"} \
         <= set(scanned.split(","))
     smoke = subprocess.run(
@@ -90,6 +98,37 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
          "'alink_tpu'))))"], cwd=REPO, env=env, capture_output=True,
         text=True, timeout=120)
     assert smoke.returncode == 0 and smoke.stdout.strip() == "", smoke
+
+
+_WORKER_ENTRY = r"""
+import runpy, sys
+try:
+    runpy.run_module("alink_tpu_torch.serving.fleet", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    code = e.code
+print(code)
+print(",".join(sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                             "orbax", "msgpack", "safetensors",
+                                             "tensorflow", "alink_tpu"))))
+"""
+
+
+def test_fleet_worker_entry_imports_no_jax_or_reference():
+    """The fleet's worker entry, run as the supervisor runs it (``python
+    -m alink_tpu_torch.serving.fleet``; here without its config, so it
+    refuses with exit code 2), pulls in none of the forbidden packages."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("ALINK_FLEET_WORKER", None)
+    out = subprocess.run([sys.executable, "-c", _WORKER_ENTRY], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    code, bad = (out.stdout.strip().split("\n") + [""])[:2]
+    assert code == "2" and "ALINK_FLEET_WORKER" in out.stderr
+    assert bad == "", f"the worker entry pulled in: {bad}"
+    assert "alink_tpu_torch.serving.fleet" in out.stderr
 
 
 def _module_level_imports(tree):
