@@ -1,8 +1,8 @@
 """Diagnostic/report model of the static-analysis layer (port of the part of
-``alink_tpu.analysis.diagnostics`` that rules ALK110 and ALK111 need). The
-report dict keeps the reference's keys for what it carries; the file:line
-locations, the info severity and the ordering of the source linter's
-findings come back with the other rules of ROADMAP A10.
+``alink_tpu.analysis.diagnostics`` that the plan rules need: ALK101–ALK103,
+ALK105, ALK106, ALK110, ALK111). The report dict keeps the reference's keys
+and ordering (severity, then rule); the source linter's file:line locations
+come back with its rules (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -12,10 +12,30 @@ from typing import Any, Dict, List
 
 ERROR = "error"
 WARNING = "warning"
+INFO = "info"
+
+_SEV_ORDER = {ERROR: 0, WARNING: 1, INFO: 2}
 
 # rule id -> (default severity, one-line description), the reference's
 # entries for the rules the port checks
 RULES: Dict[str, tuple] = {
+    "ALK101": (ERROR,
+               "a column named by selectedCols/featureCols/labelCol/... is "
+               "absent from the upstream schema"),
+    "ALK102": (ERROR,
+               "a column feeding a numeric kernel has a non-numeric type "
+               "(e.g. STRING in featureCols)"),
+    "ALK103": (WARNING,
+               "shape or key hazard: a batch size off the bucket_rows "
+               "ladder, or a block-kernel closure capturing state that "
+               "cannot be content-keyed"),
+    "ALK105": (INFO,
+               "a non-fusable op interrupts a linear mapper chain — the run "
+               "splits into multiple device programs with host round trips "
+               "between them"),
+    "ALK106": (INFO,
+               "static output schema could not be derived for a node; "
+               "downstream schema checks were skipped"),
     "ALK110": (WARNING,
                "model loaded into a serving fleet without a readable "
                ".ak.warmup.json sidecar — a respawned replica would fall "
@@ -72,6 +92,17 @@ class Report:
     def errors(self) -> List[Diagnostic]:
         return [d for d in self.diagnostics if d.severity == ERROR]
 
+    def warnings(self) -> List[Diagnostic]:
+        return [d for d in self.diagnostics if d.severity == WARNING]
+
+    def infos(self) -> List[Diagnostic]:
+        return [d for d in self.diagnostics if d.severity == INFO]
+
+    def sorted(self) -> List[Diagnostic]:
+        return sorted(self.diagnostics,
+                      key=lambda d: (_SEV_ORDER.get(d.severity, 9), d.rule,
+                                     d.where))
+
     @property
     def ok(self) -> bool:
         return not self.diagnostics
@@ -89,12 +120,18 @@ class Report:
             "target": self.target,
             "counts": {"total": len(self.diagnostics),
                        "error": len(self.errors()),
-                       "warning": len(self.diagnostics) - len(self.errors())},
+                       "warning": len(self.warnings()),
+                       "info": len(self.infos())},
             "by_rule": by_rule,
-            "diagnostics": [d.to_dict() for d in self.diagnostics],
+            "diagnostics": [d.to_dict() for d in self.sorted()],
         }
 
     def render(self) -> str:
-        return "\n".join([str(d) for d in self.diagnostics]
-                         + [f"{len(self.diagnostics)} finding(s), "
-                            f"{len(self.errors())} error(s)"])
+        if self.ok:
+            return f"{self.engine}: clean ({self.target})" if self.target \
+                else f"{self.engine}: clean"
+        return "\n".join([str(d) for d in self.sorted()]
+                         + [f"{len(self.diagnostics)} finding(s): "
+                            f"{len(self.errors())} error(s), "
+                            f"{len(self.warnings())} warning(s), "
+                            f"{len(self.infos())} info(s)"])

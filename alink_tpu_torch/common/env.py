@@ -3,8 +3,15 @@
 The ``env_*`` helpers are copied from ``alink_tpu.common.env``.
 :class:`MLEnvironment` keeps the reference's session shape (a lazy-sink
 manager, registered by id in :class:`MLEnvironmentFactory`) but holds a torch
-device where the reference holds a JAX mesh. The reference's DAG pool and jit
-cache have no counterpart here yet.
+device where the reference holds a JAX mesh, and the reference's two thread
+pools: the session pool for host-side work inside a node (``executor``,
+threads ``alink-local``) and the DAG pool the executor runs node tasks on
+(``dag_pool``, threads ``alink-dag``; ``common/executor.py``). The
+reference's jit cache has no counterpart (nothing is compiled per shape).
+
+A worker thread never relies on PyTorch's thread-local current device:
+every mapper reads its own ``device``, which the operator sets from the
+session's :attr:`MLEnvironment.device`.
 
 Device policy: entry points run on ``cuda`` unless the caller asks for the
 CPU, either with an explicit ``device="cpu"`` or with ``ALINK_TORCH_DEVICE=cpu``
@@ -16,6 +23,7 @@ from __future__ import annotations
 
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 from .exceptions import AkIllegalArgumentException, AkIllegalStateException
@@ -104,13 +112,49 @@ def plugin_dir() -> str:
 
 
 class MLEnvironment:
-    """One session: torch device + lazy-sink manager."""
+    """One session: torch device + lazy-sink manager + host thread pools."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, parallelism: Optional[int] = None):
         from .lazy import LazyObjectsManager
 
         self._device_request = device
+        self._parallelism = parallelism
         self.lazy_manager = LazyObjectsManager()
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._dag_pool: Optional[ThreadPoolExecutor] = None
+        self._lock = threading.Lock()
+
+    # -- host-side thread pool (AlinkLocalSession analog) ------------------
+    @property
+    def executor(self) -> ThreadPoolExecutor:
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self.parallelism,
+                    thread_name_prefix="alink-local")
+            return self._pool
+
+    # -- DAG scheduler pool -------------------------------------------------
+    @property
+    def dag_pool(self) -> ThreadPoolExecutor:
+        """Threads running DAG *node* tasks (common/executor.py). Separate
+        from ``executor`` so a node blocking on intra-op futures can never
+        starve the pool those run on (two-level submit to one pool
+        deadlocks once every worker waits on queued inner tasks)."""
+        from .executor import _DAG_THREAD_PREFIX, _dag_pool_size
+
+        with self._lock:
+            if self._dag_pool is None:
+                self._dag_pool = ThreadPoolExecutor(
+                    max_workers=_dag_pool_size(self),
+                    thread_name_prefix=_DAG_THREAD_PREFIX)
+            return self._dag_pool
+
+    @property
+    def parallelism(self) -> int:
+        if self._parallelism is not None:
+            return self._parallelism
+        return max(1, os.cpu_count() or 1)
 
     @property
     def device(self):
@@ -120,6 +164,12 @@ class MLEnvironment:
 
     def close(self):
         self.lazy_manager.clear()
+        with self._lock:
+            pools, self._pool, self._dag_pool = \
+                (self._pool, self._dag_pool), None, None
+        for pool in pools:
+            if pool is not None:
+                pool.shutdown(wait=False)
 
 
 class MLEnvironmentFactory:

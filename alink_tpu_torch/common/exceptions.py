@@ -169,6 +169,13 @@ def _torch_device_retryable(exc: BaseException) -> "bool | None":
     return None
 
 
+def is_sticky_device_error(exc: BaseException) -> bool:
+    """A sticky CUDA error (an illegal memory access, a device-side assert):
+    it poisons the CUDA context for every later call in the process, so no
+    layer may retry it, defuse around it or re-run its work elsewhere."""
+    return _torch_device_retryable(exc) is False
+
+
 def mark_retryable(exc: BaseException) -> BaseException:
     """Tag any exception instance as retryable without changing its type
     (for call sites that know a specific library error is transient)."""

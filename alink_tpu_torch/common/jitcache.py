@@ -19,12 +19,18 @@ needs).
    new signature. :func:`seen_warmup_specs` / :func:`save_warmup_specs` give
    the record in the reference's warmup-spec shapes.
 
+3. **Content keys** — :func:`fn_content_key` / :func:`instance_token` /
+   :class:`Unkeyable`, copied: the mapper kernel chain names its signature
+   record by them, and the plan validator's ALK103 flags a block kernel
+   whose closure cannot be content-keyed.
+
 The reference's program cache (``cached_jit``), AOT warmup and persistent
 compile cache have no counterpart: nothing here is compiled per shape.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
@@ -34,6 +40,90 @@ import numpy as np
 
 from .env import env_str
 from .metrics import metrics
+
+# ---------------------------------------------------------------------------
+# Key construction (copied from the reference)
+# ---------------------------------------------------------------------------
+
+_token_counter = itertools.count(1)
+
+
+def instance_token(obj) -> int:
+    """Unique, GC-safe token for a Python object's lifetime: the key
+    component for a kernel whose behavior is set by instance state that
+    cannot be content-hashed. Unlike ``id()``, tokens are never recycled."""
+    tok = getattr(obj, "_jitcache_token", None)
+    if tok is None:
+        tok = next(_token_counter)
+        try:
+            obj._jitcache_token = tok
+        except AttributeError:  # __slots__ objects: one-shot token
+            return tok
+    return tok
+
+
+class Unkeyable(TypeError):
+    """Raised by :func:`fn_content_key` when a closure captures values that
+    cannot be content-hashed (device tensors, open handles). Callers fall
+    back to :func:`instance_token`."""
+
+
+def _freeze(v) -> Any:
+    """Hashable, content-faithful key component for a config value."""
+    import types
+
+    if v is None or isinstance(v, (bool, int, float, str, bytes, type,
+                                   types.CodeType)):
+        return v
+    if isinstance(v, np.generic):
+        return ("nps", v.dtype.str, v.item())
+    if isinstance(v, np.ndarray):
+        a = np.ascontiguousarray(v)
+        import hashlib
+
+        h = hashlib.blake2b(digest_size=12)
+        h.update(a.view(np.uint8).reshape(-1).data if a.dtype != object
+                 else repr(a.tolist()).encode())
+        return ("nd", a.shape, a.dtype.str, h.hexdigest())
+    if isinstance(v, (tuple, list)):
+        return ("seq", tuple(_freeze(x) for x in v))
+    if isinstance(v, dict):
+        return ("map", tuple(sorted((k, _freeze(x)) for k, x in v.items())))
+    if isinstance(v, (frozenset, set)):
+        return ("set", tuple(sorted(map(repr, v))))
+    if callable(v):
+        return fn_content_key(v)
+    raise Unkeyable(f"cannot build a cache key from {type(v).__name__}")
+
+
+def fn_content_key(fn) -> Tuple:
+    """Content key for a plain function or closure: code object + defaults +
+    captured cell values. Raises :class:`Unkeyable` when a cell holds
+    something that cannot be content-hashed."""
+    if fn is None:
+        return ("fn", None)
+    if hasattr(fn, "__wrapped__"):
+        fn = fn.__wrapped__
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        # bound method / callable object: key on the class + instance token
+        f = getattr(fn, "__func__", None)
+        if f is not None:
+            return ("bound", fn_content_key(f),
+                    instance_token(fn.__self__))
+        raise Unkeyable(f"cannot key callable {fn!r}")
+    cells: Tuple = ()
+    if fn.__closure__:
+        vals = []
+        for cell in fn.__closure__:
+            try:
+                vals.append(_freeze(cell.cell_contents))
+            except (Unkeyable, ValueError) as e:
+                raise Unkeyable(str(e))
+        cells = tuple(vals)
+    defaults = tuple(_freeze(d) for d in (fn.__defaults__ or ()))
+    return ("fn", fn.__qualname__, code, defaults, cells)
+
 
 # ---------------------------------------------------------------------------
 # Shape bucketing (copied from the reference)

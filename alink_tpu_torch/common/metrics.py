@@ -8,9 +8,11 @@ states merge into (``merge_histogram``: exact per-bucket count sums, so a
 fleet's quantiles are the quantiles of the union), export hooks, and the
 Prometheus text exposition with the same series names.
 :func:`profile_trace` writes a ``torch.profiler`` Chrome trace where the
-reference starts ``jax.profiler``. The executor's node-phase accounting
-(``node_phase_context``, ``executor_trace``) waits for the DAG executor
-(ROADMAP A1).
+reference starts ``jax.profiler``. The executor's node-phase accounting is
+the reference's: the DAG executor opens ``node_phase_context`` on the
+thread running a unit, lower layers add their seconds with
+``add_node_phase`` (``stream_map``'s ``transfer_s``/``compute_s``), and
+``executor_trace`` reads the per-unit records back.
 
 Usage:
     from alink_tpu_torch.common.metrics import metrics, timed, profile_trace
@@ -494,6 +496,41 @@ def export_prometheus() -> str:
     """Module-level convenience over the global recorder — the function the
     package root exports and ``GET /metrics`` serves."""
     return metrics.export_prometheus()
+
+
+# ---------------------------------------------------------------------------
+# Executor node-phase accounting
+# ---------------------------------------------------------------------------
+# The DAG executor opens a per-node context on the thread running the node;
+# lower layers (device streaming) add transfer/compute seconds into whatever
+# node is active without knowing about the executor. No-op when no node
+# context is open (direct op calls, tests).
+
+_node_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def node_phase_context(phases: Dict[str, float]):
+    prev = getattr(_node_ctx, "phases", None)
+    _node_ctx.phases = phases
+    try:
+        yield phases
+    finally:
+        _node_ctx.phases = prev
+
+
+def add_node_phase(key: str, seconds: float):
+    phases = getattr(_node_ctx, "phases", None)
+    if phases is not None:
+        phases[key] = phases.get(key, 0.0) + seconds
+
+
+def executor_trace() -> List[Dict[str, Any]]:
+    """Per-unit records of the last executed DAGs: one dict per unit with
+    ``op``/``wall_s`` plus any phases (``transfer_s``, ``compute_s``,
+    ``fused``) the unit reported, and ``t0_s``/``t1_s`` (its interval on
+    the ``time.perf_counter`` clock)."""
+    return metrics.series("executor.node")
 
 
 @contextlib.contextmanager

@@ -12,6 +12,9 @@ Key bridge methods:
   ``torch.Tensor`` block (the single host→device boundary of the framework),
 - row-oriented views (``rows()``, ``get_row``) kept for API/docs parity with the
   reference's row model.
+
+The reference's pandas bridge (``from_dataframe``/``to_dataframe``) is left
+out: pandas is not among the port's dependencies.
 """
 
 from __future__ import annotations
@@ -232,11 +235,6 @@ class MTable:
         return MTable(cols, schema)
 
     @staticmethod
-    def from_dataframe(df) -> "MTable":
-        cols = {str(c): df[c].to_numpy() for c in df.columns}
-        return MTable(cols)
-
-    @staticmethod
     def empty(schema: "TableSchema | str") -> "MTable":
         """Zero-row table with correctly-typed columns — the probe input for
         static schema derivation (ops run on it produce schemas, not data)."""
@@ -412,16 +410,6 @@ class MTable:
 
         block = self.to_numeric_block(names, dtype=dtype)
         return torch.as_tensor(block.copy(), device=resolve_device(device))
-
-    def to_dataframe(self):
-        import pandas as pd
-
-        data = {}
-        for n in self.names:
-            c = self._cols[n]
-            data[n] = [str(v) if isinstance(v, (DenseVector, SparseVector)) else v for v in c] \
-                if c.dtype == object else c
-        return pd.DataFrame(data)
 
     # -- display -----------------------------------------------------------
     def __repr__(self):

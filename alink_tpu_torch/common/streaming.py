@@ -20,13 +20,14 @@ shape is untouched.
 pretraining feed tokenizes and masks a batch there, on the transfer
 thread); it runs on the same side stream, so its copies are ordered the
 same way. Every batch observes the ``stream.transfer_s``, ``stream.wait_s``
-and ``stream.compute_s`` histograms (``common/metrics.py``).
+and ``stream.compute_s`` histograms (``common/metrics.py``), and adds its
+``transfer_s`` and ``compute_s`` into the phases of the DAG unit running
+it (``add_node_phase``; a no-op outside the executor).
 
 Left out of the port: the reference's ``use_cache`` staging-cache route
 (the port has no content-keyed device cache and no ``wire_is_slow``
 probe), its ``ALINK_H2D_STREAMS`` thread pool, its retry and
-fault-injection hooks (they wait for A10's ``common/faults.py``) and the
-executor's node-phase accounting (A1).
+fault-injection hooks (the ``transfer`` site waits for A7).
 On a CPU device a "transfer" wraps the host array as a tensor, and the
 pipeline order, depth and phases are the same.
 """
@@ -149,7 +150,7 @@ def stream_map(
     ``fn``: issue, or the whole call where ``fn`` syncs) and ``batches``."""
     import torch
 
-    from .metrics import metrics
+    from .metrics import add_node_phase, metrics
 
     dev = resolve_device(device)
     depth = stream_depth(DEFAULT_DEPTH) if depth is None else max(1, depth)
@@ -184,6 +185,8 @@ def stream_map(
             t0 = time.perf_counter()
             out = fn(*devs)
             dt_fn = time.perf_counter() - t0
+            add_node_phase("transfer_s", dt_put)
+            add_node_phase("compute_s", dt_fn)
             metrics.observe("stream.transfer_s", dt_put)
             metrics.observe("stream.wait_s", dt_wait)
             metrics.observe("stream.compute_s", dt_fn)

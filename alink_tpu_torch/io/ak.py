@@ -5,9 +5,10 @@ core/src/main/java/com/alibaba/alink/common/io/filesystem/AkUtils.java:52-110,
 AkStream.java:28-165 — a zip archive holding a JSON meta entry plus
 row-serialized partition entries).
 
-This is a copy of ``alink_tpu.io.ak`` that opens local paths only
-(:func:`file_open`); the reference's scheme-dispatched filesystem layer is not
-ported yet. Files written by either package read in the other.
+This is a copy of ``alink_tpu.io.ak``; every path opens through the
+scheme-dispatched filesystem (``io/filesystem.py``: local paths,
+``file://``, ``memory://`` and registered schemes). Files written by either
+package read in the other.
 
 Re-design: same envelope (zip + ``alink_meta.json``), columnar payload — each
 partition is an npz of column arrays (object columns via their string codecs)
@@ -18,13 +19,12 @@ in chunks and read lazily.
 from __future__ import annotations
 
 import json
-import os
 import zipfile
 from typing import List, Optional
 
-from ..common.exceptions import (AkIllegalArgumentException,
-                                 AkParseErrorException)
+from ..common.exceptions import AkParseErrorException
 from ..common.mtable import MTable
+from .filesystem import file_open
 
 META_ENTRY = "alink_meta.json"
 DATA_PREFIX = "data/part-"
@@ -36,20 +36,6 @@ FORMAT_VERSION = 1
 # bit-identical to the fault-free write), so every entry carries this fixed
 # epoch instead.
 ZIP_EPOCH = (1980, 1, 1, 0, 0, 0)
-
-
-def file_open(path, mode: str = "r"):
-    """Open a local file (``file://`` prefix allowed)."""
-    if not isinstance(path, (str, os.PathLike)):
-        raise AkIllegalArgumentException(f"not a path: {path!r}")
-    path = str(path)
-    if "://" in path:
-        scheme, rest = path.split("://", 1)
-        if scheme != "file":
-            raise AkIllegalArgumentException(
-                f"scheme {scheme!r} is not supported by the port yet: {path}")
-        path = rest
-    return open(path, mode)
 
 
 def _write_zip_entry(zf: zipfile.ZipFile, name: str, data) -> None:

@@ -1,13 +1,18 @@
-from .base import (HasFeatureCols, HasPredictionCol, HasPredictionDetailCol,
-                   HasReservedCols, HasSelectedCols, HasVectorCol, Mapper,
-                   ModelMapper, RichModelMapper, default_feature_cols,
-                   detail_json, get_feature_block, merge_feature_params,
-                   np_labels, resolve_feature_cols, sigmoid_np, softmax_np)
+from .base import (BlockKernelMapper, FusedMapperChain, HasFeatureCols,
+                   HasOutputCol, HasOutputCols, HasPredictionCol,
+                   HasPredictionDetailCol, HasReservedCols, HasSelectedCol,
+                   HasSelectedCols, HasVectorCol, Mapper, MapperChain,
+                   ModelMapper, RichModelMapper, SISOMapper,
+                   default_feature_cols, detail_json, get_feature_block,
+                   merge_feature_params, np_labels, resolve_feature_cols,
+                   run_kernel_chain, sigmoid_np, softmax_np)
 
 __all__ = [
-    "HasFeatureCols", "HasPredictionCol", "HasPredictionDetailCol",
-    "HasReservedCols", "HasSelectedCols", "HasVectorCol", "Mapper",
-    "ModelMapper", "RichModelMapper", "default_feature_cols", "detail_json",
-    "get_feature_block", "merge_feature_params", "np_labels",
-    "resolve_feature_cols", "sigmoid_np", "softmax_np",
+    "BlockKernelMapper", "FusedMapperChain", "HasFeatureCols",
+    "HasOutputCol", "HasOutputCols", "HasPredictionCol",
+    "HasPredictionDetailCol", "HasReservedCols", "HasSelectedCol",
+    "HasSelectedCols", "HasVectorCol", "Mapper", "MapperChain",
+    "ModelMapper", "RichModelMapper", "SISOMapper", "default_feature_cols",
+    "detail_json", "get_feature_block", "merge_feature_params", "np_labels",
+    "resolve_feature_cols", "run_kernel_chain", "sigmoid_np", "softmax_np",
 ]

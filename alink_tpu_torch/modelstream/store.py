@@ -1,6 +1,5 @@
 """Crash-safe model version store — the persistence half of the
-stream-train → serve loop (port of ``alink_tpu.modelstream.store``, on the
-local filesystem).
+stream-train → serve loop (port of ``alink_tpu.modelstream.store``).
 
 Every version is three files and the manifest rename is the ONE atomic
 commit point::
@@ -20,10 +19,12 @@ Retention keeps the last K committed versions (``ALINK_MODELSTREAM_KEEP``);
 ``latest()`` / ``versions()`` give late-joining serving replicas the
 scanner-style readout.
 
-The store lives on a local (or locally mounted) path; ``file://`` is
-accepted. Other schemes (``hdfs://``, ``oss://``, …) raise
-:class:`~alink_tpu_torch.common.exceptions.AkUnsupportedOperationException`
-until the scheme-dispatched ``io/filesystem.py`` is ported (ROADMAP A1).
+The store lives on any scheme the filesystem layer speaks
+(``io/filesystem.py``: local paths, ``file://``, ``memory://``, registered
+schemes); an unregistered scheme raises
+:class:`~alink_tpu_torch.common.exceptions.AkPluginNotExistException`.
+fsync applies to local files; on another store durability is the store's
+close contract (counted in ``modelstream.fsync_skipped``).
 """
 
 from __future__ import annotations
@@ -34,43 +35,43 @@ import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..common.env import env_int
-from ..common.exceptions import (AkIllegalArgumentException,
-                                 AkUnsupportedOperationException)
+from ..common.exceptions import AkIllegalArgumentException
 from ..common.faults import maybe_fail
 from ..common.metrics import metrics
+from ..io.filesystem import LocalFileSystem, get_file_system
 
 MANIFEST_VERSION = 1
 _PREFIX = "v-"
 
 
-def _local_path(path: str) -> str:
-    if "://" in path:
-        scheme, rest = path.split("://", 1)
-        if scheme != "file":
-            raise AkUnsupportedOperationException(
-                f"modelstream store on scheme {scheme!r} ({path}): the "
-                "port's stores are local paths until io/filesystem.py's "
-                "scheme dispatch is ported (ROADMAP A1)")
-        path = rest
-    return os.path.abspath(path)
+def _fsync(fs, path: str) -> None:
+    """fsync a closed file of a local store; elsewhere durability is the
+    store's close contract."""
+    if not isinstance(fs, LocalFileSystem):
+        metrics.incr("modelstream.fsync_skipped")
+        return
+    fd = os.open(LocalFileSystem._strip(path), os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
-def _durable_write(path: str, data: bytes) -> None:
-    """Write-tmp → flush → fsync → rename: the bytes are on disk before the
-    name exists, so a reader never sees a half-written file and a rename
-    that survived power loss implies the payload did too (copy of
-    ``alink_tpu.common.recovery._durable_write``, local files)."""
+def _durable_write(fs, path: str, data: bytes) -> None:
+    """Write-tmp → fsync → rename: the bytes are on disk before the name
+    exists, so a reader never sees a half-written file and a rename that
+    survived power loss implies the payload did too (copy of
+    ``alink_tpu.common.recovery._durable_write``)."""
     tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
+    with fs.open(tmp, "wb") as f:
         f.write(data)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
+    _fsync(fs, tmp)
+    fs.rename(tmp, path)
 
 
-def _crc_file(path: str) -> Tuple[int, int]:
+def _crc_file(fs, path: str) -> Tuple[int, int]:
     crc, nbytes = 0, 0
-    with open(path, "rb") as f:
+    with fs.open(path, "rb") as f:
         while True:
             chunk = f.read(1 << 20)
             if not chunk:
@@ -86,8 +87,10 @@ class ModelStreamStore:
     def __init__(self, path: str, keep: Optional[int] = None):
         if not path:
             raise AkIllegalArgumentException("modelstream store needs a path")
-        self.path = _local_path(path)
-        os.makedirs(self.path, exist_ok=True)
+        self._fs = get_file_system(path)
+        self.path = os.path.abspath(LocalFileSystem._strip(path)) \
+            if isinstance(self._fs, LocalFileSystem) else path
+        self._fs.makedirs(self.path)
         self.keep = keep if keep is not None \
             else env_int("ALINK_MODELSTREAM_KEEP", 3)
         if self.keep < 1:
@@ -99,13 +102,13 @@ class ModelStreamStore:
 
     # -- layout --------------------------------------------------------------
     def blob_path(self, epoch: int) -> str:
-        return os.path.join(self.path, f"{_PREFIX}{epoch:012d}.ak")
+        return self._fs.join(self.path, f"{_PREFIX}{epoch:012d}.ak")
 
     def sidecar_path(self, epoch: int) -> str:
         return self.blob_path(epoch) + ".warmup.json"
 
     def manifest_path(self, epoch: int) -> str:
-        return os.path.join(self.path, f"{_PREFIX}{epoch:012d}.json")
+        return self._fs.join(self.path, f"{_PREFIX}{epoch:012d}.json")
 
     # -- commit protocol -----------------------------------------------------
     def publish(self, epoch: int,
@@ -127,13 +130,9 @@ class ModelStreamStore:
         maybe_fail("publish", label=f"epoch{epoch}.pre_blob")
         tmp = blob + ".tmp"
         write_blob(tmp)
-        fd = os.open(tmp, os.O_RDONLY)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
-        crc, nbytes = _crc_file(tmp)
-        os.replace(tmp, blob)
+        _fsync(self._fs, tmp)
+        crc, nbytes = _crc_file(self._fs, tmp)
+        self._fs.rename(tmp, blob)
         sidecar = None
         if write_sidecar is not None:
             maybe_fail("publish", label=f"epoch{epoch}.pre_sidecar")
@@ -149,7 +148,7 @@ class ModelStreamStore:
             "sidecar": sidecar,
             "meta": meta or {},
         }
-        _durable_write(self.manifest_path(epoch),
+        _durable_write(self._fs, self.manifest_path(epoch),
                        json.dumps(manifest).encode())
         metrics.incr("modelstream.commits")
         self.retain()
@@ -158,10 +157,10 @@ class ModelStreamStore:
     # -- scanner-style readout ----------------------------------------------
     def _read_manifest(self, epoch: int) -> Optional[Dict]:
         p = self.manifest_path(epoch)
-        if not os.path.exists(p):
+        if not self._fs.exists(p):
             return None
         try:
-            with open(p, "rb") as f:
+            with self._fs.open(p, "rb") as f:
                 m = json.loads(f.read())
             if int(m.get("version", 0)) > MANIFEST_VERSION:
                 return None
@@ -175,9 +174,9 @@ class ModelStreamStore:
     def _scan_epochs(self) -> Dict[int, Dict[str, bool]]:
         """epoch -> {"manifest": bool, "blob": bool} over the directory."""
         out: Dict[int, Dict[str, bool]] = {}
-        if not os.path.isdir(self.path):
+        if not self._fs.isdir(self.path):
             return out
-        for name in os.listdir(self.path):
+        for name in self._fs.listdir(self.path):
             if not name.startswith(_PREFIX):
                 continue
             stem, kind = None, None
@@ -214,7 +213,7 @@ class ModelStreamStore:
                 continue
             blob = self.blob_path(epoch)
             try:
-                crc, nbytes = _crc_file(blob)
+                crc, nbytes = _crc_file(self._fs, blob)
             except OSError:
                 self._count_torn(epoch)
                 continue
@@ -247,8 +246,8 @@ class ModelStreamStore:
             for p in (self.manifest_path(epoch), self.blob_path(epoch),
                       self.sidecar_path(epoch)):
                 try:
-                    if os.path.exists(p):
-                        os.remove(p)
+                    if self._fs.exists(p):
+                        self._fs.delete(p)
                 except OSError:
                     metrics.incr("modelstream.retain_errors")
             self._torn_seen.discard(epoch)

@@ -76,17 +76,26 @@ _built: Optional[str] = None
 build_seconds: Optional[float] = None
 
 
+# ``launches += 1`` is a read, an add and a write: two threads launching
+# the same kernel (two DAG branches, a server's batcher beside a caller)
+# would lose counts without the lock
+_count_lock = threading.Lock()
+
+
 def count_launch(name: str) -> None:
-    KERNELS[name].launches += 1
+    with _count_lock:
+        KERNELS[name].launches += 1
 
 
 def launches() -> Dict[str, int]:
-    return {n: k.launches for n, k in KERNELS.items()}
+    with _count_lock:
+        return {n: k.launches for n, k in KERNELS.items()}
 
 
 def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    with _count_lock:
+        for k in KERNELS.values():
+            k.launches = 0
 
 
 def build(verbose: bool = False) -> str:

@@ -1,5 +1,63 @@
+from ..sql import (DistinctOp, FilterOp, GroupByOp, IntersectOp, JoinOp,
+                   MinusAllOp, MinusOp, OrderByOp, RenameOp, SampleOp,
+                   SelectOp, UnionAllOp, UnionOp)
 from .base import (AkSinkBatchOp, AkSourceBatchOp, BatchOperator,
-                   CsvSourceBatchOp, MemSourceBatchOp, TableSourceBatchOp)
+                   CsvSinkBatchOp, CsvSourceBatchOp, FirstNBatchOp,
+                   MemSourceBatchOp, NumSeqSourceBatchOp,
+                   RandomTableSourceBatchOp, ShuffleBatchOp, SplitBatchOp,
+                   TableSourceBatchOp)
+from ..sqlengine import (JdbcSinkBatchOp, JdbcSourceBatchOp, SqliteCatalog,
+                         SqlQueryBatchOp, sql_query)
+
+
+# Reference-style names for the SQL sugar ops (reference: operator/batch/sql/*.java)
+class SelectBatchOp(SelectOp, BatchOperator):
+    pass
+
+
+class WhereBatchOp(FilterOp, BatchOperator):
+    pass
+
+
+class FilterBatchOp(FilterOp, BatchOperator):
+    pass
+
+
+class DistinctBatchOp(DistinctOp, BatchOperator):
+    pass
+
+
+class OrderByBatchOp(OrderByOp, BatchOperator):
+    pass
+
+
+class GroupByBatchOp(GroupByOp, BatchOperator):
+    pass
+
+
+class UnionAllBatchOp(UnionAllOp, BatchOperator):
+    pass
+
+
+class UnionBatchOp(UnionOp, BatchOperator):
+    pass
+
+
+class IntersectBatchOp(IntersectOp, BatchOperator):
+    pass
+
+
+class MinusBatchOp(MinusOp, BatchOperator):
+    pass
+
+
+class JoinBatchOp(JoinOp, BatchOperator):
+    pass
+
+
+class SampleBatchOp(SampleOp, BatchOperator):
+    pass
+
 from .clustering import (GeoKMeansPredictBatchOp, GeoKMeansTrainBatchOp,
                          KMeansModelInfoBatchOp, KMeansModelMapper,
                          KMeansPredictBatchOp, KMeansTrainBatchOp)
@@ -58,8 +116,18 @@ from .linear import (BaseLinearModelTrainBatchOp, LassoRegPredictBatchOp,
 from .utils import MapBatchOp, ModelMapBatchOp, ModelTrainOpMixin
 
 __all__ = [
-    "AkSinkBatchOp", "AkSourceBatchOp", "BatchOperator", "CsvSourceBatchOp",
-    "MemSourceBatchOp", "TableSourceBatchOp",
+    "AkSinkBatchOp", "AkSourceBatchOp", "BatchOperator", "CsvSinkBatchOp",
+    "CsvSourceBatchOp", "FirstNBatchOp", "MemSourceBatchOp",
+    "NumSeqSourceBatchOp", "RandomTableSourceBatchOp", "ShuffleBatchOp",
+    "SplitBatchOp", "TableSourceBatchOp",
+    "DistinctOp", "FilterOp", "GroupByOp", "IntersectOp", "JoinOp",
+    "MinusAllOp", "MinusOp", "OrderByOp", "RenameOp", "SampleOp", "SelectOp",
+    "UnionAllOp", "UnionOp", "SelectBatchOp", "WhereBatchOp",
+    "FilterBatchOp", "DistinctBatchOp", "OrderByBatchOp", "GroupByBatchOp",
+    "UnionAllBatchOp", "UnionBatchOp", "IntersectBatchOp", "MinusBatchOp",
+    "JoinBatchOp", "SampleBatchOp",
+    "JdbcSinkBatchOp", "JdbcSourceBatchOp", "SqliteCatalog",
+    "SqlQueryBatchOp", "sql_query",
     "GeoKMeansPredictBatchOp", "GeoKMeansTrainBatchOp",
     "KMeansModelInfoBatchOp", "KMeansModelMapper", "KMeansPredictBatchOp",
     "KMeansTrainBatchOp",

@@ -1,21 +1,25 @@
 """BatchOperator + batch sources and sink (port of
 ``alink_tpu.operator.batch.base``).
 
-Capability parity with reference operator/batch/BatchOperator.java:67 and
+Capability parity with reference operator/batch/BatchOperator.java:67,
 operator/batch/source/AkSourceBatchOp.java, MemSourceBatchOp.java,
-CsvSourceBatchOp.java, sink/AkSinkBatchOp.java.
+CsvSourceBatchOp.java, RandomTableSourceBatchOp.java, NumSeqSourceBatchOp,
+sink/AkSinkBatchOp.java, CsvSinkBatchOp.java and dataproc/SplitBatchOp.java.
+Every file op opens its path through the scheme-dispatched filesystem
+(``io/filesystem.py``), so ``memory://`` and registered schemes work as
+local paths do.
 """
 
 from __future__ import annotations
 
 import csv
-import os
+import io
 
 import numpy as np
 
 from ...common.exceptions import AkIllegalArgumentException
 from ...common.mtable import AlinkTypes, MTable, TableSchema
-from ...common.params import ParamInfo
+from ...common.params import MinValidator, ParamInfo, RangeValidator
 from ..base import AlgoOperator, TableSourceOp
 
 
@@ -85,7 +89,7 @@ class CsvSourceBatchOp(BatchOperator):
     _max_inputs = 0
 
     def _execute_impl(self) -> MTable:
-        from ...io.ak import file_open
+        from ...io.filesystem import file_open
 
         schema = TableSchema.parse(self.get(self.SCHEMA_STR))
         with file_open(self.get(self.FILE_PATH)) as f:
@@ -106,6 +110,100 @@ class CsvSourceBatchOp(BatchOperator):
 
     def _out_schema(self) -> TableSchema:
         return TableSchema.parse(self.get(self.SCHEMA_STR))
+
+
+class RandomTableSourceBatchOp(BatchOperator):
+    """Random numeric table (reference: operator/batch/source/RandomTableSourceBatchOp.java)."""
+
+    NUM_ROWS = ParamInfo("numRows", int, optional=False, validator=MinValidator(1))
+    NUM_COLS = ParamInfo("numCols", int, optional=False, validator=MinValidator(1))
+    ID_COL = ParamInfo("idCol", str, default=None)
+    OUTPUT_COLS = ParamInfo("outputCols", list, default=None)
+    SEED = ParamInfo("seed", int, default=0)
+
+    _max_inputs = 0
+
+    def _execute_impl(self) -> MTable:
+        n, d = self.get(self.NUM_ROWS), self.get(self.NUM_COLS)
+        rng = np.random.default_rng(self.get(self.SEED))
+        names = self.get(self.OUTPUT_COLS) or [f"col{i}" for i in range(d)]
+        cols = {name: rng.random(n) for name in names}
+        if self.get(self.ID_COL):
+            cols = {self.get(self.ID_COL): np.arange(n, dtype=np.int64), **cols}
+        return MTable(cols)
+
+    def _out_schema(self) -> TableSchema:
+        d = self.get(self.NUM_COLS)
+        names = self.get(self.OUTPUT_COLS) or [f"col{i}" for i in range(d)]
+        types = [AlinkTypes.DOUBLE] * len(names)
+        if self.get(self.ID_COL):
+            names = [self.get(self.ID_COL)] + list(names)
+            types = [AlinkTypes.LONG] + types
+        return TableSchema(names, types)
+
+
+class NumSeqSourceBatchOp(BatchOperator):
+    """Integer sequence source (reference: NumSeqSourceBatchOp.java)."""
+
+    _max_inputs = 0
+
+    def __init__(self, from_: int, to: int, col_name: str = "num", **kwargs):
+        super().__init__(**kwargs)
+        self._from, self._to, self._col = from_, to, col_name
+
+    def _execute_impl(self) -> MTable:
+        return MTable({self._col: np.arange(self._from, self._to + 1, dtype=np.int64)})
+
+    def _out_schema(self) -> TableSchema:
+        return TableSchema([self._col], [AlinkTypes.LONG])
+
+
+def _csv_cell(v) -> str:
+    """One cell as the reference's ``DataFrame.to_csv`` writes it: missing
+    values empty, numpy scalars through their own ``str`` (the shortest
+    round-trip form), anything else (strings, vectors) through ``str``."""
+    if v is None:
+        return ""
+    if isinstance(v, (float, np.floating)) and v != v:
+        return ""
+    return str(v)
+
+
+class CsvSinkBatchOp(BatchOperator):
+    """CSV sink (reference: operator/batch/sink/CsvSinkBatchOp.java).
+
+    Written with the standard library's ``csv`` module in the reference's
+    layout (``to_csv(index=False, header=False)``: minimal quoting, ``\n``
+    line ends); pandas is not among the port's dependencies."""
+
+    FILE_PATH = ParamInfo("filePath", str, optional=False)
+    FIELD_DELIMITER = ParamInfo("fieldDelimiter", str, default=",")
+    OVERWRITE_SINK = ParamInfo("overwriteSink", bool, default=False)
+
+    _min_inputs = 1
+    _max_inputs = 1
+
+    def _execute_impl(self, t: MTable) -> MTable:
+        from ...io.filesystem import file_open, get_file_system
+
+        path = self.get(self.FILE_PATH)
+        if get_file_system(path).exists(path) \
+                and not self.get(self.OVERWRITE_SINK):
+            raise AkIllegalArgumentException(
+                f"sink path {path} exists; set overwriteSink=True"
+            )
+        buf = io.StringIO()
+        w = csv.writer(buf, delimiter=self.get(self.FIELD_DELIMITER),
+                       lineterminator="\n")
+        cols = [t.col(n) for n in t.names]
+        for i in range(t.num_rows):
+            w.writerow([_csv_cell(c[i]) for c in cols])
+        with file_open(path, "w") as f:
+            f.write(buf.getvalue())
+        return t
+
+    def _out_schema(self, in_schema: TableSchema) -> TableSchema:
+        return in_schema  # never probe: a sink must not write on schema access
 
 
 class AkSourceBatchOp(BatchOperator):
@@ -151,9 +249,11 @@ class AkSinkBatchOp(BatchOperator):
 
     def _execute_impl(self, t: MTable) -> MTable:
         from ...io.ak import write_ak
+        from ...io.filesystem import get_file_system
 
         path = self.get(self.FILE_PATH)
-        if os.path.exists(path) and not self.get(self.OVERWRITE_SINK):
+        if get_file_system(path).exists(path) \
+                and not self.get(self.OVERWRITE_SINK):
             raise AkIllegalArgumentException(
                 f"sink path {path} exists; set overwriteSink=True"
             )
@@ -162,3 +262,47 @@ class AkSinkBatchOp(BatchOperator):
 
     def _out_schema(self, in_schema: TableSchema) -> TableSchema:
         return in_schema  # never probe: a sink must not write on schema access
+
+
+class SplitBatchOp(BatchOperator):
+    """Random split; main output = fraction, side output 0 = rest
+    (reference: operator/batch/dataproc/SplitBatchOp.java)."""
+
+    FRACTION = ParamInfo(
+        "fraction", float, optional=False, validator=RangeValidator(0.0, 1.0)
+    )
+    SEED = ParamInfo("randomSeed", int, default=0, aliases=("seed",))
+
+    _min_inputs = 1
+    _max_inputs = 1
+
+    def _execute_impl(self, t: MTable):
+        # exact-count split (the reference takes exactly round(fraction*n)
+        # rows, not a per-row bernoulli); the same generator and draws as
+        # the reference, so both packages pick the same rows
+        rng = np.random.default_rng(self.get(self.SEED))
+        n = t.num_rows
+        k = int(round(n * self.get(self.FRACTION)))
+        mask = np.zeros(n, bool)
+        mask[rng.choice(n, size=k, replace=False)] = True
+        return t.filter_mask(mask), [t.filter_mask(~mask)]
+
+
+class ShuffleBatchOp(BatchOperator):
+    SEED = ParamInfo("randomSeed", int, default=0, aliases=("seed",))
+
+    _min_inputs = 1
+    _max_inputs = 1
+
+    def _execute_impl(self, t: MTable) -> MTable:
+        return t.shuffle(seed=self.get(self.SEED))
+
+
+class FirstNBatchOp(BatchOperator):
+    SIZE = ParamInfo("size", int, optional=False, validator=MinValidator(1))
+
+    _min_inputs = 1
+    _max_inputs = 1
+
+    def _execute_impl(self, t: MTable) -> MTable:
+        return t.head(self.get(self.SIZE))

@@ -74,7 +74,7 @@ def _w2v_model_table(vocab, emb: np.ndarray) -> MTable:
 
 
 class Word2VecTrainBatchOp(BatchOperator, HasWord2VecParams):
-
+    _huge_sgns = True      # plan validator: SGNS op under ALINK_HUGE_ENGINE
     _min_inputs = 1
     _max_inputs = 1
 
@@ -246,6 +246,8 @@ class Node2VecWalkBatchOp(BatchOperator, HasWalkParams):
 class _WalkEmbeddingBase(BatchOperator, HasWalkParams, HasWord2VecParams):
     """walks + SGNS end-to-end (reference: huge/DeepWalkBatchOp,
     huge/Node2VecBatchOp through ApsEnv)."""
+
+    _huge_sgns = True      # plan validator: SGNS op under ALINK_HUGE_ENGINE
 
     SELECTED_COL = ParamInfo("selectedCol", str)  # unused; graph input
 

@@ -1,6 +1,6 @@
 """Mapper and model-mapper batch operators and the train-op mixin (port of
-``alink_tpu.operator.batch.utils``; the executor's mapper-chain fusion
-contract is not ported).
+``alink_tpu.operator.batch.utils``, with the executor's mapper-chain fusion
+contract: ``_fusable``, ``_fusion_data_index``, ``_fusion_mapper``).
 
 Capability parity with reference operator/batch/utils/ModelMapBatchOp.java:62:
 the mapper loads the model MTable once and maps the data table with it. The
@@ -27,6 +27,17 @@ class MapBatchOp(BatchOperator):
     _max_inputs = 1
 
     mapper_cls: Type = None
+
+    # mapper-chain fusion contract (common/executor.py): linear runs of
+    # mapper ops collapse into one scheduled FusedMapperChain unit; the data
+    # edge is input[_fusion_data_index], and _fusion_mapper builds the ready-
+    # to-run mapper once upstream deps are evaluated. Ops whose mapper is
+    # side-effectful or not row-wise set _fusable = False.
+    _fusable = True
+    _fusion_data_index = 0
+
+    def _fusion_mapper(self, data_schema):
+        return self._make_mapper(data_schema)
 
     def _make_mapper(self, data_schema):
         # cached per input schema: foreign-model mappers (modelpredict) load
@@ -56,8 +67,17 @@ class ModelMapBatchOp(BatchOperator):
 
     mapper_cls: Type = None
 
+    _fusable = True
+    _fusion_data_index = 1  # input[0] is the model table
+
     def __init__(self, params=None, **kwargs):
         super().__init__(params, **kwargs)
+
+    def _fusion_mapper(self, data_schema):
+        # deps are evaluated before a fused unit runs, so the model read is
+        # a memoized fetch; the kept mapper is the one _execute_impl uses
+        model = self._inputs[0]._evaluate()
+        return self._loaded_mapper(model, data_schema)
 
     def _make_mapper(self, model_schema, data_schema):
         return self.mapper_cls(model_schema, data_schema, self.get_params())

@@ -9,8 +9,8 @@ written as a .ak file. Load reconstructs stages and their models
 (deserializePipelineStagesFromMeta :1027, loadStagesFromPipelineModel :1118).
 The table and its ``.ak`` file are the reference's, byte for byte in
 layout, so a pipeline model saved by either package loads in the other.
-The reference's opt-in plan pre-flight (``ALINK_VALIDATE_PLAN``) is not
-ported yet.
+``Pipeline.fit`` runs the reference's opt-in plan pre-flight
+(``ALINK_VALIDATE_PLAN``) over the whole simulated pipeline first.
 """
 
 from __future__ import annotations
@@ -52,19 +52,29 @@ class Pipeline(PipelineStageBase):
 
     def fit(self, data) -> "PipelineModel":
         op = self._as_op(data)
+        # opt-in pre-flight (ALINK_VALIDATE_PLAN): simulate the exact stage
+        # linking below with static schemas/model meta only, so a schema or
+        # dtype mistake in stage 3 surfaces before stage 1 trains
+        from ..analysis import preflight, suppress_preflight
+
+        preflight(self, op, where="Pipeline.fit")
         fitted: List[PipelineStageBase] = []
-        for stage in self.stages:
-            if isinstance(stage, EstimatorBase):
-                model = stage.fit(op)
-                fitted.append(model)
-                op = model.transform(op)
-            elif isinstance(stage, (TransformerBase, ModelBase)):
-                fitted.append(stage)
-                op = stage.transform(op)
-            else:
-                raise AkIllegalDataException(
-                    f"stage {type(stage).__name__} is not "
-                    "estimator/transformer")
+        # the fit-level pre-flight above already validated the whole
+        # simulated pipeline — suppress the per-stage execute() pre-flights
+        # so partial sub-DAG walks don't overwrite its report
+        with suppress_preflight():
+            for stage in self.stages:
+                if isinstance(stage, EstimatorBase):
+                    model = stage.fit(op)
+                    fitted.append(model)
+                    op = model.transform(op)
+                elif isinstance(stage, (TransformerBase, ModelBase)):
+                    fitted.append(stage)
+                    op = stage.transform(op)
+                else:
+                    raise AkIllegalDataException(
+                        f"stage {type(stage).__name__} is not "
+                        "estimator/transformer")
         return PipelineModel(*fitted)
 
     def fit_and_transform(self, data) -> AlgoOperator:

@@ -466,6 +466,17 @@ class _ModelEntry:
         return d
 
 
+def _load_predict(predictor, t):
+    """A predict the server runs for itself while loading (calibration, the
+    accuracy gate, warmup): the load's own pre-flight (ALK111) has run, and
+    these plan walks must not replace its report (``collect()`` runs the
+    opt-in plan pre-flight)."""
+    from ..analysis.plancheck import suppress_preflight
+
+    with suppress_preflight():
+        return predictor.predict_table(t)
+
+
 class ModelServer:
     """The serving front end: load/warmup/evict models, route requests.
 
@@ -824,7 +835,7 @@ class ModelServer:
                 t = MTable.from_rows(gate_rows, predictor.input_schema)
                 rec: Dict[str, float] = {}
                 with quant.calibration(rec):
-                    base_out = predictor.predict_table(t)
+                    base_out = _load_predict(predictor, t)
                 base_rows = [base_out.get_row(i)
                              for i in range(base_out.num_rows)]
                 rec = {k: v for k, v in rec.items()
@@ -852,7 +863,7 @@ class ModelServer:
             # real sample exists
             gate_rows = [tuple(r) for r in warmup_rows]
             t = MTable.from_rows(gate_rows, predictor.input_schema)
-            base_out = predictor.predict_table(t)
+            base_out = _load_predict(predictor, t)
             base_rows = [base_out.get_row(i)
                          for i in range(base_out.num_rows)]
 
@@ -866,7 +877,7 @@ class ModelServer:
                 and cfg.quant_tol >= 0.0:
             t = MTable.from_rows(gate_rows, predictor.input_schema)
             try:
-                q_out = predictor.predict_table(t)
+                q_out = _load_predict(predictor, t)
             except Exception as e:
                 return _fallback(f"the quantized predict failed: {e}",
                                  "serving.band_gate_failed")
@@ -900,8 +911,8 @@ class ModelServer:
         with trace_span("serving.warmup", rungs=len(rungs)):
             for rung in rungs:
                 tiled = (base * (rung // len(base) + 1))[:rung]
-                predictor.predict_table(
-                    MTable.from_rows(tiled, predictor.input_schema))
+                _load_predict(predictor,
+                              MTable.from_rows(tiled, predictor.input_schema))
                 total += rung
         metrics.incr("serving.warmup_rungs", len(rungs))
         return {"rungs": len(rungs), "rows": total}

@@ -89,8 +89,9 @@ non-zero:
    ``TableSourceBatchOp`` → ``Word2VecTrainBatchOp`` (the op's defaults:
    vectorSize 100, window 5, negative 5, numIter 3, batchSize 1024; minCount
    1) → ``collect()``; the kernel's launch counter must rise by the step
-   count (one fused launch per step), the table must agree with the
-   ``ALINK_SGNS_PALLAS=0`` route's, the embedding must pass a learning gate
+   count (one fused launch per step), the table of a training on the first
+   ROUTE_DOCS sentences must agree with the ``ALINK_SGNS_PALLAS=0``
+   route's on the same sentences, the embedding must pass a learning gate
    on the topics, the steps/s and the device operations a step (both
    routes, ``torch.profiler``) are reported, and the model goes to ``.ak``
    and back into ``Word2VecPredictBatchOp`` for requests of 1, 1,000 and
@@ -282,7 +283,27 @@ non-zero:
     version 3 reaches r0 only) and r2 re-syncs to version 3 from the
     store before it reports ready; the fleet stops and no replica process
     is left; ``scripts/chip_phase_check.py fleet`` runs this phase alone;
-17. one JSON line of kernels, then the device line last.
+17. the BERT-base evaluation DAG (``dag_path``; the flash kernel from the
+    executor's ``alink-dag`` worker threads): phase 4's BERT-base ``.ak``
+    copied to ``memory://`` and read back through ``AkSourceBatchOp``;
+    1,024 seeded rows (phase 14's texts and two numeric columns) →
+    ``filter`` → ``SplitBatchOp(fraction=0.5)``; the main output through a
+    fusable chain ``BertTextClassifierPredictBatchOp`` →
+    ``LogisticRegressionPredictBatchOp`` (its model trained in-phase)
+    ending in a lazy ``CsvSinkBatchOp`` on ``memory://``, the side output
+    through a second ``BertTextClassifierPredictBatchOp``, all run by one
+    ``execute()``: (a) scheduler and fusion on, (b)
+    ``ALINK_DAG_FUSION=0``, (c) ``ALINK_DAG_SCHEDULER=off`` (the serial
+    walk), (d) (a) with a ``unit`` fault on the fused chain's first
+    attempt; each on a freshly built DAG. Rows bit-identical across the
+    runs and within DAG_PROB_BOUND of the serial predict outside any DAG,
+    12 flash launches a forward chunk in every run, one trace record per
+    unit in (a), the two BERT units overlapping in (a) and not in (c),
+    (d)'s retry in the executor's counters; the walls, the device busy
+    and idle shares of (a) and (c) under ``torch.profiler``, the model
+    loads per op, the per-unit walls and phases;
+    ``scripts/chip_phase_check.py dag`` runs this phase alone;
+18. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -420,6 +441,12 @@ rows (the fleet does not report a row's rung: a row is bit-identical, or
 within MARGIN_BOUND with labels equal where the serial gap exceeds it);
 the quiet one-row requests (the serial predict's rung) bit-identical.
 Flash launches: exactly 12 per batch in every replica.
+Phase 17. The DAG's runs against each other: bit-identical (the same
+rows reach each BERT op, so the same batch shapes, and phase 14 found
+served rows bit-identical at one shape). Against the serial
+``BertTextModelMapper`` predict of the same rows outside any DAG:
+probabilities within DAG_PROB_BOUND = 0.02, the bound phase 4 holds
+between the operator and ``predict_model``.
 Phase 15. Feed, streaming and resume pairs on the card: bitwise (the same
 batches and masks, the same kernels in the same order). The card's loss
 history against the port's CPU route from the same carried weights: fp32
@@ -1683,6 +1710,7 @@ SGNS_TRAINED_STEPS = 300
 OPS_STEPS = 100          # traced steps of the operations count
 OPS_DOCS = 50            # sentences whose pairs they take
 TABLE_ATOL = 1e-3        # trained tables, kernel route vs plain route
+ROUTE_DOCS = 200         # sentences both routes train on for that comparison
 TOPIC_FLOOR = 0.32       # in-topic share of top-10 neighbours (chance 0.01)
 
 
@@ -2227,19 +2255,26 @@ def word2vec_path(workdir, docs):
             or not np.isfinite(vecs).all():
         fail("the Word2Vec model table has bad vectors")
 
+    # the routes are held against each other on the first ROUTE_DOCS
+    # sentences (both routes train there): the plain route on the whole
+    # corpus was the longest step of the phase
+    route_table = MTable({"doc": np.asarray(docs[:ROUTE_DOCS], object)})
+    route_model, route_wall = train_word2vec(route_table)
     os.environ[SGNS_KERNEL_ENV] = "0"
     try:
-        plain_model, plain_wall = train_word2vec(table)
+        plain_model, plain_wall = train_word2vec(route_table)
     finally:
         del os.environ[SGNS_KERNEL_ENV]
     plain = model_vectors(plain_model)
-    gap = float(np.abs(vecs - plain).max())
-    print(f"word2vec table vs the ALINK_SGNS_PALLAS=0 route "
-          f"({plain_wall:.2f} s wall): same words "
-          f"{list(plain_model.col('word')) == words}, max|Δ| {gap:.3g} "
-          f"(tol {TABLE_ATOL}; max|table| {float(np.abs(plain).max()):.3g})",
-          flush=True)
-    if list(plain_model.col("word")) != words or not gap <= TABLE_ATOL:
+    gap = float(np.abs(model_vectors(route_model) - plain).max())
+    print(f"word2vec table on the first {ROUTE_DOCS * SENTENCE} tokens, "
+          f"kernel route ({route_wall:.2f} s wall) vs the "
+          f"ALINK_SGNS_PALLAS=0 route ({plain_wall:.2f} s): same words "
+          f"{list(plain_model.col('word')) == list(route_model.col('word'))}"
+          f", max|Δ| {gap:.3g} (tol {TABLE_ATOL}; max|table| "
+          f"{float(np.abs(plain).max()):.3g})", flush=True)
+    if list(plain_model.col("word")) != list(route_model.col("word")) \
+            or not gap <= TABLE_ATOL:
         fail(f"the kernel route's table differs from the plain route's "
              f"({gap})")
     ops = step_operations(docs[:OPS_DOCS])
@@ -2288,7 +2323,8 @@ def word2vec_path(workdir, docs):
         if out.num_rows != n or got.shape[1] != W2V["vectorSize"] \
                 or not np.isfinite(got).all() or not err <= 1e-6:
             fail(f"word2vec request of {n} sentences: bad output table")
-    return launches, dict(stats, wall_s=wall, plain_wall_s=plain_wall,
+    return launches, dict(stats, wall_s=wall, route_docs=ROUTE_DOCS,
+                          route_wall_s=route_wall, plain_wall_s=plain_wall,
                           steps_per_s=steps / stats["loop_s"],
                           operations=ops, vocab=len(words), table_gap=gap,
                           topic_share=share, peak_gib=peak / 2**30,
@@ -5891,6 +5927,333 @@ def fleet_path(workdir, card, inputs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the BERT-base evaluation DAG through the executor
+# ---------------------------------------------------------------------------
+
+DAG_ROWS = 1_024
+DAG_LR_ROWS = 2_000
+DAG_FRACTION = 0.5
+DAG_X1_MIN = 0.05           # the filter keeps the rows with x1 above it
+DAG_FILTER = f"x1 > {DAG_X1_MIN}"
+DAG_PROB_BOUND = 0.02       # phase 4's bound: operator vs predict_model
+DAG_MEMORY = "memory://chip_smoke/dag"
+DAG_FUSED = "BertTextClassifierPredictBatchOp+LogisticRegressionPredictBatchOp"
+DAG_FAULT = "unit:count=2,kinds=transient,match=+LogisticRegression"
+DAG_RUNS = (("a", {}), ("b", {"ALINK_DAG_FUSION": "0"}),
+            ("c", {"ALINK_DAG_SCHEDULER": "off"}), ("d", {}))
+DAG_UNITS = sorted([
+    "MemSourceBatchOp", "FilterOp", "SplitBatchOp", "AkSourceBatchOp",
+    "MemSourceBatchOp", "LogisticRegressionTrainBatchOp", DAG_FUSED,
+    "CsvSinkBatchOp", "SideOutputOp", "BertTextClassifierPredictBatchOp"])
+
+
+class _BertCalls:
+    """Records each ``BertTextModelMapper`` model load and predict (thread,
+    perf-clock interval, rows) while the phase runs; restores the class on
+    exit."""
+
+    def __init__(self):
+        self.loads, self.predicts = [], []
+
+    def __enter__(self):
+        import threading
+
+        from alink_tpu_torch.operator.batch.dl import BertTextModelMapper
+
+        self.cls = BertTextModelMapper
+        self.orig = (BertTextModelMapper.load_model,
+                     BertTextModelMapper.predict_block)
+        load, predict = self.orig
+        calls = self
+
+        def load_model(mapper, model):
+            calls.loads.append(threading.current_thread().name)
+            return load(mapper, model)
+
+        def predict_block(mapper, t):
+            t0 = time.perf_counter()
+            out = predict(mapper, t)
+            calls.predicts.append((threading.current_thread().name, t0,
+                                   time.perf_counter(), t.num_rows))
+            return out
+
+        BertTextModelMapper.load_model = load_model
+        BertTextModelMapper.predict_block = predict_block
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.load_model, self.cls.predict_block = self.orig
+
+
+def overlap(a, b) -> float:
+    """Seconds two (t0, t1) intervals share."""
+    return max(0.0, min(a[1], b[1]) - max(a[0], b[0]))
+
+
+def dag_inputs(workdir, served_main):
+    """Phase 4's model copied into the memory store, the 1,024 seeded rows
+    and the logistic regression's seeded training rows."""
+    from alink_tpu_torch.io.filesystem import file_open
+
+    cfg = serving_config()
+    rng = np.random.default_rng(SEED + 17)
+    t0 = time.perf_counter()
+    model_path = f"{DAG_MEMORY}/bert_base.ak"
+    with open(served_main["path"], "rb") as src, \
+            file_open(model_path, "wb") as dst:
+        shutil.copyfileobj(src, dst, 1 << 24)
+    copy_s = time.perf_counter() - t0
+    texts = request_texts(synthetic_vocab(cfg), rng, DAG_ROWS)
+    x1, x2 = rng.random(DAG_ROWS), rng.standard_normal(DAG_ROWS)
+    rows = [(t, float(a), float(b)) for t, a, b in zip(texts, x1, x2)]
+    a, b = rng.random(DAG_LR_ROWS), rng.standard_normal(DAG_LR_ROWS)
+    lr_rows = [(float(u), float(v), int(u + 0.3 * v > 0.5))
+               for u, v in zip(a, b)]
+    print(f"phase 17 inputs: phase 4's .ak copied to {model_path} in "
+          f"{copy_s:.2f} s; {DAG_ROWS} rows of {WORDS[0]}..{WORDS[1]} words "
+          f"from seed {SEED + 17}", flush=True)
+    return model_path, rows, lr_rows
+
+
+def dag_build(model_path, rows, lr_rows, csv_path):
+    """Phase 17's DAG, freshly built; returns the sinks' results holder,
+    the fused chain's BERT op, the op execute() is called on, and the
+    model source."""
+    from alink_tpu_torch.operator.batch import (
+        AkSourceBatchOp, BertTextClassifierPredictBatchOp, CsvSinkBatchOp,
+        LogisticRegressionPredictBatchOp, LogisticRegressionTrainBatchOp,
+        MemSourceBatchOp, SplitBatchOp)
+
+    src = MemSourceBatchOp(rows, "text string, x1 double, x2 double")
+    split = SplitBatchOp(fraction=DAG_FRACTION, randomSeed=SEED).link_from(
+        src.filter(DAG_FILTER))
+    model = AkSourceBatchOp(filePath=model_path)
+    lr_model = LogisticRegressionTrainBatchOp(
+        featureCols=["x1", "x2"], labelCol="y", maxIter=20).link_from(
+        MemSourceBatchOp(lr_rows, "x1 double, x2 double, y long"))
+    bert = BertTextClassifierPredictBatchOp(
+        predictionCol="pred", predictionDetailCol="detail").link_from(
+        model, split)
+    lr = LogisticRegressionPredictBatchOp(
+        predictionCol="lr_pred", predictionDetailCol="lr_detail").link_from(
+        lr_model, bert)
+    got = {}
+    CsvSinkBatchOp(filePath=csv_path, overwriteSink=True).link_from(
+        lr).lazy_collect(lambda t: got.setdefault("main", t))
+    BertTextClassifierPredictBatchOp(
+        predictionCol="pred", predictionDetailCol="detail").link_from(
+        model, split.get_side_output(0)).lazy_collect(
+        lambda t: got.setdefault("side", t))
+    return got, bert, split, model
+
+
+def dag_profile(run):
+    """``run()`` under ``torch.profiler``: the device's busy ms (kernels and
+    copies) and the traced wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA) / 1e3
+    return busy_ms, wall
+
+
+def dag_rows(t):
+    return {n: [str(v) for v in t.col(n)] for n in t.names}
+
+
+def dag_path(workdir, served_main, card):
+    """Phase 17: the BERT-base evaluation DAG through ``execute()``."""
+    import torch
+
+    from alink_tpu_torch.common import faults
+    from alink_tpu_torch.common.metrics import executor_trace, metrics
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.operator.batch.dl import BertTextModelMapper
+
+    problems = []
+    t_phase = time.perf_counter()
+    model_path, rows, lr_rows = dag_inputs(workdir, served_main)
+    results = {}
+    with _BertCalls() as calls:
+        for label, knobs in DAG_RUNS:
+            saved = {k: os.environ.get(k) for k in knobs}
+            os.environ.update(knobs)
+            if label == "d":
+                faults.install(faults.FaultSpec.parse(DAG_FAULT))
+            n_pred, n_load = len(calls.predicts), len(calls.loads)
+            counters = {k: metrics.counter(k) for k in (
+                "resilience.unit_retries", "resilience.defused")}
+            before = executor_trace()
+            seen = {id(r) for r in before}
+            try:
+                got, bert, split, model = dag_build(
+                    model_path, rows, lr_rows, f"{DAG_MEMORY}/run_{label}.csv")
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+
+                def run():
+                    split.execute()
+
+                if label in ("a", "c"):
+                    busy_ms, wall = dag_profile(run)
+                else:
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    wall, busy_ms = time.perf_counter() - t0, None
+                launches = kernels.launches()["flash_block_update"]
+            finally:
+                faults.clear()
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            recs = [r for r in executor_trace() if id(r) not in seen]
+            results[label] = dict(
+                got=got, wall_s=wall, busy_ms=busy_ms, launches=launches,
+                model=model._output if label == "a" else None,
+                records=recs, bert_executed=bert._executed,
+                predicts=calls.predicts[n_pred:], loads=calls.loads[n_load:],
+                counters={k: metrics.counter(k) - v
+                          for k, v in counters.items()})
+
+    # the serial predict outside any DAG, on the rows each branch received
+    mapper = BertTextModelMapper(None, None, Params(
+        predictionCol="pred", predictionDetailCol="detail"))
+    mapper.load_model(results["a"].pop("model"))
+    a = results["a"]
+    for branch in ("main", "side"):
+        t = a["got"][branch]
+        if t is None or t.num_rows == 0:
+            problems.append(f"(a) {branch} branch is empty")
+            continue
+        ins = MTable({"text": np.asarray(t.col("text"), object)},
+                     "text string")
+        want = np.asarray([[json.loads(d)[k] for k in ("0", "1")]
+                           for d in mapper.map_table(ins).col("detail")])
+        probs = np.asarray([[json.loads(d)[k] for k in ("0", "1")]
+                            for d in t.col("detail")])
+        gap = float(np.abs(probs - want).max())
+        a[f"{branch}_serial_gap"] = gap
+        print(f"phase 17 {branch} branch ({t.num_rows} rows) vs the serial "
+              f"predict outside the DAG: max|Δp| {gap:.3g} (bound "
+              f"{DAG_PROB_BOUND})", flush=True)
+        if not gap <= DAG_PROB_BOUND:
+            problems.append(f"{branch} branch differs from the serial "
+                            f"predict by {gap}")
+    if next(mapper.model.parameters()).device.type != "cuda":
+        problems.append("the serial predict ran off the card")
+
+    kept = [r[0] for r in rows if r[1] > DAG_X1_MIN]
+    n_kept = len(kept)
+    expect_main = int(round(n_kept * DAG_FRACTION))
+    main_rows, side_rows = a["got"]["main"].num_rows, \
+        a["got"]["side"].num_rows
+    chunks = -(-main_rows // 256) + -(-side_rows // 256)
+    if (main_rows, side_rows) != (expect_main, n_kept - expect_main):
+        problems.append(f"split sizes {main_rows}/{side_rows}, expected "
+                        f"{expect_main}/{n_kept - expect_main}")
+    if sorted(a["got"]["main"].col("text").tolist()
+              + a["got"]["side"].col("text").tolist()) \
+            != sorted(kept):
+        problems.append("the split lost or duplicated rows")
+    ref = {b: dag_rows(a["got"][b]) for b in ("main", "side")}
+    for label, res in results.items():
+        for branch in ("main", "side"):
+            if dag_rows(res["got"][branch]) != ref[branch]:
+                problems.append(f"({label}) {branch} rows differ from (a)'s")
+        if res["launches"] != 12 * chunks:
+            problems.append(f"({label}) {res['launches']} flash launches, "
+                            f"expected {12 * chunks} (12 a chunk, {chunks} "
+                            "chunks)")
+        print(f"phase 17 ({label}): wall {res['wall_s']:.3f} s"
+              + (f" (under torch.profiler: device busy {res['busy_ms']:.1f} "
+                 f"ms, idle share {1 - res['busy_ms'] / 1e3 / res['wall_s']:.3f})"
+                 if res["busy_ms"] is not None else "")
+              + f"; {res['launches']} flash launches over {chunks} forward "
+              f"chunks; model loads {len(res['loads'])} "
+              f"({', '.join(res['loads'])}); BERT predicts "
+              + ", ".join(f"{th} {n} rows {t1 - t0:.3f} s"
+                          for th, t0, t1, n in res["predicts"])
+              + f"; counters {res['counters']}", flush=True)
+        if len(res["loads"]) != 2:
+            problems.append(f"({label}) {len(res['loads'])} model loads, "
+                            "expected one per BERT op")
+
+    recs = a["records"]
+    print("phase 17 (a) units: " + "; ".join(
+        f"{r['op']} {r['wall_s']:.3f} s"
+        + "".join(f" {k}={r[k]}" for k in ("fused", "attempts", "defused",
+                                            "transfer_s", "compute_s",
+                                            "hbm_bytes") if k in r)
+        for r in recs), flush=True)
+    if sorted(r["op"] for r in recs) != DAG_UNITS:
+        problems.append(f"(a) trace units {sorted(r['op'] for r in recs)}")
+    fused = [r for r in recs if r["op"] == DAG_FUSED]
+    side = [r for r in recs if r["op"] == "BertTextClassifierPredictBatchOp"]
+    if not fused or "hbm_bytes" not in fused[0] or fused[0].get("fused") != 2:
+        problems.append("(a) the fused unit is missing or carries no "
+                        "hbm_bytes")
+    if a["bert_executed"]:
+        problems.append("(a) the fused chain's BERT node was materialized")
+    trace_overlap = overlap((fused[0]["t0_s"], fused[0]["t1_s"]),
+                            (side[0]["t0_s"], side[0]["t1_s"])) \
+        if fused and side else 0.0
+    call_overlap = {lab: overlap(*[(t0, t1) for _, t0, t1, _ in
+                                   results[lab]["predicts"][:2]])
+                    if len(results[lab]["predicts"]) >= 2 else 0.0
+                    for lab in ("a", "c")}
+    print(f"phase 17 overlap of the two BERT units: (a) trace "
+          f"{trace_overlap:.3f} s, predict calls {call_overlap['a']:.3f} s; "
+          f"(c) predict calls {call_overlap['c']:.3f} s (threads "
+          f"{sorted({th for th, *_ in results['c']['predicts']})})",
+          flush=True)
+    if not trace_overlap > 0 or not call_overlap["a"] > 0:
+        problems.append("(a) the two BERT units did not overlap")
+    if call_overlap["c"] > 0 or results["c"]["records"]:
+        problems.append("(c) the serial walk overlapped or traced units")
+    d = results["d"]
+    d_fused = [r for r in d["records"] if r["op"] == DAG_FUSED]
+    if not d_fused or d_fused[0].get("attempts") != 2 \
+            or not d_fused[0].get("defused") \
+            or d["counters"] != {"resilience.unit_retries": 1,
+                                 "resilience.defused": 1}:
+        problems.append(f"(d) retry not seen: {d_fused} {d['counters']}")
+    out = {"launches": sum(r["launches"] for r in results.values()),
+           "launches_by_run": {k: r["launches"] for k, r in results.items()},
+           "chunks": chunks, "rows": [main_rows, side_rows],
+           "walls_s": {k: r["wall_s"] for k, r in results.items()},
+           "idle_share": {k: 1 - r["busy_ms"] / 1e3 / r["wall_s"]
+                          for k, r in results.items()
+                          if r["busy_ms"] is not None},
+           "busy_ms": {k: r["busy_ms"] for k, r in results.items()
+                       if r["busy_ms"] is not None},
+           "overlap_s": dict(trace_a=trace_overlap, **{
+               f"predicts_{k}": v for k, v in call_overlap.items()}),
+           "serial_gap": {b: a.get(f"{b}_serial_gap") for b in
+                          ("main", "side")},
+           "loads": {k: len(r["loads"]) for k, r in results.items()},
+           "units_a": [{k: v for k, v in r.items()
+                        if k not in ("t0_s", "t1_s")} for r in recs],
+           "retry_d": d["counters"],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[{card}] phase 17: " + json.dumps(out, default=str), flush=True)
+    if problems:
+        fail("phase 17: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5995,6 +6358,8 @@ def main() -> int:
     fleet = fleet_path(workdir, card, fleet_inputs(workdir, served_main,
                                                    serial))
     marks.append(("phase 16 fleet", time.perf_counter()))
+    dag = dag_path(workdir, served_main, card)
+    marks.append(("phase 17 DAG", time.perf_counter()))
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -6011,7 +6376,7 @@ def main() -> int:
     line = {"kernels": [
         dict(entry("flash_block_update",
                    launches + quant_launches + serve_launches
-                   + fleet["launches"], stats,
+                   + fleet["launches"] + dag["launches"], stats,
                    "scaled_dot_product_attention over all 512 keys, "
                    "contiguous (B, H, S, D), unmasked (yardstick)",
                    "one attention call: (B, S, H, D) = (32, 512, 12, 64) "
@@ -6023,7 +6388,8 @@ def main() -> int:
                                   for p in POLICIES},
                                "phase 14 serving": serve_launches,
                                "phase 16 fleet (replicas' counters)":
-                               fleet["launches"]},
+                               fleet["launches"],
+                               "phase 17 DAG (runs a-d)": dag["launches"]},
              library_views_ms=stats["library_views_ms"],
              serving_rungs=stats["serving_rungs"],
              block_ms=stats["block_ms"],

@@ -20,7 +20,9 @@ first), ``pretrain`` (phase 15, MLM pretraining: BERT-base width, the
 corpus-scale loop, the contracts, bench.py's quality route; it builds no
 kernel), ``fleet`` (phase 16, the serving fleet: two BERT-base replicas
 of phase 4's model as a pipeline ``.ak`` with its sidecar, both written
-first, with the serial predicts the rows are held against). Each
+first, with the serial predicts the rows are held against), ``dag``
+(phase 17, the BERT-base evaluation DAG through the executor, with phase
+4's model, run first). Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
 """
@@ -37,7 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
-          "families", "ingest", "serving", "pretrain", "fleet")
+          "families", "ingest", "serving", "pretrain", "fleet", "dag")
 
 
 def main() -> int:
@@ -89,6 +91,10 @@ def main() -> int:
         return cs.fleet_path(workdir, card.splitlines()[0],
                              cs.fleet_inputs(workdir, served))
 
+    def dag():
+        _, served = cs.main_path(workdir, cs.serving_config())
+        return cs.dag_path(workdir, served, card.splitlines()[0])
+
     run = {"sgns": cs.check_sgns_wide, "hist": wide_hist,
            "bwd": lambda: cs.check_backward(peaks),
            "record": lambda: cs.train_metric_of_record(peaks),
@@ -96,7 +102,7 @@ def main() -> int:
            "sst2": lambda: cs.finetune_sst2(workdir),
            "forest": cs.wide_forest_path, "families": families,
            "ingest": lambda: cs.ingest_path(workdir, card.splitlines()[0]),
-           "serving": serving, "fleet": fleet,
+           "serving": serving, "fleet": fleet, "dag": dag,
            "pretrain": lambda: cs.pretraining_path(workdir, peaks,
                                                    card.splitlines()[0])}
     out = {}

@@ -6,8 +6,8 @@
   idempotent republish, torn debris (an orphan blob, a blob whose bytes no
   longer match its manifest, an unreadable manifest) skipped and counted
   once; a ``crash`` at each ``publish`` fault site leaves no version the
-  reader surfaces, and the retry commits the same bytes; a path of another
-  scheme raises, naming the missing filesystem layer.
+  reader surfaces, and the retry commits the same bytes; a path of a scheme
+  without a filesystem driver raises, naming the missing driver.
 - The publisher with a duck-typed fleet (the reference's own fleet test
   double): it binds its store's newest blob as the fleet's model source
   and counts each replica's swap outcome; both packages count alike.
@@ -144,11 +144,10 @@ def test_crash_at_each_publish_site_like_reference(tmp_path, site):
 
 def test_store_refuses_other_schemes_and_bad_keep(tmp_path):
     from alink_tpu_torch.common.exceptions import (
-        AkIllegalArgumentException, AkUnsupportedOperationException)
+        AkIllegalArgumentException, AkPluginNotExistException)
     from alink_tpu_torch.modelstream import ModelStreamStore
 
-    with pytest.raises(AkUnsupportedOperationException,
-                       match="io/filesystem.py"):
+    with pytest.raises(AkPluginNotExistException, match="driver"):
         ModelStreamStore("hdfs://nn:8020/models")
     with pytest.raises(AkIllegalArgumentException):
         ModelStreamStore(str(tmp_path / "s"), keep=0)

@@ -1,7 +1,8 @@
 """Rules of the port: ``alink_tpu_torch`` imports nothing of JAX, flax,
 optax, orbax, msgpack, safetensors, TensorFlow or ``alink_tpu``, at module
 level nothing but torch, numpy, scipy and the standard library (its only
-dependencies), and its entry points never fall back to the CPU
+dependencies), nowhere pandas, pyarrow, fsspec or openpyxl (the card has
+none of them), and its entry points never fall back to the CPU
 quietly."""
 
 import ast
@@ -24,7 +25,8 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "orbax", "msgpack", "safetensors",
-                                    "tensorflow", "alink_tpu"))
+                                    "tensorflow", "alink_tpu", "pandas",
+                                    "pyarrow", "fsspec", "openpyxl"))
 print(len(names), ",".join(bad))
 print(",".join(names))
 """
@@ -89,7 +91,12 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.parallel.distributed",
             "alink_tpu_torch.modelstream.store",
             "alink_tpu_torch.modelstream.publisher",
-            "alink_tpu_torch.webui.server"} \
+            "alink_tpu_torch.webui.server",
+            "alink_tpu_torch.common.executor",
+            "alink_tpu_torch.common.profiling",
+            "alink_tpu_torch.io.filesystem",
+            "alink_tpu_torch.operator.sql",
+            "alink_tpu_torch.operator.sqlengine"} \
         <= set(scanned.split(","))
     smoke = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; print(','.join(sorted("
@@ -151,12 +158,25 @@ def _module_level_imports(tree):
     return roots
 
 
+def _all_imports(tree):
+    """Root packages imported anywhere in the module, function bodies
+    included."""
+    roots = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.append(node.module.split(".")[0])
+    return roots
+
+
 def test_port_imports_only_torch_numpy_scipy_and_stdlib_at_module_level():
     """Every module of the port imports, at module level, only torch, numpy,
     scipy, the standard library and its own package: a GPU host with
-    PyTorch need have nothing else (no pandas: the CSV source reads with
-    ``csv``). Lazy imports inside a function, such as
-    ``MTable.to_dataframe``'s pandas, stay allowed."""
+    PyTorch need have nothing else. Lazy imports inside a function stay
+    allowed, except pandas, pyarrow, fsspec and openpyxl, which no module
+    imports anywhere (the CSV ops read and write with ``csv``, the SQL ops
+    evaluate over numpy, ``memory://`` is the port's own store)."""
     allowed = set(sys.stdlib_module_names) | {
         "torch", "numpy", "scipy", "alink_tpu_torch", "__future__"}
     root = os.path.join(REPO, "alink_tpu_torch")
@@ -172,12 +192,12 @@ def test_port_imports_only_torch_numpy_scipy_and_stdlib_at_module_level():
             extra = sorted(set(_module_level_imports(tree)) - allowed)
             if extra:
                 bad[os.path.relpath(path, REPO)] = extra
+            banned = sorted(set(_all_imports(tree)) & {
+                "pandas", "pyarrow", "fsspec", "openpyxl"})
+            if banned:
+                bad[os.path.relpath(path, REPO)] = banned
     assert files >= 60
     assert bad == {}
-    with open(os.path.join(root, "common", "mtable.py")) as f:
-        mtable = f.read()
-    assert "import pandas" in mtable
-    assert "pandas" not in _module_level_imports(ast.parse(mtable))
 
 
 def test_classical_entry_points_refuse_cpu_without_request(monkeypatch):
