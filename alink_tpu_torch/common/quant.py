@@ -26,8 +26,9 @@ The policy travels to mappers as stamped op params:
 
 ``ModelServer.load(..., precision=...)`` stamps these, calibrates and
 gates the load on the accuracy band (``serving/router.py``); a fleet's
-replicas each do so on their own load. Not ported yet: the Naive-Bayes, FM
-and MLP int8 programs (their operators come with ROADMAP A4).
+replicas each do so on their own load. The Naive-Bayes and FM scorers run
+static W8A8 products (:func:`int8_nb_score`, :func:`int8_fm_score`); the MLP
+runs weight-only (:func:`int8_mlp_score`), as the reference's programs do.
 """
 
 from __future__ import annotations
@@ -280,6 +281,72 @@ def int8_linear_score(X, wq, b, sw, sx):
     if vec:
         acc = acc[:, 0]
     return acc.float() * (sx * sw) + b
+
+
+def int8_nb_accumulators(mtype: str, X, aq, bq, sxx, sx):
+    """The int32 accumulators of the Naive-Bayes int8 scorer: one static
+    W8A8 product per factor, each with its own calibrated activation scale
+    (the Gaussian form feeds two activations, X² and X; the Bernoulli form
+    its binarized block, exactly representable, unscaled)."""
+    import torch
+
+    if mtype == "GAUSSIAN":
+        return (int8_matmul(quantize_act(X * X, sxx), aq),
+                int8_matmul(quantize_act(X, sx), bq))
+    if mtype == "MULTINOMIAL":
+        return (int8_matmul(quantize_act(X, sx), aq),)
+    return (int8_matmul((X > 0).to(torch.int8), aq),)   # BERNOULLI
+
+
+def int8_nb_score(mtype: str, X, aq, bq, c, sa, sb, sxx, sx):
+    """Static-W8A8 twin of the Naive-Bayes scores (reference:
+    ``quant.int8_nb_program``): the accumulators of
+    :func:`int8_nb_accumulators` rescaled to fp32."""
+    acc = int8_nb_accumulators(mtype, X, aq, bq, sxx, sx)
+    if mtype == "GAUSSIAN":
+        return (-(acc[0].float()) * (sxx * sa)
+                + acc[1].float() * (sx * sb) + c)
+    if mtype == "MULTINOMIAL":
+        return acc[0].float() * (sx * sa) + c
+    return acc[0].float() * sa + c
+
+
+def int8_fm_accumulators(X, wq, sx):
+    """The int32 accumulators of the FM int8 scorer's linear term."""
+    return int8_matmul(quantize_act(X, sx), wq[:, None])[:, 0]
+
+
+def int8_fm_score(X, w0, wq, Vq, sw, sv, sx):
+    """FM scores under int8 (reference: ``quant.int8_fm_program``): the
+    linear term runs static W8A8; the pairwise term dequantizes the factor
+    matrix V to bf16 (weight-only: V feeds squares and cross terms, not
+    one product) and runs in bf16."""
+    import torch
+
+    from ..optim import fm_pairwise
+
+    lin = int8_fm_accumulators(X, wq, sx)
+    V = Vq.to(torch.bfloat16) * sv.to(torch.bfloat16)[None, :]
+    pair = fm_pairwise(X.to(torch.bfloat16), V)
+    return w0[0] + lin.float() * (sx * sw) + pair.float()
+
+
+def int8_mlp_score(sizes, X, *packed):
+    """Weight-only int8 MLP forward (reference: ``quant.int8_mlp_program``):
+    each layer's matrix dequantizes to bf16, activations run bf16, the
+    products accumulate in fp32 (bf16 products are exact there) and the
+    sigmoid runs fp32. ``packed`` is [Wq, scale, b] per layer."""
+    import torch
+
+    n_layers = len(sizes) - 1
+    h = X.to(torch.bfloat16)
+    for i in range(n_layers):
+        Wq, s, b = packed[3 * i], packed[3 * i + 1], packed[3 * i + 2]
+        W = Wq.to(torch.bfloat16) * s.to(torch.bfloat16)[None, :]
+        h = h.float() @ W.float() + b
+        if i < n_layers - 1:
+            h = torch.sigmoid(h).to(torch.bfloat16)
+    return h.float()
 
 
 def accuracy_band_report(base_rows, cand_rows, out_types,

@@ -86,6 +86,29 @@ constexpr unsigned FULL = 0xffffffffu;
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
+// Lets `kernel` take up to all the dynamic shared memory the device allows
+// beside its static shared memory, and fails if `smem` is more. The limit
+// belongs to the function, not to a launch: set to each launch's own size,
+// a concurrent launch of another size from another host thread (two
+// forest fits of a tuning search) could lower it between this thread's set
+// and its launch, which then fails with an invalid argument. Every thread
+// sets the same value here.
+template <typename K>
+cudaError_t allow_dynamic_smem(K* kernel, int smem) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  const int cap = optin - (int)fa.sharedSizeBytes;
+  if (smem > cap) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+}
+
 __device__ __forceinline__ int bucket_of(int k, int L) {
   return k < 0 ? 0 : (k >= L ? L + 1 : k + 1);
 }
@@ -413,8 +436,7 @@ cudaError_t launch_hist(const void* bins, const int32_t* order,
   if constexpr (FPL == 4) {   // the instance that walks wide tables
     if (fb < d) kernel = level_hist_kernel<BinT, FPL, C, true>;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(ctas, ceil_div(d, fb));
   kernel<<<grid, THREADS, smem, stream>>>(
@@ -509,13 +531,9 @@ cudaError_t tree_histogram_launch(const void* bins, int bin_bytes,
   int32_t* keys = order + n;
   const int sort_smem = 4 * (M + rows);
   const int per = ceil_div(total, sms);
-  cudaError_t err = cudaFuncSetAttribute(sort_count_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             sort_smem);
+  cudaError_t err = allow_dynamic_smem(sort_count_kernel, sort_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sort_scatter_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               sort_smem);
+    err = allow_dynamic_smem(sort_scatter_kernel, sort_smem);
   if (err != cudaSuccess) return err;
   sort_count_kernel<<<units, 32, sort_smem, stream>>>(node, n, L, rows, cnt);
   scan_partial_kernel<<<sms, THREADS, 0, stream>>>(cnt, total, per, partial);

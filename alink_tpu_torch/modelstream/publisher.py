@@ -202,18 +202,14 @@ class ModelStreamPublisher:
         """Wrap a raw model table into the PipelineModel its ``modelName``
         names — the exact artifact ``PipelineModel.load``/``LocalPredictor``
         consume, so served-vs-local parity is definitional."""
-        from ..common.exceptions import AkUnsupportedOperationException
         from ..common.model import table_to_model
-        from ..pipeline.estimators import LinearModel
+        from ..pipeline.estimators import FmModel, LinearModel
         from ..pipeline.pipeline import PipelineModel
 
         meta, _ = table_to_model(model_table)
         model_name = meta.get("modelName")
-        if str(model_name) == "FmModel":
-            raise AkUnsupportedOperationException(
-                "the FM model's pipeline stage is not ported yet (ROADMAP "
-                "A4): an FmModel stream cannot be published")
-        cls = {"LinearModel": LinearModel}.get(str(model_name))
+        cls = {"LinearModel": LinearModel, "FmModel": FmModel}.get(
+            str(model_name))
         if cls is None:
             raise AkIllegalArgumentException(
                 f"no servable pipeline stage for modelName={model_name!r}")

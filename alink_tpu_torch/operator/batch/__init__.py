@@ -113,6 +113,39 @@ from .linear import (BaseLinearModelTrainBatchOp, LassoRegPredictBatchOp,
                      LogisticRegressionTrainBatchOp, RidgeRegPredictBatchOp,
                      RidgeRegTrainBatchOp, SoftmaxPredictBatchOp,
                      SoftmaxTrainBatchOp)
+from .classification import (BaseFmTrainBatchOp, FmClassifierPredictBatchOp,
+                             FmClassifierTrainBatchOp, FmModelMapper,
+                             FmPredictBatchOp, FmRegressorPredictBatchOp,
+                             FmRegressorTrainBatchOp, KnnModelMapper,
+                             KnnPredictBatchOp, KnnRegModelMapper,
+                             KnnRegPredictBatchOp, KnnRegTrainBatchOp,
+                             KnnTrainBatchOp, MlpModelMapper,
+                             MultilayerPerceptronPredictBatchOp,
+                             MultilayerPerceptronTrainBatchOp,
+                             NaiveBayesModelMapper, NaiveBayesPredictBatchOp,
+                             NaiveBayesTrainBatchOp, OneVsRestModelMapper,
+                             OneVsRestPredictBatchOp, OneVsRestTrainBatchOp)
+from .evaluation import (BaseEvalBatchOp, EvalBinaryClassBatchOp,
+                         EvalClusterBatchOp, EvalMultiClassBatchOp,
+                         EvalMultiLabelBatchOp, EvalRankingBatchOp,
+                         EvalRegressionBatchOp, Metrics)
+from .regression import (AftSurvivalRegModelMapper,
+                         AftSurvivalRegPredictBatchOp,
+                         AftSurvivalRegTrainBatchOp, GlmModelMapper,
+                         GlmPredictBatchOp, GlmTrainBatchOp,
+                         IsotonicRegModelMapper, IsotonicRegPredictBatchOp,
+                         IsotonicRegTrainBatchOp,
+                         StepwiseLinearRegTrainBatchOp)
+from .sources import (LibSvmSinkBatchOp, LibSvmSourceBatchOp,
+                      ParquetSinkBatchOp, ParquetSourceBatchOp,
+                      TextSourceBatchOp, TFRecordSinkBatchOp,
+                      TFRecordSourceBatchOp, TsvSinkBatchOp, TsvSourceBatchOp,
+                      XlsSourceBatchOp)
+from .statistics import (ChiSquareTestBatchOp, CorrelationBatchOp,
+                         CorrelationResult, CovarianceBatchOp,
+                         QuantileBatchOp, SummarizerBatchOp,
+                         VectorChiSquareTestBatchOp, VectorCorrelationBatchOp,
+                         VectorSummarizerBatchOp)
 from .utils import MapBatchOp, ModelMapBatchOp, ModelTrainOpMixin
 
 __all__ = [
@@ -176,4 +209,28 @@ __all__ = [
     "StableHloModelPredictBatchOp", "TFSavedModelMapper",
     "TFSavedModelPredictBatchOp", "TorchModelMapper",
     "TorchModelPredictBatchOp",
+    "BaseFmTrainBatchOp", "FmClassifierPredictBatchOp",
+    "FmClassifierTrainBatchOp", "FmModelMapper", "FmPredictBatchOp",
+    "FmRegressorPredictBatchOp", "FmRegressorTrainBatchOp", "KnnModelMapper",
+    "KnnPredictBatchOp", "KnnRegModelMapper", "KnnRegPredictBatchOp",
+    "KnnRegTrainBatchOp", "KnnTrainBatchOp", "MlpModelMapper",
+    "MultilayerPerceptronPredictBatchOp", "MultilayerPerceptronTrainBatchOp",
+    "NaiveBayesModelMapper", "NaiveBayesPredictBatchOp",
+    "NaiveBayesTrainBatchOp", "OneVsRestModelMapper",
+    "OneVsRestPredictBatchOp", "OneVsRestTrainBatchOp",
+    "BaseEvalBatchOp", "EvalBinaryClassBatchOp", "EvalClusterBatchOp",
+    "EvalMultiClassBatchOp", "EvalMultiLabelBatchOp", "EvalRankingBatchOp",
+    "EvalRegressionBatchOp", "Metrics",
+    "AftSurvivalRegModelMapper", "AftSurvivalRegPredictBatchOp",
+    "AftSurvivalRegTrainBatchOp", "GlmModelMapper", "GlmPredictBatchOp",
+    "GlmTrainBatchOp", "IsotonicRegModelMapper", "IsotonicRegPredictBatchOp",
+    "IsotonicRegTrainBatchOp", "StepwiseLinearRegTrainBatchOp",
+    "LibSvmSinkBatchOp", "LibSvmSourceBatchOp", "ParquetSinkBatchOp",
+    "ParquetSourceBatchOp", "TextSourceBatchOp", "TFRecordSinkBatchOp",
+    "TFRecordSourceBatchOp", "TsvSinkBatchOp", "TsvSourceBatchOp",
+    "XlsSourceBatchOp",
+    "ChiSquareTestBatchOp", "CorrelationBatchOp", "CorrelationResult",
+    "CovarianceBatchOp", "QuantileBatchOp", "SummarizerBatchOp",
+    "VectorChiSquareTestBatchOp", "VectorCorrelationBatchOp",
+    "VectorSummarizerBatchOp",
 ]

@@ -5,6 +5,10 @@ Capability parity with the reference's generated pipeline classes (reference:
 pipeline/clustering/KMeans.java, pipeline/classification/LogisticRegression.java,
 LinearSvm.java, Softmax.java, pipeline/regression/LinearRegression.java /
 Ridge / Lasso / LinearSvr, pipeline/classification/DecisionTreeClassifier.java,
+NaiveBayes.java, KnnClassifier.java, FmClassifier.java,
+MultilayerPerceptronClassifier.java, pipeline/regression/FmRegressor.java,
+GeneralizedLinearRegression.java, IsotonicRegression.java,
+AftSurvivalRegression.java,
 RandomForestClassifier.java, GbdtClassifier.java,
 pipeline/regression/GbdtRegressor.java, pipeline/classification/C45.java,
 Cart.java, Id3.java, pipeline/nlp/Word2Vec.java — thin Trainer wrappers over
@@ -22,11 +26,13 @@ from typing import Dict
 
 from ..common.params import ParamInfo
 from ..mapper import (HasFeatureCols, HasPredictionCol, HasPredictionDetailCol,
-                      HasReservedCols)
+                      HasReservedCols, HasVectorCol)
+from ..operator.batch import classification as _cls
 from ..operator.batch import clustering as _clu
 from ..operator.batch import dl as _dl
 from ..operator.batch import huge as _huge
 from ..operator.batch import linear as _lin
+from ..operator.batch import regression as _reg
 from ..operator.batch import tree as _tree
 from .base import EstimatorBase, ModelBase
 
@@ -90,6 +96,125 @@ class LinearSvr(_LinearEstimator):
 
     _train_op_cls = _lin.LinearSvrTrainBatchOp
     SVR_EPSILON = _lin.LinearSvrTrainBatchOp.SVR_EPSILON
+
+
+# -- regression breadth ------------------------------------------------------
+class GlmModel(ModelBase):
+    _predict_op_cls = _reg.GlmPredictBatchOp
+
+
+class GeneralizedLinearRegression(EstimatorBase):
+    """(reference: pipeline/regression/GeneralizedLinearRegression.java)"""
+
+    _train_op_cls = _reg.GlmTrainBatchOp
+    _model_cls = GlmModel
+    LABEL_COL = _reg.GlmTrainBatchOp.LABEL_COL
+    FAMILY = _reg.GlmTrainBatchOp.FAMILY
+    LINK = _reg.GlmTrainBatchOp.LINK
+    MAX_ITER = _reg.GlmTrainBatchOp.MAX_ITER
+    FEATURE_COLS = HasFeatureCols.FEATURE_COLS
+    PREDICTION_COL = HasPredictionCol.PREDICTION_COL
+
+
+class IsotonicRegressionModel(ModelBase):
+    _predict_op_cls = _reg.IsotonicRegPredictBatchOp
+
+
+class IsotonicRegression(EstimatorBase):
+    """(reference: pipeline/regression/IsotonicRegression.java)"""
+
+    _train_op_cls = _reg.IsotonicRegTrainBatchOp
+    _model_cls = IsotonicRegressionModel
+    FEATURE_COL = _reg.IsotonicRegTrainBatchOp.FEATURE_COL
+    LABEL_COL = _reg.IsotonicRegTrainBatchOp.LABEL_COL
+    ISOTONIC = _reg.IsotonicRegTrainBatchOp.ISOTONIC
+    PREDICTION_COL = HasPredictionCol.PREDICTION_COL
+
+
+class AftSurvivalRegressionModel(ModelBase):
+    _predict_op_cls = _reg.AftSurvivalRegPredictBatchOp
+
+
+class AftSurvivalRegression(EstimatorBase):
+    """(reference: pipeline/regression/AftSurvivalRegression.java)"""
+
+    _train_op_cls = _reg.AftSurvivalRegTrainBatchOp
+    _model_cls = AftSurvivalRegressionModel
+    LABEL_COL = _reg.AftSurvivalRegTrainBatchOp.LABEL_COL
+    CENSOR_COL = _reg.AftSurvivalRegTrainBatchOp.CENSOR_COL
+    FEATURE_COLS = HasFeatureCols.FEATURE_COLS
+    PREDICTION_COL = HasPredictionCol.PREDICTION_COL
+
+
+# -- classification breadth ----------------------------------------------------
+class NaiveBayesModel(ModelBase):
+    _predict_op_cls = _cls.NaiveBayesPredictBatchOp
+
+
+class NaiveBayes(EstimatorBase, _RichPredictParams):
+    """(reference: pipeline/classification/NaiveBayes.java)"""
+
+    _train_op_cls = _cls.NaiveBayesTrainBatchOp
+    _model_cls = NaiveBayesModel
+    LABEL_COL = _cls.NaiveBayesTrainBatchOp.LABEL_COL
+    MODEL_TYPE = _cls.NaiveBayesTrainBatchOp.MODEL_TYPE
+    SMOOTHING = _cls.NaiveBayesTrainBatchOp.SMOOTHING
+    FEATURE_COLS = HasFeatureCols.FEATURE_COLS
+    VECTOR_COL = HasVectorCol.VECTOR_COL
+
+
+class KnnClassifierModel(ModelBase):
+    _predict_op_cls = _cls.KnnPredictBatchOp
+
+
+class KnnClassifier(EstimatorBase, _RichPredictParams):
+    """(reference: pipeline/classification/KnnClassifier.java)"""
+
+    _train_op_cls = _cls.KnnTrainBatchOp
+    _model_cls = KnnClassifierModel
+    LABEL_COL = _cls.KnnTrainBatchOp.LABEL_COL
+    DISTANCE_TYPE = _cls.KnnTrainBatchOp.DISTANCE_TYPE
+    K = _cls.KnnModelMapper.K
+    FEATURE_COLS = HasFeatureCols.FEATURE_COLS
+    VECTOR_COL = HasVectorCol.VECTOR_COL
+
+
+class FmModel(ModelBase):
+    _predict_op_cls = _cls.FmPredictBatchOp
+
+
+class FmClassifier(EstimatorBase, _RichPredictParams):
+    """(reference: pipeline/classification/FmClassifier.java)"""
+
+    _train_op_cls = _cls.FmClassifierTrainBatchOp
+    _model_cls = FmModel
+    LABEL_COL = _cls.BaseFmTrainBatchOp.LABEL_COL
+    NUM_FACTOR = _cls.BaseFmTrainBatchOp.NUM_FACTOR
+    MAX_ITER = _cls.BaseFmTrainBatchOp.MAX_ITER
+    FEATURE_COLS = HasFeatureCols.FEATURE_COLS
+    VECTOR_COL = HasVectorCol.VECTOR_COL
+
+
+class FmRegressor(FmClassifier):
+    """(reference: pipeline/regression/FmRegressor.java)"""
+
+    _train_op_cls = _cls.FmRegressorTrainBatchOp
+
+
+class MultilayerPerceptronModel(ModelBase):
+    _predict_op_cls = _cls.MultilayerPerceptronPredictBatchOp
+
+
+class MultilayerPerceptronClassifier(EstimatorBase, _RichPredictParams):
+    """(reference: pipeline/classification/MultilayerPerceptronClassifier.java)"""
+
+    _train_op_cls = _cls.MultilayerPerceptronTrainBatchOp
+    _model_cls = MultilayerPerceptronModel
+    LABEL_COL = _cls.MultilayerPerceptronTrainBatchOp.LABEL_COL
+    LAYERS = _cls.MultilayerPerceptronTrainBatchOp.LAYERS
+    MAX_ITER = _cls.MultilayerPerceptronTrainBatchOp.MAX_ITER
+    FEATURE_COLS = HasFeatureCols.FEATURE_COLS
+    VECTOR_COL = HasVectorCol.VECTOR_COL
 
 
 # -- trees / ensembles ---------------------------------------------------------

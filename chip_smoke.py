@@ -303,7 +303,33 @@ non-zero:
     and idle shares of (a) and (c) under ``torch.profiler``, the model
     loads per op, the per-unit walls and phases;
     ``scripts/chip_phase_check.py dag`` runs this phase alone;
-18. one JSON line of kernels, then the device line last.
+18. model selection (``tuning_path``; the histogram kernel from two
+    threads at once): (18.1) level calls at L = 1 and 2,048 from two
+    threads at once, each equal to the same call alone; ``GridSearchCV`` over
+    ``RandomForestClassifier`` (numTrees 20, maxBins 64,
+    minSamplesPerLeaf 5) with maxDepth in {10, 12}, AUC through
+    ``BinaryClassificationTuningEvaluator``, 3 folds of the 522,911
+    Covertype-layout training rows, ``num_threads=2`` on the kernel
+    route: the histogram launches equal the level programs of the six
+    fold fits and the refit (counted from their models); the same search
+    with ``num_threads=1`` under ``ALINK_GBDT_PALLAS=0`` gives identical
+    reports and best params; the best model scores the 58,101 held-out
+    rows through ``EvalBinaryClassBatchOp``; the walls of both searches,
+    each fit's wall, the share of the threaded wall during which two fits
+    ran at once, and the device idle share of the threaded search (run
+    under ``torch.profiler``); (18.2) the families on 60,000 MNIST-layout rows
+    (10 classes, pixels scaled to [0, 1]): NaiveBayes, the
+    784-256-128-10 MLP, OneVsRest over LogisticRegression, KnnClassifier
+    (k = 10, 1,000 held-out queries), FmClassifier on a binary cut; and
+    GLM (Poisson), AFT, Isotonic and Stepwise on 100,000 seeded
+    regression rows; each fit and predict through ``TableSourceBatchOp``
+    → op → ``collect()``, timed, and held against the CPU route
+    (``FAMILY_*`` tolerances below); (18.3) NB, FM and MLP scoring at the
+    ``int8`` policy: the NB and FM int32 accumulators on the card equal
+    to the CPU route's, MLP's served int8 weights equal, the predictions
+    within the reference's accuracy band of fp32;
+    ``scripts/chip_phase_check.py tuning`` runs this phase alone;
+19. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -6254,6 +6280,577 @@ def dag_path(workdir, served_main, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: model selection (the forest search through the histogram kernel
+# from the search's pool threads) and the classical families it selects
+# among
+# ---------------------------------------------------------------------------
+
+TUNING_FOREST = dict(numTrees=20, maxBins=64, minSamplesPerLeaf=5)
+TUNING_DEPTHS = (10, 12)
+TUNING_FOLDS = 3
+DIGIT_ROWS = 60_000          # MNIST's training rows, 10 classes
+KNN_QUERIES = 1_000
+REG_ROWS = 100_000
+MLP_LAYERS = [256, 128]      # 784-256-128-10
+FAMILY_ITERS = 20            # L-BFGS iterations of the MLP and FM
+OVR_ITERS = 10               # ... of each of OneVsRest's 10 LR fits
+# card against CPU route, same model: rows whose label differs or whose
+# largest |Δ probability| exceeds FAMILY_PROB_ATOL, at most FAMILY_ROWS of
+# them. The fp32 products behind a score are summed in another order on
+# each device (a relative ~1e-6 of the score's terms); a row whose top two
+# classes lie closer than that can change its label, and a probability
+# moves by at most a quarter of its score's change
+FAMILY_PROB_ATOL = 1e-3
+FAMILY_ROWS = 1e-3
+FAMILY_REG_RTOL = 1e-5       # regressors' predictions, same model
+# the same fit run on the card and on the CPU route: IRLS rounds and
+# L-BFGS steps in float32 on each device end 1e-4 (relative) apart at
+# most in the parity tests (tests/test_torch_regression.py); predictions
+# within 1e-3 of the largest; host fits (Isotonic, the stepwise
+# selection) in float64 are equal
+FAMILY_FIT_RTOL = 1e-3
+
+
+class fit_recorder:
+    """Records each forest fit run inside the block: (thread name, start,
+    end, model table), by wrapping the train op's ``_execute_impl``."""
+
+    def __enter__(self):
+        import threading
+
+        from alink_tpu_torch.operator.batch.tree import (
+            RandomForestTrainBatchOp)
+
+        self.cls = RandomForestTrainBatchOp
+        self.own = "_execute_impl" in vars(self.cls)
+        orig = self.orig = self.cls._execute_impl
+        fits = self.fits = []
+        lock = threading.Lock()
+
+        def run(op, t):
+            t0 = time.perf_counter()
+            out = orig(op, t)
+            t1 = time.perf_counter()
+            with lock:
+                fits.append((threading.current_thread().name, t0, t1, out))
+            return out
+
+        self.cls._execute_impl = run
+        return self
+
+    def __exit__(self, *exc):
+        if self.own:
+            self.cls._execute_impl = self.orig
+        else:
+            del self.cls._execute_impl
+
+
+def level_programs(model) -> int:
+    """The level programs a forest's fit ran: depth of each of its trees."""
+    from alink_tpu_torch.common.model import table_to_model
+
+    meta, arrays = table_to_model(model)
+    return int(arrays["feats"].shape[0]) * int(meta["depth"])
+
+
+def two_at_once(intervals) -> float:
+    """Seconds during which at least two of ``intervals`` overlap."""
+    events = sorted([(a, 1) for a, _ in intervals]
+                    + [(b, -1) for _, b in intervals])
+    active, last, both = 0, 0.0, 0.0
+    for t, step in events:
+        if active >= 2:
+            both += t - last
+        active, last = active + step, t
+    return both
+
+
+def forest_search(train, threads, route):
+    """18.1's GridSearchCV on ``train``: ``route`` "kernel" or "plain"
+    (``ALINK_GBDT_PALLAS=0``). Returns the result, the wall, the fits
+    (thread, start and end relative to the search's start, model) and
+    the histogram launches."""
+    import torch
+
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.pipeline import RandomForestClassifier
+    from alink_tpu_torch.pipeline.tuning import (
+        BinaryClassificationTuningEvaluator, GridSearchCV, ParamGrid)
+    from alink_tpu_torch.tree import grow
+
+    rf = RandomForestClassifier(
+        featureCols=list(COVTYPE_COLS), labelCol="label",
+        predictionCol="pred", predictionDetailCol="detail", **TUNING_FOREST)
+    grid = ParamGrid().add_grid(rf, "maxDepth", list(TUNING_DEPTHS))
+    ev = BinaryClassificationTuningEvaluator(labelCol="label",
+                                             predictionDetailCol="detail")
+    search = GridSearchCV(rf, grid, ev, num_folds=TUNING_FOLDS, seed=SEED,
+                          num_threads=threads)
+    kernels.reset_launches()
+    if route == "plain":
+        os.environ[grow.HIST_KERNEL_ENV] = "0"
+    try:
+        with fit_recorder() as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = search.fit(train)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop(grow.HIST_KERNEL_ENV, None)
+    fits = [(name, a - t0, b - t0, m) for name, a, b, m in rec.fits]
+    return dict(result=result, wall=wall, fits=fits,
+                launches=kernels.launches()["tree_histogram"])
+
+
+def search_report(run):
+    """What a search run prints: the wall, each fit's thread and wall, the
+    share of the wall during which two fits ran at once."""
+    fits = run["fits"]
+    return dict(wall_s=run["wall"],
+                fits=[(name, round(a, 3), round(b - a, 3))
+                      for name, a, b, _ in fits],
+                two_fits_share=two_at_once([(a, b) for _, a, b, _ in
+                                            fits]) / run["wall"],
+                launches=run["launches"],
+                level_programs=sum(level_programs(m) for *_, m in fits),
+                reports=[(r["params"], r["score"])
+                         for r in run["result"].reports],
+                best_params=run["result"].best_params)
+
+
+def concurrent_level_calls(rows, d=54, calls=40):
+    """Two host threads launch ``level_histograms`` at once, one at L = 1
+    and one at L = 2,048 (other shared-memory sizes, as two fits of a
+    search at other levels), ``calls`` times each; every result must equal
+    the same call made alone (integer vals: exact). Returns the calls that
+    failed or differed."""
+    import threading
+
+    import torch
+
+    from alink_tpu_torch.tree.hist_cuda import level_histograms
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    bins = torch.randint(0, HIST_BINS, (rows, d), generator=g,
+                         device="cuda", dtype=torch.uint8)
+    vals = (torch.randint(0, 4, (rows,), generator=g, device="cuda")
+            .float(),)
+    cases = [(L, torch.randint(0, L, (rows,), generator=g, device="cuda",
+                               dtype=torch.int32)) for L in (1, 2048)]
+    alone = [level_histograms(bins, node, vals, num_nodes=L,
+                              num_bins=HIST_BINS)[0] for L, node in cases]
+    bad = []
+
+    def run(i):
+        L, node = cases[i]
+        for _ in range(calls):
+            try:
+                got = level_histograms(bins, node, vals, num_nodes=L,
+                                       num_bins=HIST_BINS)[0]
+                if not torch.equal(got, alone[i]):
+                    bad.append(f"L={L}: differs")
+            except Exception as e:     # noqa: BLE001 — reported, then fails
+                bad.append(f"L={L}: {e}")
+                return
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    return bad
+
+
+def tuning_search(X, y, card, problems):
+    """18.1: the forest search on both routes, the launch count, the
+    identical reports, the held-out score, the walls and the idle share."""
+    from alink_tpu_torch.operator.batch import (EvalBinaryClassBatchOp,
+                                                TableSourceBatchOp)
+
+    bad = concurrent_level_calls(COVTYPE_TRAIN * 2 // 3)
+    print(f"[{card}] 18.1 level calls from two threads at once (L = 1 and "
+          f"2,048): {len(bad)} failed or differed {bad[:2]}", flush=True)
+    if bad:
+        problems.append(f"18.1 concurrent level calls: {bad[:2]}")
+    n_tr = COVTYPE_TRAIN
+    train = covertype_table(X[:n_tr], y[:n_tr])
+    test = covertype_table(X[n_tr:], y[n_tr:])
+    # the main path's run, under torch.profiler (on an H100 its wall came
+    # within 2 % of an untraced run's): the idle share of this very run
+    runs = []
+    idle = device_profile(
+        lambda: runs.append(forest_search(train, 2, "kernel")), 1.0)
+    kernel = runs[0]
+    idle["idle_share"] = max(0.0, 1.0 - idle["busy_ms"]
+                             / (kernel["wall"] * 1e3))
+    k_rep = search_report(kernel)
+    print(f"[{card}] 18.1 GridSearchCV kernel route, num_threads=2: "
+          + json.dumps(k_rep, default=str), flush=True)
+    if len(kernel["fits"]) != len(TUNING_DEPTHS) * TUNING_FOLDS + 1:
+        problems.append(f"18.1 ran {len(kernel['fits'])} forest fits")
+    if k_rep["launches"] != k_rep["level_programs"]:
+        problems.append(f"18.1 tree_histogram launched {k_rep['launches']} "
+                        f"times; the fits ran {k_rep['level_programs']} "
+                        f"level programs")
+    if not k_rep["two_fits_share"] > 0:
+        problems.append("18.1's threaded search never ran two fits at once")
+    plain = forest_search(train, 1, "plain")
+    p_rep = search_report(plain)
+    print(f"[{card}] 18.1 GridSearchCV plain route "
+          f"(ALINK_GBDT_PALLAS=0), num_threads=1: "
+          + json.dumps(p_rep, default=str), flush=True)
+    if p_rep["launches"] != 0:
+        problems.append(f"18.1's plain route launched the kernel "
+                        f"{p_rep['launches']} times")
+    same = (k_rep["reports"] == p_rep["reports"]
+            and k_rep["best_params"] == p_rep["best_params"])
+    if not same:
+        problems.append("18.1: the threaded kernel-route search and the "
+                        "serial plain-route search report differently")
+    held = EvalBinaryClassBatchOp(
+        labelCol="label", predictionDetailCol="detail").link_from(
+        kernel["result"].transform(TableSourceBatchOp(test))) \
+        .collect_metrics()
+    print(f"[{card}] 18.1 identical reports {same}; threaded search under "
+          f"torch.profiler: {json.dumps(idle)}; best "
+          f"{kernel['result'].best_params} on the {COVTYPE_TEST} held-out "
+          f"rows: AUC {held['AUC']:.6f}, accuracy {held['Accuracy']:.6f}",
+          flush=True)
+    if not held["AUC"] > 0.8:
+        problems.append(f"18.1 held-out AUC {held['AUC']}")
+    return dict(kernel=k_rep, plain=p_rep, identical=same, profile=idle,
+                held_out=dict(held), speedup=plain["wall"] / kernel["wall"])
+
+
+def mnist_digits(n, seed):
+    """n seeded rows in MNIST's layout with 10 classes (the file is not in
+    the repository): each class draws its pixels from its own stroke
+    template, a ring or a bar through the centre of the 28 x 28 image,
+    on with a probability of up to 0.6 and at least 0.01 anywhere, at
+    integer intensities in [1, 255], scaled to [0, 1] (mnist_mlp's
+    scaling). Returns X (n, 784) float32 and y (n,) int64."""
+    g = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(28) - 13.5, np.arange(28) - 13.5,
+                         indexing="ij")
+    templates = []
+    for c in range(10):
+        ang = np.pi * c / 10
+        if c % 2:     # a bar at angle ang
+            d = np.abs(xx * np.sin(ang) - yy * np.cos(ang))
+        else:         # a ring of radius 4 + c / 2
+            d = np.abs(np.hypot(xx, yy) - (4 + c / 2))
+        templates.append(0.01 + 0.59 * np.exp(-(d / 1.5) ** 2))
+    y = g.integers(0, 10, n)
+    p_on = np.stack(templates).reshape(10, 784)[y]
+    on = g.random((n, 784), dtype=np.float32) < p_on
+    X = np.where(on, g.integers(1, 256, (n, 784)), 0).astype(np.float32)
+    return X / 255.0, y.astype(np.int64)
+
+
+def regression_data(n, seed):
+    """n seeded rows of 10 features with a Poisson count, a survival time
+    (Weibull, 30% right-censored) and a Gaussian target."""
+    g = np.random.default_rng(seed)
+    X = g.normal(0.0, 0.5, (n, 10))
+    eta = X @ np.random.default_rng(seed + 1).normal(0.0, 0.4, 10) + 0.5
+    cols = {f"x{j}": X[:, j] for j in range(10)}
+    cols.update(count=g.poisson(np.exp(eta)).astype(np.float64),
+                time=np.exp(eta + 0.3 * g.gumbel(size=n)),
+                censor=(g.random(n) < 0.7).astype(np.float64),
+                gauss=eta + g.normal(0.0, 0.2, n))
+    return cols
+
+
+def class_gap(card_t, cpu_t):
+    """Rows of two predict outputs (label column "p", detail "d") whose
+    label differs or whose largest |Δ probability| exceeds
+    FAMILY_PROB_ATOL, as a share, and the largest |Δ probability|."""
+    probs = [np.asarray([[v for _, v in sorted(json.loads(s).items())]
+                         for s in t.col("d")]) for t in (card_t, cpu_t)]
+    dp = np.abs(probs[0] - probs[1]).max(1)
+    bad = (np.asarray(card_t.col("p")) != np.asarray(cpu_t.col("p"))) \
+        | (dp > FAMILY_PROB_ATOL)
+    return float(bad.mean()), float(dp.max())
+
+
+def reg_gap(a_t, b_t):
+    a = np.asarray(a_t.col("p"), np.float64)
+    b = np.asarray(b_t.col("p"), np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def family(name, train_op, predict_op, train_t, test_t, problems, *,
+           refit_on_cpu, classifier=True):
+    """Fit on the card and predict on the card, both through
+    ``TableSourceBatchOp`` → op → ``collect()`` and timed; the card's
+    model predicted on the CPU route; with ``refit_on_cpu`` the same fit
+    on the CPU route, its predictions held to the card fit's."""
+    from alink_tpu_torch.operator.batch import TableSourceBatchOp
+
+    src, test = TableSourceBatchOp(train_t), TableSourceBatchOp(test_t)
+
+    def fit():
+        return train_op().link_from(src).collect()
+
+    def predict(model):
+        return predict_op().link_from(TableSourceBatchOp(model),
+                                      test).collect()
+
+    fit_s, model = timed(fit)
+    predict_s, card_t = timed(lambda: predict(model))
+    with torch_device("cpu"):
+        t0 = time.perf_counter()
+        cpu_t = predict(model)
+        cpu_predict_s = time.perf_counter() - t0
+        refit = predict(fit()) if refit_on_cpu else None
+    out = dict(fit_s=fit_s, predict_s=predict_s, cpu_predict_s=cpu_predict_s,
+               rows=test_t.num_rows)
+    if classifier:
+        share, dp = class_gap(card_t, cpu_t)
+        out.update(rows_apart=share, max_dprob=dp,
+                   accuracy=float(np.mean(
+                       np.asarray(card_t.col("p")).astype(str)
+                       == np.asarray(test_t.col("label")).astype(str))))
+        if share > FAMILY_ROWS:
+            problems.append(f"18.2 {name}: {share:.2%} of rows apart from "
+                            f"the CPU route")
+        if refit is not None:
+            out["refit_rows_apart"], out["refit_max_dprob"] = \
+                class_gap(card_t, refit)
+            if out["refit_rows_apart"] > FAMILY_ROWS:
+                problems.append(f"18.2 {name}: the CPU route's fit "
+                                f"predicts {out['refit_rows_apart']:.2%} "
+                                f"of rows otherwise")
+    else:
+        out["rel_gap"] = reg_gap(card_t, cpu_t)
+        if out["rel_gap"] > FAMILY_REG_RTOL:
+            problems.append(f"18.2 {name}: predictions {out['rel_gap']} "
+                            f"(relative) from the CPU route's")
+        if refit is not None:
+            out["refit_rel_gap"] = reg_gap(card_t, refit)
+            if out["refit_rel_gap"] > FAMILY_FIT_RTOL:
+                problems.append(f"18.2 {name}: the CPU route's fit predicts "
+                                f"{out['refit_rel_gap']} (relative) apart")
+    return model, out
+
+
+def digit_tables(binary=False):
+    from alink_tpu_torch.common.mtable import MTable
+
+    X, y = mnist_digits(DIGIT_ROWS + KNN_QUERIES, SEED + 18)
+    if binary:
+        y = (y < 5).astype(np.int64)
+
+    def table(lo, hi):
+        cols = {f"p{i}": X[lo:hi, i] for i in range(784)}
+        cols["label"] = y[lo:hi]
+        return MTable(cols)
+
+    return table(0, DIGIT_ROWS), table(DIGIT_ROWS, DIGIT_ROWS + KNN_QUERIES)
+
+
+def families_on_card(card, problems):
+    """18.2: the classification families on the MNIST-layout rows and the
+    regression families on seeded regression rows."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator import batch as B
+
+    feats = [f"p{i}" for i in range(784)]
+    train, test = digit_tables()
+    pred = dict(predictionCol="p", predictionDetailCol="d")
+    out, models = {}, {}
+    lr = B.LogisticRegressionTrainBatchOp(featureCols=feats,
+                                          labelCol="label",
+                                          maxIter=OVR_ITERS)
+    cases = (
+        ("NaiveBayes", lambda: B.NaiveBayesTrainBatchOp(
+            featureCols=feats, labelCol="label", modelType="GAUSSIAN"),
+         lambda: B.NaiveBayesPredictBatchOp(**pred), True),
+        ("MultilayerPerceptron", lambda: B.MultilayerPerceptronTrainBatchOp(
+            featureCols=feats, labelCol="label", layers=MLP_LAYERS,
+            maxIter=FAMILY_ITERS),
+         lambda: B.MultilayerPerceptronPredictBatchOp(**pred), False),
+        ("OneVsRest", lambda: B.OneVsRestTrainBatchOp(lr),
+         lambda: B.OneVsRestPredictBatchOp(**pred), False),
+        ("Knn", lambda: B.KnnTrainBatchOp(featureCols=feats,
+                                          labelCol="label"),
+         lambda: B.KnnPredictBatchOp(k=10, **pred), False))
+    for name, train_op, predict_op, refit in cases:
+        models[name], out[name] = family(name, train_op, predict_op, train,
+                                         test, problems, refit_on_cpu=refit)
+        print(f"[{card}] 18.2 {name}: {json.dumps(out[name])}", flush=True)
+    btrain, btest = digit_tables(binary=True)
+    models["Fm"], out["Fm"] = family(
+        "FmClassifier", lambda: B.FmClassifierTrainBatchOp(
+            featureCols=feats, labelCol="label", numFactor=10,
+            maxIter=FAMILY_ITERS),
+        lambda: B.FmPredictBatchOp(**pred), btrain, btest, problems,
+        refit_on_cpu=False)
+    print(f"[{card}] 18.2 FmClassifier: {json.dumps(out['Fm'])}", flush=True)
+
+    cols = regression_data(REG_ROWS + 10_000, SEED + 18)
+    rtrain = MTable({k: v[:REG_ROWS] for k, v in cols.items()})
+    rtest = MTable({k: v[REG_ROWS:] for k, v in cols.items()})
+    xs = [f"x{j}" for j in range(10)]
+    reg_cases = (
+        ("Glm", lambda: B.GlmTrainBatchOp(featureCols=xs, labelCol="count",
+                                          family="Poisson"),
+         lambda: B.GlmPredictBatchOp(predictionCol="p")),
+        ("AftSurvivalReg", lambda: B.AftSurvivalRegTrainBatchOp(
+            featureCols=xs, labelCol="time", censorCol="censor",
+            maxIter=50), lambda: B.AftSurvivalRegPredictBatchOp(
+            predictionCol="p")),
+        ("IsotonicReg", lambda: B.IsotonicRegTrainBatchOp(
+            featureCol="x0", labelCol="gauss"),
+         lambda: B.IsotonicRegPredictBatchOp(predictionCol="p")),
+        ("StepwiseLinearReg", lambda: B.StepwiseLinearRegTrainBatchOp(
+            featureCols=xs, labelCol="gauss"),
+         lambda: B.LinearRegPredictBatchOp(predictionCol="p")))
+    for name, train_op, predict_op in reg_cases:
+        _, out[name] = family(name, train_op, predict_op, rtrain, rtest,
+                              problems, refit_on_cpu=True, classifier=False)
+        print(f"[{card}] 18.2 {name}: {json.dumps(out[name])}", flush=True)
+    models.update(digits=(train, test), binary=(btrain, btest))
+    return out, models
+
+
+def loaded_mapper(mapper_cls, model, test, extra, device):
+    """``mapper_cls`` loaded from ``model`` on ``device`` with the op params
+    ``extra``, as a predict op loads it."""
+    from alink_tpu_torch.common.params import Params
+
+    params = Params()
+    for k, v in extra.items():
+        params.set(k, v)
+    m = mapper_cls(model.schema, test.schema, params)
+    m.device = device
+    return m.load_model(model)
+
+
+def int8_accumulators(mapper_cls, model, test, extra, device):
+    """The int32 accumulators of an NB or FM int8 scorer loaded on
+    ``device``, on ``test``'s rows."""
+    import torch
+
+    from alink_tpu_torch.common import quant
+    from alink_tpu_torch.operator.batch.classification import FmModelMapper
+
+    m = loaded_mapper(mapper_cls, model, test, extra, device)
+    params = m.get_params()
+    Xd = m._padded("p18.acc", m._features(test))
+
+    def scale(site, used=True):
+        return torch.tensor(quant.calib_scale(params, site) if used else 1.0,
+                            dtype=torch.float32, device=m._device)
+
+    if isinstance(m, FmModelMapper):
+        accs = (quant.int8_fm_accumulators(Xd, m._fm_q[1], scale(m._site)),)
+    else:
+        aq, bq = m._q_factors[:2]
+        accs = quant.int8_nb_accumulators(
+            m._mtype, Xd, aq, bq,
+            scale(m._site_xx, m._mtype == "GAUSSIAN"),
+            scale(m._site_x, m._mtype != "BERNOULLI"))
+    return [a.cpu().numpy() for a in accs]
+
+
+def int8_scorers(card, models, problems):
+    """18.3: NB, FM and MLP scoring at the int8 policy on the card, from
+    one calibration pass over CALIB_ROWS training rows each."""
+    from alink_tpu_torch.common import quant
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.operator import batch as B
+    from alink_tpu_torch.operator.batch.classification import (
+        FmModelMapper, MlpModelMapper, NaiveBayesModelMapper,
+        mlp_int8_layers)
+
+    out = {}
+    cases = (("NaiveBayes", B.NaiveBayesPredictBatchOp, "digits",
+              NaiveBayesModelMapper),
+             ("Fm", B.FmPredictBatchOp, "binary", FmModelMapper),
+             ("MultilayerPerceptron", B.MultilayerPerceptronPredictBatchOp,
+              "digits", None))
+    for name, op_cls, data, mapper_cls in cases:
+        train, test = models[data]
+        model, site = models[name], "p18:" + name
+
+        def predict(t, **extra):
+            return op_cls(predictionCol="p", predictionDetailCol="d",
+                          quantSite=site, **extra).link_from(
+                B.TableSourceBatchOp(model),
+                B.TableSourceBatchOp(t)).collect()
+
+        calib = {}
+        with quant.calibration(calib):
+            predict(train.head(CALIB_ROWS))
+        extra = {quant.PRECISION_KEY: "int8", quant.CALIB_KEY: calib,
+                 quant.SITE_KEY: site}
+        fp32 = predict(test)
+        int8_s, int8 = timed(lambda: predict(test, **{
+            quant.PRECISION_KEY: "int8", quant.CALIB_KEY: calib}))
+        with torch_device("cpu"):
+            cpu = predict(test, **{quant.PRECISION_KEY: "int8",
+                                   quant.CALIB_KEY: calib})
+        band = band_report(fp32, int8)
+        res = dict(int8_predict_s=int8_s, band=band,
+                   rows_apart_from_cpu_int8=class_gap(int8, cpu)[0])
+        if mapper_cls is not None:
+            got = int8_accumulators(mapper_cls, model, test, extra, "cuda")
+            want = int8_accumulators(mapper_cls, model, test, extra, "cpu")
+            res["accumulators_equal"] = all(
+                np.array_equal(a, b) for a, b in zip(got, want))
+            res["accumulator_shapes"] = [list(a.shape) for a in got]
+            if not res["accumulators_equal"]:
+                problems.append(f"18.3 {name}: int32 accumulators differ "
+                                f"from the CPU route's")
+        else:
+            meta, arrays = table_to_model(model)
+            packed = mlp_int8_layers(meta["layerSizes"], arrays["weights"])
+            mapper = loaded_mapper(MlpModelMapper, model, test, extra,
+                                   "cuda")
+            res["int8_weights_equal"] = all(
+                np.array_equal(t.cpu().numpy(), p)
+                for t, p in zip(mapper._mlp_q, packed))
+            if not res["int8_weights_equal"]:
+                problems.append("18.3 MLP: served int8 weights differ")
+        if not band["ok"]:
+            problems.append(f"18.3 {name}: int8 outside the accuracy band "
+                            f"{band}")
+        if res["rows_apart_from_cpu_int8"] > FAMILY_ROWS:
+            problems.append(f"18.3 {name}: int8 rows apart from the CPU "
+                            f"route's int8: {res['rows_apart_from_cpu_int8']}")
+        out[name] = res
+        print(f"[{card}] 18.3 {name} int8: {json.dumps(res)}", flush=True)
+    return out
+
+
+def tuning_path(card):
+    """Phase 18: model selection on the card (18.1), the families it
+    selects among (18.2) and their int8 scorers (18.3). Returns the
+    phase's record and the tree_histogram launches of 18.1's threaded
+    kernel-route search."""
+    from alink_tpu_torch.native import kernels
+
+    problems = []
+    X, y = covertype_data(COVTYPE_TRAIN + COVTYPE_TEST, SEED)
+    search = tuning_search(X, y, card, problems)
+    del X, y
+    launches = search["kernel"]["launches"]
+    kernels.reset_launches()
+    fams, models = families_on_card(card, problems)
+    int8 = int8_scorers(card, models, problems)
+    stray = sum(kernels.launches().values())
+    if stray:
+        problems.append(f"18.2-18.3 launched kernels of the port: "
+                        f"{kernels.launches()}")
+    if problems:
+        fail("phase 18: " + "; ".join(problems))
+    return dict(search=search, families=fams, int8=int8), launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6360,6 +6957,8 @@ def main() -> int:
     marks.append(("phase 16 fleet", time.perf_counter()))
     dag = dag_path(workdir, served_main, card)
     marks.append(("phase 17 DAG", time.perf_counter()))
+    tuning, tuning_launches = tuning_path(card)
+    marks.append(("phase 18 tuning", time.perf_counter()))
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -6398,7 +6997,7 @@ def main() -> int:
              backward_errors=bwd.pop("errors"), **bwd,
              bert_training=dict(metric_of_record=record,
                                 kernel_route=kernel_train, sst2=sst2)),
-        dict(entry("tree_histogram", tree_launches, hist,
+        dict(entry("tree_histogram", tree_launches + tuning_launches, hist,
                    "Tensor.index_add_ of the distinct channels over the "
                    "flat cell index (yardstick)",
                    f"one level call: n={COVTYPE_TRAIN} d=54 uint8 bins, "
@@ -6407,6 +7006,13 @@ def main() -> int:
                    f"and bound_ms are means over the 12 levels (L = 1 ... "
                    f"2048, S = 64 ... 131072) of the forest's first tree, "
                    f"on its level calls' inputs"),
+             launches_by_path={"phase 6 forest": tree_launches,
+                               "phase 18 tuning": tuning_launches},
+             tuning={k: tuning["search"][k] for k in (
+                 "identical", "profile", "speedup")} | {
+                 r: {k: tuning["search"][r][k] for k in (
+                     "wall_s", "two_fits_share", "launches",
+                     "level_programs")} for r in ("kernel", "plain")},
              forest=forest, forest_levels=levels,
              even_nodes=even, wide_tables=wide_times,
              wide_forest=wide_forest),

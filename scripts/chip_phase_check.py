@@ -22,7 +22,9 @@ kernel), ``fleet`` (phase 16, the serving fleet: two BERT-base replicas
 of phase 4's model as a pipeline ``.ak`` with its sidecar, both written
 first, with the serial predicts the rows are held against), ``dag``
 (phase 17, the BERT-base evaluation DAG through the executor, with phase
-4's model, run first). Each
+4's model, run first), ``tuning`` (phase 18, model selection: the forest
+search on both routes, the families on the card and their int8 scorers).
+Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
 """
@@ -39,7 +41,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
-          "families", "ingest", "serving", "pretrain", "fleet", "dag")
+          "families", "ingest", "serving", "pretrain", "fleet", "dag",
+          "tuning")
 
 
 def main() -> int:
@@ -103,6 +106,7 @@ def main() -> int:
            "forest": cs.wide_forest_path, "families": families,
            "ingest": lambda: cs.ingest_path(workdir, card.splitlines()[0]),
            "serving": serving, "fleet": fleet, "dag": dag,
+           "tuning": lambda: cs.tuning_path(card.splitlines()[0])[0],
            "pretrain": lambda: cs.pretraining_path(workdir, peaks,
                                                    card.splitlines()[0])}
     out = {}

@@ -18,7 +18,8 @@
   ``LocalPredictor`` on the committed blob, the reference's
   ``LocalPredictor`` reads the port's blob to the same rows (labels equal,
   probabilities within 1e-6), a second version swaps in with no new batch
-  shape, and ``resume`` swaps the newest version into a fresh server.
+  shape, and ``resume`` swaps the newest version into a fresh server; an
+  FmModel stream publishes and serves the same way.
 """
 
 import json
@@ -320,12 +321,41 @@ def test_publish_and_swap_into_model_server(tmp_path):
 
 
 def test_publisher_refuses_unported_fm_stage(tmp_path):
-    from alink_tpu_torch.common.exceptions import (
-        AkUnsupportedOperationException)
-    from alink_tpu_torch.common.model import model_to_table
+    """The FM stage is ported: an FmModel stream publishes (wrapped in the
+    FmModel stage, as the reference wraps it), swaps into the server and
+    serves the rows of its committed blob; the reference's
+    ``LocalPredictor`` reads that blob to the same labels."""
+    from alink_tpu.pipeline import LocalPredictor as RefPredictor
+    from alink_tpu_torch.common.mtable import MTable
     from alink_tpu_torch.modelstream import ModelStreamPublisher
+    from alink_tpu_torch.operator.batch import (FmClassifierTrainBatchOp,
+                                                TableSourceBatchOp)
+    from alink_tpu_torch.pipeline import LocalPredictor
+    from alink_tpu_torch.pipeline.pipeline import PipelineModel
+    from alink_tpu_torch.serving import ModelServer
 
-    pub = ModelStreamPublisher(str(tmp_path / "s"), "fm")
-    table = model_to_table({"modelName": "FmModel"}, {})
-    with pytest.raises(AkUnsupportedOperationException, match="A4"):
-        pub.publish_epoch(_TrainOp(table), 0)
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(60, 2))
+    y = (X @ np.array([1.5, -1.0]) > 0).astype(np.int64)
+    table = FmClassifierTrainBatchOp(
+        featureCols=["x0", "x1"], labelCol="label", numFactor=2,
+        maxIter=10).link_from(TableSourceBatchOp(MTable(
+            {"x0": X[:, 0], "x1": X[:, 1], "label": y}))).collect()
+    rows = [(float(a), float(b)) for a, b in rng.normal(size=(8, 2))]
+    server = ModelServer()
+    pub = ModelStreamPublisher(str(tmp_path / "s"), "fm", server=server,
+                               input_schema=SCHEMA,
+                               stage_params={"predictionCol": "pred"})
+    try:
+        blob = pub.publish_epoch(_TrainOp(table), 0)
+        assert [type(s).__name__ for s in
+                PipelineModel.load(blob).stages] == ["FmModel"]
+        assert pub.swap_epoch(0)
+        served = server.predict_many("fm", rows)
+        assert served == [LocalPredictor(blob, SCHEMA).predict_row(r)
+                          for r in rows]
+        ref = RefPredictor(blob, SCHEMA)
+        assert [r[2] for r in served] == [ref.predict_row(r)[2]
+                                          for r in rows]
+    finally:
+        server.close()

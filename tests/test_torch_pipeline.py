@@ -229,7 +229,7 @@ def test_port_stages_are_reference_stages():
     stages = [n for n in P.__all__ if n in PORT]
     assert sum(issubclass(PORT[n], (P.EstimatorBase, P.ModelBase))
                and PORT[n] not in (P.EstimatorBase, P.ModelBase)
-               for n in stages) == 63
+               for n in stages) == 78
     for name in stages:
         assert name in REF, name
         assert set(getattr(P, name).param_infos()) <= \

@@ -96,7 +96,15 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.common.profiling",
             "alink_tpu_torch.io.filesystem",
             "alink_tpu_torch.operator.sql",
-            "alink_tpu_torch.operator.sqlengine"} \
+            "alink_tpu_torch.operator.sqlengine",
+            "alink_tpu_torch.stats.prob", "alink_tpu_torch.stats.summarizer",
+            "alink_tpu_torch.operator.batch.statistics",
+            "alink_tpu_torch.operator.batch.evaluation",
+            "alink_tpu_torch.operator.batch.classification",
+            "alink_tpu_torch.operator.batch.regression",
+            "alink_tpu_torch.operator.batch.sources",
+            "alink_tpu_torch.pipeline.tuning",
+            "alink_tpu_torch.io.tfrecord"} \
         <= set(scanned.split(","))
     smoke = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; print(','.join(sorted("
