@@ -86,6 +86,17 @@ class SparseVector:
 
     __slots__ = ("n", "indices", "values")
 
+    @classmethod
+    def from_sorted(cls, n: int, indices: np.ndarray,
+                    values: np.ndarray) -> "SparseVector":
+        """A vector over int64 ``indices``, already ascending and below
+        ``n``, and their float64 ``values``, taken as they are: without the
+        constructor's per-vector copies, sort and checks, for callers that
+        build those arrays in bulk."""
+        v = cls.__new__(cls)
+        v.n, v.indices, v.values = int(n), indices, values
+        return v
+
     def __init__(self, n: int = -1, indices=(), values=()):
         self.n = int(n)
         idx = np.asarray(indices, dtype=np.int64).reshape(-1)
@@ -252,6 +263,20 @@ def stack_vectors(
         else:
             d = min(v.size(), size)
             out[r, :d] = v.data[:d]
+    return out
+
+
+def dense_vectors(block) -> np.ndarray:
+    """An object column of one :class:`DenseVector` per row of a 2-D block,
+    each over its row of the block's float64 copy (what ``DenseVector(row)``
+    makes of a float64 row, without its per-row conversions)."""
+    block = np.asarray(block, dtype=np.float64)
+    out = np.empty(block.shape[0], dtype=object)
+    new = DenseVector.__new__
+    for i, row in enumerate(block):
+        v = new(DenseVector)
+        v.data = row
+        out[i] = v
     return out
 
 

@@ -852,12 +852,33 @@ flash_block_update_fp32_kernel(const FlashArgs a) {
   }
 }
 
+// A kernel's dynamic shared-memory limit belongs to the function, not to a
+// launch: set per launch to the launch's own size, another host thread's
+// launch of a larger block could lower it between that thread's set and its
+// launch, which then fails with invalid argument. Every launch of `kernel`
+// sets the same value, the device's opt-in maximum less the kernel's static
+// shared memory, and fails only if `smem` exceeds it.
+template <typename K>
+cudaError_t allow_dynamic_smem(K* kernel, size_t smem) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  const int cap = optin - (int)fa.sharedSizeBytes;
+  if (smem > (size_t)cap) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+}
+
 template <int DPT>
 cudaError_t launch_fp32(const FlashArgs& a, cudaStream_t stream) {
   auto kern = flash_block_update_fp32_kernel<DPT>;
   const size_t smem = flash_smem_bytes(0, a.block, a.D);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_dynamic_smem(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.Q + BQ - 1) / BQ, a.B * a.H);
   kern<<<grid, THREADS, smem, stream>>>(a);

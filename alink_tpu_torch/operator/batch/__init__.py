@@ -234,3 +234,51 @@ __all__ = [
     "VectorChiSquareTestBatchOp", "VectorCorrelationBatchOp",
     "VectorSummarizerBatchOp",
 ]
+from .clustering2 import (AgnesBatchOp, BisectingKMeansPredictBatchOp,
+                          BisectingKMeansTrainBatchOp, DbscanBatchOp,
+                          GmmModelMapper, GmmPredictBatchOp, GmmTrainBatchOp,
+                          GroupDbscanBatchOp, GroupEmBatchOp,
+                          GroupGeoDbscanBatchOp, GroupGeoDbscanModelBatchOp,
+                          GroupKMeansBatchOp, KModesPredictBatchOp,
+                          KModesTrainBatchOp, LdaModelMapper,
+                          LdaPredictBatchOp, LdaTrainBatchOp,
+                          SomPredictBatchOp, SomTrainBatchOp)
+from .dataproc import (HugeMultiStringIndexerPredictBatchOp,
+                       HugeStringIndexerPredictBatchOp, ImputerPredictBatchOp,
+                       ImputerTrainBatchOp, JsonValueBatchOp, LookupBatchOp,
+                       OverWindowBatchOp, RebalanceBatchOp,
+                       StratifiedSampleBatchOp, StringIndexerPredictBatchOp,
+                       StringIndexerTrainBatchOp, TypeConvertBatchOp,
+                       WeightSampleBatchOp)
+from .feature import (MinMaxScalerPredictBatchOp, MinMaxScalerTrainBatchOp,
+                      StandardScalerPredictBatchOp, StandardScalerTrainBatchOp,
+                      VectorAssemblerBatchOp)
+from .feature2 import (AutoCrossBatchOp, AutoCrossPredictBatchOp,
+                       BinningPredictBatchOp, BinningTrainBatchOp,
+                       ChiSqSelectorBatchOp, ChiSqSelectorPredictBatchOp,
+                       DCTBatchOp, EqualWidthDiscretizerPredictBatchOp,
+                       EqualWidthDiscretizerTrainBatchOp, FeatureHasherBatchOp,
+                       MaxAbsScalerPredictBatchOp, MaxAbsScalerTrainBatchOp,
+                       OneHotPredictBatchOp, OneHotTrainBatchOp,
+                       PcaPredictBatchOp, PcaTrainBatchOp,
+                       QuantileDiscretizerPredictBatchOp,
+                       QuantileDiscretizerTrainBatchOp)
+from .feature3 import (BinarizerBatchOp, BucketizerBatchOp,
+                       ExclusiveFeatureBundlePredictBatchOp,
+                       ExclusiveFeatureBundleTrainBatchOp,
+                       IndexToStringPredictBatchOp, MultiHotPredictBatchOp,
+                       MultiHotTrainBatchOp, MultiStringIndexerPredictBatchOp,
+                       MultiStringIndexerTrainBatchOp,
+                       TargetEncoderPredictBatchOp, TargetEncoderTrainBatchOp)
+from .vector import (ColumnsToVectorBatchOp, UdfBatchOp, UdtfBatchOp,
+                     VectorElementwiseProductBatchOp, VectorImputerPredictBatchOp,
+                     VectorImputerTrainBatchOp, VectorInteractionBatchOp,
+                     VectorMaxAbsScalerPredictBatchOp,
+                     VectorMaxAbsScalerTrainBatchOp,
+                     VectorMinMaxScalerPredictBatchOp,
+                     VectorMinMaxScalerTrainBatchOp, VectorNormalizeBatchOp,
+                     VectorSliceBatchOp, VectorStandardScalerPredictBatchOp,
+                     VectorStandardScalerTrainBatchOp, VectorToColumnsBatchOp)
+from .vector2 import (VectorBiFunctionBatchOp, VectorChiSqSelectorBatchOp,
+                      VectorFunctionBatchOp, VectorPolynomialExpandBatchOp,
+                      VectorSizeHintBatchOp)

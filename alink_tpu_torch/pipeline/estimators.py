@@ -11,6 +11,11 @@ GeneralizedLinearRegression.java, IsotonicRegression.java,
 AftSurvivalRegression.java,
 RandomForestClassifier.java, GbdtClassifier.java,
 pipeline/regression/GbdtRegressor.java, pipeline/classification/C45.java,
+pipeline/clustering/GaussianMixture.java, BisectingKMeans.java, Lda.java,
+pipeline/dataproc/StandardScaler.java, MinMaxScaler.java, StringIndexer.java,
+Imputer.java, pipeline/dataproc/vector/VectorAssembler.java,
+pipeline/feature/OneHotEncoder.java, PCA.java, QuantileDiscretizer.java,
+Binning.java, FeatureHasher.java,
 Cart.java, Id3.java, pipeline/nlp/Word2Vec.java — thin Trainer wrappers over
 the corresponding BatchOps). Class names are the reference's: a saved
 pipeline model names its stages by class. The stages that the reference's
@@ -29,12 +34,16 @@ from ..mapper import (HasFeatureCols, HasPredictionCol, HasPredictionDetailCol,
                       HasReservedCols, HasVectorCol)
 from ..operator.batch import classification as _cls
 from ..operator.batch import clustering as _clu
+from ..operator.batch import clustering2 as _clu2
+from ..operator.batch import dataproc as _dp
 from ..operator.batch import dl as _dl
 from ..operator.batch import huge as _huge
 from ..operator.batch import linear as _lin
 from ..operator.batch import regression as _reg
+from ..operator.batch import feature as _feat
+from ..operator.batch import feature2 as _feat2
 from ..operator.batch import tree as _tree
-from .base import EstimatorBase, ModelBase
+from .base import EstimatorBase, ModelBase, TransformerBase
 
 
 class _RichPredictParams:
@@ -53,6 +62,54 @@ class KMeans(EstimatorBase, _clu.HasKMeansParams, _RichPredictParams):
 
     _train_op_cls = _clu.KMeansTrainBatchOp
     _model_cls = KMeansModel
+
+
+class GaussianMixtureModel(ModelBase):
+    _predict_op_cls = _clu2.GmmPredictBatchOp
+
+
+class GaussianMixture(EstimatorBase):
+    """(reference: pipeline/clustering/GaussianMixture.java)"""
+
+    _train_op_cls = _clu2.GmmTrainBatchOp
+    _model_cls = GaussianMixtureModel
+    K = _clu2.GmmTrainBatchOp.K
+    MAX_ITER = _clu2.GmmTrainBatchOp.MAX_ITER
+    FEATURE_COLS = HasFeatureCols.FEATURE_COLS
+    VECTOR_COL = HasVectorCol.VECTOR_COL
+    PREDICTION_COL = HasPredictionCol.PREDICTION_COL
+    PREDICTION_DETAIL_COL = HasPredictionDetailCol.PREDICTION_DETAIL_COL
+
+
+class BisectingKMeansModel(ModelBase):
+    _predict_op_cls = _clu2.BisectingKMeansPredictBatchOp
+
+
+class BisectingKMeans(EstimatorBase):
+    """(reference: pipeline/clustering/BisectingKMeans.java)"""
+
+    _train_op_cls = _clu2.BisectingKMeansTrainBatchOp
+    _model_cls = BisectingKMeansModel
+    K = _clu2.BisectingKMeansTrainBatchOp.K
+    FEATURE_COLS = HasFeatureCols.FEATURE_COLS
+    VECTOR_COL = HasVectorCol.VECTOR_COL
+    PREDICTION_COL = HasPredictionCol.PREDICTION_COL
+
+
+class LdaModel(ModelBase):
+    _predict_op_cls = _clu2.LdaPredictBatchOp
+
+
+class Lda(EstimatorBase):
+    """(reference: pipeline/clustering/Lda.java)"""
+
+    _train_op_cls = _clu2.LdaTrainBatchOp
+    _model_cls = LdaModel
+    SELECTED_COL = _clu2.HasSelectedCol.SELECTED_COL
+    TOPIC_NUM = _clu2.LdaTrainBatchOp.TOPIC_NUM
+    NUM_ITER = _clu2.LdaTrainBatchOp.NUM_ITER
+    PREDICTION_COL = HasPredictionCol.PREDICTION_COL
+    PREDICTION_DETAIL_COL = HasPredictionDetailCol.PREDICTION_DETAIL_COL
 
 
 # -- linear models -----------------------------------------------------------
@@ -144,6 +201,131 @@ class AftSurvivalRegression(EstimatorBase):
     CENSOR_COL = _reg.AftSurvivalRegTrainBatchOp.CENSOR_COL
     FEATURE_COLS = HasFeatureCols.FEATURE_COLS
     PREDICTION_COL = HasPredictionCol.PREDICTION_COL
+
+
+# -- feature engineering -----------------------------------------------------
+class StandardScalerModel(ModelBase):
+    _predict_op_cls = _feat.StandardScalerPredictBatchOp
+
+
+class StandardScaler(EstimatorBase, _feat.HasSelectedCols):
+    """(reference: pipeline/dataproc/StandardScaler.java)"""
+
+    _train_op_cls = _feat.StandardScalerTrainBatchOp
+    _model_cls = StandardScalerModel
+    WITH_MEAN = _feat.StandardScalerTrainBatchOp.WITH_MEAN
+    WITH_STD = _feat.StandardScalerTrainBatchOp.WITH_STD
+
+
+class MinMaxScalerModel(ModelBase):
+    _predict_op_cls = _feat.MinMaxScalerPredictBatchOp
+
+
+class MinMaxScaler(EstimatorBase, _feat.HasSelectedCols):
+    """(reference: pipeline/dataproc/MinMaxScaler.java)"""
+
+    _train_op_cls = _feat.MinMaxScalerTrainBatchOp
+    _model_cls = MinMaxScalerModel
+    MIN = _feat.MinMaxScalerTrainBatchOp.MIN
+    MAX = _feat.MinMaxScalerTrainBatchOp.MAX
+
+
+class VectorAssembler(TransformerBase, _feat.HasSelectedCols):
+    """(reference: pipeline/dataproc/vector/VectorAssembler.java)"""
+
+    _map_op_cls = _feat.VectorAssemblerBatchOp
+    OUTPUT_COL = _feat.HasOutputCol.OUTPUT_COL
+    RESERVED_COLS = HasReservedCols.RESERVED_COLS
+
+
+class OneHotEncoderModel(ModelBase):
+    _predict_op_cls = _feat2.OneHotPredictBatchOp
+
+
+class OneHotEncoder(EstimatorBase, _feat2.HasSelectedCols):
+    """(reference: pipeline/feature/OneHotEncoder.java)"""
+
+    _train_op_cls = _feat2.OneHotTrainBatchOp
+    _model_cls = OneHotEncoderModel
+    DROP_LAST = _feat2.OneHotTrainBatchOp.DROP_LAST
+    OUTPUT_COL = _feat2.HasOutputCol.OUTPUT_COL
+
+
+class PCAModel(ModelBase):
+    _predict_op_cls = _feat2.PcaPredictBatchOp
+
+
+class PCA(EstimatorBase, _feat2.HasSelectedCols):
+    """(reference: pipeline/feature/PCA.java)"""
+
+    _train_op_cls = _feat2.PcaTrainBatchOp
+    _model_cls = PCAModel
+    K = _feat2.PcaTrainBatchOp.K
+    CALCULATION_TYPE = _feat2.PcaTrainBatchOp.CALCULATION_TYPE
+    VECTOR_COL = _feat2.PcaTrainBatchOp.VECTOR_COL
+    OUTPUT_COL = _feat2.HasOutputCol.OUTPUT_COL
+
+
+class QuantileDiscretizerModel(ModelBase):
+    _predict_op_cls = _feat2.QuantileDiscretizerPredictBatchOp
+
+
+class QuantileDiscretizer(EstimatorBase, _feat2.HasSelectedCols):
+    """(reference: pipeline/feature/QuantileDiscretizer.java)"""
+
+    _train_op_cls = _feat2.QuantileDiscretizerTrainBatchOp
+    _model_cls = QuantileDiscretizerModel
+    NUM_BUCKETS = _feat2.QuantileDiscretizerTrainBatchOp.NUM_BUCKETS
+
+
+class BinningModel(ModelBase):
+    _predict_op_cls = _feat2.BinningPredictBatchOp
+
+
+class Binning(EstimatorBase, _feat2.HasSelectedCols):
+    """(reference: pipeline/feature/Binning.java — WOE/INDEX encode)"""
+
+    _train_op_cls = _feat2.BinningTrainBatchOp
+    _model_cls = BinningModel
+    LABEL_COL = _feat2.BinningTrainBatchOp.LABEL_COL
+    NUM_BUCKETS = _feat2.BinningTrainBatchOp.NUM_BUCKETS
+    ENCODE = _feat2.BinningModelMapper.ENCODE
+
+
+class StringIndexerModel(ModelBase):
+    _predict_op_cls = _dp.StringIndexerPredictBatchOp
+
+
+class StringIndexer(EstimatorBase, _dp.HasSelectedCols):
+    """(reference: pipeline/dataproc/StringIndexer.java)"""
+
+    _train_op_cls = _dp.StringIndexerTrainBatchOp
+    _model_cls = StringIndexerModel
+    STRING_ORDER_TYPE = _dp.StringIndexerTrainBatchOp.STRING_ORDER_TYPE
+    HANDLE_INVALID = _dp.StringIndexerModelMapper.HANDLE_INVALID
+    OUTPUT_COLS = _dp.HasOutputCols.OUTPUT_COLS
+
+
+class ImputerModel(ModelBase):
+    _predict_op_cls = _dp.ImputerPredictBatchOp
+
+
+class Imputer(EstimatorBase, _dp.HasSelectedCols):
+    """(reference: pipeline/dataproc/Imputer.java)"""
+
+    _train_op_cls = _dp.ImputerTrainBatchOp
+    _model_cls = ImputerModel
+    STRATEGY = _dp.ImputerTrainBatchOp.STRATEGY
+    FILL_VALUE = _dp.ImputerTrainBatchOp.FILL_VALUE
+
+
+class FeatureHasher(TransformerBase, _feat2.HasSelectedCols):
+    """(reference: pipeline/feature/FeatureHasher.java)"""
+
+    _map_op_cls = _feat2.FeatureHasherBatchOp
+    NUM_FEATURES = _feat2.FeatureHasherBatchOp.NUM_FEATURES
+    CATEGORICAL_COLS = _feat2.FeatureHasherBatchOp.CATEGORICAL_COLS
+    OUTPUT_COL = _feat2.HasOutputCol.OUTPUT_COL
 
 
 # -- classification breadth ----------------------------------------------------

@@ -20,7 +20,10 @@ non-zero:
    (``ALINK_ATTN_PALLAS=0``) at (B, H, D) = (32, 12, 64), blocks of 128, in
    bf16 and fp32: S = 512; S = 512 causal; a ragged S = 500; the last two on
    q/k/v taken as ``unbind`` views of one (B, S, 3, H, D) tensor, as the main
-   path hands them over (every case has a fully masked batch row); the fused
+   path hands them over (every case has a fully masked batch row); the fp32
+   fused call from two host threads at once, at blocks of 128 and 512 (two
+   shared-memory sizes of one kernel function), each launch equal to its
+   thread's first and that held against the plain route; the fused
    call timed beside its bound and the plain route in turns, one block
    update timed, and ``scaled_dot_product_attention`` over the whole
    512-key attention as a labelled yardstick (the port never calls it);
@@ -308,9 +311,9 @@ non-zero:
     threads at once, each equal to the same call alone; ``GridSearchCV`` over
     ``RandomForestClassifier`` (numTrees 20, maxBins 64,
     minSamplesPerLeaf 5) with maxDepth in {10, 12}, AUC through
-    ``BinaryClassificationTuningEvaluator``, 3 folds of the 522,911
+    ``BinaryClassificationTuningEvaluator``, 2 folds of the 522,911
     Covertype-layout training rows, ``num_threads=2`` on the kernel
-    route: the histogram launches equal the level programs of the six
+    route: the histogram launches equal the level programs of the four
     fold fits and the refit (counted from their models); the same search
     with ``num_threads=1`` under ``ALINK_GBDT_PALLAS=0`` gives identical
     reports and best params; the best model scores the 58,101 held-out
@@ -329,7 +332,32 @@ non-zero:
     to the CPU route's, MLP's served int8 weights equal, the predictions
     within the reference's accuracy band of fp32;
     ``scripts/chip_phase_check.py tuning`` runs this phase alone;
-19. one JSON line of kernels, then the device line last.
+19. clustering and feature engineering (``clustering_features_path``; no
+    kernel of the port: its launch count must stay 0; TF32 must be off):
+    (19.1) the Covertype-layout rows with the wilderness and soil one-hot
+    groups as two string columns through ``Pipeline(StringIndexer →
+    OneHotEncoder → StandardScaler (10 continuous) → VectorAssembler →
+    PCA(k=10) → GaussianMixture(k=7, maxIter=5, epsilon=0))`` on the
+    522,911 training rows, then a transform of the 58,101 held-out rows;
+    the fit's wall, EM iterations, stopping tests read and host syncs,
+    device operations, busy ms and idle share (``torch.profiler``) and
+    peak device memory above the phase's start (below an (n, k, d, d)
+    float32 tensor's size, or the phase fails); each EM step timed with
+    CUDA events on the fit's own input block, and the EM at the op's
+    defaults to convergence; the same pipeline on the CPU route; (19.2)
+    ``BisectingKMeans(k=10)`` on 60,000 MNIST-layout rows through
+    ``VectorAssembler``: the wall, each Lloyd split's rows and
+    iterations; on 5,000 rows against the CPU route; (19.3) LDA (100
+    topics, vocabSize 10,000, 20 outer iterations of 50 inner) on 5,000
+    text8-layout documents: the wall, the host's corpus build, each outer
+    iteration's device ms (CUDA events), topic purity against the
+    generator's topics through ``LdaPredictBatchOp``; λ on 500 documents
+    after 3 outer iterations against the CPU route; (19.4) ``Dbscan`` on
+    20,000 rows of 19.1's PCA output (ε the median 10th-neighbour distance
+    of 1,000 rows, minPoints 10): the ε-tiles' and the host expansion's
+    seconds, labels against the CPU route's;
+    ``scripts/chip_phase_check.py features`` runs this phase alone;
+20. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -485,6 +513,16 @@ Quality (15.4): real_holdout_accuracy ≥ BERT_QUALITY_REFERENCE_ACC − 0.05,
 the reference's accuracy at the same settings on the CPU
 (scripts/reference_bert_quality.py); the two packages start from
 different seeded weights (JAX's threefry stream cannot be reproduced).
+Phase 19, card against the port's CPU route on the same inputs: GMM's
+log-likelihood within GMM_LL_RTOL = 1e-5 relative, weights and means within
+GMM_PARAM_ATOL = 1e-3, the same EM iterations, held-out components equal on
+every row whose top-two posterior gap exceeds GMM_POSTERIOR_GAP = 1e-3;
+BisectingKMeans's centroids within BKM_CENTROID_ATOL = 1e-3 (pixels of
+0-255); LDA's λ within LDA_LAMBDA_RTOL = 1e-3 elementwise relative (λ ≥
+β = 0.01); Dbscan's labels equal. The EM and LDA's outer steps run in
+float64 (clustering2.py's docstring): in float32 the card and the CPU sum
+in other orders and part by more than these bounds
+(scripts/compare_clustering_precision.py).
 """
 
 from __future__ import annotations
@@ -773,6 +811,9 @@ def check_kernel(peaks):
                 fail(f"{name} outside its tolerance")
             results[name] = err
 
+    for name, err in concurrent_fp32_attention().items():
+        results[name] = err
+
     bw, bf16_peak, _ = peaks
     # timings at the serving shape, bf16, in turns (plain, kernel, kernel,
     # plain): the fused call on the main path's views, then one block update
@@ -820,6 +861,65 @@ def check_kernel(peaks):
                 library_ms=lib_ms, library_views_ms=lib_views_ms,
                 block_ms=blk[1], block_plain_ms=blk[0], errors=results,
                 serving_rungs=rungs)
+
+
+FP32_THREAD_BLOCKS = (128, 512)   # 66 and 165 KB of dynamic shared memory
+FP32_THREAD_CALLS = 20
+
+
+def concurrent_fp32_attention(B=8, S=512, H=12, D=64):
+    """Two host threads launch the fp32 fused call at once, one at blocks
+    of 128 keys and one at 512 (other shared-memory sizes of one kernel
+    function), FP32_THREAD_CALLS times each. Every launch must succeed and
+    equal the thread's first result (the kernel is deterministic), and that
+    result must hold against the plain route (fp32 atol 2e-5). A launcher
+    that sets the function's shared-memory limit per launch fails here
+    with ``invalid argument``. Returns the max |Δ| by block size."""
+    import threading
+
+    import torch
+
+    from alink_tpu_torch.dl.attention import blockwise_attention
+
+    cases = [(bs, attn_inputs(B, S, H, D, torch.float32, SEED + 100 + i))
+             for i, bs in enumerate(FP32_THREAD_BLOCKS)]
+    outs = [[], []]
+    bad = []
+
+    def run(i):
+        bs, (q, k, v, mask) = cases[i]
+        for _ in range(FP32_THREAD_CALLS):
+            try:
+                outs[i].append(blockwise_attention(q, k, v, mask,
+                                                   block_size=bs))
+            except Exception as e:     # noqa: BLE001 — reported, then fails
+                bad.append(f"block {bs}: {e}")
+                return
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    errors = {}
+    for (bs, (q, k, v, mask)), got in zip(cases, outs):
+        if len(got) != FP32_THREAD_CALLS:
+            continue
+        if not all(torch.equal(g, got[0]) for g in got[1:]):
+            bad.append(f"block {bs}: launches differ")
+        err, worst = blockwise_mismatch(q, k, v, mask, got[0], bs)
+        name = f"fp32 fused call from two threads [block {bs}]"
+        print(f"{name} (B, S, H, D) = ({B}, {S}, {H}, {D}), "
+              f"{FP32_THREAD_CALLS} launches beside the other block size's: "
+              f"max|Δ| vs plain route {err:.3g}; worst error/bound "
+              f"{worst:.3g}", flush=True)
+        if not worst <= 1.0:
+            bad.append(f"{name} outside its tolerance")
+        errors[name] = err
+    if bad:
+        fail("fp32 attention from two threads: " + "; ".join(bad))
+    return errors
 
 
 def serving_rung_times(B, S, H, D, bs, peaks):
@@ -1740,13 +1840,14 @@ ROUTE_DOCS = 200         # sentences both routes train on for that comparison
 TOPIC_FLOOR = 0.32       # in-topic share of top-10 neighbours (chance 0.01)
 
 
-def text8_corpus(n_tokens, seed):
+def text8_corpus(n_tokens, seed, with_topics=False):
     """Sentences in text8's layout (the file is not in the repository):
     ``n_tokens`` tokens ``w<rank>`` drawn by a Zipf law of exponent 1 over
     71,290 types, in sentences of 1,000 tokens. Each sentence has one of 100
     topics, and half its tokens come from the Zipf law restricted to its
     topic's words (rank mod 100), which gives the embedding something to
-    learn. Returns the sentences as space-separated strings."""
+    learn. Returns the sentences as space-separated strings (and, with
+    ``with_topics``, each sentence's topic)."""
     g = np.random.default_rng(seed)
     n_sent = n_tokens // SENTENCE
     p = 1.0 / np.arange(1, TEXT8_TYPES + 1)
@@ -1764,7 +1865,8 @@ def text8_corpus(n_tokens, seed):
                                   len(words) - 1)]
     ids = np.minimum(ids, TEXT8_TYPES - 1)
     names = np.asarray([f"w{i}" for i in range(TEXT8_TYPES)], object)
-    return [" ".join(row) for row in names[ids]]
+    docs = [" ".join(row) for row in names[ids]]
+    return (docs, topic) if with_topics else docs
 
 
 def topic_share(words, vecs, device="cuda"):
@@ -3357,7 +3459,8 @@ KERAS_LAYERS = ["Dense(512, activation=relu)", "Dropout(0.2)",
 KERAS_DIGITS = dict(numEpochs=20, batchSize=128, learningRate=1e-3,
                     randomSeed=0)
 KERAS_DIGITS_REFERENCE_ACC = 354 / 360  # tests/test_torch_keras_digits.py
-KERAS_MNIST = dict(numEpochs=2, batchSize=128, learningRate=1e-3)
+KERAS_MNIST = dict(numEpochs=1, batchSize=128,   # 1 epoch: cut from 2 for
+                   learningRate=1e-3)              # the whole run's time
 # 12.5(c): dropout 0, a BatchNorm after each Dense, gelu so that the
 # activation's form is on the checked path
 KERAS_BN_LAYERS = ["Dense(512, activation=gelu)", "BatchNorm()",
@@ -6288,7 +6391,7 @@ def dag_path(workdir, served_main, card):
 
 TUNING_FOREST = dict(numTrees=20, maxBins=64, minSamplesPerLeaf=5)
 TUNING_DEPTHS = (10, 12)
-TUNING_FOLDS = 3
+TUNING_FOLDS = 2             # cut from 3 to keep the whole run under its limit
 DIGIT_ROWS = 60_000          # MNIST's training rows, 10 classes
 KNN_QUERIES = 1_000
 REG_ROWS = 100_000
@@ -6851,6 +6954,469 @@ def tuning_path(card):
     return dict(search=search, families=fams, int8=int8), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: clustering and feature engineering (no kernel of the port)
+# ---------------------------------------------------------------------------
+
+
+FEATURE_CATEGORICAL = ("wilderness", "soil")
+# PCA to 10 components, not 20: each (wilderness, soil) cell's rows lie on
+# an affine subspace of at most 10 dimensions (the continuous columns), so
+# in 20 components GaussianMixture's full covariances collapse onto cells
+# to the 1e-6 ridge: the reference's float32 EM turns NaN, the port's
+# float64 one reaches the ridge
+# (tests/test_torch_clustering2.py::test_gmm_on_one_hot_cells_at_pca_k).
+FEATURE_PCA_K = 10
+FEATURE_GMM = dict(k=7, maxIter=5, epsilon=0.0)  # both routes: 5 iterations
+GMM_REG = 1e-6              # the EM's covariance ridge (clustering2._gmm_fit)
+GMM_CONVERGE = dict(max_iter=100, tol=1e-6)      # GmmTrainBatchOp's defaults
+GMM_LL_RTOL = 1e-5          # log-likelihood, card vs CPU route, relative
+GMM_PARAM_ATOL = 1e-3       # weights and means, card vs CPU route
+GMM_POSTERIOR_GAP = 1e-3    # held-out rows held equal above this top-two gap
+BKM_K = 10
+BKM_CHECK_ROWS = 5_000
+BKM_CENTROID_ATOL = 1e-3    # centroids, card vs CPU route (pixels 0-255)
+LDA_TOKENS = 5_000_000      # 5,000 text8-layout documents of 1,000 tokens
+LDA = dict(vocabSize=10_000, topicNum=TOPICS, numIter=20)
+LDA_CHECK_DOCS = 500
+LDA_CHECK_ITERS = 3
+LDA_LAMBDA_RTOL = 1e-3      # λ elementwise, card vs CPU route (λ ≥ β = 0.01)
+DBSCAN_ROWS = 20_000
+DBSCAN_MIN_POINTS = 10
+DBSCAN_EPS_SAMPLE = 1_000   # rows whose 10th-neighbour distance sets ε
+
+
+def covertype_categorical(X):
+    """The columns of Covertype-layout rows with the 4 wilderness and 40
+    soil one-hot groups turned into two string columns ("W1" ... "W4",
+    "S1" ... "S40", as UCI's covtype.info names the categories) beside the
+    10 continuous columns."""
+    cols = {c: X[:, j].astype(np.float64)
+            for j, c in enumerate(COVTYPE_CONTINUOUS)}
+    cols["wilderness"] = np.asarray([f"W{i}" for i in range(1, 5)],
+                                    object)[X[:, 10:14].argmax(1)]
+    cols["soil"] = np.asarray([f"S{i}" for i in range(1, 41)],
+                              object)[X[:, 14:54].argmax(1)]
+    return cols
+
+
+def feature_pipeline(pl=None, **gmm):
+    """StringIndexer → OneHotEncoder → StandardScaler (10 continuous) →
+    VectorAssembler → PCA(k=FEATURE_PCA_K) → GaussianMixture, the way an
+    Alink user clusters a mixed table; ``pl`` is the pipeline package
+    (the port's by default)."""
+    if pl is None:
+        from alink_tpu_torch import pipeline as pl
+
+    cats, cont = list(FEATURE_CATEGORICAL), list(COVTYPE_CONTINUOUS)
+    return pl.Pipeline(
+        pl.StringIndexer(selectedCols=cats),
+        pl.OneHotEncoder(selectedCols=cats, outputCol="cat"),
+        pl.StandardScaler(selectedCols=cont),
+        pl.VectorAssembler(selectedCols=cont + ["cat"], outputCol="vec"),
+        pl.PCA(k=FEATURE_PCA_K, vectorCol="vec", outputCol="pca"),
+        pl.GaussianMixture(vectorCol="pca", predictionCol="component",
+                           predictionDetailCol="posterior", **gmm))
+
+
+def posteriors(table):
+    return np.asarray([list(json.loads(s).values())
+                       for s in table.col("posterior")])
+
+
+def keep_calls(module, name, kept):
+    """Wraps ``module.name`` so each call's positional arguments and result
+    are appended to ``kept``; returns the hook that undoes it."""
+    orig = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        kept.append((a, out))
+        return out
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, orig)
+
+
+def timed_calls(module, name, record, cuda_events=False):
+    """Wraps ``module.name`` so each call's duration is appended to
+    ``record``: host seconds, or a pair of CUDA events (no sync added).
+    Returns the hook that undoes it."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        if cuda_events:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = orig(*a, **kw)
+            ev[1].record()
+            record.append(ev)
+            return out
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        record.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, orig)
+
+
+def gmm_direct(Xp, device="cuda"):
+    """The EM of 19.1's fit on its own input block, through the op's own
+    functions: each of the 5 iterations timed with CUDA events, then the EM
+    at GmmTrainBatchOp's defaults (maxIter 100, epsilon 1e-6) from the same
+    start, for its iterations to convergence and host syncs."""
+    import torch
+
+    from alink_tpu_torch.operator.batch import clustering2 as c2
+
+    init = [torch.as_tensor(a, device=device).double()
+            for a in c2._gmm_init(Xp, FEATURE_GMM["k"], 0, GMM_REG)]
+    X = torch.as_tensor(Xp, device=device).double()     # as _gmm_fit runs it
+    mask = torch.ones(X.shape[0], dtype=X.dtype, device=device)
+    state, evs = list(init), []
+    for _ in range(FEATURE_GMM["maxIter"]):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        *state, _ = c2._gmm_step(X, mask, *state, mask.sum(), GMM_REG)
+        ev[1].record()
+        evs.append(ev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    *_, ll, iters, syncs = c2._gmm_em(X, mask, *init, **GMM_CONVERGE,
+                                      reg=GMM_REG)
+    wall = time.perf_counter() - t0
+    return dict(step_ms=[a.elapsed_time(b) for a, b in evs],
+                converge=dict(iterations=iters, host_syncs=syncs,
+                              log_likelihood=float(ll), wall_s=wall))
+
+
+def gmm_pipeline_path(card, problems):
+    """19.1: the feature pipeline and GMM on the Covertype layout, card
+    against the CPU route. Returns the record and the GMM's input block
+    (the PCA output of the training rows, float32)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import TableSourceBatchOp
+    from alink_tpu_torch.operator.batch import clustering2 as c2
+
+    t0 = time.perf_counter()
+    X, _ = covertype_data(COVTYPE_TRAIN + COVTYPE_TEST, SEED)
+    train = TableSourceBatchOp(MTable(covertype_categorical(
+        X[:COVTYPE_TRAIN])))
+    test = TableSourceBatchOp(MTable(covertype_categorical(
+        X[COVTYPE_TRAIN:])))
+    del X
+    data_s = time.perf_counter() - t0
+
+    kept = []
+    restore = keep_calls(c2, "_gmm_fit", kept)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (wall, model), syncs = count_syncs(
+                lambda: timed(lambda: feature_pipeline(**FEATURE_GMM)
+                              .fit(train)))
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() - base
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and ev.self_device_time_total > 0]
+    busy_ms = sum(ev.self_device_time_total for ev in evs) / 1e3
+    (_, Xp, *_), (*_, em_syncs) = kept[0]
+    n, d = Xp.shape
+    k = FEATURE_GMM["k"]
+    nkdd = n * k * d * d * 4
+    direct = gmm_direct(Xp)
+    pred = model.transform(test).collect()
+    with torch_device("cpu"):
+        cpu_wall, cpu_model = timed(
+            lambda: feature_pipeline(**FEATURE_GMM).fit(train))
+        cpu_pred = cpu_model.transform(test).collect()
+    (meta, arr), (cmeta, carr) = (table_to_model(m.stages[-1].get_model_data())
+                                  for m in (model, cpu_model))
+    P, cP = posteriors(pred), posteriors(cpu_pred)
+    top2 = np.sort(P, axis=1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > GMM_POSTERIOR_GAP
+    comp = np.asarray(pred.col("component"))
+    differ = int(((comp != np.asarray(cpu_pred.col("component")))
+                  & decided).sum())
+    ll_rel = abs(meta["logLikelihood"] - cmeta["logLikelihood"]) \
+        / abs(cmeta["logLikelihood"])
+    w_err = float(np.abs(arr["weights"] - carr["weights"]).max())
+    mu_err = float(np.abs(arr["means"] - carr["means"]).max())
+    res = dict(
+        rows=n, held_out=int(comp.size), pca_dim=d, k=k, data_s=data_s,
+        fit_wall_s=wall, em_iterations=meta["numIters"],
+        em_host_syncs=em_syncs,
+        fit_host_syncs=syncs, device_operations=int(sum(
+            ev.count for ev in evs)), busy_ms=busy_ms,
+        idle_share=max(0.0, 1.0 - busy_ms / (wall * 1e3)),
+        peak_device_bytes=int(peak), nkdd_bytes=nkdd,
+        em_step_ms=direct["step_ms"], converge=direct["converge"],
+        cpu_fit_wall_s=cpu_wall, log_likelihood=meta["logLikelihood"],
+        cpu_log_likelihood=cmeta["logLikelihood"], ll_rel_err=ll_rel,
+        weights_err=w_err, means_err=mu_err,
+        decided_rows=int(decided.sum()), components_differ=differ,
+        posterior_finite=bool(np.isfinite(P).all()),
+        components_used=int(np.unique(comp).size))
+    print(f"[{card}] 19.1 Pipeline(StringIndexer → OneHotEncoder → "
+          f"StandardScaler → VectorAssembler → PCA(k={d}) → "
+          f"GaussianMixture(k={k})) on {n} Covertype-layout rows: fit "
+          f"{wall:.2f} s traced (CPU route {cpu_wall:.2f} s); EM "
+          f"{meta['numIters']} iterations, {res['em_host_syncs']} stopping "
+          f"tests read, {syncs} host syncs in the whole fit; EM step "
+          f"{', '.join(f'{x:.2f}' for x in direct['step_ms'])} ms (CUDA "
+          f"events); {res['device_operations']} device operations, "
+          f"{busy_ms:.1f} ms busy, idle share {res['idle_share']:.3f}; peak "
+          f"device memory {peak / 2**20:.1f} MiB above the phase's start "
+          f"(an (n, k, d, d) tensor alone: {nkdd / 2**20:.0f} MiB); at the "
+          f"op's defaults the EM stops after "
+          f"{direct['converge']['iterations']} iterations "
+          f"({direct['converge']['host_syncs']} syncs, "
+          f"{direct['converge']['wall_s']:.3f} s)", flush=True)
+    print(f"19.1 card vs CPU route at maxIter {FEATURE_GMM['maxIter']}, "
+          f"epsilon 0: log-likelihood {meta['logLikelihood']:.9g} vs "
+          f"{cmeta['logLikelihood']:.9g} (rel {ll_rel:.2e}), weights "
+          f"max|Δ| {w_err:.2e}, means max|Δ| {mu_err:.2e}; held-out "
+          f"components differ on {differ} of {int(decided.sum())} rows "
+          f"with a top-two posterior gap above {GMM_POSTERIOR_GAP}",
+          flush=True)
+    if not (meta["numIters"] == cmeta["numIters"] == FEATURE_GMM["maxIter"]):
+        problems.append(f"19.1: EM iterations {meta['numIters']} / "
+                        f"{cmeta['numIters']}")
+    if not ll_rel <= GMM_LL_RTOL:
+        problems.append(f"19.1: log-likelihood rel err {ll_rel:.3g}")
+    if not max(w_err, mu_err) <= GMM_PARAM_ATOL:
+        problems.append(f"19.1: weights/means err {w_err:.3g}/{mu_err:.3g}")
+    if differ:
+        problems.append(f"19.1: {differ} decided held-out components differ")
+    if not (res["posterior_finite"] and P.shape == (COVTYPE_TEST, k)
+            and cP.shape == P.shape):
+        problems.append(f"19.1: posteriors {P.shape}, finite "
+                        f"{res['posterior_finite']}")
+    if not peak < nkdd:
+        problems.append(f"19.1: peak {peak} bytes reaches an (n, k, d, d) "
+                        f"tensor's {nkdd}")
+    return res, Xp
+
+
+def bisecting_path(card, problems):
+    """19.2: BisectingKMeans(k=10) on 60,000 MNIST-layout rows through
+    VectorAssembler: the wall, the Lloyd splits and their iterations;
+    centroids against the CPU route on 5,000 rows."""
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import (BisectingKMeansTrainBatchOp,
+                                                TableSourceBatchOp,
+                                                VectorAssemblerBatchOp)
+    from alink_tpu_torch.operator.batch import clustering2 as c2
+
+    Xm, _ = mnist_layout(WIDE_ROWS, SEED)
+    feats = [f"p{i}" for i in range(Xm.shape[1])]
+
+    def fit(rows):
+        src = TableSourceBatchOp(MTable({f: Xm[:rows, i]
+                                         for i, f in enumerate(feats)}))
+        vec = VectorAssemblerBatchOp(selectedCols=feats, outputCol="vec") \
+            .link_from(src)
+        return table_to_model(BisectingKMeansTrainBatchOp(
+            vectorCol="vec", k=BKM_K).link_from(vec).collect())
+
+    kept, lloyd_s = [], []
+    hooks = [timed_calls(c2, "_lloyd", lloyd_s),
+             keep_calls(c2, "_lloyd", kept)]
+    try:
+        wall, (meta, arr) = timed(lambda: fit(WIDE_ROWS))
+    finally:
+        for h in reversed(hooks):
+            h()
+    splits = [(int(a[1].shape[0]), int(out[1])) for a, out in kept]
+    check = fit(BKM_CHECK_ROWS)[1]["centroids"]
+    with torch_device("cpu"):
+        cpu = fit(BKM_CHECK_ROWS)[1]["centroids"]
+    err = float(np.abs(check - cpu).max())
+    res = dict(rows=WIDE_ROWS, k=meta["k"], wall_s=wall,
+               lloyd_s=sum(lloyd_s), splits=splits,
+               check_rows=BKM_CHECK_ROWS, centroid_err=err)
+    print(f"[{card}] 19.2 BisectingKMeans(k={BKM_K}) on {WIDE_ROWS} x "
+          f"{len(feats)} MNIST-layout rows through VectorAssembler: "
+          f"{wall:.2f} s, of it {sum(lloyd_s):.2f} s in {len(splits)} "
+          f"Lloyd splits (rows, iterations) {splits}; on {BKM_CHECK_ROWS} "
+          f"rows centroids max|Δ| vs CPU route {err:.2e}", flush=True)
+    if meta["k"] != BKM_K:
+        problems.append(f"19.2: {meta['k']} clusters")
+    if not err <= BKM_CENTROID_ATOL:
+        problems.append(f"19.2: centroids differ by {err:.3g}")
+    return res
+
+
+def lda_path(card, problems):
+    """19.3: LDA on 5,000 text8-layout documents: the wall, its split into
+    the host's corpus build and the device's outer iterations (CUDA
+    events), topic purity against the generator's topics; λ against the
+    CPU route on 500 documents after 3 outer iterations."""
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import (LdaPredictBatchOp,
+                                                LdaTrainBatchOp,
+                                                TableSourceBatchOp)
+    from alink_tpu_torch.operator.batch import clustering2 as c2
+
+    docs, topics = text8_corpus(LDA_TOKENS, SEED, with_topics=True)
+
+    def source(n):
+        return TableSourceBatchOp(MTable({"doc": np.asarray(docs[:n],
+                                                            object)}))
+
+    src = source(len(docs))
+    build_s, outer_ev = [], []
+    hooks = [timed_calls(c2, "_build_corpus", build_s),
+             timed_calls(c2, "_lda_outer", outer_ev, cuda_events=True)]
+    try:
+        wall, model = timed(lambda: LdaTrainBatchOp(
+            selectedCol="doc", **LDA).link_from(src).collect())
+    finally:
+        for h in reversed(hooks):
+            h()
+    outer_ms = [a.elapsed_time(b) for a, b in outer_ev]
+    t0 = time.perf_counter()
+    pred = LdaPredictBatchOp(predictionCol="topic").link_from(
+        TableSourceBatchOp(model), src).collect()
+    predict_s = time.perf_counter() - t0
+    pur = purity(pred.col("topic"), topics)
+
+    def lam(n):
+        return table_to_model(LdaTrainBatchOp(
+            selectedCol="doc", vocabSize=LDA["vocabSize"],
+            topicNum=LDA["topicNum"], numIter=LDA_CHECK_ITERS)
+            .link_from(source(n)).collect())[1]["topicWord"]
+
+    card_lam = lam(LDA_CHECK_DOCS)
+    with torch_device("cpu"):
+        cpu_lam = lam(LDA_CHECK_DOCS)
+    rel = float((np.abs(card_lam - cpu_lam) / cpu_lam).max())
+    res = dict(docs=len(docs), vocab=len(table_to_model(model)[0]["vocab"]),
+               topics=LDA["topicNum"], wall_s=wall,
+               build_corpus_s=sum(build_s),
+               outer_ms=outer_ms, device_s=sum(outer_ms) / 1e3,
+               predict_s=predict_s, purity=pur,
+               check_docs=LDA_CHECK_DOCS, lambda_rel_err=rel)
+    print(f"[{card}] 19.3 LDA({LDA['topicNum']} topics, vocab "
+          f"{res['vocab']}, {LDA['numIter']} outer iterations of 50 inner) "
+          f"on {len(docs)} text8-layout documents: {wall:.2f} s, of it "
+          f"{res['build_corpus_s']:.2f} s building the corpus on the host "
+          f"and {res['device_s']:.2f} s of device outer iterations (CUDA "
+          f"events; {np.mean(outer_ms):.1f} ms each, first "
+          f"{outer_ms[0]:.1f}); predict {predict_s:.2f} s; topic purity "
+          f"{pur:.3f} against the generator's {TOPICS} topics (chance "
+          f"{1 / TOPICS:.2f}); λ after {LDA_CHECK_ITERS} iterations on "
+          f"{LDA_CHECK_DOCS} documents within {rel:.2e} relative of the "
+          f"CPU route", flush=True)
+    if not rel <= LDA_LAMBDA_RTOL:
+        problems.append(f"19.3: λ rel err {rel:.3g}")
+    if len(outer_ms) != LDA["numIter"]:
+        problems.append(f"19.3: {len(outer_ms)} outer iterations")
+    return res
+
+
+def dbscan_eps(X):
+    """ε for 19.4: the median distance of DBSCAN_EPS_SAMPLE seeded rows to
+    their 10th nearest neighbour (float64, on the host), rounded to three
+    significant digits so that no pair of rows sits on it."""
+    g = np.random.default_rng(SEED)
+    Q = X[g.choice(X.shape[0], DBSCAN_EPS_SAMPLE, replace=False)] \
+        .astype(np.float64)
+    Xd = X.astype(np.float64)
+    d2 = (Q * Q).sum(1)[:, None] - 2.0 * Q @ Xd.T + (Xd * Xd).sum(1)[None]
+    kth = np.sqrt(np.maximum(np.sort(d2, axis=1)[:, DBSCAN_MIN_POINTS], 0))
+    return float(f"{np.median(kth):.3g}")
+
+
+def dbscan_path(card, Xp, problems):
+    """19.4: Dbscan on 20,000 rows of 19.1's PCA output: labels equal to
+    the CPU route's; the ε-tiles and the host expansion timed."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import DbscanBatchOp, TableSourceBatchOp
+    from alink_tpu_torch.operator.batch import clustering2 as c2
+
+    X = np.ascontiguousarray(Xp[:DBSCAN_ROWS])
+    eps = dbscan_eps(X)
+    src = TableSourceBatchOp(MTable({f"c{j}": X[:, j]
+                                     for j in range(X.shape[1])}))
+
+    def run():
+        return np.asarray(DbscanBatchOp(
+            epsilon=eps, minPoints=DBSCAN_MIN_POINTS, predictionCol="cluster")
+            .link_from(src).collect().col("cluster"))
+
+    tiles_s, expand_s = [], []
+    hooks = [timed_calls(c2, "_eps_neighbors", tiles_s),
+             timed_calls(c2, "_expand_clusters", expand_s)]
+    try:
+        wall, labels = timed(run)
+    finally:
+        for h in reversed(hooks):
+            h()
+    with torch_device("cpu"):
+        cpu_wall, cpu_labels = timed(run)
+    differ = int((labels != cpu_labels).sum())
+    res = dict(rows=X.shape[0], dim=X.shape[1], eps=eps,
+               min_points=DBSCAN_MIN_POINTS, wall_s=wall,
+               eps_tiles_s=sum(tiles_s), expansion_s=sum(expand_s),
+               cpu_wall_s=cpu_wall, clusters=int(labels.max() + 1),
+               noise_share=float((labels < 0).mean()),
+               labels_differ=differ)
+    print(f"[{card}] 19.4 Dbscan(epsilon={eps}, minPoints="
+          f"{DBSCAN_MIN_POINTS}) on {X.shape[0]} rows of 19.1's PCA output: "
+          f"{wall:.2f} s, ε-tiles {res['eps_tiles_s']:.3f} s, host "
+          f"expansion {res['expansion_s']:.3f} s; {res['clusters']} "
+          f"clusters, noise {res['noise_share']:.3f}; labels differ from "
+          f"the CPU route's ({cpu_wall:.2f} s) on {differ} rows", flush=True)
+    if differ:
+        problems.append(f"19.4: {differ} labels differ from the CPU route")
+    return res
+
+
+def clustering_features_path(card):
+    """Phase 19: the clustering and feature-engineering families on the
+    card (19.1-19.4), each held against the port's CPU route. No kernel of
+    the port is on this path: its launch count must stay 0."""
+    import torch
+
+    from alink_tpu_torch.native import kernels
+
+    if any(tf32_flags()):
+        fail(f"phase 19: TF32 is on {tf32_flags()}; the fp32 routes need "
+             f"it off")
+    problems = []
+    kernels.reset_launches()
+    out = {}
+    out["19.1"], Xp = gmm_pipeline_path(card, problems)
+    out["19.2"] = bisecting_path(card, problems)
+    out["19.3"] = lda_path(card, problems)
+    out["19.4"] = dbscan_path(card, Xp, problems)
+    stray = sum(kernels.launches().values())
+    if stray:
+        problems.append(f"phase 19 launched kernels of the port: "
+                        f"{kernels.launches()}")
+    torch.cuda.synchronize()
+    print(f"[{card}] phase 19: " + json.dumps(out, default=str), flush=True)
+    if problems:
+        fail("phase 19: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6886,13 +7452,23 @@ def main() -> int:
     print(f"build: {len(kernels.KERNELS)} kernel(s) + binding in "
           f"{kernels.build_seconds:.1f} s", flush=True)
 
-    marks = [("setup and build", time.perf_counter())]
+    marks = []
+
+    def mark(name):
+        """Ends a phase: its time is printed as it ends, so a run that
+        fails later still shows where the time went."""
+        marks.append((name, time.perf_counter()))
+        t_prev = marks[-2][1] if len(marks) > 1 else t_start
+        print(f"[{name}: {marks[-1][1] - t_prev:.1f} s, "
+              f"{marks[-1][1] - t_start:.1f} s in all]", flush=True)
+
+    mark("setup and build")
     stats = check_kernel(peaks)
-    marks.append(("phase 3 flash kernel", time.perf_counter()))
+    mark("phase 3 flash kernel")
     workdir = os.path.join(here, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     launches, served_main = main_path(workdir, serving_config())
-    marks.append(("phase 4 BERT serving", time.perf_counter()))
+    mark("phase 4 BERT serving")
 
     from alink_tpu_torch.tree.binning import apply_bins, quantile_bins
 
@@ -6920,7 +7496,7 @@ def main() -> int:
     hist.update(errors=errors, max_abs_err=max(errors.values()),
                 bound_by="bytes")
     gbdt_model = gbdt_path(X, y)
-    marks.append(("phases 5-7 trees", time.perf_counter()))
+    mark("phases 5-7 trees")
 
     t0 = time.perf_counter()
     docs = text8_corpus(W2V_TOKENS, SEED)
@@ -6930,35 +7506,37 @@ def main() -> int:
     sgns["errors"].update(check_sgns_wide())
     sgns["max_abs_err"] = max(sgns["errors"].values())
     sgns_launches, w2v = word2vec_path(workdir, docs)
-    marks.append(("phases 8-9 Word2Vec", time.perf_counter()))
+    mark("phases 8-9 Word2Vec")
     del docs
 
     bwd = check_backward(peaks)
     record = train_metric_of_record(peaks)
     kernel_train = train_kernel_route()
     sst2 = finetune_sst2(workdir)
-    marks.append(("phase 10 BERT training", time.perf_counter()))
+    mark("phase 10 BERT training")
     classical_path(workdir)
-    marks.append(("phase 11 classical path", time.perf_counter()))
+    mark("phase 11 classical path")
     families, quant_launches = model_families(served_main, X, y, gbdt_model,
                                               card)
-    marks.append(("phase 12 model families", time.perf_counter()))
+    mark("phase 12 model families")
     del X, y
     ingest_path(workdir, card)
-    marks.append(("phase 13 ingest", time.perf_counter()))
+    mark("phase 13 ingest")
     serve_launches, _, serial = serving_path(workdir, served_main, card)
-    marks.append(("phase 14 serving", time.perf_counter()))
+    mark("phase 14 serving")
     pretraining = pretraining_path(workdir, peaks, card)
     print(f"[{card}] phase 15: " + json.dumps(pretraining, default=str),
           flush=True)
-    marks.append(("phase 15 pretraining", time.perf_counter()))
+    mark("phase 15 pretraining")
     fleet = fleet_path(workdir, card, fleet_inputs(workdir, served_main,
                                                    serial))
-    marks.append(("phase 16 fleet", time.perf_counter()))
+    mark("phase 16 fleet")
     dag = dag_path(workdir, served_main, card)
-    marks.append(("phase 17 DAG", time.perf_counter()))
+    mark("phase 17 DAG")
     tuning, tuning_launches = tuning_path(card)
-    marks.append(("phase 18 tuning", time.perf_counter()))
+    mark("phase 18 tuning")
+    clustering_features_path(card)
+    mark("phase 19 clustering and features")
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]

@@ -23,7 +23,11 @@ of phase 4's model as a pipeline ``.ak`` with its sidecar, both written
 first, with the serial predicts the rows are held against), ``dag``
 (phase 17, the BERT-base evaluation DAG through the executor, with phase
 4's model, run first), ``tuning`` (phase 18, model selection: the forest
-search on both routes, the families on the card and their int8 scorers).
+search on both routes, the families on the card and their int8 scorers),
+``features`` (phase 19, the clustering and feature-engineering families:
+the Covertype feature pipeline with GaussianMixture, BisectingKMeans on the
+MNIST layout, LDA on the text8 layout and Dbscan, each against the CPU
+route; it builds no kernel).
 Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
@@ -42,7 +46,7 @@ sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
           "families", "ingest", "serving", "pretrain", "fleet", "dag",
-          "tuning")
+          "tuning", "features")
 
 
 def main() -> int:
@@ -66,7 +70,7 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if not set(phases) <= {"ingest", "pretrain"}:
+    if not set(phases) <= {"ingest", "pretrain", "features"}:
         kernels.build()
         print(f"build {kernels.build_seconds:.1f} s", flush=True)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
@@ -107,6 +111,8 @@ def main() -> int:
            "ingest": lambda: cs.ingest_path(workdir, card.splitlines()[0]),
            "serving": serving, "fleet": fleet, "dag": dag,
            "tuning": lambda: cs.tuning_path(card.splitlines()[0])[0],
+           "features": lambda: cs.clustering_features_path(
+               card.splitlines()[0]),
            "pretrain": lambda: cs.pretraining_path(workdir, peaks,
                                                    card.splitlines()[0])}
     out = {}

@@ -19,7 +19,10 @@ variance or the exact gelu. Phase 13's fp32 check must pass bench.py's
 ResNet-50 in fp32 and reject it with TF32 products (operands rounded to
 TF32's 10-bit mantissa before every convolution and the head), at 32×32
 images; its ONNX writer must give the model's logits; its flax-layout
-variables must have the reference's tree.
+variables must have the reference's tree. Phase 19 (clustering and
+feature engineering) must run end to end at a small size with the CPU in
+both routes, and fail when the card route's EM or LDA step drifts from the
+CPU route's.
 """
 
 import json
@@ -782,7 +785,7 @@ def test_model_family_case_list():
         "Dense(512, activation=relu)", "Dropout(0.2)",
         "Dense(512, activation=relu)", "Dropout(0.2)"]
     assert chip_smoke.KERAS_MNIST["batchSize"] == 128 \
-        and chip_smoke.KERAS_MNIST["numEpochs"] == 2
+        and chip_smoke.KERAS_MNIST["numEpochs"] == 1
     assert sum("BatchNorm" in s for s in chip_smoke.KERAS_BN_LAYERS) == 2
     assert all("gelu" in s for s in chip_smoke.KERAS_BN_LAYERS
                if s.startswith("Dense"))
@@ -1111,3 +1114,133 @@ def test_serving_launch_check_rejects_a_server_without_the_kernel():
     assert chip_smoke.flash_rise_problem(96, 8, 12, "14.1") is None
     assert chip_smoke.flash_rise_problem(0, 8, 12, "14.1")
     assert chip_smoke.flash_rise_problem(12 * 40, 41, 12, "14.2")
+
+
+# -- phase 19: clustering and feature engineering ---------------------------
+def test_text8_corpus_topics_are_the_sentences_topics():
+    """``with_topics`` returns the sentences unchanged and each one's
+    topic: the modal topic of its words (rank mod 100)."""
+    docs, topics = chip_smoke.text8_corpus(20 * 1000, seed=0,
+                                           with_topics=True)
+    assert docs == chip_smoke.text8_corpus(20 * 1000, seed=0)
+    ranks = np.asarray([[int(w[1:]) for w in d.split(" ")] for d in docs])
+    modal = [np.bincount(r % chip_smoke.TOPICS).argmax() for r in ranks]
+    np.testing.assert_array_equal(modal, topics)
+
+
+def test_dbscan_eps_sits_off_the_data():
+    """ε is the median 10th-neighbour distance of the sample, rounded to
+    three significant digits (so that no pair of rows is at it)."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2000, 5)).astype(np.float32)
+    eps = chip_smoke.dbscan_eps(X)
+    assert eps == float(f"{eps:.3g}")
+    d = np.sqrt(((X[:200, None, :].astype(np.float64) - X[None]) ** 2)
+                .sum(-1))
+    kth = np.sort(d, axis=1)[:, chip_smoke.DBSCAN_MIN_POINTS]
+    assert np.quantile(kth, 0.3) < eps < np.quantile(kth, 0.7)
+
+
+class _Event:
+    """A host-clock stand-in of ``torch.cuda.Event``."""
+
+    def __init__(self, **kw):
+        self.t = None
+
+    def record(self):
+        import time
+
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def _phase19_on_cpu(monkeypatch):
+    """Phase 19 at a small size with the CPU standing in for the card:
+    CUDA events, syncs and memory stats stubbed, the profiler on CPU
+    activity, the sizes cut."""
+    import functools
+
+    import torch.profiler as tp
+
+    for name, value in (("Event", _Event), ("synchronize", lambda *a: None),
+                        ("memory_allocated", lambda *a: 0),
+                        ("max_memory_allocated", lambda *a: 1),
+                        ("reset_peak_memory_stats", lambda *a: None)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    orig = tp.profile
+    monkeypatch.setattr(tp, "profile", lambda activities=None, **kw: orig(
+        activities=[tp.ProfilerActivity.CPU], **kw))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(chip_smoke, "count_syncs", lambda fn: (fn(), 0))
+    monkeypatch.setattr(chip_smoke, "gmm_direct", functools.partial(
+        chip_smoke.gmm_direct, device="cpu"))
+    for name, value in (("COVTYPE_TRAIN", 4_000), ("COVTYPE_TEST", 500),
+                        ("WIDE_ROWS", 1_000), ("BKM_CHECK_ROWS", 400),
+                        ("LDA_TOKENS", 60_000), ("LDA_CHECK_DOCS", 20),
+                        ("LDA", dict(vocabSize=800, topicNum=20, numIter=2)),
+                        ("DBSCAN_ROWS", 1_500), ("DBSCAN_EPS_SAMPLE", 200)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_clustering_features_phase_passes_on_the_cpu(monkeypatch, capsys):
+    """Phase 19 runs end to end at a small size on the CPU (both routes
+    the CPU): every part reports, no check fails, no kernel launches."""
+    _phase19_on_cpu(monkeypatch)
+    out = chip_smoke.clustering_features_path("cpu stand-in")
+    assert set(out) == {"19.1", "19.2", "19.3", "19.4"}
+    g = out["19.1"]
+    assert g["em_iterations"] == chip_smoke.FEATURE_GMM["maxIter"]
+    assert g["em_host_syncs"] == g["em_iterations"] - 1
+    assert len(g["em_step_ms"]) == g["em_iterations"]
+    assert g["components_differ"] == 0 and g["ll_rel_err"] == 0.0
+    assert g["pca_dim"] == chip_smoke.FEATURE_PCA_K
+    assert g["nkdd_bytes"] == 4_000 * 7 * 10 * 10 * 4
+    assert [s[0] for s in out["19.2"]["splits"]][0] == 1_000
+    assert len(out["19.2"]["splits"]) == chip_smoke.BKM_K - 1
+    assert len(out["19.3"]["outer_ms"]) == 2
+    assert out["19.4"]["labels_differ"] == 0
+    assert "phase 19: {" in capsys.readouterr().out
+
+
+def test_clustering_features_phase_fails_when_the_routes_part(monkeypatch,
+                                                              capsys):
+    """A card route whose EM or LDA step drifts from the CPU route's fails
+    the phase (the CPU stands in for both routes; the stand-in card is
+    whatever runs outside ``chip_smoke.torch_device("cpu")``)."""
+    import contextlib
+
+    from alink_tpu_torch.operator.batch import clustering2 as c2
+
+    _phase19_on_cpu(monkeypatch)
+    step, outer = c2._gmm_step, c2._lda_outer
+    cpu_route = []
+
+    @contextlib.contextmanager
+    def torch_device(name):
+        cpu_route.append(name)
+        try:
+            yield
+        finally:
+            cpu_route.pop()
+
+    def drifting_step(*a, **kw):
+        w, mu, cov, ll = step(*a, **kw)
+        return (w, mu, cov, ll) if cpu_route else \
+            (w, mu + 2e-3, cov, ll * (1 + 1e-4))
+
+    def drifting_outer(*a, **kw):
+        lam, gamma = outer(*a, **kw)
+        return (lam, gamma) if cpu_route else (lam * (1 + 2e-3), gamma)
+
+    monkeypatch.setattr(chip_smoke, "torch_device", torch_device)
+    monkeypatch.setattr(c2, "_gmm_step", drifting_step)
+    monkeypatch.setattr(c2, "_lda_outer", drifting_outer)
+    with pytest.raises(SystemExit):
+        chip_smoke.clustering_features_path("cpu stand-in")
+    fail = capsys.readouterr().out.splitlines()[-1]
+    assert fail.startswith("FAIL: phase 19: ")
+    for part in ("19.1: log-likelihood", "19.1: weights/means", "19.3: λ"):
+        assert part in fail, fail

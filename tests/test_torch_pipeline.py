@@ -113,6 +113,70 @@ def test_pipeline_model_crosses_packages(tmp_path):
             atol=1e-6)
 
 
+def _feature_source(pkg, cols):
+    import importlib
+
+    ops = importlib.import_module(pkg + ".operator.batch")
+    mt = importlib.import_module(pkg + ".common.mtable")
+    return ops.TableSourceBatchOp(mt.MTable(dict(cols)))
+
+
+def _gmm_outputs(table):
+    post = np.asarray([list(json.loads(s).values())
+                       for s in table.col("posterior")])
+    pca = np.stack([v.data for v in table.col("pca")])
+    return np.asarray(table.col("component")), post, pca
+
+
+def _decided_equal(got, want):
+    """Components equal on every row whose top-two posterior gap exceeds
+    chip_smoke.GMM_POSTERIOR_GAP (phase 19.1's rule), posteriors within
+    1e-4, the PCA rows within 1e-5 of the largest (float32 projection in
+    the reference, float64 in the port)."""
+    (c, p, x), (wc, wp, wx) = _gmm_outputs(got), _gmm_outputs(want)
+    top2 = np.sort(wp, axis=1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > chip_smoke.GMM_POSTERIOR_GAP
+    assert decided.mean() > 0.9
+    np.testing.assert_array_equal(c[decided], wc[decided])
+    np.testing.assert_allclose(p, wp, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(x, wx, rtol=0, atol=1e-5 * np.abs(wx).max())
+
+
+def test_feature_pipeline_matches_reference_and_crosses(tmp_path):
+    """chip_smoke.py phase 19.1's pipeline (StringIndexer → OneHotEncoder →
+    StandardScaler → VectorAssembler → PCA → GaussianMixture) at 2,000
+    seeded Covertype-layout rows: both packages' fits transform 400
+    held-out rows alike, and each package's saved PipelineModel loads in
+    the other and transforms as it did where it was fitted."""
+    import alink_tpu.pipeline as R
+    import alink_tpu_torch.pipeline as P
+
+    X, _ = chip_smoke.covertype_data(2_400, 0)
+    train = chip_smoke.covertype_categorical(X[:2_000])
+    test = chip_smoke.covertype_categorical(X[2_000:])
+    out = {}
+    for pl, pkg in ((R, "alink_tpu"), (P, "alink_tpu_torch")):
+        model = chip_smoke.feature_pipeline(pl, **chip_smoke.FEATURE_GMM) \
+            .fit(_feature_source(pkg, train))
+        path = str(tmp_path / f"{pkg}.ak")
+        model.save(path)
+        out[pkg] = (model.transform(_feature_source(pkg, test)).collect(),
+                    path)
+    (ref, ref_path), (port, port_path) = out["alink_tpu"], \
+        out["alink_tpu_torch"]
+    assert port.names == ref.names and str(port.schema) == str(ref.schema)
+    _decided_equal(port, ref)
+    for load_pl, pkg, path, want in ((P, "alink_tpu_torch", ref_path, ref),
+                                     (R, "alink_tpu", port_path, port)):
+        loaded = load_pl.PipelineModel.load(path)
+        assert [type(s).__name__ for s in loaded.stages] == [
+            "StringIndexerModel", "OneHotEncoderModel",
+            "StandardScalerModel", "VectorAssembler", "PCAModel",
+            "GaussianMixtureModel"]
+        _decided_equal(loaded.transform(_feature_source(pkg, test))
+                       .collect(), want)
+
+
 def test_local_predictor_cached_plan_equals_rebuild(tmp_path):
     import alink_tpu_torch.pipeline as P
 
@@ -229,7 +293,7 @@ def test_port_stages_are_reference_stages():
     stages = [n for n in P.__all__ if n in PORT]
     assert sum(issubclass(PORT[n], (P.EstimatorBase, P.ModelBase))
                and PORT[n] not in (P.EstimatorBase, P.ModelBase)
-               for n in stages) == 78
+               for n in stages) == 100
     for name in stages:
         assert name in REF, name
         assert set(getattr(P, name).param_infos()) <= \
@@ -274,6 +338,14 @@ def _stage_cases():
         "Word2Vec": (P.Word2Vec, dict(selectedCol="doc", vectorSize=4,
                                       numIter=1),
                      B.Word2VecTrainBatchOp, B.Word2VecPredictBatchOp),
+        "GaussianMixture": (P.GaussianMixture, dict(featureCols=feats, k=2,
+                                                    maxIter=5),
+                            B.GmmTrainBatchOp, B.GmmPredictBatchOp),
+        "BisectingKMeans": (P.BisectingKMeans, dict(featureCols=feats, k=3),
+                            B.BisectingKMeansTrainBatchOp,
+                            B.BisectingKMeansPredictBatchOp),
+        "Lda": (P.Lda, dict(selectedCol="doc", topicNum=2, numIter=2),
+                B.LdaTrainBatchOp, B.LdaPredictBatchOp),
     }
 
 

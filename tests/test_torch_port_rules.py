@@ -104,7 +104,14 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.operator.batch.regression",
             "alink_tpu_torch.operator.batch.sources",
             "alink_tpu_torch.pipeline.tuning",
-            "alink_tpu_torch.io.tfrecord"} \
+            "alink_tpu_torch.io.tfrecord",
+            "alink_tpu_torch.operator.batch.clustering2",
+            "alink_tpu_torch.operator.batch.dataproc",
+            "alink_tpu_torch.operator.batch.feature",
+            "alink_tpu_torch.operator.batch.feature2",
+            "alink_tpu_torch.operator.batch.feature3",
+            "alink_tpu_torch.operator.batch.vector",
+            "alink_tpu_torch.operator.batch.vector2"} \
         <= set(scanned.split(","))
     smoke = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; print(','.join(sorted("
