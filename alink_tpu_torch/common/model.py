@@ -18,7 +18,9 @@ end-to-end instead of string-encoded rows, while remaining an ordinary MTable
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Optional, Tuple
+import threading
+import weakref
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -63,3 +65,29 @@ def _json_default(o):
     if isinstance(o, np.ndarray):
         return o.tolist()
     return str(o)
+
+
+# (id(table), key) -> [lock, result or _PENDING]; an entry goes when its
+# table is collected
+_DECODED: Dict[Tuple[int, Any], list] = {}
+_DECODED_LOCK = threading.Lock()
+_PENDING = object()
+
+
+def decode_once(table: MTable, key: Any, build: Callable[[], Any]) -> Any:
+    """``build()``'s result for this model table object and ``key``, built
+    once: mappers that load the same table (the two predict branches of one
+    DAG, say) share one decode, and a thread that asks while another builds
+    waits for that build instead of decoding beside it under the
+    interpreter lock. The result lives as long as the table; a build that
+    raises is not kept."""
+    ident = (id(table), key)
+    with _DECODED_LOCK:
+        entry = _DECODED.get(ident)
+        if entry is None:
+            entry = _DECODED[ident] = [threading.Lock(), _PENDING]
+            weakref.finalize(table, _DECODED.pop, ident, None)
+    with entry[0]:
+        if entry[1] is _PENDING:
+            entry[1] = build()
+        return entry[1]

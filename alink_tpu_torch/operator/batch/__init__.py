@@ -282,3 +282,55 @@ from .vector import (ColumnsToVectorBatchOp, UdfBatchOp, UdtfBatchOp,
 from .vector2 import (VectorBiFunctionBatchOp, VectorChiSqSelectorBatchOp,
                       VectorFunctionBatchOp, VectorPolynomialExpandBatchOp,
                       VectorSizeHintBatchOp)
+from .graph import (CommonNeighborsBatchOp, CommunityDetectionClusterBatchOp,
+                    ConnectedComponentsBatchOp,
+                    EdgeClusterCoefficientBatchOp, KCoreBatchOp,
+                    LouvainBatchOp, ModularityCalBatchOp,
+                    MultiSourceShortestPathBatchOp, PageRankBatchOp,
+                    SingleSourceShortestPathBatchOp, TreeDepthBatchOp,
+                    TriangleListBatchOp, VertexClusterCoefficientBatchOp,
+                    VertexNeighborSearchBatchOp)
+from .associationrule import (AprioriBatchOp, FpGrowthBatchOp,
+                              PrefixSpanBatchOp)
+from .similarity import (StringNearestNeighborPredictBatchOp,
+                         StringNearestNeighborTrainBatchOp,
+                         StringSimilarityPairwiseBatchOp,
+                         TextNearestNeighborPredictBatchOp,
+                         TextNearestNeighborTrainBatchOp,
+                         TextSimilarityPairwiseBatchOp,
+                         VectorNearestNeighborPredictBatchOp,
+                         VectorNearestNeighborTrainBatchOp)
+from .feature4 import (ApplyAssociationRuleBatchOp, ApplySequenceRuleBatchOp,
+                       AutoCrossAlgoTrainBatchOp, AutoCrossTrainBatchOp,
+                       BaseCrossTrainBatchOp, BinarySelectorPredictBatchOp,
+                       BinarySelectorTrainBatchOp,
+                       BinningTrainForScorecardBatchOp,
+                       ConstrainedBinarySelectorPredictBatchOp,
+                       ConstrainedBinarySelectorTrainBatchOp,
+                       ConstrainedDivergenceTrainBatchOp,
+                       ConstrainedLinearRegTrainBatchOp,
+                       ConstrainedLogisticRegressionTrainBatchOp,
+                       ConstrainedRegSelectorPredictBatchOp,
+                       ConstrainedRegSelectorTrainBatchOp,
+                       CrossCandidateSelectorPredictBatchOp,
+                       CrossCandidateSelectorTrainBatchOp,
+                       CrossFeaturePredictBatchOp, CrossFeatureTrainBatchOp,
+                       GlmEvaluationBatchOp, GroupedFpGrowthBatchOp,
+                       HashCrossFeatureBatchOp, MultiCollinearityBatchOp,
+                       RegressionSelectorPredictBatchOp,
+                       RegressionSelectorTrainBatchOp, WoePredictBatchOp,
+                       WoeTrainBatchOp)
+from .nlp import (DocCountVectorizerPredictBatchOp,
+                  DocCountVectorizerTrainBatchOp, DocHashCountVectorizerPredictBatchOp,
+                  DocHashCountVectorizerTrainBatchOp, DocWordCountBatchOp,
+                  KeywordsExtractionBatchOp, NGramBatchOp,
+                  RegexTokenizerBatchOp, SegmentBatchOp,
+                  StopWordsRemoverBatchOp, TfidfBatchOp, TokenizerBatchOp,
+                  WordCountBatchOp)
+from .nlp2 import (NaiveBayesTextPredictBatchOp, NaiveBayesTextTrainBatchOp,
+                   StringApproxNearestNeighborPredictBatchOp,
+                   StringApproxNearestNeighborTrainBatchOp,
+                   TextApproxNearestNeighborPredictBatchOp,
+                   TextApproxNearestNeighborTrainBatchOp,
+                   VectorApproxNearestNeighborPredictBatchOp,
+                   VectorApproxNearestNeighborTrainBatchOp)

@@ -33,7 +33,8 @@ from ...common.env import resolve_device
 from ...common.exceptions import (AkIllegalArgumentException,
                                   AkUnsupportedOperationException)
 from ...common.linalg import DenseVector
-from ...common.model import model_to_table, table_to_model
+from ...common.metrics import metrics
+from ...common.model import decode_once, model_to_table, table_to_model
 from ...common.mtable import AlinkTypes, MTable
 from ...common.params import InValidator, MinValidator, ParamInfo
 from ...common.quant import PRECISION_KEY
@@ -424,19 +425,29 @@ class BertTextModelMapper(RichModelMapper):
         from ...dl.modules import BertConfig, TransformerEncoder
         from ...dl.tokenizer import Tokenizer
 
-        self.meta, arrays = table_to_model(model)
-        cfg = BertConfig(dtype=torch.bfloat16, **self.meta["bertConfig"])
-        self.cfg = cfg
-        self.model = TransformerEncoder(cfg)
-        self.model.load_state_dict(
-            flax_to_torch(params_from_bytes(arrays["params"])))
-        self.model.to(resolve_device(self.device)).eval()
-        # models serialized before the BERT-spec tokenizer carry no
-        # doLowerCase key; serve them with the legacy \w+ tokenization their
-        # vocab was built with
-        self.tokenizer = Tokenizer.from_list(
-            self.meta["vocab"], self.meta.get("doLowerCase", True),
-            legacy="doLowerCase" not in self.meta)
+        device = resolve_device(self.device)
+
+        def decode():
+            metrics.incr("dl.model_decodes")
+            meta, arrays = table_to_model(model)
+            cfg = BertConfig(dtype=torch.bfloat16, **meta["bertConfig"])
+            encoder = TransformerEncoder(cfg)
+            encoder.load_state_dict(
+                flax_to_torch(params_from_bytes(arrays["params"])))
+            encoder.to(device).eval()
+            # models serialized before the BERT-spec tokenizer carry no
+            # doLowerCase key; serve them with the legacy \w+ tokenization
+            # their vocab was built with
+            tokenizer = Tokenizer.from_list(
+                meta["vocab"], meta.get("doLowerCase", True),
+                legacy="doLowerCase" not in meta)
+            return meta, cfg, encoder, tokenizer
+
+        # one decode per model table and device, shared by every mapper that
+        # loads it (the encoder serves read-only; quantized states are kept
+        # on it per policy)
+        self.meta, self.cfg, self.model, self.tokenizer = decode_once(
+            model, ("bert", str(device)), decode)
         p = self.get_params()
         self._precision = p.get(PRECISION_KEY) if p.contains(PRECISION_KEY) \
             else None

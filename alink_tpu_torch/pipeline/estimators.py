@@ -15,7 +15,11 @@ pipeline/clustering/GaussianMixture.java, BisectingKMeans.java, Lda.java,
 pipeline/dataproc/StandardScaler.java, MinMaxScaler.java, StringIndexer.java,
 Imputer.java, pipeline/dataproc/vector/VectorAssembler.java,
 pipeline/feature/OneHotEncoder.java, PCA.java, QuantileDiscretizer.java,
-Binning.java, FeatureHasher.java,
+Binning.java, FeatureHasher.java, MultiHotEncoder.java, TargetEncoder.java,
+Binarizer.java, Bucketizer.java, CrossFeature.java,
+pipeline/dataproc/MultiStringIndexer.java, pipeline/finance/WoeEncoder.java,
+pipeline/classification/NaiveBayesTextClassifier.java,
+pipeline/nlp/Tokenizer.java, RegexTokenizer.java,
 Cart.java, Id3.java, pipeline/nlp/Word2Vec.java — thin Trainer wrappers over
 the corresponding BatchOps). Class names are the reference's: a saved
 pipeline model names its stages by class. The stages that the reference's
@@ -30,8 +34,10 @@ from __future__ import annotations
 from typing import Dict
 
 from ..common.params import ParamInfo
-from ..mapper import (HasFeatureCols, HasPredictionCol, HasPredictionDetailCol,
-                      HasReservedCols, HasVectorCol)
+from ..mapper import (HasFeatureCols, HasOutputCol, HasOutputCols,
+                      HasPredictionCol, HasPredictionDetailCol,
+                      HasReservedCols, HasSelectedCol, HasSelectedCols,
+                      HasVectorCol)
 from ..operator.batch import classification as _cls
 from ..operator.batch import clustering as _clu
 from ..operator.batch import clustering2 as _clu2
@@ -42,6 +48,10 @@ from ..operator.batch import linear as _lin
 from ..operator.batch import regression as _reg
 from ..operator.batch import feature as _feat
 from ..operator.batch import feature2 as _feat2
+from ..operator.batch import feature3 as _feat3
+from ..operator.batch import feature4 as _feat4
+from ..operator.batch import nlp as _nlp
+from ..operator.batch import nlp2 as _nlp2
 from ..operator.batch import tree as _tree
 from .base import EstimatorBase, ModelBase, TransformerBase
 
@@ -520,6 +530,131 @@ class Word2Vec(EstimatorBase):
     PREDICTION_COL = HasPredictionCol.PREDICTION_COL
 
 
+# -- feature, NLP and text-classification stages ------------------------------
+class MultiHotEncoderModel(ModelBase):
+    _predict_op_cls = _feat3.MultiHotPredictBatchOp
+
+
+class MultiHotEncoder(EstimatorBase, HasSelectedCols):
+    """(reference: pipeline/feature/MultiHotEncoder.java)"""
+
+    _train_op_cls = _feat3.MultiHotTrainBatchOp
+    _model_cls = MultiHotEncoderModel
+    DELIMITER = _feat3.MultiHotTrainBatchOp.DELIMITER
+    OUTPUT_COL = HasOutputCol.OUTPUT_COL
+
+
+class TargetEncoderModel(ModelBase):
+    _predict_op_cls = _feat3.TargetEncoderPredictBatchOp
+
+
+class TargetEncoder(EstimatorBase, HasSelectedCols):
+    """(reference: pipeline/feature/TargetEncoder.java)"""
+
+    _train_op_cls = _feat3.TargetEncoderTrainBatchOp
+    _model_cls = TargetEncoderModel
+    LABEL_COL = _feat3.TargetEncoderTrainBatchOp.LABEL_COL
+    POSITIVE_LABEL_VALUE_STRING = \
+        _feat3.TargetEncoderTrainBatchOp.POSITIVE_LABEL_VALUE_STRING
+    SMOOTHING = _feat3.TargetEncoderTrainBatchOp.SMOOTHING
+    OUTPUT_COLS = HasOutputCols.OUTPUT_COLS
+
+
+class MultiStringIndexerModel(ModelBase):
+    _predict_op_cls = _feat3.MultiStringIndexerPredictBatchOp
+
+
+class MultiStringIndexer(EstimatorBase, HasSelectedCols):
+    """(reference: pipeline/dataproc/MultiStringIndexer.java)"""
+
+    _train_op_cls = _feat3.MultiStringIndexerTrainBatchOp
+    _model_cls = MultiStringIndexerModel
+    STRING_ORDER_TYPE = \
+        _feat3.MultiStringIndexerTrainBatchOp.STRING_ORDER_TYPE
+    OUTPUT_COLS = HasOutputCols.OUTPUT_COLS
+
+
+class Binarizer(TransformerBase):
+    """(reference: pipeline/feature/Binarizer.java)"""
+
+    _map_op_cls = _feat3.BinarizerBatchOp
+    SELECTED_COL = HasSelectedCol.SELECTED_COL
+    THRESHOLD = _feat3.BinarizerBatchOp.THRESHOLD
+    OUTPUT_COL = HasOutputCol.OUTPUT_COL
+    RESERVED_COLS = HasReservedCols.RESERVED_COLS
+
+
+class Bucketizer(TransformerBase):
+    """(reference: pipeline/feature/Bucketizer.java)"""
+
+    _map_op_cls = _feat3.BucketizerBatchOp
+    SELECTED_COLS = HasSelectedCols.SELECTED_COLS
+    CUTS_ARRAY = _feat3.BucketizerBatchOp.CUTS_ARRAY
+    OUTPUT_COLS = HasOutputCols.OUTPUT_COLS
+    RESERVED_COLS = HasReservedCols.RESERVED_COLS
+
+
+class CrossFeatureModel(ModelBase):
+    _predict_op_cls = _feat4.CrossFeaturePredictBatchOp
+
+
+class CrossFeature(EstimatorBase, HasSelectedCols):
+    """(reference: pipeline/feature/CrossFeature.java)"""
+
+    _train_op_cls = _feat4.CrossFeatureTrainBatchOp
+    _model_cls = CrossFeatureModel
+    OUTPUT_COL = HasOutputCol.OUTPUT_COL
+
+
+class WoeEncoderModel(ModelBase):
+    _predict_op_cls = _feat4.WoePredictBatchOp
+
+
+class WoeEncoder(EstimatorBase, HasSelectedCols):
+    """(reference: pipeline/finance/WoeEncoder.java)"""
+
+    _train_op_cls = _feat4.WoeTrainBatchOp
+    _model_cls = WoeEncoderModel
+    LABEL_COL = _feat4.WoeTrainBatchOp.LABEL_COL
+    POSITIVE_LABEL = _feat4.WoeTrainBatchOp.POSITIVE_LABEL
+
+
+class NaiveBayesTextClassifierModel(ModelBase):
+    _predict_op_cls = _nlp2.NaiveBayesTextPredictBatchOp
+
+
+class NaiveBayesTextClassifier(EstimatorBase, _RichPredictParams):
+    """(reference: pipeline/classification/NaiveBayesTextClassifier.java)"""
+
+    _train_op_cls = _nlp2.NaiveBayesTextTrainBatchOp
+    _model_cls = NaiveBayesTextClassifierModel
+    VECTOR_COL = HasVectorCol.VECTOR_COL
+    LABEL_COL = _nlp2.NaiveBayesTextTrainBatchOp.LABEL_COL
+    MODEL_TYPE = _nlp2.NaiveBayesTextTrainBatchOp.MODEL_TYPE
+
+
+class Tokenizer(TransformerBase):
+    """(reference: pipeline/nlp/Tokenizer.java)"""
+
+    _map_op_cls = _nlp.TokenizerBatchOp
+    SELECTED_COL = HasSelectedCol.SELECTED_COL
+    OUTPUT_COL = HasOutputCol.OUTPUT_COL
+    RESERVED_COLS = HasReservedCols.RESERVED_COLS
+
+
+class RegexTokenizer(TransformerBase):
+    """(reference: pipeline/nlp/RegexTokenizer.java)"""
+
+    _map_op_cls = _nlp.RegexTokenizerBatchOp
+    SELECTED_COL = HasSelectedCol.SELECTED_COL
+    OUTPUT_COL = HasOutputCol.OUTPUT_COL
+    PATTERN = _nlp.RegexTokenizerBatchOp.PATTERN
+    GAPS = _nlp.RegexTokenizerBatchOp.GAPS
+    MIN_TOKEN_LENGTH = _nlp.RegexTokenizerBatchOp.MIN_TOKEN_LENGTH
+    TO_LOWER_CASE = _nlp.RegexTokenizerBatchOp.TO_LOWER_CASE
+    RESERVED_COLS = HasReservedCols.RESERVED_COLS
+
+
 # -- the reference's generated stages -----------------------------------------
 # name -> (train op, predict op, model class name), the entries of the
 # reference's pipeline/generated.py ESTIMATORS table whose ops the port has
@@ -542,6 +677,12 @@ GENERATED: Dict[str, tuple] = {
                     _tree.GbdtEncoderPredictBatchOp, "GbdtEncoderModel"),
     "GbdtRegEncoder": (_tree.GbdtRegEncoderTrainBatchOp,
                        _tree.TreeModelEncoderBatchOp, "GbdtRegEncoderModel"),
+    "DocCountVectorizer": (_nlp.DocCountVectorizerTrainBatchOp,
+                           _nlp.DocCountVectorizerPredictBatchOp,
+                           "DocCountVectorizerModel"),
+    "DocHashCountVectorizer": (_nlp.DocHashCountVectorizerTrainBatchOp,
+                               _nlp.DocHashCountVectorizerPredictBatchOp,
+                               "DocHashCountVectorizerModel"),
     "Id3Encoder": (_tree.Id3EncoderTrainBatchOp,
                    _tree.TreeModelEncoderBatchOp, "Id3EncoderModel"),
     "KerasSequentialClassifier": (

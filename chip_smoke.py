@@ -357,7 +357,40 @@ non-zero:
     of 1,000 rows, minPoints 10): the ε-tiles' and the host expansion's
     seconds, labels against the CPU route's;
     ``scripts/chip_phase_check.py features`` runs this phase alone;
-20. one JSON line of kernels, then the device line last.
+20. graphs, vector neighbours, text and constrained features
+    (``graph_text_path``; no kernel of the port: its launch count must stay
+    0; TF32 must be off), every op as ``TableSourceBatchOp`` → op →
+    ``collect()``: (20.1) a Graph 500 Kronecker (R-MAT, A, B, C = 0.57,
+    0.19, 0.19) graph of scale 17 and edge factor 16 (2,097,152 weighted
+    edges, string vertex ids) through ``PageRankBatchOp`` (damping 0.85,
+    maxIter 100), ``ConnectedComponentsBatchOp``, ``KCoreBatchOp(k=16)``
+    and ``SingleSourceShortestPathBatchOp`` from "0": each op's wall, its
+    ``from_table`` seconds, supersteps, host syncs and device ms a
+    superstep (CUDA events), PageRank's device busy ms and idle share
+    (``torch.profiler``), each against the CPU route; then a scale-12
+    graph through Louvain, CommunityDetectionCluster, ModularityCal,
+    TriangleList and MultiSourceShortestPath, each against the CPU route;
+    (20.2) 1,000,000 base vectors of 128 dims and 10,000 queries in
+    ANN-benchmarks' sift-128-euclidean shape (1,000 seeded Gaussian
+    clusters) through ``VectorNearestNeighborTrain/PredictBatchOp``
+    (BRUTE, k = 10, EUCLIDEAN and COSINE): the host's parse-and-stack and
+    JSON seconds, the top-k's device ms, peak device memory above the
+    part's start (below the 40 GB of the whole (Q, N) float32 matrix, or
+    the phase fails); the first 100 queries against the CPU route; LSH on
+    100 queries against the CPU route; (20.3) phase 19.3's 5,000
+    text8-layout documents labelled by topic through ``Pipeline(Tokenizer
+    → DocCountVectorizer(vocabSize=10,000) → NaiveBayesTextClassifier)``
+    fitted on 4,000 and predicting 1,000, the per-class counts against the
+    CPU route; DocHashCountVectorizer and DocWordCount → Tfidf on the
+    5,000; ``KeywordsExtractionBatchOp`` on 200 documents (wall, PageRank
+    calls) against the CPU route; (20.4) the 10 continuous columns of the
+    Covertype-layout rows, standardized: ``ConstrainedLogisticRegression``
+    (alm; Aspect's weight pinned to 0, Slope's and Horizontal Distance to
+    Hydrology's summing to at most 1, which binds; L-BFGS to epsilon 1e-10)
+    on both routes and its held-out predict; WOE of the
+    columns in 10 quantile bins; ``BinarySelectorTrainBatchOp`` on both
+    routes. ``scripts/chip_phase_check.py graph`` runs this phase alone;
+21. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -523,6 +556,33 @@ BisectingKMeans's centroids within BKM_CENTROID_ATOL = 1e-3 (pixels of
 float64 (clustering2.py's docstring): in float32 the card and the CPU sum
 in other orders and part by more than these bounds
 (scripts/compare_clustering_precision.py).
+Phase 20, card against the port's CPU route on the same inputs: connected
+components, the k-core's edges, shortest-path distances (a min over
+float32 path sums, which no order of relaxation changes), label
+propagation on unweighted edges (integer votes) and the host ops equal.
+PageRank within PR_L1_BOUND = 2e-5 in L1 over all vertices, supersteps
+within one: each route stops once its L1 step is at most tol = 1e-6,
+which leaves it within tol·d/(1 − d) = 5.7e-6 of the fixpoint, so two
+routes lie within 1.1e-5 of each other plus float32 rounding (the card's
+``index_add_`` adds in another order). Vector neighbours: the same ids and
+distances within NN_DIST_RTOL = 1e-6 relative: the products and sums run
+in float64 over float32 vectors and are rounded to float32 once, so the
+routes' orders of addition stay far below that rounding. NaiveBayesText's
+per-class counts (integer sums below 2**24 in float32): equal, read
+through the model's log-probabilities, which the host computes from them.
+TextRank keywords equal: the card adds the scores in another order, and
+the top words' scores stand far apart against a float32 rounding
+(scripts/compare_textrank_order.py counts the documents whose keywords
+move when the CPU adds in shuffled orders). The topic classifier's
+accuracy at least NB_MARGIN = 0.5 above the majority topic's share (each
+document draws half its tokens from its topic's words, so a multinomial
+model should find the topic nearly always). The constrained LR: each
+constraint's residual within CONS_FEAS = 1e-2 (the augmented Lagrangian's
+12 outer steps, as the CPU tests hold the reference), weights within
+CONS_WEIGHT_ATOL = 1e-3 of the CPU route's (float32 sums over 522,911 rows
+in another order; each L-BFGS runs to epsilon 1e-10, so the routes stop
+near one optimum rather than wherever the default 1e-6 leaves them on the
+flat log-loss). BinarySelector's choice equal (host least squares).
 """
 
 from __future__ import annotations
@@ -6222,6 +6282,7 @@ def dag_path(workdir, served_main, card):
             n_pred, n_load = len(calls.predicts), len(calls.loads)
             counters = {k: metrics.counter(k) for k in (
                 "resilience.unit_retries", "resilience.defused")}
+            decodes = metrics.counter("dl.model_decodes")
             before = executor_trace()
             seen = {id(r) for r in before}
             try:
@@ -6254,6 +6315,7 @@ def dag_path(workdir, served_main, card):
                 model=model._output if label == "a" else None,
                 records=recs, bert_executed=bert._executed,
                 predicts=calls.predicts[n_pred:], loads=calls.loads[n_load:],
+                decodes=metrics.counter("dl.model_decodes") - decodes,
                 counters={k: metrics.counter(k) - v
                           for k, v in counters.items()})
 
@@ -6312,13 +6374,17 @@ def dag_path(workdir, served_main, card):
                  if res["busy_ms"] is not None else "")
               + f"; {res['launches']} flash launches over {chunks} forward "
               f"chunks; model loads {len(res['loads'])} "
-              f"({', '.join(res['loads'])}); BERT predicts "
+              f"({', '.join(res['loads'])}), decodes {res['decodes']}; "
+              "BERT predicts "
               + ", ".join(f"{th} {n} rows {t1 - t0:.3f} s"
                           for th, t0, t1, n in res["predicts"])
               + f"; counters {res['counters']}", flush=True)
         if len(res["loads"]) != 2:
             problems.append(f"({label}) {len(res['loads'])} model loads, "
                             "expected one per BERT op")
+        if res["decodes"] != 1:
+            problems.append(f"({label}) {res['decodes']} model decodes, "
+                            "expected one per model table")
 
     recs = a["records"]
     print("phase 17 (a) units: " + "; ".join(
@@ -6373,6 +6439,7 @@ def dag_path(workdir, served_main, card):
            "serial_gap": {b: a.get(f"{b}_serial_gap") for b in
                           ("main", "side")},
            "loads": {k: len(r["loads"]) for k, r in results.items()},
+           "decodes": {k: r["decodes"] for k, r in results.items()},
            "units_a": [{k: v for k, v in r.items()
                         if k not in ("t0_s", "t1_s")} for r in recs],
            "retry_d": d["counters"],
@@ -7417,6 +7484,609 @@ def clustering_features_path(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: graphs, text, vector neighbours and constrained features (no
+# kernel of the port on the path)
+# ---------------------------------------------------------------------------
+
+GRAPH_SCALE = 17            # Graph 500's Kronecker graph: 2**17 vertices
+GRAPH_EDGE_FACTOR = 16      # ... and 16 undirected edges a vertex
+GRAPH_SMALL_SCALE = 12      # 4,096 vertices, 65,536 edges: the host ops
+RMAT_ABC = (0.57, 0.19, 0.19)   # Graph 500's initiator A, B, C
+PAGERANK = dict(dampingFactor=0.85, maxIter=100)
+KCORE_K = 16
+MSSP_SOURCES = 4            # the highest-degree vertices of the small graph
+PR_L1_BOUND = 2e-5          # PageRank, card against CPU route, L1
+NN_BASE = 1_000_000         # ANN-benchmarks' sift-128-euclidean: 1,000,000
+NN_QUERIES = 10_000         # base vectors of 128 dims, 10,000 queries, k 10
+NN_DIM = 128
+NN_K = 10
+NN_CLUSTERS = 1_000
+NN_CHECK = 100              # queries held against the CPU route
+NN_DIST_RTOL = 1e-6         # distances, card against CPU route, relative
+TEXT_TRAIN = 4_000          # of phase 19.3's 5,000 text8-layout documents
+TEXT_VOCAB = 10_000
+NB_MARGIN = 0.5             # accuracy above the majority topic's share
+KEYWORD_DOCS = 200
+CONS_FEATURES = COVTYPE_CONTINUOUS
+# pin Aspect's weight to 0; Slope's and Hydrology's weights sum to <= 1
+# (the inequality binds: unconstrained, they sum to more)
+CONS_SPEC = {"A_eq": [[0.0, 1.0] + [0.0] * 9], "b_eq": [0.0],
+             "A_ub": [[0.0, 0.0, 1.0, 1.0] + [0.0] * 7], "b_ub": [1.0]}
+CONS_FIT = dict(maxIter=100, epsilon=1e-10)   # each ALM step's L-BFGS
+CONS_FEAS = 1e-2            # constraint residuals, either route
+CONS_WEIGHT_ATOL = 1e-3     # weights, card against CPU route
+WOE_BUCKETS = 10
+SELECTOR_MAX = 5
+
+
+def rmat_edges(scale, edge_factor, seed):
+    """Graph 500's Kronecker (R-MAT) edge list: ``edge_factor · 2**scale``
+    undirected edges, each endpoint bit drawn from the initiator (A, B, C,
+    D = 1 − A − B − C), self loops and repeats kept as the generator makes
+    them; weights in (0, 1]. Vertex ids as strings."""
+    g = np.random.default_rng(seed)
+    m = edge_factor << scale
+    a, b, c = RMAT_ABC
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for bit in range(scale):
+        r = g.random(m)
+        src |= (r >= a + b).astype(np.int64) << bit
+        dst |= (((r >= a) & (r < a + b)) | (r >= a + b + c)).astype(
+            np.int64) << bit
+    w = 1.0 - g.random(m)
+    return {"source": src.astype(str).astype(object),
+            "target": dst.astype(str).astype(object), "weight": w}
+
+
+class _FromTableTimer:
+    """Times every ``MemoryGraph.from_table`` inside the block."""
+
+    def __init__(self, record):
+        self.record = record
+
+    def __enter__(self):
+        from alink_tpu_torch.graph.engine import MemoryGraph
+
+        self.orig = MemoryGraph.__dict__["from_table"]
+        fn, record = self.orig.__func__, self.record
+
+        def timed_from_table(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            record.append(time.perf_counter() - t0)
+            return out
+
+        MemoryGraph.from_table = staticmethod(timed_from_table)
+
+    def __exit__(self, *exc):
+        from alink_tpu_torch.graph.engine import MemoryGraph
+
+        MemoryGraph.from_table = self.orig
+
+
+def graph_op(op_name, table, inputs=(), profile=False, **params):
+    """``TableSourceBatchOp`` → op → ``collect()`` on the current route:
+    the output, the wall, from_table's seconds, the engine's runs, and the
+    device busy ms under ``torch.profiler`` when ``profile``."""
+    import torch
+
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.graph import engine
+    from alink_tpu_torch.operator import batch as B
+
+    srcs = [B.TableSourceBatchOp(t if isinstance(t, MTable) else MTable(t))
+            for t in (table, *inputs)]
+    from_s, busy_ms = [], None
+    with _FromTableTimer(from_s), engine.superstep_trace() as runs:
+        def run():
+            return getattr(B, op_name)(**params).link_from(*srcs).collect()
+
+        if profile:
+            got = {}
+            busy_ms, wall = dag_profile(lambda: got.setdefault("t", run()))
+            out = got["t"]
+        else:
+            t0 = time.perf_counter()
+            out = run()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    steps = sum(r["supersteps"] for r in runs)
+    ms = [a.elapsed_time(b) for r in runs for a, b in r["events"]]
+    return out, dict(wall_s=wall, from_table_s=sum(from_s), runs=len(runs),
+                     supersteps=steps,
+                     host_syncs=sum(r["host_syncs"] for r in runs),
+                     superstep_ms=float(np.median(ms)) if ms else None,
+                     first_superstep_ms=ms[0] if ms else None,
+                     busy_ms=busy_ms,
+                     idle_share=None if busy_ms is None
+                     else 1 - busy_ms / 1e3 / wall)
+
+
+def table_cells(t):
+    return {n: list(t.col(n)) for n in t.names}
+
+
+def on_route(route):
+    """The block's entry points on the card ("card") or the CPU ("cpu")."""
+    import contextlib
+
+    return torch_device("cpu") if route == "cpu" else contextlib.nullcontext()
+
+
+def graph_engine_path(card, problems):
+    """20.1: PageRank, ConnectedComponents, KCore(16) and SSSP from "0" on a
+    scale-17 Graph 500 graph through their ops, each against the CPU route;
+    then the host ops and label propagation on a scale-12 graph."""
+    t0 = time.perf_counter()
+    big = rmat_edges(GRAPH_SCALE, GRAPH_EDGE_FACTOR, SEED + 20)
+    gen_s = time.perf_counter() - t0
+    res = {"edges": len(big["source"]), "gen_s": gen_s}
+    cases = (("PageRankBatchOp", dict(weightCol="weight", **PAGERANK)),
+             ("ConnectedComponentsBatchOp", {}),
+             ("KCoreBatchOp", dict(k=KCORE_K)),
+             ("SingleSourceShortestPathBatchOp",
+              dict(sourcePoint="0", weightCol="weight")))
+    for op_name, params in cases:
+        pr = op_name == "PageRankBatchOp"
+        card_t, card_r = graph_op(op_name, big, profile=pr, **params)
+        with torch_device("cpu"):
+            cpu_t, cpu_r = graph_op(op_name, big, **params)
+        entry = dict(card=card_r, cpu_wall_s=cpu_r["wall_s"],
+                     cpu_supersteps=cpu_r["supersteps"],
+                     rows=card_t.num_rows)
+        if pr:
+            a = np.asarray(card_t.col("value"))
+            b = np.asarray(cpu_t.col("value"))
+            entry.update(l1=float(np.abs(a - b).sum()), sum=float(a.sum()),
+                         vertices=card_t.num_rows)
+            if list(card_t.col("vertex")) != list(cpu_t.col("vertex")) \
+                    or not entry["l1"] <= PR_L1_BOUND:
+                problems.append(f"20.1 PageRank: L1 {entry['l1']:.3g} from "
+                                f"the CPU route (bound {PR_L1_BOUND})")
+            if abs(card_r["supersteps"] - cpu_r["supersteps"]) > 1:
+                problems.append(f"20.1 PageRank: {card_r['supersteps']} "
+                                f"supersteps, CPU {cpu_r['supersteps']}")
+        elif table_cells(card_t) != table_cells(cpu_t):
+            problems.append(f"20.1 {op_name}: differs from the CPU route")
+        if op_name == "SingleSourceShortestPathBatchOp":
+            d = np.asarray(card_t.col("value"))
+            entry["reached"] = int(np.isfinite(d).sum())
+        if op_name == "ConnectedComponentsBatchOp":
+            entry["components"] = len(set(card_t.col("value")))
+        res[op_name] = entry
+        print(f"[{card}] 20.1 {op_name}, {res['edges']} edges → "
+              f"{card_t.num_rows} rows: wall {card_r['wall_s']:.2f} s (from_table "
+              f"{card_r['from_table_s']:.2f} s), {card_r['supersteps']} "
+              f"supersteps, {card_r['host_syncs']} host syncs, "
+              + (f"median {card_r['superstep_ms']:.3f} device ms a "
+                 f"superstep, the first {card_r['first_superstep_ms']:.3f} "
+                 "(CUDA events)" if card_r["superstep_ms"] is not None
+                 else "no CUDA events")
+              + (f", device busy {card_r['busy_ms']:.1f} ms, idle share "
+                 f"{card_r['idle_share']:.3f} (torch.profiler)" if pr else "")
+              + f"; CPU route {cpu_r['wall_s']:.2f} s, "
+              f"{cpu_r['supersteps']} supersteps"
+              + (f"; L1 {entry['l1']:.3g}" if pr else "; equal"),
+              flush=True)
+    del big
+
+    small = rmat_edges(GRAPH_SMALL_SCALE, GRAPH_EDGE_FACTOR, SEED + 21)
+    deg = {}
+    for v in list(small["source"]) + list(small["target"]):
+        deg[v] = deg.get(v, 0) + 1
+    sources = sorted(deg, key=lambda v: (-deg[v], v))[:MSSP_SOURCES]
+    unweighted = {k: small[k] for k in ("source", "target")}
+    for op_name, table, inputs, params in (
+            ("LouvainBatchOp", unweighted, (), {}),
+            ("CommunityDetectionClusterBatchOp", unweighted, (), {}),
+            ("TriangleListBatchOp", unweighted, (), {}),
+            ("MultiSourceShortestPathBatchOp", small, (),
+             dict(sourcePoints=sources, weightCol="weight")),
+            ("ModularityCalBatchOp", unweighted, ("louvain",), {})):
+        outs = []
+        for route in ("card", "cpu"):
+            ins = tuple(res["LouvainBatchOp"][f"{route}_table"]
+                        for _ in inputs)
+            with on_route(route):
+                outs.append(graph_op(op_name, table, ins, **params))
+        (card_t, card_r), (cpu_t, cpu_r) = outs
+        same = table_cells(card_t) == table_cells(cpu_t)
+        res[op_name] = dict(rows=card_t.num_rows, wall_s=card_r["wall_s"],
+                            cpu_wall_s=cpu_r["wall_s"],
+                            supersteps=card_r["supersteps"], equal=same)
+        if op_name == "LouvainBatchOp":
+            res[op_name].update(card_table=card_t, cpu_table=cpu_t,
+                                communities=len(set(card_t.col("value"))))
+        if op_name == "ModularityCalBatchOp":
+            res[op_name]["modularity"] = float(card_t.col("modularity")[0])
+        if not same:
+            problems.append(f"20.1 {op_name}: differs from the CPU route")
+        print(f"[{card}] 20.1 {op_name} (scale {GRAPH_SMALL_SCALE}): "
+              f"{card_t.num_rows} rows in {card_r['wall_s']:.2f} s, CPU "
+              f"route {cpu_r['wall_s']:.2f} s, "
+              f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    for k in ("card_table", "cpu_table"):
+        res["LouvainBatchOp"].pop(k)
+    return res
+
+
+def sift_layout(n, q, d, clusters, seed):
+    """Base and query vectors in sift-128-euclidean's shape: ``clusters``
+    Gaussian clusters (centres N(0, 2²), points N(centre, 1)), float32."""
+    g = np.random.default_rng(seed)
+    centres = (2.0 * g.standard_normal((clusters, d))).astype(np.float32)
+    base = centres[g.integers(0, clusters, n)]
+    base += g.standard_normal((n, d), dtype=np.float32)
+    query = centres[g.integers(0, clusters, q)]
+    query += g.standard_normal((q, d), dtype=np.float32)
+    return base, query
+
+
+def neighbour_rows(t):
+    return [json.loads(s) for s in t.col("nn")]
+
+
+def vector_neighbours_path(card, problems):
+    """20.2: BRUTE neighbours of 10,000 queries among 1,000,000 vectors
+    (EUCLIDEAN and COSINE) on the card, peak memory, the first 100 queries
+    against the CPU route; LSH on 100 queries against the CPU route."""
+    import torch
+
+    from alink_tpu_torch.common.linalg import dense_vectors
+    from alink_tpu_torch.common.mtable import AlinkTypes, MTable, TableSchema
+    from alink_tpu_torch.operator import batch as B
+    from alink_tpu_torch.operator.batch.similarity import \
+        VectorNearestNeighborModelMapper as M
+
+    t0 = time.perf_counter()
+    base, query = sift_layout(NN_BASE, NN_QUERIES, NN_DIM, NN_CLUSTERS,
+                              SEED + 22)
+    vec = TableSchema(["id", "v"], [AlinkTypes.STRING,
+                                    AlinkTypes.DENSE_VECTOR])
+    corpus = B.TableSourceBatchOp(MTable(
+        {"id": np.arange(NN_BASE).astype(str).astype(object),
+         "v": dense_vectors(base)}, vec))
+    qvec = TableSchema(["v"], [AlinkTypes.DENSE_VECTOR])
+    qcol = dense_vectors(query)
+    queries = B.TableSourceBatchOp(MTable({"v": qcol}, qvec))
+    check = B.TableSourceBatchOp(MTable({"v": qcol[:NN_CHECK]}, qvec))
+    data_s = time.perf_counter() - t0
+    del base, query
+    res = {"base": NN_BASE, "queries": NN_QUERIES, "dim": NN_DIM,
+           "k": NN_K, "data_s": data_s,
+           "matrix_bytes": NN_QUERIES * NN_BASE * 4}
+    for metric in ("EUCLIDEAN", "COSINE"):
+        t0 = time.perf_counter()
+        model = B.TableSourceBatchOp(B.VectorNearestNeighborTrainBatchOp(
+            idCol="id", selectedCol="v", metric=metric).link_from(
+            corpus).collect())
+        train_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"query_block": [], "topn": [], "topn_ev": [],
+               "results_json": [], "load_model": []}
+        hooks = [timed_calls(M, "query_block", rec["query_block"]),
+                 timed_calls(M, "topn", rec["topn_ev"], cuda_events=True),
+                 timed_calls(M, "results_json", rec["results_json"]),
+                 timed_calls(M, "load_model", rec["load_model"])]
+        hooks.append(timed_calls(M, "topn", rec["topn"]))
+        try:
+            t0 = time.perf_counter()
+            out = B.VectorNearestNeighborPredictBatchOp(
+                selectedCol="v", outputCol="nn", topN=NN_K).link_from(
+                model, queries).collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for h in reversed(hooks):
+                h()
+        peak = torch.cuda.max_memory_allocated() - start
+        device_ms = sum(a.elapsed_time(b) for a, b in rec["topn_ev"])
+        with torch_device("cpu"):
+            t0 = time.perf_counter()
+            cpu = B.VectorNearestNeighborPredictBatchOp(
+                selectedCol="v", outputCol="nn", topN=NN_K).link_from(
+                model, check).collect()
+            cpu_s = time.perf_counter() - t0
+        got, want = neighbour_rows(out)[:NN_CHECK], neighbour_rows(cpu)
+        ids_differ = sum(list(a) != list(b) for a, b in zip(got, want))
+        rel = max((abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for a, b in zip(got, want) for k in b if k in a),
+                  default=0.0)
+        res[metric] = dict(
+            train_s=train_s, wall_s=wall, load_s=sum(rec["load_model"]),
+            parse_stack_s=sum(rec["query_block"]),
+            json_s=sum(rec["results_json"]), topn_s=sum(rec["topn"]),
+            device_ms=device_ms, peak_bytes=peak, ids_differ=ids_differ,
+            dist_rel_err=rel, cpu_s=cpu_s)
+        print(f"[{card}] 20.2 {metric} BRUTE, {NN_QUERIES} queries among "
+              f"{NN_BASE} x {NN_DIM}, k {NN_K}: train {train_s:.2f} s; "
+              f"predict {wall:.2f} s = load {res[metric]['load_s']:.2f} s + "
+              f"parse and stack {res[metric]['parse_stack_s']:.2f} s + "
+              f"top-k {res[metric]['topn_s']:.2f} s ({device_ms:.1f} device "
+              f"ms, CUDA events) + JSON {res[metric]['json_s']:.2f} s; peak "
+              f"device memory {peak / 2**30:.2f} GiB above the phase's start "
+              f"(the (Q, N) float32 matrix: {res['matrix_bytes'] / 1e9:.0f} "
+              f"GB); first {NN_CHECK} queries against the CPU route "
+              f"({cpu_s:.2f} s): {ids_differ} rows of ids differ, distances "
+              f"within {rel:.2e} relative", flush=True)
+        if ids_differ or not rel <= NN_DIST_RTOL:
+            problems.append(f"20.2 {metric}: {ids_differ} id rows differ, "
+                            f"distances {rel:.3g} from the CPU route")
+        if not peak < res["matrix_bytes"]:
+            problems.append(f"20.2 {metric}: peak {peak} bytes is not "
+                            f"below the whole matrix's")
+        if metric == "EUCLIDEAN":
+            routes = []
+            for route in ("card", "cpu"):
+                t0 = time.perf_counter()
+                with on_route(route):
+                    lsh = B.VectorNearestNeighborPredictBatchOp(
+                        selectedCol="v", outputCol="nn", topN=NN_K,
+                        solver="LSH").link_from(model, check).collect()
+                routes.append((list(lsh.col("nn")),
+                               time.perf_counter() - t0))
+            recall = float(np.mean([len(set(a) & set(b)) / NN_K for a, b in
+                                    zip(neighbour_rows(lsh), want)]))
+            res["LSH"] = dict(queries=NN_CHECK, wall_s=routes[0][1],
+                              cpu_s=routes[1][1],
+                              equal=routes[0][0] == routes[1][0],
+                              recall_at_k=recall)
+            print(f"[{card}] 20.2 LSH on {NN_CHECK} queries: "
+                  f"{routes[0][1]:.2f} s, CPU route {routes[1][1]:.2f} s, "
+                  f"{'equal' if res['LSH']['equal'] else 'DIFFERENT'}; "
+                  f"recall@{NN_K} against BRUTE {recall:.3f}", flush=True)
+            if not res["LSH"]["equal"]:
+                problems.append("20.2 LSH differs from the CPU route")
+        del model
+    return res
+
+
+def text_path(card, problems):
+    """20.3: Tokenizer → DocCountVectorizer → NaiveBayesTextClassifier on
+    phase 19.3's text8-layout documents labelled by topic (fit 4,000,
+    predict 1,000), the per-class counts against the CPU route;
+    DocHashCountVectorizer and Tfidf on all 5,000; TextRank keywords of 200
+    documents against the CPU route."""
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.graph import engine
+    from alink_tpu_torch.operator import batch as B
+    from alink_tpu_torch import pipeline as P
+
+    t0 = time.perf_counter()
+    docs, topics = text8_corpus(LDA_TOKENS, SEED, with_topics=True)
+    corpus_s = time.perf_counter() - t0
+    docs = np.asarray(docs, object)
+    train = B.TableSourceBatchOp(MTable(
+        {"doc": docs[:TEXT_TRAIN], "label": topics[:TEXT_TRAIN]}))
+    test = B.TableSourceBatchOp(MTable(
+        {"doc": docs[TEXT_TRAIN:], "label": topics[TEXT_TRAIN:]}))
+
+    def fit():
+        return P.Pipeline(
+            P.Tokenizer(selectedCol="doc", outputCol="tokens"),
+            P.DocCountVectorizer(selectedCol="tokens", outputCol="vec",
+                                 vocabSize=TEXT_VOCAB),
+            P.NaiveBayesTextClassifier(vectorCol="vec", labelCol="label",
+                                       predictionCol="pred",
+                                       modelType="Multinomial")).fit(train)
+
+    fit_s, model = timed(fit)
+    predict_s, pred = timed(lambda: model.transform(test).collect())
+    acc = float(np.mean(np.asarray(pred.col("pred"))
+                        == topics[TEXT_TRAIN:]))
+    majority = float(np.bincount(topics[:TEXT_TRAIN]).max() / TEXT_TRAIN)
+    with torch_device("cpu"):
+        cpu_fit_s, cpu_model = timed(fit)
+    card_nb = table_to_model(model.stages[-1].get_model_data())[1]
+    cpu_nb = table_to_model(cpu_model.stages[-1].get_model_data())[1]
+    counts_equal = all(np.array_equal(card_nb[k], cpu_nb[k])
+                       for k in ("logp", "priors"))
+    res = {"docs": len(docs), "corpus_s": corpus_s, "fit_s": fit_s,
+           "cpu_fit_s": cpu_fit_s, "predict_s": predict_s, "accuracy": acc,
+           "majority": majority, "counts_equal": counts_equal,
+           "vocab": int(card_nb["logp"].shape[1])}
+    print(f"[{card}] 20.3 Tokenizer → DocCountVectorizer(vocab "
+          f"{res['vocab']}) → NaiveBayesTextClassifier on {TEXT_TRAIN} "
+          f"documents: fit {fit_s:.2f} s (CPU route {cpu_fit_s:.2f} s), "
+          f"predict {len(docs) - TEXT_TRAIN} in {predict_s:.2f} s, accuracy "
+          f"{acc:.4f} against the topics (majority {majority:.4f}); per-class "
+          f"counts {'equal to' if counts_equal else 'DIFFER from'} the CPU "
+          f"route's", flush=True)
+    if not counts_equal:
+        problems.append("20.3 NaiveBayesText counts differ from the CPU "
+                        "route's")
+    if not acc >= majority + NB_MARGIN:
+        problems.append(f"20.3 accuracy {acc:.4f} is not {NB_MARGIN} above "
+                        f"the majority topic's {majority:.4f}")
+
+    everything = B.TableSourceBatchOp(MTable(
+        {"id": np.arange(len(docs)).astype(str).astype(object),
+         "doc": docs}))
+
+    def hashed():
+        m = B.DocHashCountVectorizerTrainBatchOp(selectedCol="doc") \
+            .link_from(everything)
+        return B.DocHashCountVectorizerPredictBatchOp(
+            selectedCol="doc", outputCol="vec").link_from(
+            m, everything).collect()
+
+    res["hash_s"], hv = timed(hashed)
+    res["tfidf_s"], tf = timed(lambda: B.TfidfBatchOp().link_from(
+        B.DocWordCountBatchOp(docIdCol="id", contentCol="doc").link_from(
+            everything)).collect())
+    res["tfidf_rows"] = tf.num_rows
+    if hv.num_rows != len(docs) or not tf.num_rows >= len(docs):
+        problems.append("20.3 DocHashCountVectorizer/Tfidf lost rows")
+    print(f"[{card}] 20.3 DocHashCountVectorizer on {len(docs)} documents "
+          f"{res['hash_s']:.2f} s; DocWordCount → Tfidf {res['tfidf_s']:.2f} "
+          f"s ({tf.num_rows} rows)", flush=True)
+
+    kw = B.TableSourceBatchOp(MTable(
+        {"id": np.arange(KEYWORD_DOCS).astype(str).astype(object),
+         "doc": docs[:KEYWORD_DOCS]}))
+    outs = []
+    for route in ("card", "cpu"):
+        with engine.superstep_trace() as runs, on_route(route):
+            wall, t = timed(lambda: B.KeywordsExtractionBatchOp(
+                docIdCol="id", selectedCol="doc").link_from(kw).collect())
+        outs.append((list(t.col("keywords")), wall, runs))
+    (card_kw, wall, runs), (cpu_kw, cpu_wall, _) = outs
+    differ = sum(a != b for a, b in zip(card_kw, cpu_kw))
+    res["keywords"] = dict(docs=KEYWORD_DOCS, wall_s=wall, cpu_wall_s=cpu_wall,
+                           pagerank_calls=len(runs),
+                           supersteps=sum(r["supersteps"] for r in runs),
+                           host_syncs=sum(r["host_syncs"] for r in runs),
+                           differ=differ)
+    print(f"[{card}] 20.3 KeywordsExtraction on {KEYWORD_DOCS} documents: "
+          f"{wall:.2f} s, {len(runs)} PageRank calls, "
+          f"{res['keywords']['supersteps']} supersteps (CPU route "
+          f"{cpu_wall:.2f} s); {differ} documents' keywords differ from the "
+          f"CPU route's", flush=True)
+    if differ:
+        problems.append(f"20.3 keywords of {differ} documents differ")
+    return res
+
+
+def constrained_features_path(card, problems):
+    """20.4: the Covertype-layout rows' 10 continuous columns, standardized:
+    ConstrainedLogisticRegression (alm; Aspect pinned to 0, Slope +
+    Hydrology ≤ 1) on both routes and its held-out predict; WOE of the
+    binned columns; BinarySelector on both routes."""
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator import batch as B
+
+    t0 = time.perf_counter()
+    X, y = covertype_data(COVTYPE_TRAIN + COVTYPE_TEST, SEED)
+    cols = list(CONS_FEATURES)
+
+    def table(lo, hi):
+        d = {c: X[lo:hi, j].astype(np.float64) for j, c in enumerate(cols)}
+        d["label"] = y[lo:hi]
+        return B.TableSourceBatchOp(MTable(d))
+
+    train, test = table(0, COVTYPE_TRAIN), \
+        table(COVTYPE_TRAIN, COVTYPE_TRAIN + COVTYPE_TEST)
+    del X
+    scaler = B.StandardScalerTrainBatchOp(selectedCols=cols).link_from(train)
+    train_s = B.TableSourceBatchOp(B.StandardScalerPredictBatchOp()
+                                   .link_from(scaler, train).collect())
+    test_s = B.StandardScalerPredictBatchOp().link_from(scaler, test)
+    data_s = time.perf_counter() - t0
+
+    def fit():
+        return B.ConstrainedLogisticRegressionTrainBatchOp(
+            featureCols=cols, labelCol="label",
+            constraint=json.dumps(CONS_SPEC), constrainedMethod="alm",
+            **CONS_FIT).link_from(train_s).collect()
+
+    fit_s, model = timed(fit)
+    with torch_device("cpu"):
+        cpu_fit_s, cpu_model = timed(fit)
+
+    def weights(m):
+        a = table_to_model(m)[1]
+        return np.concatenate([a["weights"], a["intercept"]]).astype(
+            np.float64)
+
+    w, w_cpu = weights(model), weights(cpu_model)
+    eq = float(np.abs(np.asarray(CONS_SPEC["A_eq"]) @ w
+                      - CONS_SPEC["b_eq"]).max())
+    ub = float((np.asarray(CONS_SPEC["A_ub"]) @ w - CONS_SPEC["b_ub"]).max())
+    gap = float(np.abs(w - w_cpu).max())
+    predict_s, pred = timed(lambda: B.LogisticRegressionPredictBatchOp(
+        predictionCol="pred").link_from(B.TableSourceBatchOp(model),
+                                        test_s).collect())
+    acc = float(np.mean(np.asarray(pred.col("pred"))
+                        == np.asarray(pred.col("label"))))
+    res = {"rows": COVTYPE_TRAIN, "data_s": data_s, "fit_s": fit_s,
+           "cpu_fit_s": cpu_fit_s, "eq_residual": eq, "ub_excess": ub,
+           "weight_gap": gap, "weights": w.tolist(),
+           "predict_s": predict_s, "heldout_accuracy": acc}
+    print(f"[{card}] 20.4 ConstrainedLogisticRegression (alm) on "
+          f"{COVTYPE_TRAIN} rows x {len(cols)}: fit {fit_s:.2f} s (CPU route "
+          f"{cpu_fit_s:.2f} s); |A_eq w − b_eq| {eq:.2e}, A_ub w − b_ub "
+          f"{ub:.2e}; weights within {gap:.2e} of the CPU route's; held-out "
+          f"accuracy {acc:.4f} on {COVTYPE_TEST} rows ({predict_s:.2f} s)",
+          flush=True)
+    if not (eq <= CONS_FEAS and ub <= CONS_FEAS):
+        problems.append(f"20.4 constraints not met: {eq:.3g}, {ub:.3g}")
+    if not gap <= CONS_WEIGHT_ATOL:
+        problems.append(f"20.4 weights {gap:.3g} from the CPU route's")
+
+    def woe():
+        q = B.QuantileDiscretizerTrainBatchOp(
+            selectedCols=cols, numBuckets=WOE_BUCKETS).link_from(train)
+        binned = B.QuantileDiscretizerPredictBatchOp().link_from(q, train)
+        m = B.WoeTrainBatchOp(selectedCols=cols, labelCol="label",
+                              positiveLabelValueString="1").link_from(binned)
+        return m.collect(), B.WoePredictBatchOp().link_from(m, binned) \
+            .collect()
+
+    res["woe_s"], (woe_model, woe_t) = timed(woe)
+    iv = table_to_model(woe_model)[0]["iv"]
+    res["iv"] = iv
+    if not all(np.isfinite(v) for v in iv.values()) \
+            or woe_t.num_rows != COVTYPE_TRAIN:
+        problems.append("20.4 WOE values not finite or rows lost")
+
+    def select():
+        m = B.BinarySelectorTrainBatchOp(
+            selectedCols=cols, labelCol="label",
+            maxSelected=SELECTOR_MAX).link_from(train_s).collect()
+        return table_to_model(m)[0]["selectedCols"]
+
+    res["selector_s"], chosen = timed(select)
+    with torch_device("cpu"):
+        cpu_sel_s, cpu_chosen = timed(select)
+    res.update(selected=chosen, cpu_selector_s=cpu_sel_s)
+    print(f"[{card}] 20.4 WOE of {len(cols)} columns in {WOE_BUCKETS} "
+          f"quantile bins: {res['woe_s']:.2f} s, IV "
+          f"{max(iv.values()):.3f} at most; BinarySelector "
+          f"{res['selector_s']:.2f} s chose {chosen} (CPU route "
+          f"{cpu_sel_s:.2f} s: {cpu_chosen})", flush=True)
+    if chosen != cpu_chosen:
+        problems.append(f"20.4 selector chose {chosen}, CPU {cpu_chosen}")
+    return res
+
+
+def graph_text_path(card):
+    """Phase 20: graphs, vector neighbours, text and constrained features
+    on the card, each held against the port's CPU route. No kernel of the
+    port is on this path: its launch count must stay 0."""
+    import torch
+
+    from alink_tpu_torch.native import kernels
+
+    if any(tf32_flags()):
+        fail(f"phase 20: TF32 is on {tf32_flags()}; the fp32 routes need "
+             f"it off")
+    problems = []
+    kernels.reset_launches()
+    out = {}
+    for part, fn in (("20.1", graph_engine_path),
+                     ("20.2", vector_neighbours_path),
+                     ("20.3", text_path), ("20.4", constrained_features_path)):
+        t0 = time.perf_counter()
+        out[part] = fn(card, problems)
+        out[part]["part_s"] = time.perf_counter() - t0
+    out["launches"] = dict(kernels.launches())
+    if sum(out["launches"].values()):
+        problems.append(f"phase 20 launched kernels of the port: "
+                        f"{out['launches']}")
+    torch.cuda.synchronize()
+    print(f"[{card}] phase 20: " + json.dumps(out, default=str), flush=True)
+    if problems:
+        fail("phase 20: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -7537,6 +8207,8 @@ def main() -> int:
     mark("phase 18 tuning")
     clustering_features_path(card)
     mark("phase 19 clustering and features")
+    graph_text_path(card)
+    mark("phase 20 graphs, text, neighbours and constrained features")
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]

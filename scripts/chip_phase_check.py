@@ -27,7 +27,11 @@ search on both routes, the families on the card and their int8 scorers),
 ``features`` (phase 19, the clustering and feature-engineering families:
 the Covertype feature pipeline with GaussianMixture, BisectingKMeans on the
 MNIST layout, LDA on the text8 layout and Dbscan, each against the CPU
-route; it builds no kernel).
+route; it builds no kernel), ``graph`` (phase 20: the graph engine's ops on
+a scale-17 Graph 500 graph and the host graph ops at scale 12, BRUTE and
+LSH vector neighbours in sift-128's shape, the text pipeline with
+NaiveBayesText and TextRank keywords, and the constrained features on the
+Covertype-layout rows, each against the CPU route; it builds no kernel).
 Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
@@ -46,7 +50,7 @@ sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
           "families", "ingest", "serving", "pretrain", "fleet", "dag",
-          "tuning", "features")
+          "tuning", "features", "graph")
 
 
 def main() -> int:
@@ -70,7 +74,7 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if not set(phases) <= {"ingest", "pretrain", "features"}:
+    if not set(phases) <= {"ingest", "pretrain", "features", "graph"}:
         kernels.build()
         print(f"build {kernels.build_seconds:.1f} s", flush=True)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
@@ -113,6 +117,7 @@ def main() -> int:
            "tuning": lambda: cs.tuning_path(card.splitlines()[0])[0],
            "features": lambda: cs.clustering_features_path(
                card.splitlines()[0]),
+           "graph": lambda: cs.graph_text_path(card.splitlines()[0]),
            "pretrain": lambda: cs.pretraining_path(workdir, peaks,
                                                    card.splitlines()[0])}
     out = {}

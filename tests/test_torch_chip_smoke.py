@@ -22,7 +22,10 @@ images; its ONNX writer must give the model's logits; its flax-layout
 variables must have the reference's tree. Phase 19 (clustering and
 feature engineering) must run end to end at a small size with the CPU in
 both routes, and fail when the card route's EM or LDA step drifts from the
-CPU route's.
+CPU route's. Phase 20 (graphs, vector neighbours, text, constrained
+features) likewise: end to end at a small size, no kernel launched, and a
+failure when the card route's PageRank, neighbour distances or
+NaiveBayesText counts part from the CPU route's.
 """
 
 import json
@@ -1243,4 +1246,101 @@ def test_clustering_features_phase_fails_when_the_routes_part(monkeypatch,
     fail = capsys.readouterr().out.splitlines()[-1]
     assert fail.startswith("FAIL: phase 19: ")
     for part in ("19.1: log-likelihood", "19.1: weights/means", "19.3: λ"):
+        assert part in fail, fail
+
+
+def _phase20_on_cpu(monkeypatch):
+    """Phase 20 at a small size with the CPU standing in for the card, as
+    ``_phase19_on_cpu`` sets it up."""
+    _phase19_on_cpu(monkeypatch)
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    for name, value in (("GRAPH_SCALE", 9), ("GRAPH_SMALL_SCALE", 7),
+                        ("KCORE_K", 4), ("NN_BASE", 6_000),
+                        ("NN_QUERIES", 300), ("NN_CLUSTERS", 30),
+                        ("NN_CHECK", 40), ("LDA_TOKENS", 240_000),
+                        ("TEXT_TRAIN", 200), ("TEXT_VOCAB", 3_000),
+                        ("KEYWORD_DOCS", 12)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_graph_text_phase_passes_on_the_cpu(monkeypatch, capsys):
+    """Phase 20 runs end to end at a small size on the CPU (both routes
+    the CPU): every part reports, no check fails, no kernel launches."""
+    _phase20_on_cpu(monkeypatch)
+    out = chip_smoke.graph_text_path("cpu stand-in")
+    assert set(out) == {"20.1", "20.2", "20.3", "20.4", "launches"}
+    assert sum(out["launches"].values()) == 0
+    g = out["20.1"]
+    assert g["edges"] == 16 << 9
+    pr = g["PageRankBatchOp"]
+    assert pr["l1"] == 0.0 and pr["card"]["supersteps"] == pr[
+        "cpu_supersteps"]
+    assert pr["card"]["host_syncs"] == pr["card"]["supersteps"]
+    assert g["ModularityCalBatchOp"]["equal"]
+    for metric in ("EUCLIDEAN", "COSINE"):
+        assert out["20.2"][metric]["ids_differ"] == 0
+    assert out["20.2"]["LSH"]["equal"]
+    t = out["20.3"]
+    assert t["counts_equal"] and t["keywords"]["differ"] == 0
+    assert t["keywords"]["pagerank_calls"] == 12
+    c = out["20.4"]
+    assert c["weight_gap"] == 0.0 and c["eq_residual"] <= 1e-2
+    assert "phase 20: {" in capsys.readouterr().out
+
+
+def test_graph_text_phase_is_in_main_after_phase_19():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("clustering_features_path(card)") \
+        < src.index("graph_text_path(card)") < src.index("line = {")
+
+
+def test_graph_text_phase_fails_when_the_routes_part(monkeypatch, capsys):
+    """A card route whose PageRank ranks, neighbour distances or
+    NaiveBayesText counts drift from the CPU route's fails the phase."""
+    import contextlib
+
+    from alink_tpu_torch.common.model import model_to_table
+    from alink_tpu_torch.operator.batch import graph as graph_ops
+    from alink_tpu_torch.operator.batch import nlp2, similarity
+
+    _phase20_on_cpu(monkeypatch)
+    cpu_route = []
+
+    @contextlib.contextmanager
+    def torch_device(name):
+        cpu_route.append(name)
+        try:
+            yield
+        finally:
+            cpu_route.pop()
+
+    pagerank = graph_ops.pagerank
+    topn = similarity.VectorNearestNeighborModelMapper.topn
+
+    def drifting_pagerank(*a, **kw):
+        pr = pagerank(*a, **kw)
+        return pr if cpu_route else pr * np.float32(1 + 1e-3)
+
+    def drifting_topn(self, Q):
+        idx, dist = topn(self, Q)
+        return idx, dist if cpu_route else dist * np.float32(1 + 1e-4)
+
+    def drifting_model(meta, arrays):
+        if "logp" in arrays and not cpu_route:
+            arrays = dict(arrays, logp=arrays["logp"] * np.float32(1.001))
+        return model_to_table(meta, arrays)
+
+    monkeypatch.setattr(chip_smoke, "torch_device", torch_device)
+    monkeypatch.setattr(graph_ops, "pagerank", drifting_pagerank)
+    monkeypatch.setattr(similarity.VectorNearestNeighborModelMapper, "topn",
+                        drifting_topn)
+    monkeypatch.setattr(nlp2, "model_to_table", drifting_model)
+    with pytest.raises(SystemExit):
+        chip_smoke.graph_text_path("cpu stand-in")
+    fail = capsys.readouterr().out.splitlines()[-1]
+    assert fail.startswith("FAIL: phase 20: ")
+    for part in ("20.1 PageRank", "20.2 EUCLIDEAN", "20.2 COSINE",
+                 "20.3 NaiveBayesText counts"):
         assert part in fail, fail

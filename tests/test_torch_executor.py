@@ -952,3 +952,83 @@ def test_slice_dag_matches_reference_and_is_exact_across_schedules(
     with file_open("memory://s/fused.csv") as f:
         lines = f.read().splitlines()
     assert len(lines) == got["main"].num_rows
+
+
+def test_mappers_on_one_model_table_decode_it_once(slice_inputs,
+                                                   monkeypatch):
+    """Every ``BertTextModelMapper`` that loads one model table object
+    shares one decode, also when two threads load it at once (the second
+    waits for the first's decode instead of decoding beside it under the
+    interpreter lock): the two predict branches of phase 17's DAG then
+    start together. A second table decodes again. Each DAG run decodes
+    its model once and still loads it once per BERT op."""
+    from alink_tpu_torch.common.metrics import metrics
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.io.ak import read_ak
+    from alink_tpu_torch.operator.batch import dl
+
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    path, rows, lr_rows = slice_inputs
+    table, other = read_ak(path), read_ak(path)
+    n_threads = 16
+    started = threading.Barrier(n_threads)
+    real_decode = dl.params_from_bytes
+    decodes = []
+
+    def slow_decode(buf):
+        decodes.append(threading.current_thread().name)
+        time.sleep(0.2)      # a decode long enough for the threads to meet
+        return real_decode(buf)
+
+    monkeypatch.setattr(dl, "params_from_bytes", slow_decode)
+
+    def load(out, i):
+        m = dl.BertTextModelMapper(None, None, Params(predictionCol="p"))
+        m.device = "cpu"
+        started.wait()
+        out[i] = m.load_model(table)
+
+    before = metrics.counter("dl.model_decodes")
+    mappers = [None] * n_threads
+    threads = [threading.Thread(target=load, args=(mappers, i))
+               for i in range(n_threads)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads)
+    assert len(decodes) == 1
+    assert metrics.counter("dl.model_decodes") - before == 1
+    assert all(m.model is mappers[0].model for m in mappers)
+    assert all(m.tokenizer is mappers[0].tokenizer for m in mappers)
+    third = dl.BertTextModelMapper(None, None, Params(predictionCol="p"))
+    third.device = "cpu"
+    third.load_model(other)
+    assert metrics.counter("dl.model_decodes") - before == 2
+    assert third.model is not mappers[0].model
+
+    port = _ns("alink_tpu_torch")
+    loads = []
+    orig = dl.BertTextModelMapper.load_model
+
+    def counted(mapper, model):
+        loads.append(threading.current_thread().name)
+        return orig(mapper, model)
+
+    monkeypatch.setattr(dl.BertTextModelMapper, "load_model", counted)
+    for label, knobs in (("fused", {}), ("unfused", {"ALINK_DAG_FUSION": "0"}),
+                         ("serial", {"ALINK_DAG_SCHEDULER": "off"})):
+        for k, v in knobs.items():
+            monkeypatch.setenv(k, v)
+        del loads[:]
+        before = metrics.counter("dl.model_decodes")
+        _slice_dag(port, path, rows, lr_rows, f"memory://s/once_{label}.csv")
+        assert metrics.counter("dl.model_decodes") - before == 1, label
+        assert len(loads) == 2, label
+        for k in knobs:
+            monkeypatch.delenv(k)

@@ -293,7 +293,7 @@ def test_port_stages_are_reference_stages():
     stages = [n for n in P.__all__ if n in PORT]
     assert sum(issubclass(PORT[n], (P.EstimatorBase, P.ModelBase))
                and PORT[n] not in (P.EstimatorBase, P.ModelBase)
-               for n in stages) == 100
+               for n in stages) == 113
     for name in stages:
         assert name in REF, name
         assert set(getattr(P, name).param_infos()) <= \
@@ -376,3 +376,85 @@ def test_stage_fits_through_pipeline_as_its_operator(name):
         assert [str(v) for v in out_got] == [str(v) for v in out_want]
     else:
         np.testing.assert_array_equal(out_got, out_want)
+
+
+def _slice_stage_cases():
+    """The ten stages of the feature3, feature4 and NLP families: each
+    fitted through a ``Pipeline`` in both packages."""
+    return {
+        "MultiHotEncoder": ("MultiHotEncoder", dict(selectedCols=["tags"],
+                                                    outputCol="out")),
+        "TargetEncoder": ("TargetEncoder", dict(selectedCols=["cat"],
+                                                labelCol="label",
+                                                outputCols=["out"])),
+        "MultiStringIndexer": ("MultiStringIndexer",
+                               dict(selectedCols=["cat", "cat2"],
+                                    outputCols=["o1", "o2"])),
+        "Binarizer": ("Binarizer", dict(selectedCol="a", threshold=0.5,
+                                        outputCol="out")),
+        "Bucketizer": ("Bucketizer", dict(selectedCols=["a", "b"],
+                                          cutsArray=[[0.3, 0.6], [0.5]],
+                                          outputCols=["o1", "o2"])),
+        "CrossFeature": ("CrossFeature", dict(selectedCols=["cat", "cat2"],
+                                              outputCol="out")),
+        "WoeEncoder": ("WoeEncoder", dict(selectedCols=["cat"],
+                                          labelCol="label")),
+        "NaiveBayesTextClassifier": (
+            "NaiveBayesTextClassifier",
+            dict(vectorCol="vec", labelCol="label", predictionCol="out",
+                 predictionDetailCol="detail")),
+        "Tokenizer": ("Tokenizer", dict(selectedCol="doc", outputCol="out")),
+        "RegexTokenizer": ("RegexTokenizer", dict(
+            selectedCol="doc", outputCol="out", pattern="[a-z]+",
+            gaps=False)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_slice_stage_cases()))
+def test_slice_stage_matches_reference(name):
+    """The stage's fitted pipeline transforms the seeded table as the
+    reference's does (tables equal); the saved model crosses."""
+    import importlib
+
+    from torch_table_parity import reference_session, remove_session, \
+        same_table
+
+    stage, kw = _slice_stage_cases()[name]
+    rng = np.random.default_rng(0)
+    n = 60
+    X = rng.random((n, 2))
+    words = np.asarray(["Ab", "cd", "ef", "GH", "x"])
+    cols = {
+        "a": X[:, 0], "b": X[:, 1],
+        "cat": np.asarray(rng.choice(["p", "q", "r"], n), object),
+        "cat2": np.asarray(rng.choice(["u", "v"], n), object),
+        "tags": np.asarray([",".join(rng.choice(["t1", "t2", "t3"], 2))
+                            for _ in range(n)], object),
+        "doc": np.asarray([" ".join(rng.choice(words, 4)) + " !"
+                           for _ in range(n)], object),
+        "vec": np.asarray([f"$6${int(i)}:{int(c)} {int(j)}:1"
+                           for i, j, c in zip(rng.integers(0, 3, n),
+                                              rng.integers(3, 6, n),
+                                              rng.integers(1, 4, n))],
+                          object),
+        "label": (X[:, 0] > 0.5).astype(np.int64)}
+    sid = reference_session()
+    try:
+        out = []
+        for pkg, extra in (("alink_tpu", dict(MLEnvironmentId=sid)),
+                           ("alink_tpu_torch", {})):
+            ops = importlib.import_module(pkg + ".operator.batch")
+            pl = importlib.import_module(pkg + ".pipeline")
+            stages = importlib.import_module(pkg + ".pipeline.estimators")
+            T = importlib.import_module(pkg + ".common.mtable")
+            schema = T.TableSchema(
+                list(cols), [T.AlinkTypes.SPARSE_VECTOR if c == "vec" else
+                             T.MTable(dict(cols)).schema.type_of(c)
+                             for c in cols])
+            src = ops.TableSourceBatchOp(T.MTable(dict(cols), schema))
+            model = pl.Pipeline(getattr(stages, stage)(**kw, **extra)) \
+                .fit(src)
+            out.append(model.transform(src).collect())
+    finally:
+        remove_session(sid)
+    same_table(out[1], out[0])

@@ -111,7 +111,14 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.operator.batch.feature2",
             "alink_tpu_torch.operator.batch.feature3",
             "alink_tpu_torch.operator.batch.vector",
-            "alink_tpu_torch.operator.batch.vector2"} \
+            "alink_tpu_torch.operator.batch.vector2",
+            "alink_tpu_torch.graph.engine",
+            "alink_tpu_torch.operator.batch.graph",
+            "alink_tpu_torch.operator.batch.associationrule",
+            "alink_tpu_torch.operator.batch.similarity",
+            "alink_tpu_torch.operator.batch.feature4",
+            "alink_tpu_torch.operator.batch.nlp",
+            "alink_tpu_torch.operator.batch.nlp2"} \
         <= set(scanned.split(","))
     smoke = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; print(','.join(sorted("
@@ -544,3 +551,113 @@ def test_ingest_entry_points_refuse_cpu_without_request(monkeypatch,
     monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
     assert TorchModelPredictStreamOp(modelPath=pt2, **kw).link_from(
         TableSourceStreamOp(t, chunkSize=3)).collect().num_rows == 4
+
+
+def test_graph_text_and_neighbour_entry_points_refuse_cpu_without_request(
+        monkeypatch):
+    """The graph engine, the graph ops on it, BRUTE vector neighbours,
+    NaiveBayesText, TextRank keywords and the constrained trainers run on
+    the card: without one they raise unless the CPU is asked for."""
+    import json
+
+    import torch
+
+    from alink_tpu_torch.common.exceptions import AkIllegalStateException
+    from alink_tpu_torch.common.mtable import AlinkTypes, MTable, TableSchema
+    from alink_tpu_torch.graph import MemoryGraph, connected_components, \
+        pagerank
+    from alink_tpu_torch.operator import batch as B
+    from alink_tpu_torch.pipeline import NaiveBayesTextClassifier, Pipeline
+
+    edges = B.TableSourceBatchOp(MTable({
+        "source": np.asarray(["a", "b", "c"], object),
+        "target": np.asarray(["b", "c", "a"], object)}))
+    g = MemoryGraph(3, np.array([0, 1]), np.array([1, 2]))
+    vecs = B.TableSourceBatchOp(MTable(
+        {"id": np.asarray(["x", "y"], object),
+         "v": np.asarray(["1 0", "0 1"], object)},
+        TableSchema(["id", "v"], [AlinkTypes.STRING,
+                                  AlinkTypes.DENSE_VECTOR])))
+    counts = B.TableSourceBatchOp(MTable(
+        {"v": np.asarray(["$3$0:1", "$3$2:2"], object),
+         "y": np.asarray([0, 1], np.int64)},
+        TableSchema(["v", "y"], [AlinkTypes.SPARSE_VECTOR,
+                                 AlinkTypes.LONG])))
+    docs = B.TableSourceBatchOp(MTable(
+        {"t": np.asarray(["graph ranks graph nodes"], object)}))
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(40, 2))
+    lin = B.TableSourceBatchOp(MTable(
+        {"a": X[:, 0], "b": X[:, 1],
+         "y": (X[:, 0] + rng.logistic(size=40) > 0).astype(np.int64)}))
+    cons = json.dumps({"A_eq": [[0.0, 1.0, 0.0]], "b_eq": [0.0]})
+    nn_model = B.VectorNearestNeighborTrainBatchOp(
+        idCol="id", selectedCol="v").link_from(vecs)
+    runs = [lambda: pagerank(g), lambda: connected_components(g)]
+    for op in (B.PageRankBatchOp(), B.ConnectedComponentsBatchOp(),
+               B.KCoreBatchOp(k=1),
+               B.SingleSourceShortestPathBatchOp(sourcePoint="a"),
+               B.MultiSourceShortestPathBatchOp(sourcePoints=["a"]),
+               B.CommunityDetectionClusterBatchOp()):
+        runs.append(lambda op=op: op.link_from(edges).collect())
+    runs += [
+        lambda: B.VectorNearestNeighborPredictBatchOp(selectedCol="v")
+        .link_from(nn_model, vecs).collect(),
+        lambda: B.NaiveBayesTextTrainBatchOp(vectorCol="v", labelCol="y")
+        .link_from(counts).collect(),
+        lambda: Pipeline(NaiveBayesTextClassifier(
+            vectorCol="v", labelCol="y", predictionCol="p")).fit(counts),
+        lambda: B.KeywordsExtractionBatchOp(selectedCol="t")
+        .link_from(docs).collect(),
+        lambda: B.ConstrainedLogisticRegressionTrainBatchOp(
+            labelCol="y", featureCols=["a", "b"], constraint=cons)
+        .link_from(lin).collect(),
+        lambda: B.ConstrainedLinearRegTrainBatchOp(
+            labelCol="y", featureCols=["a", "b"], constraint=cons)
+        .link_from(lin).collect(),
+        lambda: B.ConstrainedDivergenceTrainBatchOp(
+            labelCol="y", featureCols=["a", "b"]).link_from(lin).collect(),
+    ]
+    monkeypatch.delenv("ALINK_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in runs:
+        with pytest.raises(AkIllegalStateException):
+            run()
+    # the host ops need no card; asking for the CPU runs the rest there
+    assert B.LouvainBatchOp().link_from(edges).collect().num_rows == 3
+    assert pagerank(g, device="cpu").shape == (3,)
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    for run in runs:
+        run()
+
+
+@pytest.mark.parametrize("module", [
+    "graph.engine", "operator.batch.graph", "operator.batch.associationrule",
+    "operator.batch.similarity", "operator.batch.feature4",
+    "operator.batch.nlp", "operator.batch.nlp2"])
+def test_slice16_classes_and_params_are_the_references(module):
+    """Every class the reference module defines has a counterpart of the
+    same name in the port's module, with the same ParamInfo names,
+    defaults and aliases."""
+    import importlib
+    import inspect
+
+    ref = importlib.import_module(f"alink_tpu.{module}")
+    port = importlib.import_module(f"alink_tpu_torch.{module}")
+
+    def params(cls):
+        out = {}
+        for klass in reversed(cls.__mro__):
+            for v in vars(klass).values():
+                if type(v).__name__ == "ParamInfo":
+                    out[v.name] = (repr(v.default),
+                                   tuple(getattr(v, "aliases", ()) or ()))
+        return out
+
+    classes = [n for n, c in vars(ref).items() if inspect.isclass(c)
+               and c.__module__ == ref.__name__]
+    assert classes
+    for name in classes:
+        assert hasattr(port, name), name
+        assert params(getattr(port, name)) == params(getattr(ref, name)), \
+            name
