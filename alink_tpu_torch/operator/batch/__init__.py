@@ -334,3 +334,71 @@ from .nlp2 import (NaiveBayesTextPredictBatchOp, NaiveBayesTextTrainBatchOp,
                    TextApproxNearestNeighborTrainBatchOp,
                    VectorApproxNearestNeighborPredictBatchOp,
                    VectorApproxNearestNeighborTrainBatchOp)
+from .recommendation import (AlsItemsPerUserRecommBatchOp,
+                             AlsRateRecommBatchOp,
+                             AlsSimilarItemsRecommBatchOp, AlsTrainBatchOp,
+                             AlsUsersPerItemRecommBatchOp,
+                             DeepFmItemsPerUserRecommBatchOp,
+                             DeepFmRateRecommBatchOp,
+                             DeepFmRecommTrainBatchOp,
+                             FmItemsPerUserRecommBatchOp,
+                             FmRateRecommBatchOp, FmRecommTrainBatchOp,
+                             FmUsersPerItemRecommBatchOp,
+                             ItemCfItemsPerUserRecommBatchOp,
+                             ItemCfRateRecommBatchOp,
+                             ItemCfSimilarItemsRecommBatchOp,
+                             ItemCfTrainBatchOp, LeaveKObjectOutBatchOp,
+                             LeaveTopKObjectOutBatchOp,
+                             SwingSimilarItemsRecommBatchOp,
+                             SwingTrainBatchOp, UserCfRateRecommBatchOp,
+                             UserCfTrainBatchOp)
+from .recommendation2 import (AlsForHotPointTrainBatchOp,
+                              AlsImplicitForHotPointTrainBatchOp,
+                              AlsImplicitTrainBatchOp,
+                              AlsSimilarUsersRecommBatchOp,
+                              FmRecommBinaryImplicitTrainBatchOp,
+                              ItemCfUsersPerItemRecommBatchOp, MfAlsBatchOp,
+                              MfAlsForHotPointBatchOp,
+                              NegativeItemSamplingBatchOp, RankingListBatchOp,
+                              RecommendationRankingBatchOp,
+                              SwingRecommBatchOp,
+                              UserCfItemsPerUserRecommBatchOp,
+                              UserCfSimilarUsersRecommBatchOp,
+                              UserCfUsersPerItemRecommBatchOp,
+                              VecDotItemsPerUserRecommBatchOp,
+                              VecDotModelGeneratorBatchOp)
+from .outlier import (BoxPlotOutlier4GroupedDataBatchOp, BoxPlotOutlierBatchOp,
+                      CooksDistanceOutlierBatchOp,
+                      CopodOutlier4GroupedDataBatchOp, CopodOutlierBatchOp,
+                      DbscanModelOutlierPredictBatchOp,
+                      DbscanOutlier4GroupedDataBatchOp, DbscanOutlierBatchOp,
+                      DbscanPredictBatchOp, DynamicTimeWarpOutlierBatchOp,
+                      EcodOutlier4GroupedDataBatchOp, EcodOutlierBatchOp,
+                      EsdOutlier4GroupedDataBatchOp, EsdOutlierBatchOp,
+                      EvalOutlierBatchOp, GroupDbscanModelBatchOp,
+                      HbosOutlier4GroupedDataBatchOp, HbosOutlierBatchOp,
+                      IForestModelOutlierPredictBatchOp,
+                      IForestModelOutlierTrainBatchOp,
+                      IForestOutlier4GroupedDataBatchOp,
+                      IForestOutlierBatchOp,
+                      KSigmaOutlier4GroupedDataBatchOp, KSigmaOutlierBatchOp,
+                      KdeOutlier4GroupedDataBatchOp, KdeOutlierBatchOp,
+                      LofOutlier4GroupedDataBatchOp, LofOutlierBatchOp,
+                      MadOutlier4GroupedDataBatchOp, MadOutlierBatchOp,
+                      OcsvmModelOutlierPredictBatchOp,
+                      OcsvmModelOutlierTrainBatchOp,
+                      OcsvmOutlier4GroupedDataBatchOp, OcsvmOutlierBatchOp,
+                      SHEsdOutlierBatchOp, ShEsdOutlier4GroupedDataBatchOp,
+                      ShEsdOutlierBatchOp, SosOutlier4GroupedDataBatchOp,
+                      SosOutlierBatchOp)
+from .utils2 import (AppendIdBatchOp, AppendModelStreamFileSinkBatchOp,
+                     DummySinkBatchOp, FlattenMTableBatchOp,
+                     GroupDataToMTableBatchOp, TextSinkBatchOp)
+from .finance import (GroupScorecardPredictBatchOp, GroupScorecardTrainBatchOp,
+                      PsiBatchOp, ScorecardPredictBatchOp,
+                      ScorecardTrainBatchOp)
+from .misc2 import (AddressParserBatchOp, BaseFormatTransBatchOp,
+                    BaseNearestNeighborTrainBatchOp, BaseRecommBatchOp,
+                    BaseSinkBatchOp, BaseSourceBatchOp, BaseSqlApiBatchOp,
+                    PSIBatchOp, SomBatchOp, SparseFeatureIndexerPredictBatchOp,
+                    SparseFeatureIndexerTrainBatchOp)

@@ -9,6 +9,7 @@ from .base import (
     StreamOperator,
     TableSourceStreamOp,
 )
+from .modelstream import FileModelStreamSink, scan_model_dir
 from .modelpredict import (
     OnnxModelPredictStreamOp,
     StableHloModelPredictStreamOp,
@@ -18,6 +19,7 @@ from .modelpredict import (
 
 __all__ = [
     "CsvSourceStreamOp",
+    "FileModelStreamSink",
     "MapStreamOp",
     "ModelMapStreamOp",
     "StreamOperator",
@@ -26,4 +28,5 @@ __all__ = [
     "StableHloModelPredictStreamOp",
     "TFSavedModelPredictStreamOp",
     "TorchModelPredictStreamOp",
+    "scan_model_dir",
 ]

@@ -56,6 +56,7 @@ def optimize(
     history: int = 10,
     num_search_step: int = 40,
     batch_size: int = 0,
+    float64: bool = False,
 ) -> OptimResult:
     """Minimize ``sum(obj.local_loss)/N + l1·|w| + l2/2·|w|²`` over the
     ranks of the data axis, on ``device`` (see
@@ -63,7 +64,12 @@ def optimize(
 
     ``l2`` may be a scalar or a per-parameter vector of length
     ``obj.num_params`` (e.g. FM's separate lambda0/1/2 on intercept, linear
-    weights, and factors — reference: optim/FmOptimizer.java)."""
+    weights, and factors — reference: optim/FmOptimizer.java).
+
+    ``float64=True`` stages the data and runs every step in float64
+    (the reference runs float32): where the loss is flat along some
+    direction, float32 roundings let the card and the CPU stop at points
+    that part along it."""
     import torch
     from torch.func import grad_and_value, hessian, vmap
 
@@ -78,27 +84,32 @@ def optimize(
         method = "owlqn"
 
     device = resolve_device(device)
+    npd = np.float64 if float64 else np.float32
+    td = torch.float64 if float64 else torch.float32
     sparse = isinstance(X, SparseBlock)
     if sparse and method in ("sgd", "newton"):
         raise ValueError(f"sparse feature blocks unsupported for {method}")
     n = X.idx.shape[0] if sparse else X.shape[0]
     if sample_weights is None:
-        sample_weights = np.ones(n, dtype=np.float32)
+        sample_weights = np.ones(n, dtype=npd)
     if sparse:
         idx_s, mask = shard_rows(device, np.asarray(X.idx, np.int32),
                                  with_mask=True)
         Xs = SparseBlock(idx_s, shard_rows(device,
-                                           np.asarray(X.val, np.float32)))
+                                           np.asarray(X.val, npd)))
     else:
-        Xs, mask = shard_rows(device, np.asarray(X, np.float32),
+        Xs, mask = shard_rows(device, np.asarray(X, npd),
                               with_mask=True)
-    ys = shard_rows(device, np.asarray(y, np.float32))
-    wts = shard_rows(device, np.asarray(sample_weights, np.float32))
+    ys = shard_rows(device, np.asarray(y, npd))
+    wts = shard_rows(device, np.asarray(sample_weights, npd))
+    if float64:  # staging lands 64-bit floats as float32
+        Xs = (SparseBlock(Xs.idx, Xs.val.to(td)) if sparse else Xs.to(td))
+        mask, ys, wts = mask.to(td), ys.to(td), wts.to(td)
     dim = obj.num_params
-    w = (torch.zeros(dim, dtype=torch.float32, device=device) if w0 is None
-         else torch.as_tensor(np.asarray(w0, np.float32), device=device))
+    w = (torch.zeros(dim, dtype=td, device=device) if w0 is None
+         else torch.as_tensor(np.asarray(w0, npd), device=device))
     if np.ndim(l2):
-        l2 = torch.as_tensor(np.asarray(l2, np.float32), device=device)
+        l2 = torch.as_tensor(np.asarray(l2, npd), device=device)
     m = history
 
     wt_eff = wts * mask  # zero out padded rows
@@ -155,7 +166,7 @@ def optimize(
         return -r
 
     # ---------------- line search (vectorized CalcLosses) -----------------
-    steps = torch.pow(0.5, torch.arange(num_search_step, dtype=torch.float32,
+    steps = torch.pow(0.5, torch.arange(num_search_step, dtype=td,
                                         device=device))
     last_step = torch.tensor(num_search_step - 1, device=device)
 
@@ -186,8 +197,8 @@ def optimize(
     if method in ("lbfgs", "owlqn"):
         owlqn = method == "owlqn"
         loss, g = value_and_grad(w)
-        S = torch.zeros((m, dim), dtype=torch.float32, device=device)
-        Y = torch.zeros((m, dim), dtype=torch.float32, device=device)
+        S = torch.zeros((m, dim), dtype=td, device=device)
+        Y = torch.zeros((m, dim), dtype=td, device=device)
         while k < max_iter:
             eff_g = pseudo_grad(w, g) if owlqn else g
             d = two_loop(eff_g, S, Y, k)
@@ -211,7 +222,7 @@ def optimize(
                 break
     elif method in ("gd", "newton"):
         if method == "newton":
-            eye = torch.eye(dim, dtype=torch.float32, device=device)
+            eye = torch.eye(dim, dtype=td, device=device)
 
             def direction(w, g):
                 H = hessian(obj.local_loss)(w, Xs, ys, wt_eff) / total_w

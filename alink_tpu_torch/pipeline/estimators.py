@@ -20,7 +20,9 @@ Binarizer.java, Bucketizer.java, CrossFeature.java,
 pipeline/dataproc/MultiStringIndexer.java, pipeline/finance/WoeEncoder.java,
 pipeline/classification/NaiveBayesTextClassifier.java,
 pipeline/nlp/Tokenizer.java, RegexTokenizer.java,
-Cart.java, Id3.java, pipeline/nlp/Word2Vec.java — thin Trainer wrappers over
+Cart.java, Id3.java, pipeline/nlp/Word2Vec.java,
+pipeline/recommendation/ALS.java, pipeline/dataproc/SparseFeatureIndexer.java
+— thin Trainer wrappers over
 the corresponding BatchOps). Class names are the reference's: a saved
 pipeline model names its stages by class. The stages that the reference's
 ``pipeline/generated.py`` builds from its spec tables (KerasSequential,
@@ -50,8 +52,10 @@ from ..operator.batch import feature as _feat
 from ..operator.batch import feature2 as _feat2
 from ..operator.batch import feature3 as _feat3
 from ..operator.batch import feature4 as _feat4
+from ..operator.batch import misc2 as _misc2
 from ..operator.batch import nlp as _nlp
 from ..operator.batch import nlp2 as _nlp2
+from ..operator.batch import recommendation as _rec
 from ..operator.batch import tree as _tree
 from .base import EstimatorBase, ModelBase, TransformerBase
 
@@ -658,6 +662,48 @@ class RegexTokenizer(TransformerBase):
 # -- the reference's generated stages -----------------------------------------
 # name -> (train op, predict op, model class name), the entries of the
 # reference's pipeline/generated.py ESTIMATORS table whose ops the port has
+# -- recommendation ----------------------------------------------------------
+
+
+class ALSModel(ModelBase):
+    """transform() scores (user, item) pairs with the factor model."""
+
+    _predict_op_cls = _rec.AlsRateRecommBatchOp
+
+
+class ALS(EstimatorBase, _rec.HasRecommTripleCols):
+    """(reference: pipeline/recommendation/ALS.java / AlsRateRecommender)"""
+
+    _train_op_cls = _rec.AlsTrainBatchOp
+    _model_cls = ALSModel
+    RANK = _rec.AlsTrainBatchOp.RANK
+    NUM_ITER = _rec.AlsTrainBatchOp.NUM_ITER
+    LAMBDA = _rec.AlsTrainBatchOp.LAMBDA
+    IMPLICIT_PREFS = _rec.AlsTrainBatchOp.IMPLICIT_PREFS
+    ALPHA = _rec.AlsTrainBatchOp.ALPHA
+    PREDICTION_COL = _rec._AlsRecommMapper.PREDICTION_COL
+
+
+# -- sparse feature indexing -------------------------------------------------
+
+
+class SparseFeatureIndexerModel(ModelBase):
+    _predict_op_cls = _misc2.SparseFeatureIndexerPredictBatchOp
+
+
+class SparseFeatureIndexer(EstimatorBase):
+    """(reference: pipeline/dataproc/SparseFeatureIndexer.java)"""
+
+    _train_op_cls = _misc2.SparseFeatureIndexerTrainBatchOp
+    _model_cls = SparseFeatureIndexerModel
+    SELECTED_COL = _feat2.HasSelectedCol.SELECTED_COL
+    OUTPUT_COL = _feat2.HasOutputCol.OUTPUT_COL
+    KV_DELIMITER = _misc2.SparseFeatureIndexerTrainBatchOp.KV_DELIMITER
+    FEATURE_DELIMITER = \
+        _misc2.SparseFeatureIndexerTrainBatchOp.FEATURE_DELIMITER
+    MIN_FREQUENCY = _misc2.SparseFeatureIndexerTrainBatchOp.MIN_FREQUENCY
+
+
 GENERATED: Dict[str, tuple] = {
     "C45Encoder": (_tree.C45EncoderTrainBatchOp,
                    _tree.TreeModelEncoderBatchOp, "C45EncoderModel"),

@@ -208,8 +208,9 @@ non-zero:
 14. BERT-base serving through ``ModelServer`` (``serving_path``; the
     flash kernel on every batch): phase 4's model table as a one-stage
     ``BertClassificationModel`` pipeline ``.ak`` (written in the
-    background while 14.5 and 14.7, which serve in-memory pipelines, run
-    first); (14.1) ``load`` with 8
+    background from phase 5 on, or while 14.5 and 14.7, which serve
+    in-memory pipelines, run first when phase 14 runs alone); (14.1)
+    ``load`` with 8
     real texts warms the 8 rungs 8 … 64 (12 flash launches each) and
     writes the sidecar with its ladder and shape signatures; (14.2) 8
     client threads send 512 single-row requests beside 4 predict_many of
@@ -356,7 +357,9 @@ non-zero:
     20,000 rows of 19.1's PCA output (ε the median 10th-neighbour distance
     of 1,000 rows, minPoints 10): the ε-tiles' and the host expansion's
     seconds, labels against the CPU route's;
-    ``scripts/chip_phase_check.py features`` runs this phase alone;
+    ``scripts/chip_phase_check.py features`` runs this phase alone. It
+    runs first, while the kernels of step 2 build (host work of nvcc
+    beside it), and its walls are taken so;
 20. graphs, vector neighbours, text and constrained features
     (``graph_text_path``; no kernel of the port: its launch count must stay
     0; TF32 must be off), every op as ``TableSourceBatchOp`` → op →
@@ -390,7 +393,43 @@ non-zero:
     on both routes and its held-out predict; WOE of the
     columns in 10 quantile bins; ``BinarySelectorTrainBatchOp`` on both
     routes. ``scripts/chip_phase_check.py graph`` runs this phase alone;
-21. one JSON line of kernels, then the device line last.
+21. recommendation, outliers and finance (``recomm_outlier_path``; no
+    kernel of the port: its launch count must stay 0; TF32 must be off),
+    every op as ``TableSourceBatchOp`` → op → ``collect()``: (21.1)
+    1,000,209 ratings in GroupLens MovieLens-1M's shape (6,040 users of
+    at least 20 ratings, Zipf activity to 2,314; 3,706 items of Zipf
+    popularity), 100,000 held out: ``AlsTrainBatchOp`` (rank 10, 10
+    sweeps, λ 0.1) with its host list build, widths and gather bytes,
+    device ms a half-sweep (CUDA events), peak memory and the fit's
+    device busy ms and idle share (``torch.profiler``), the held-out RMSE
+    through ``AlsRateRecommBatchOp``, items for all users and similar
+    items; the same fit on the CPU route, its held-out predictions and
+    its first 100 users' top-10 against the card's; a blocked half-sweep
+    against the unblocked; the implicit (α 40) and hot-point (cap 500)
+    variants; ``ItemCfTrainBatchOp`` (cosine, 64) on both routes, items
+    for 1,000 users, ``UserCfTrainBatchOp``; ``SwingTrainBatchOp`` on the
+    SWING_ITEMS most-rated items (a cut; host work on either route, so
+    timed only); FM and DeepFM for FM_EPOCHS epochs on both routes, the
+    held-out RMSE of each; (21.2) 7,603 × 100 rows in ODDS mnist's shape
+    (700 outliers) through KDE, LOF, SOS (on its first SOS_ROWS, a cut),
+    HBOS, ECOD, COPOD, IForest, OCSVM (scikit-learn's γ "scale") and
+    DbscanOutlier, each scored by ``EvalOutlierBatchOp``, those with
+    device work (all but HBOS, ECOD and COPOD) against the CPU route on
+    the same rows; 284,807 × 30 rows in the ULB credit-card set's shape
+    (492 frauds) through the IForest and OCSVM model ops, IForest's on
+    both routes, OCSVM's routes compared on its first OCSVM_CHECK_ROWS (a
+    cut); k-sigma over 1,000 groups through ``parallel_apply`` against a
+    one-thread session; (21.3) the Covertype-layout rows' 10 continuous
+    columns (class 1 against the rest): ``ScorecardTrain/PredictBatchOp``,
+    the per-wilderness ``GroupScorecard*`` and ``PsiBatchOp`` between
+    training and held-out rows, each on both routes;
+    ``SparseFeatureIndexerTrain/Predict`` on seeded k:v strings on both
+    routes. ``scripts/chip_phase_check.py recomm`` runs this phase alone.
+    Phase 21 runs in a second process (``python3 chip_smoke.py --side``,
+    started by this one, SIDE_THREADS host threads) while phase 20 runs
+    here: it builds and launches no kernel, keeps its own launch counts,
+    and its output is printed after phase 20's;
+22. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -583,6 +622,27 @@ CONS_WEIGHT_ATOL = 1e-3 of the CPU route's (float32 sums over 522,911 rows
 in another order; each L-BFGS runs to epsilon 1e-10, so the routes stop
 near one optimum rather than wherever the default 1e-6 leaves them on the
 flat log-loss). BinarySelector's choice equal (host least squares).
+Phase 21, card against the port's CPU route on the same inputs: ALS's
+held-out predictions after the 10 sweeps within ALS_RATE_ATOL = 1e-4 and
+top-10 ids equal except where the CPU route's score lies within
+ALS_TIE_ATOL = 1e-5 of a neighbour's (the Gramians, solves and top-K
+scores run in float64 over float32 factors, rounded once a half-sweep); a
+blocked half-sweep equal to the unblocked; ItemCF's neighbour lists equal
+except at ties within CF_SIM_ATOL = 1e-6, similarities within it (float64
+products rounded to float32); FM's and DeepFM's held-out RMSE within
+FM_RMSE_ATOL = 1e-4 (the card's gradient scatter-adds in another order);
+the pairwise detectors' scores within OUTLIER_SCORE_RTOL = 1e-5 relative
+(float64 distances rounded to float32) and their flags equal; IForest's
+scores (as the ops write them, to 6 decimals) and flags equal (the
+descent's float64 comparisons and sums run in the host's order), the
+model op's on all 284,807 rows; OCSVM's scores within
+OCSVM_SCORE_ATOL = 1e-3 (float64 features and Adam) and flags equal
+except where the score lies within that of 0; each detector's AUC at
+least its AUC_FLOORS entry (the CPU route's AUC on these rows less 0.02);
+the grouped k-sigma equal to the serial run; the scorecards' scores
+within SCORECARD_ATOL = 1e-2 points (L-BFGS in float64: in float32 the
+routes stopped 1.1 points apart); PSI and the
+sparse indexer equal (host).
 """
 
 from __future__ import annotations
@@ -1096,20 +1156,16 @@ def forward_ms(model, enc, reps: int = 3, precision=None) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def main_path(workdir, cfg):
+def write_bert_model(workdir, cfg):
+    """Phase 4's model on the host: BERT-base weights from seed SEED,
+    encoded and written to ``.ak`` (no device work: ``main`` runs it beside
+    the kernel build). Returns the seeded generator where the weights left
+    it, the vocabulary, the path and the seconds it took."""
     import dataclasses
 
-    import torch
-
     from alink_tpu_torch.common.model import model_to_table
-    from alink_tpu_torch.common.mtable import MTable
-    from alink_tpu_torch.dl.modules import TransformerEncoder
-    from alink_tpu_torch.dl.train import predict_model
-    from alink_tpu_torch.mapper import softmax_np
-    from alink_tpu_torch.native import kernels
-    from alink_tpu_torch.operator.batch import (
-        AkSinkBatchOp, AkSourceBatchOp, BertTextClassifierPredictBatchOp,
-        BertTextModelMapper, TableSourceBatchOp)
+    from alink_tpu_torch.operator.batch import AkSinkBatchOp, \
+        TableSourceBatchOp
     from alink_tpu_torch.operator.batch.dl import params_to_bytes
 
     rng = np.random.default_rng(SEED)
@@ -1126,10 +1182,30 @@ def main_path(workdir, cfg):
     path = os.path.join(workdir, "bert_base.ak")
     AkSinkBatchOp(filePath=path, overwriteSink=True).link_from(
         TableSourceBatchOp(model_table)).collect()
+    return rng, vocab, path, time.perf_counter() - t0
+
+
+def main_path(workdir, cfg, model):
+    """Phase 4; ``model`` is ``write_bert_model``'s result (``main`` runs
+    it beside the kernel build)."""
+    import dataclasses
+
+    import torch
+
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.dl.modules import TransformerEncoder
+    from alink_tpu_torch.dl.train import predict_model
+    from alink_tpu_torch.mapper import softmax_np
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.operator.batch import (
+        AkSourceBatchOp, BertTextClassifierPredictBatchOp,
+        BertTextModelMapper, TableSourceBatchOp)
+
+    rng, vocab, path, write_s = model
     model_src = AkSourceBatchOp(filePath=path)
     print(f"model: BERT-base weights from seed {SEED}, encoded and written to "
-          f".ak ({os.path.getsize(path) / 1e6:.1f} MB) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f".ak ({os.path.getsize(path) / 1e6:.1f} MB) in {write_s:.1f} s "
+          f"ahead of the phase", flush=True)
 
     requests = []
     for n in REQUEST_ROWS:
@@ -4860,9 +4936,23 @@ def kept_model(predictor):
     fail("14: no loaded mapper in the predictor's plan")
 
 
-def serving_path(workdir, served_main, card):
+def write_serving_pipeline(workdir, served_main):
+    """Phase 14's 406 MB pipeline ``.ak`` (about half a minute of one core
+    in zlib, which releases the GIL); ``main`` runs it in a thread from
+    phase 5 on. Returns the seconds it took."""
+    from alink_tpu_torch.operator.batch import AkSourceBatchOp
+
+    t0 = time.perf_counter()
+    serving_pipeline(AkSourceBatchOp(filePath=served_main["path"]).collect(),
+                     os.path.join(workdir, "bert_serving.ak"))
+    return time.perf_counter() - t0
+
+
+def serving_path(workdir, served_main, card, written):
     """Phase 14; any failed check fails the run after all are reported.
-    Returns (flash launches, numbers)."""
+    ``written`` is the future of ``write_serving_pipeline``, started ahead
+    of the phase: 14.5 and 14.7 serve pipelines held in memory, 14.1
+    loads the file by path. Returns (flash launches, numbers)."""
     import threading
 
     import torch
@@ -4899,21 +4989,6 @@ def serving_path(workdir, served_main, card):
     def flash():
         return kernels.launches()["flash_block_update"]
 
-    # the deflated write of the 406 MB pipeline (about half a minute of
-    # one core, in zlib, which releases the GIL) runs beside 14.5 and
-    # 14.7, which serve pipelines held in memory; 14.1 loads it by path
-    saved = []
-
-    def save():
-        t0 = time.perf_counter()
-        try:
-            serving_pipeline(table, path)
-            saved.append(time.perf_counter() - t0)
-        except BaseException as e:  # noqa: BLE001 — reported on the join
-            saved.append(e)
-
-    saver = threading.Thread(target=save, daemon=True)
-    saver.start()
     kernels.reset_launches()
 
     # 14.5: bf16 and int8 loads, calibrated on the warmup rows, gated
@@ -4956,10 +5031,10 @@ def serving_path(workdir, served_main, card):
 
     # 14.7: a failing batch
     problems += check_batch_errors()
-    saver.join(timeout=600)
-    if saver.is_alive() or not saved or not isinstance(saved[0], float):
-        fail(f"14: the serving pipeline was not written: {saved}")
-    out["save_s"] = saved[0]
+    try:
+        out["save_s"] = written.result(timeout=600)
+    except BaseException as e:  # noqa: BLE001 — a failed check
+        fail(f"14: the serving pipeline was not written: {e!r}")
 
     # 14.1: load, the ladder warmup, the sidecar; the shape record and the
     # serving histograms (14.2's quantiles) start empty, as in a fresh
@@ -8087,6 +8162,785 @@ def graph_text_path(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: recommendation, outliers and finance (no kernel of the port)
+# ---------------------------------------------------------------------------
+
+ML_USERS, ML_ITEMS = 6_040, 3_706     # GroupLens MovieLens-1M (its README):
+ML_RATINGS, ML_MIN_RATINGS = 1_000_209, 20   # 1-5 stars, ≥ 20 a user
+ML_MAX_USER_RATINGS = 2_314           # the data set's most active user
+ML_ITEM_ZIPF = 0.5                    # popularity ∝ rank^-0.5
+ML_USER_ZIPF = 0.9                    # activity above the 20 ∝ rank^-0.9
+ML_HELD_OUT = 100_000
+ALS = dict(rank=10, numIter=10, **{"lambda": 0.1})   # Alink's defaults
+ALS_RATE_ATOL = 1e-4        # held-out predictions, card vs CPU route
+ALS_TIE_ATOL = 1e-5         # top-10: ids may differ only at such a near tie
+ALS_CHECK_USERS = 100
+ALS_BLOCK_ROWS = 1_024      # the forced block of the blocked-sweep check
+ALS_IMPLICIT_ALPHA = 40.0
+HOT_POINT_CAP = 500
+ITEMCF = dict(similarityType="cosine", maxNeighborNumber=64)
+ITEMCF_USERS = 1_000
+CF_SIM_ATOL = 1e-6          # similarities, card vs CPU route
+SWING_ITEMS = 60            # the most-rated items Swing runs on: a cut
+# (the reference's loop, kept on the host, costs ~1 ms a pair of them)
+FM_EPOCHS = 10              # "a few epochs" of full-batch Adam
+FM = dict(rank=10, learnRate=0.05)
+DEEPFM = dict(rank=8, hiddenSize=32, learnRate=0.02)
+FM_RMSE_ATOL = 1e-4         # held-out RMSE, card vs CPU route
+MNIST_ROWS, MNIST_DIM, MNIST_OUTLIERS = 7_603, 100, 700   # ODDS mnist
+CREDIT_ROWS, CREDIT_DIM, CREDIT_FRAUD = 284_807, 30, 492  # ULB credit card
+OCSVM_CHECK_ROWS = 10_000   # the OCSVM's rows on both routes (a cut: the
+# CPU route's 400 float64 Adam steps over 50,000 rows take ~13 s)
+OUTLIER_GROUPS = 1_000
+OUTLIER_SCORE_RTOL = 1e-5   # detail scores, card vs CPU route, relative
+OCSVM_SCORE_ATOL = 1e-3     # OCSVM scores (400 Adam steps), absolute
+SOS_ROWS = 2_000            # SOS's rows (a cut): its per-row search on
+# the host costs ~20 s at 7,603 rows
+# AUC floors of 21.2: each detector on the mnist-layout rows (SOS on its
+# first SOS_ROWS) and the model ops on the credit-card-layout rows; a floor
+# is the AUC the port's CPU route measured on these seeded rows, less 0.02.
+# OcsvmOutlierBatchOp takes scikit-learn's γ = 1 / (d · Var X) ("scale"):
+# the default γ = 1/d puts rows of norm ~30 beyond every landmark's reach,
+# and it ranked worse than chance there (AUC 0.434)
+AUC_FLOORS = {
+    "KdeOutlierBatchOp": 0.95, "LofOutlierBatchOp": 0.97,
+    "SosOutlierBatchOp": 0.96, "HbosOutlierBatchOp": 0.73,
+    "EcodOutlierBatchOp": 0.71, "CopodOutlierBatchOp": 0.71,
+    "IForestOutlierBatchOp": 0.73, "OcsvmOutlierBatchOp": 0.78,
+    "DbscanOutlierBatchOp": 0.94, "IForestModel": 0.86, "OcsvmModel": 0.83}
+SCORECARD = dict(numBuckets=10, positiveLabelValueString="1")
+SCORECARD_ATOL = 1e-2       # points on the 600-point scale, card vs CPU
+INDEXER_ROWS, INDEXER_VOCAB = 50_000, 5_000   # the sparse indexer's k:v
+
+
+def movielens_layout(seed):
+    """MovieLens-1M's shape from a seed (the file is not in the
+    repository): 6,040 users with at least 20 ratings each and Zipf-skewed
+    activity (the most active at 2,314), 3,706 items with Zipf-skewed
+    popularity, 1,000,209 distinct (user, item) pairs, integer ratings 1-5
+    from a rank-8 signal with user and item biases plus noise. Returns
+    users, items (int64) and ratings (float64), grouped by user."""
+    g = np.random.default_rng(seed)
+    w = g.permutation(1.0 / np.arange(1, ML_USERS + 1) ** ML_USER_ZIPF)
+    deg = ML_MIN_RATINGS + np.floor(
+        w / w.sum() * (ML_RATINGS - ML_MIN_RATINGS * ML_USERS)
+    ).astype(np.int64)
+    deg = np.minimum(deg, ML_MAX_USER_RATINGS)
+    for u in np.argsort(-w, kind="stable"):
+        short = ML_RATINGS - int(deg.sum())
+        if short <= 0:
+            break
+        deg[u] += min(short, ML_MAX_USER_RATINGS - int(deg[u]))
+    p = g.permutation(1.0 / np.arange(1, ML_ITEMS + 1) ** ML_ITEM_ZIPF)
+    p /= p.sum()
+    users = np.repeat(np.arange(ML_USERS, dtype=np.int64), deg)
+    items = np.concatenate([g.choice(ML_ITEMS, d, replace=False, p=p)
+                            for d in deg]).astype(np.int64)
+    U, V = g.normal(0, 0.5, (ML_USERS, 8)), g.normal(0, 0.5, (ML_ITEMS, 8))
+    r = (3.58 + g.normal(0, 0.3, ML_USERS)[users]
+         + g.normal(0, 0.4, ML_ITEMS)[items]
+         + (U[users] * V[items]).sum(1) + g.normal(0, 0.7, len(users)))
+    return users, items, np.clip(np.rint(r), 1, 5)
+
+
+def recomm_op(op_name, *inputs, profile=False, **params):
+    """``TableSourceBatchOp`` → op → ``collect()`` on the current route:
+    the output and its wall (and the device's busy ms under
+    ``torch.profiler`` when ``profile``)."""
+    import torch
+
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator import batch as B
+
+    srcs = [x if isinstance(x, B.BatchOperator) else
+            B.TableSourceBatchOp(x if isinstance(x, MTable) else MTable(x))
+            for x in inputs]
+
+    def run():
+        return getattr(B, op_name)(**params).link_from(*srcs).collect()
+
+    if profile:
+        got = {}
+        busy_ms, wall = dag_profile(lambda: got.setdefault("t", run()))
+        return got["t"], dict(wall_s=wall, busy_ms=busy_ms,
+                              idle_share=1 - busy_ms / 1e3 / wall)
+    t0 = time.perf_counter()
+    out = run()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, dict(wall_s=time.perf_counter() - t0)
+
+
+def recomm_lists(t, col="recomm"):
+    return [json.loads(c) for c in t.col(col)]
+
+
+def topk_mismatches(card, cpu, tie_atol):
+    """Positions where the card's id differs from the CPU route's, and
+    how many of those are not near ties (the CPU route's score within
+    ``tie_atol`` of a neighbour's)."""
+    diff = bad = 0
+    for a, b in zip(card, cpu):
+        if len(a["object"]) != len(b["object"]):
+            bad += 1
+            continue
+        r = b["rate"]
+        for k, (x, y) in enumerate(zip(a["object"], b["object"])):
+            if x != y:
+                diff += 1
+                bad += not any(abs(r[k] - r[j]) <= tie_atol
+                               for j in (k - 1, k + 1) if 0 <= j < len(r))
+    return diff, bad
+
+
+def rmse(pred, truth):
+    pred = np.asarray(pred, np.float64)
+    ok = np.isfinite(pred)
+    return float(np.sqrt(np.mean((pred[ok] - truth[ok]) ** 2))), int(
+        (~ok).sum())
+
+
+def als_path(card, problems, train, held):
+    """21.1, ALS: the explicit fit (rank 10, 10 sweeps, λ 0.1) on the card
+    with its list build, widths, per-half-sweep device ms, peak memory and
+    device busy share; the held-out RMSE, items-per-user for every user,
+    similar items; the same fit on the CPU route, its held-out predictions
+    and first users' top-10 held against the card's; a blocked half-sweep
+    against the unblocked one; then the implicit and hot-point variants on
+    the card."""
+    import torch
+
+    from alink_tpu_torch.common.env import resolve_device
+    from alink_tpu_torch.common.model import table_to_model
+    from alink_tpu_torch.recommendation import als
+
+    res = {}
+    tri = dict(userCol="user", itemCol="item", rateCol="rate")
+    k = ALS["rank"]
+    for side, col, n in (("user", "user", ML_USERS),
+                         ("item", "item", ML_ITEMS)):
+        D = int(np.bincount(train[col], minlength=n).max())
+        rows = als.block_rows(n, D, k)
+        res[f"{side}_width"] = D
+        res[f"{side}_gather_bytes"] = n * D * k * 8
+        res[f"{side}_block_rows"] = rows
+        res[f"{side}_block_bytes"] = rows * D * k * 8
+    builds, sweeps = [], []
+    undo = [timed_calls(als, "build_lists", builds),
+            timed_calls(als, "half_sweep", sweeps, cuda_events=True)]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model, fit = recomm_op("AlsTrainBatchOp", train, profile=True,
+                               **tri, **ALS)
+    finally:
+        for u in undo:
+            u()
+    sweep_ms = [a.elapsed_time(b) for a, b in sweeps]
+    res.update(fit=fit, list_build_s=builds, half_sweeps=len(sweep_ms),
+               half_sweep_ms_user=float(np.median(sweep_ms[0::2])),
+               half_sweep_ms_item=float(np.median(sweep_ms[1::2])),
+               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    rate, rate_r = recomm_op("AlsRateRecommBatchOp", model, held,
+                             predictionCol="p")
+    res["rmse"], res["unknown"] = rmse(rate.col("p"), held["rate"])
+    res["rate_wall_s"] = rate_r["wall_s"]
+    users = {"user": np.arange(ML_USERS, dtype=np.int64)}
+    top, top_r = recomm_op("AlsItemsPerUserRecommBatchOp", model, users,
+                           userCol="user", k=10,
+                           predictionCol="recomm")
+    res["items_per_user_wall_s"] = top_r["wall_s"]
+    sim, sim_r = recomm_op("AlsSimilarItemsRecommBatchOp", model,
+                           {"item": np.arange(ML_ITEMS, dtype=np.int64)},
+                           itemCol="item", k=10,
+                           predictionCol="recomm")
+    res["similar_items_wall_s"] = sim_r["wall_s"]
+    print(f"[{card}] 21.1 ALS on {len(train['user'])} ratings: fit "
+          f"{fit['wall_s']:.2f} s (list build {sum(builds):.2f} s on the "
+          f"host, {res['half_sweeps']} half-sweeps, median "
+          f"{res['half_sweep_ms_user']:.2f} / {res['half_sweep_ms_item']:.2f}"
+          f" device ms user / item side (CUDA events); widths D "
+          f"{res['user_width']} / {res['item_width']}, gathers "
+          f"{res['user_gather_bytes'] / 1e9:.3f} / "
+          f"{res['item_gather_bytes'] / 1e9:.3f} GB in blocks of "
+          f"{res['user_block_rows']} / {res['item_block_rows']} rows; peak "
+          f"{res['peak_mib']:.0f} MiB; device busy {fit['busy_ms']:.1f} ms, "
+          f"idle share {fit['idle_share']:.3f} (torch.profiler)); held-out "
+          f"RMSE {res['rmse']:.4f} on {len(held['user'])} pairs "
+          f"({res['unknown']} unknown) in {rate_r['wall_s']:.2f} s; "
+          f"items-per-user for {ML_USERS} users {top_r['wall_s']:.2f} s; "
+          f"similar items for {ML_ITEMS} items {sim_r['wall_s']:.2f} s",
+          flush=True)
+
+    # the same fit on the CPU route, held against the card's model above
+    q = {"user": np.arange(ALS_CHECK_USERS, dtype=np.int64)}
+    with torch_device("cpu"):
+        cpu_model, cpu_r = recomm_op("AlsTrainBatchOp", train, **tri, **ALS)
+        cpu_rate, _ = recomm_op("AlsRateRecommBatchOp", cpu_model, held,
+                                predictionCol="p")
+        cpu_top, _ = recomm_op("AlsItemsPerUserRecommBatchOp", cpu_model, q,
+                               userCol="user", k=10, predictionCol="recomm")
+    a = np.asarray(rate.col("p"), np.float64)
+    b = np.asarray(cpu_rate.col("p"), np.float64)
+    ok = np.isfinite(b)
+    res.update(cpu_fit_s=cpu_r["wall_s"],
+               rate_max_err=float(np.abs(a[ok] - b[ok]).max()),
+               nan_equal=bool((np.isfinite(a) == ok).all()))
+    res["top10_diff"], res["top10_bad"] = topk_mismatches(
+        recomm_lists(top)[:ALS_CHECK_USERS], recomm_lists(cpu_top),
+        ALS_TIE_ATOL)
+    if not res["rate_max_err"] <= ALS_RATE_ATOL or not res["nan_equal"]:
+        problems.append(f"21.1 ALS: held-out predictions "
+                        f"{res['rate_max_err']:.3g} from the CPU route "
+                        f"(bound {ALS_RATE_ATOL})")
+    if res["top10_bad"]:
+        problems.append(f"21.1 ALS: {res['top10_bad']} top-10 positions "
+                        f"differ from the CPU route beyond a near tie")
+
+    # the blocked half-sweep against the unblocked one, on the card
+    _, arrays = table_to_model(model)
+    ids, rts, mask = als.build_lists(
+        np.unique(train["user"], return_inverse=True)[1],
+        np.unique(train["item"], return_inverse=True)[1],
+        np.asarray(train["rate"], np.float32), ML_USERS)
+    dev = resolve_device()
+    args = (torch.as_tensor(ids, device=dev).long(),
+            torch.as_tensor(rts, device=dev).double(),
+            torch.as_tensor(mask, device=dev).double(),
+            torch.as_tensor(mask.sum(1), device=dev).double(),
+            torch.as_tensor(arrays["itemFactors"], device=dev))
+    kw = dict(lam=ALS["lambda"], implicit=False, alpha=ALS_IMPLICIT_ALPHA)
+    whole = als.half_sweep(*args, **kw, rows=ML_USERS)
+    blocked = als.half_sweep(*args, **kw, rows=ALS_BLOCK_ROWS)
+    res["blocked_equal"] = bool(torch.equal(whole, blocked))
+    del args, whole, blocked
+    if not res["blocked_equal"]:
+        problems.append("21.1 ALS: a blocked half-sweep differs from the "
+                        "unblocked one")
+    print(f"[{card}] 21.1 ALS CPU route ({ALS['numIter']} sweeps): fit "
+          f"{cpu_r['wall_s']:.2f} s; held-out predictions within "
+          f"{res['rate_max_err']:.3g} (bound {ALS_RATE_ATOL}); top-10 of "
+          f"{ALS_CHECK_USERS} users: {res['top10_diff']} positions differ, "
+          f"{res['top10_bad']} beyond a near tie; blocked sweep "
+          f"({ALS_BLOCK_ROWS} rows) equal to the unblocked: "
+          f"{res['blocked_equal']}", flush=True)
+
+    for op, extra in (("AlsImplicitTrainBatchOp",
+                       dict(alpha=ALS_IMPLICIT_ALPHA)),
+                      ("MfAlsForHotPointBatchOp",
+                       dict(maxNeighborNumber=HOT_POINT_CAP))):
+        torch.cuda.reset_peak_memory_stats()
+        m, r = recomm_op(op, train, **tri, **ALS, **extra)
+        p, _ = recomm_op("AlsRateRecommBatchOp", m, held, predictionCol="p")
+        res[op] = dict(wall_s=r["wall_s"],
+                       peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+        if op != "AlsImplicitTrainBatchOp":   # implicit scores are no rating
+            res[op]["rmse"] = rmse(p.col("p"), held["rate"])[0]
+        print(f"[{card}] 21.1 {op} ({extra}): fit {r['wall_s']:.2f} s, peak "
+              f"{res[op]['peak_mib']:.0f} MiB"
+              + (f", held-out RMSE {res[op]['rmse']:.4f}" if "rmse" in
+                 res[op] else ""), flush=True)
+    return res
+
+
+def cf_path(card, problems, train):
+    """21.1, neighbourhood CF: ItemCF (cosine, 64 neighbours) on both
+    routes, its items-per-user for 1,000 users; UserCF on the card; Swing
+    on the interactions of the most-rated items (a cut). Swing runs on the
+    host on either route (the reference's loop), so it is timed, not held
+    against the CPU route."""
+    from alink_tpu_torch.common.model import table_to_model
+
+    res = {}
+    tri = dict(userCol="user", itemCol="item", rateCol="rate")
+    card_m, card_r = recomm_op("ItemCfTrainBatchOp", train, **tri, **ITEMCF)
+    with torch_device("cpu"):
+        cpu_m, cpu_r = recomm_op("ItemCfTrainBatchOp", train, **tri,
+                                 **ITEMCF)
+    (_, a), (_, b) = table_to_model(card_m), table_to_model(cpu_m)
+    diff = a["neighbors"] != b["neighbors"]
+    s = b["sims"]
+    near = np.zeros_like(diff)
+    near[:, 1:] |= np.abs(s[:, 1:] - s[:, :-1]) <= CF_SIM_ATOL
+    near[:, :-1] |= np.abs(s[:, :-1] - s[:, 1:]) <= CF_SIM_ATOL
+    res.update(train_wall_s=card_r["wall_s"], cpu_wall_s=cpu_r["wall_s"],
+               neighbours_differ=int(diff.sum()),
+               beyond_tie=int((diff & ~near).sum()),
+               sim_max_err=float(np.abs(a["sims"] - s).max()))
+    if res["beyond_tie"] or not res["sim_max_err"] <= CF_SIM_ATOL:
+        problems.append(f"21.1 ItemCF: {res['beyond_tie']} neighbours differ "
+                        f"beyond a near tie, similarities "
+                        f"{res['sim_max_err']:.3g} from the CPU route")
+    q = {"user": np.arange(ITEMCF_USERS, dtype=np.int64)}
+    rec, rec_r = recomm_op("ItemCfItemsPerUserRecommBatchOp", card_m, q,
+                           userCol="user", k=10,
+                           predictionCol="recomm")
+    res["items_per_user_wall_s"] = rec_r["wall_s"]
+    _, ucf_r = recomm_op("UserCfTrainBatchOp", train, **tri, **ITEMCF)
+    res["usercf_wall_s"] = ucf_r["wall_s"]
+    print(f"[{card}] 21.1 ItemCF: train {card_r['wall_s']:.2f} s (CPU route "
+          f"{cpu_r['wall_s']:.2f} s), neighbours differing "
+          f"{res['neighbours_differ']} ({res['beyond_tie']} beyond a near "
+          f"tie), similarities within {res['sim_max_err']:.3g}; "
+          f"items-per-user for {ITEMCF_USERS} users {rec_r['wall_s']:.2f} s;"
+          f" UserCF train {ucf_r['wall_s']:.2f} s", flush=True)
+
+    counts = np.bincount(train["item"], minlength=ML_ITEMS)
+    top = np.argsort(-counts, kind="stable")[:SWING_ITEMS]
+    keep = np.isin(train["item"], top)
+    cut = {c: v[keep] for c, v in train.items()}
+    sw, sw_r = recomm_op("SwingTrainBatchOp", cut, userCol="user",
+                         itemCol="item",
+                         maxNeighborNumber=ITEMCF["maxNeighborNumber"])
+    _, a = table_to_model(sw)
+    res["swing"] = dict(items=SWING_ITEMS, ratings=int(keep.sum()),
+                        wall_s=sw_r["wall_s"],
+                        shape=list(a["neighbors"].shape),
+                        finite=bool(np.isfinite(a["sims"]).all()))
+    if not (res["swing"]["finite"] and res["swing"]["shape"] == [
+            SWING_ITEMS, min(ITEMCF["maxNeighborNumber"], SWING_ITEMS - 1)]):
+        problems.append(f"21.1 Swing: a model of shape "
+                        f"{res['swing']['shape']}, finite "
+                        f"{res['swing']['finite']}")
+    print(f"[{card}] 21.1 Swing on the {SWING_ITEMS} most-rated items "
+          f"({res['swing']['ratings']} ratings, on the host): "
+          f"{sw_r['wall_s']:.2f} s", flush=True)
+    return res
+
+
+def fm_path(card, problems, train, held):
+    """21.1, FM and DeepFM: FM_EPOCHS full-batch Adam epochs on both
+    routes, the held-out RMSE of each held against the other's."""
+    res = {}
+    tri = dict(userCol="user", itemCol="item", rateCol="rate")
+    for train_op, rate_op, params in (
+            ("FmRecommTrainBatchOp", "FmRateRecommBatchOp", FM),
+            ("DeepFmRecommTrainBatchOp", "DeepFmRateRecommBatchOp", DEEPFM)):
+        out = {}
+        for route in ("card", "cpu"):
+            with on_route(route):
+                m, r = recomm_op(train_op, train, **tri, numEpochs=FM_EPOCHS,
+                                 **params)
+                p, _ = recomm_op(rate_op, m, held, userCol="user",
+                                 itemCol="item", predictionCol="p")
+            out[route] = dict(wall_s=r["wall_s"],
+                              rmse=rmse(p.col("p"), held["rate"])[0])
+        full, cpu = out["card"], out["cpu"]
+        gap = abs(full["rmse"] - cpu["rmse"])
+        res[train_op] = dict(card=full, cpu=cpu, rmse_gap=gap)
+        if not gap <= FM_RMSE_ATOL:
+            problems.append(f"21.1 {train_op}: held-out RMSE {gap:.3g} from "
+                            f"the CPU route (bound {FM_RMSE_ATOL})")
+        print(f"[{card}] 21.1 {train_op}, {FM_EPOCHS} epochs: "
+              f"{full['wall_s']:.2f} s, held-out RMSE {full['rmse']:.4f} "
+              f"against the CPU route's {cpu['rmse']:.4f} "
+              f"({cpu['wall_s']:.2f} s)", flush=True)
+    return res
+
+
+def recommendation_path(card, problems):
+    """21.1: MovieLens-1M-layout ratings, 100,000 held out."""
+    t0 = time.perf_counter()
+    users, items, rates = movielens_layout(SEED + 21)
+    held_rows = np.random.default_rng(SEED + 22).permutation(
+        len(users))[:ML_HELD_OUT]
+    is_held = np.zeros(len(users), bool)
+    is_held[held_rows] = True
+    cols = {"user": users, "item": items, "rate": rates}
+    train = {c: v[~is_held] for c, v in cols.items()}
+    held = {c: v[is_held] for c, v in cols.items()}
+    res = {"gen_s": time.perf_counter() - t0, "train": int((~is_held).sum()),
+           "held": ML_HELD_OUT}
+    print(f"[{card}] 21.1 MovieLens-1M-layout ratings: {len(users)} over "
+          f"{ML_USERS} users and {ML_ITEMS} items, {ML_HELD_OUT} held out, "
+          f"made in {res['gen_s']:.2f} s", flush=True)
+    for name, fn in (("als", als_path), ("cf", cf_path), ("fm", fm_path)):
+        t1 = time.perf_counter()
+        res[name] = (fn(card, problems, train, held) if name != "cf"
+                     else fn(card, problems, train))
+        res[name]["part_s"] = time.perf_counter() - t1
+    return res
+
+
+def mnist_outlier_layout(seed):
+    """ODDS mnist's shape from a seed: 7,603 rows of 100 features, 700 of
+    them outliers. Every row lies near one rank-10 subspace (a digit's
+    strokes); the outliers stray from it four times as far (noise of sd 2
+    off the subspace against 0.5)."""
+    g = np.random.default_rng(seed)
+    n_in = MNIST_ROWS - MNIST_OUTLIERS
+    A = g.normal(0, 1, (10, MNIST_DIM))
+    X = g.normal(0, 1, (MNIST_ROWS, 10)) @ A + g.normal(
+        0, 1, (MNIST_ROWS, MNIST_DIM)) * np.r_[np.full(n_in, 0.5),
+                                               np.full(MNIST_OUTLIERS, 2.0)
+                                               ][:, None]
+    y = np.r_[np.zeros(n_in, np.int64), np.ones(MNIST_OUTLIERS, np.int64)]
+    order = g.permutation(MNIST_ROWS)
+    return X[order].astype(np.float32), y[order]
+
+
+def credit_layout(seed):
+    """The ULB credit-card-fraud set's shape from a seed: 284,807 rows of
+    30 features (Time, V1-V28 as PCA scores of falling spread, Amount),
+    492 frauds whose V1-V28 are shifted and 1.2 times wider."""
+    g = np.random.default_rng(seed)
+    V = g.normal(0, 1, (CREDIT_ROWS, 28)) * np.linspace(1.9, 0.3, 28)
+    y = np.zeros(CREDIT_ROWS, np.int64)
+    fraud = g.choice(CREDIT_ROWS, CREDIT_FRAUD, replace=False)
+    y[fraud] = 1
+    V[fraud] = V[fraud] * 1.2 + g.normal(0, 0.7, 28)
+    t = np.sort(g.uniform(0, 172_792, CREDIT_ROWS))
+    amount = g.exponential(88.0, CREDIT_ROWS)
+    X = np.column_stack([(t - t.mean()) / t.std(), V,
+                         (amount - amount.mean()) / amount.std()])
+    return X.astype(np.float32), y
+
+
+def outlier_scores(t, col="d"):
+    return np.asarray([np.nan if (v := json.loads(d)["outlier_score"])
+                       is None else v for d in t.col(col)], np.float64)
+
+
+def outlier_route_gap(card_t, cpu_t, atol, rtol):
+    """(largest score gap as a share of its bound — inf where only one
+    route's score is missing —, the number of flags that differ, and
+    where they differ)."""
+    a, b = outlier_scores(card_t), outlier_scores(cpu_t)
+    fa, fb = np.asarray(card_t.col("o")), np.asarray(cpu_t.col("o"))
+    both = np.isfinite(a) & np.isfinite(b)
+    gap = float(np.max(np.abs(a - b)[both] / np.maximum(
+        rtol * np.abs(b[both]), atol), initial=0.0))
+    if (np.isfinite(a) != np.isfinite(b)).any():
+        gap = float("inf")
+    return gap, int((fa != fb).sum()), fa != fb
+
+
+def outliers_path(card, problems):
+    """21.2: the detectors on mnist-layout rows, scored by
+    EvalOutlierBatchOp, those with device work (the pairwise ones, IForest's
+    descent, OCSVM) against the CPU route on the same rows; the model ops on
+    credit-card-layout rows, IForest's on both routes and OCSVM's on both
+    at its first OCSVM_CHECK_ROWS (a cut); k-sigma over 1,000 groups
+    through parallel_apply against a one-thread session."""
+    from alink_tpu_torch.common.mtable import MTable
+
+    res = {}
+    X, y = mnist_outlier_layout(SEED + 23)
+    feats = [f"f{j}" for j in range(MNIST_DIM)]
+    table = MTable({**{f: X[:, j].astype(np.float64)
+                       for j, f in enumerate(feats)}, "label": y})
+    # each device detector's bounds against the CPU route: (score atol,
+    # score rtol, flags may differ where the score lies within atol of 0)
+    pairwise = (1e-300, OUTLIER_SCORE_RTOL, False)
+    bounds = {"KdeOutlierBatchOp": pairwise, "LofOutlierBatchOp": pairwise,
+              "SosOutlierBatchOp": pairwise,
+              "IForestOutlierBatchOp": (1e-300, 0.0, False),   # equal
+              "OcsvmOutlierBatchOp": (OCSVM_SCORE_ATOL, 0.0, True),
+              "DbscanOutlierBatchOp": pairwise}
+    for op in ("KdeOutlierBatchOp", "LofOutlierBatchOp", "SosOutlierBatchOp",
+               "HbosOutlierBatchOp", "EcodOutlierBatchOp",
+               "CopodOutlierBatchOp", "IForestOutlierBatchOp",
+               "OcsvmOutlierBatchOp", "DbscanOutlierBatchOp"):
+        params = dict(featureCols=feats, predictionCol="o",
+                      predictionDetailCol="d")
+        if op == "OcsvmOutlierBatchOp":   # scikit-learn's gamma="scale"
+            params["gamma"] = 1.0 / (MNIST_DIM * float(
+                X.astype(np.float64).var()))
+        rows = table if op != "SosOutlierBatchOp" else table.take(
+            np.arange(SOS_ROWS))
+        card_t, card_r = recomm_op(op, rows, **params)
+        ev, _ = recomm_op("EvalOutlierBatchOp", card_t, labelCol="label",
+                          predictionCol="o", predictionDetailCol="d")
+        auc = float(ev.col("AUC")[0])
+        entry = dict(wall_s=card_r["wall_s"], auc=auc,
+                     f1=float(ev.col("F1")[0]))
+        if op in bounds:
+            atol, rtol, near_zero = bounds[op]
+            with torch_device("cpu"):
+                cpu_t, cpu_r = recomm_op(op, rows, **params)
+            gap, nflip, flips = outlier_route_gap(card_t, cpu_t, atol=atol,
+                                                  rtol=rtol)
+            if near_zero:
+                flips &= np.abs(outlier_scores(cpu_t)) > atol
+            entry.update(cpu_wall_s=cpu_r["wall_s"], score_gap=gap,
+                         flags_differ=nflip)
+            if gap > 1.0 or flips.any():
+                problems.append(f"21.2 {op}: scores {gap:.3g} of the bound "
+                                f"from the CPU route, {nflip} flags differ")
+        if not auc >= AUC_FLOORS[op]:
+            problems.append(f"21.2 {op}: AUC {auc:.4f} below its floor "
+                            f"{AUC_FLOORS[op]}")
+        res[op] = entry
+        print(f"[{card}] 21.2 {op} on {card_t.num_rows} x {MNIST_DIM}: "
+              f"{card_r['wall_s']:.2f} s, AUC {auc:.4f}, F1 {entry['f1']:.3f}"
+              + ("; on the host" if op not in bounds else
+                 f"; CPU route {entry['cpu_wall_s']:.2f} s, scores within "
+                 f"{entry['score_gap']:.3g} of the bound, "
+                 f"{entry['flags_differ']} flags differ"), flush=True)
+
+    from alink_tpu_torch.operator.batch.evaluation import rank_auc
+
+    Xc, yc = credit_layout(SEED + 24)
+    cfeats = [f"c{j}" for j in range(CREDIT_DIM)]
+    ctable = MTable({f: Xc[:, j].astype(np.float64)
+                     for j, f in enumerate(cfeats)})
+    for name, train_op, pred_op in (
+            ("IForestModel", "IForestModelOutlierTrainBatchOp",
+             "IForestModelOutlierPredictBatchOp"),
+            ("OcsvmModel", "OcsvmModelOutlierTrainBatchOp",
+             "OcsvmModelOutlierPredictBatchOp")):
+        m, tr = recomm_op(train_op, ctable, featureCols=cfeats)
+        p, pr = recomm_op(pred_op, m, ctable, predictionCol="o",
+                          predictionDetailCol="d")
+        auc = rank_auc(outlier_scores(p), yc.astype(bool))
+        entry = dict(train_wall_s=tr["wall_s"], predict_wall_s=pr["wall_s"],
+                     auc=auc)
+        # IForest's routes on every row, equal; OCSVM's on a cut (its CPU
+        # route's 400 float64 Adam steps over 50,000 rows take ~13 s)
+        iforest = name == "IForestModel"
+        rows = ctable if iforest else ctable.take(
+            np.arange(OCSVM_CHECK_ROWS))
+        outs = {}
+        for route in ("cpu",) if iforest else ("card", "cpu"):
+            with on_route(route):
+                m, r = recomm_op(train_op, rows, featureCols=cfeats)
+                outs[route] = (recomm_op(pred_op, m, rows, predictionCol="o",
+                                         predictionDetailCol="d")[0],
+                               r["wall_s"])
+        if iforest:
+            outs["card"] = (p, tr["wall_s"])
+        atol = 1e-300 if iforest else OCSVM_SCORE_ATOL
+        gap, nflip, flips = outlier_route_gap(outs["card"][0], outs["cpu"][0],
+                                              atol=atol, rtol=0.0)
+        if not iforest:   # flags may part where the score is within atol
+            flips &= np.abs(outlier_scores(outs["cpu"][0])) > atol
+        entry.update(check_rows=rows.num_rows, cpu_train_wall_s=outs["cpu"][1],
+                     score_gap=gap, flags_differ=nflip)
+        if gap > 1.0 or flips.any():
+            problems.append(f"21.2 {name}: scores {gap:.3g} of the bound"
+                            f" from the CPU route, {nflip} flags differ")
+        if not auc >= AUC_FLOORS[name]:
+            problems.append(f"21.2 {name}: AUC {auc:.4f} below its floor "
+                            f"{AUC_FLOORS[name]}")
+        res[name] = entry
+        print(f"[{card}] 21.2 {name} on {CREDIT_ROWS} x {CREDIT_DIM}: train "
+              f"{entry['train_wall_s']:.2f} s, predict "
+              f"{entry['predict_wall_s']:.2f} s, AUC {auc:.4f}; on the "
+              f"first {entry['check_rows']} rows the CPU route trains in "
+              f"{entry['cpu_train_wall_s']:.2f} s, scores within "
+              f"{entry['score_gap']:.3g} of the bound, "
+              f"{entry['flags_differ']} flags differ", flush=True)
+
+    g = np.random.default_rng(SEED + 25)
+    per = CREDIT_ROWS // OUTLIER_GROUPS
+    grouped = MTable({"g": np.repeat(np.arange(OUTLIER_GROUPS), per),
+                      "v": Xc[:per * OUTLIER_GROUPS, 1].astype(np.float64)
+                      + np.repeat(g.normal(0, 5, OUTLIER_GROUPS), per)})
+    params = dict(groupCols=["g"], selectedCol="v", predictionCol="o",
+                  predictionDetailCol="d")
+    gt, gr = recomm_op("KSigmaOutlier4GroupedDataBatchOp", grouped, **params)
+    from alink_tpu_torch.common.env import MLEnvironment, \
+        MLEnvironmentFactory
+
+    one = MLEnvironmentFactory.get_new_environment_id(
+        MLEnvironment(parallelism=1))
+    try:
+        st, sr = recomm_op("KSigmaOutlier4GroupedDataBatchOp", grouped,
+                           MLEnvironmentId=one, **params)
+    finally:
+        MLEnvironmentFactory.remove(one)
+    same = (list(gt.col("o")) == list(st.col("o"))
+            and list(gt.col("d")) == list(st.col("d")))
+    res["grouped"] = dict(groups=OUTLIER_GROUPS, rows=grouped.num_rows,
+                          wall_s=gr["wall_s"], serial_wall_s=sr["wall_s"],
+                          equal=same, flagged=int(np.sum(gt.col("o"))))
+    if not same:
+        problems.append("21.2 grouped k-sigma differs from the serial run")
+    print(f"[{card}] 21.2 KSigmaOutlier4GroupedData, {OUTLIER_GROUPS} groups "
+          f"of {per} rows: {gr['wall_s']:.2f} s on the pool, "
+          f"{sr['wall_s']:.2f} s serially, equal: {same}", flush=True)
+    return res
+
+
+def finance_path(card, problems):
+    """21.3: the scorecard on the Covertype-layout rows' 10 continuous
+    columns (class 1 against the rest), PSI between the training and
+    held-out rows and the per-wilderness scorecards, each on both routes;
+    the sparse feature indexer on seeded k:v strings on both routes."""
+    from alink_tpu_torch.common.mtable import MTable
+
+    res = {}
+    X, y = covertype_data(COVTYPE_TRAIN + COVTYPE_TEST, SEED)
+    cols = list(COVTYPE_CONTINUOUS)
+
+    def table(lo, hi):
+        d = {c: X[lo:hi, j].astype(np.float64) for j, c in enumerate(cols)}
+        d["wild"] = np.asarray([f"w{v}" for v in
+                                X[lo:hi, 10:14].argmax(1)], object)
+        d["label"] = np.asarray([str(v) for v in y[lo:hi]], object)
+        return MTable(d)
+
+    train = table(0, COVTYPE_TRAIN)
+    test = table(COVTYPE_TRAIN, COVTYPE_TRAIN + COVTYPE_TEST)
+
+    def scorecards(rows):
+        m, tr = recomm_op("ScorecardTrainBatchOp", rows, selectedCols=cols,
+                          labelCol="label", **SCORECARD)
+        p, pr = recomm_op("ScorecardPredictBatchOp", m, test)
+        psi, _ = recomm_op("PsiBatchOp", rows, test, selectedCols=cols)
+        gm, gtr = recomm_op("GroupScorecardTrainBatchOp", rows,
+                            groupCol="wild", selectedCols=cols,
+                            labelCol="label", **SCORECARD)
+        gp, _ = recomm_op("GroupScorecardPredictBatchOp", gm, test,
+                          groupCol="wild", predictionCol="score")
+        return dict(score=np.asarray(p.col("score")),
+                    group=np.asarray(gp.col("score")),
+                    psi=list(psi.col("psi")), train_s=tr["wall_s"],
+                    predict_s=pr["wall_s"], group_s=gtr["wall_s"])
+
+    c = scorecards(train)
+    with torch_device("cpu"):
+        u = scorecards(train)
+    res.update(train_wall_s=c["train_s"], predict_wall_s=c["predict_s"],
+               group_train_wall_s=c["group_s"], cpu_train_wall_s=u["train_s"],
+               score_gap=float(np.abs(c["score"] - u["score"]).max()),
+               group_gap=float(np.abs(c["group"] - u["group"]).max()),
+               psi=dict(zip(cols, c["psi"])), psi_equal=c["psi"] == u["psi"])
+    if not (res["score_gap"] <= SCORECARD_ATOL
+            and res["group_gap"] <= SCORECARD_ATOL):
+        problems.append(f"21.3 scorecard: scores {res['score_gap']:.3g} / "
+                        f"{res['group_gap']:.3g} from the CPU route (bound "
+                        f"{SCORECARD_ATOL})")
+    if not res["psi_equal"]:
+        problems.append("21.3 PSI differs from the CPU route")
+    print(f"[{card}] 21.3 scorecard on {COVTYPE_TRAIN} rows x {len(cols)}: "
+          f"train {c['train_s']:.2f} s, predict {COVTYPE_TEST} rows "
+          f"{c['predict_s']:.2f} s, per-wilderness scorecards "
+          f"{c['group_s']:.2f} s, PSI max {max(c['psi']):.4f}; CPU route "
+          f"train {u['train_s']:.2f} s: scores within {res['score_gap']:.3g} / "
+          f"{res['group_gap']:.3g} of the CPU route, PSI equal: "
+          f"{res['psi_equal']}", flush=True)
+
+    g = np.random.default_rng(SEED + 26)
+    p = 1.0 / np.arange(1, INDEXER_VOCAB + 1)
+    counts = g.integers(1, 20, INDEXER_ROWS)
+    names = g.choice(INDEXER_VOCAB, int(counts.sum()), p=p / p.sum()).tolist()
+    values = g.random(int(counts.sum())).tolist()
+    rows, at = [], 0
+    for n in counts.tolist():   # a name drawn twice in a row keeps one value
+        kv = dict(zip(names[at:at + n], values[at:at + n]))
+        rows.append(",".join(f"f{k}:{v:.3f}" for k, v in kv.items()))
+        at += n
+    sparse = MTable({"kv": np.asarray(rows, object)})
+    outs = {}
+    for route in ("card", "cpu"):
+        with on_route(route):
+            m, tr = recomm_op("SparseFeatureIndexerTrainBatchOp", sparse,
+                              selectedCol="kv", minFrequency=5)
+            v, vr = recomm_op("SparseFeatureIndexerPredictBatchOp", m, sparse,
+                              outputCol="vec")
+        outs[route] = (v, tr["wall_s"], vr["wall_s"])
+    same = all(str(a) == str(b) for a, b in zip(outs["card"][0].col("vec"),
+                                                outs["cpu"][0].col("vec")))
+    res["sparse"] = dict(rows=INDEXER_ROWS, train_wall_s=outs["card"][1],
+                         predict_wall_s=outs["card"][2], equal=same)
+    if not same:
+        problems.append("21.3 sparse indexer differs from the CPU route")
+    print(f"[{card}] 21.3 sparse feature indexer on {INDEXER_ROWS} rows: "
+          f"train {outs['card'][1]:.2f} s, predict {outs['card'][2]:.2f} s, "
+          f"equal to the CPU route: {same}", flush=True)
+    return res
+
+
+def recomm_outlier_path(card):
+    """Phase 21: recommendation, outliers and finance on the card, each
+    held against the port's CPU route. No kernel of the port is on this
+    path: its launch count must stay 0."""
+    import torch
+
+    from alink_tpu_torch.native import kernels
+
+    if any(tf32_flags()):
+        fail(f"phase 21: TF32 is on {tf32_flags()}; the fp32 routes need "
+             f"it off")
+    problems = []
+    kernels.reset_launches()
+    out = {}
+    for part, fn in (("21.1", recommendation_path), ("21.2", outliers_path),
+                     ("21.3", finance_path)):
+        t0 = time.perf_counter()
+        out[part] = fn(card, problems)
+        out[part]["part_s"] = time.perf_counter() - t0
+    out["launches"] = dict(kernels.launches())
+    if sum(out["launches"].values()):
+        problems.append(f"phase 21 launched kernels of the port: "
+                        f"{out['launches']}")
+    torch.cuda.synchronize()
+    print(f"[{card}] phase 21: " + json.dumps(out, default=str), flush=True)
+    if problems:
+        fail("phase 21: " + "; ".join(problems))
+    return out
+
+
+# phase 21 builds and launches no kernel of the port: a second process runs
+# it on the card while this one runs phase 20, which takes longer. Its
+# host threads are capped, so that the two processes share the host's
+# cores rather than oversubscribe them
+SIDE_THREADS = 4
+SIDE_TIMEOUT_S = 900
+
+
+def side_phase(card) -> int:
+    """``python chip_smoke.py --side CARD``: phase 21 in this process, with
+    its own launch counts (set to 0 before it, read after it) and its
+    seconds."""
+    import torch
+
+    torch.set_num_threads(SIDE_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    recomm_outlier_path(card)
+    print(f"[phase 21 recommendation, outliers and finance: "
+          f"{time.perf_counter() - t0:.1f} s in the second process]",
+          flush=True)
+    return 0
+
+
+def start_side(workdir, card, lib):
+    """Starts ``side_phase`` in a second process on the card, with the
+    kernel library ``lib`` to load should a kernel launch there (its count
+    would then fail the phase), SIDE_THREADS host threads and its output to
+    a log in ``workdir``. Returns (process, log path)."""
+    from alink_tpu_torch.native import kernels
+
+    threads = {v: str(SIDE_THREADS) for v in (
+        "OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
+    log = os.path.join(workdir, "side_phase.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--side", card],
+            stdout=f, stderr=subprocess.STDOUT,
+            env={**os.environ, **threads, kernels.PREBUILT_ENV: lib})
+    return proc, log
+
+
+def join_side(proc, log):
+    """Waits for the second process (SIDE_TIMEOUT_S at most), prints its
+    output, and fails the run if it failed."""
+    try:
+        rc = proc.wait(timeout=SIDE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = f"killed after {SIDE_TIMEOUT_S} s"
+    with open(log) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    if rc != 0:
+        fail(f"phase 21 (second process): exit {rc}")
+
+
 def main() -> int:
     try:
         import torch
@@ -8116,11 +8970,16 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, device {name} "
           f"(peaks used: {key}, {peaks[0] / 1e12:.2f} TB/s)", flush=True)
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from alink_tpu_torch.native import kernels
 
-    kernels.build(verbose=False)
-    print(f"build: {len(kernels.KERNELS)} kernel(s) + binding in "
-          f"{kernels.build_seconds:.1f} s", flush=True)
+    workdir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    # phase 4's model is host work: it is written while nvcc builds
+    ahead = ThreadPoolExecutor(2)
+    bert_model = ahead.submit(write_bert_model, workdir, serving_config())
+    built = ahead.submit(kernels.build, verbose=False)
 
     marks = []
 
@@ -8132,12 +8991,19 @@ def main() -> int:
         print(f"[{name}: {marks[-1][1] - t_prev:.1f} s, "
               f"{marks[-1][1] - t_start:.1f} s in all]", flush=True)
 
-    mark("setup and build")
+    # phase 19 builds and launches no kernel: it runs while nvcc builds
+    clustering_features_path(card)
+    mark("phase 19 clustering and features, beside the kernel build")
+    built.result()
+    print(f"build: {len(kernels.KERNELS)} kernel(s) + binding in "
+          f"{kernels.build_seconds:.1f} s", flush=True)
+    mark("setup and build, after phase 19")
     stats = check_kernel(peaks)
     mark("phase 3 flash kernel")
-    workdir = os.path.join(here, "build", "chip_smoke")
-    os.makedirs(workdir, exist_ok=True)
-    launches, served_main = main_path(workdir, serving_config())
+    launches, served_main = main_path(workdir, serving_config(),
+                                      bert_model.result())
+    # phase 14's pipeline .ak is host work too: it is written from here on
+    serving_ak = ahead.submit(write_serving_pipeline, workdir, served_main)
     mark("phase 4 BERT serving")
 
     from alink_tpu_torch.tree.binning import apply_bins, quantile_bins
@@ -8192,7 +9058,9 @@ def main() -> int:
     del X, y
     ingest_path(workdir, card)
     mark("phase 13 ingest")
-    serve_launches, _, serial = serving_path(workdir, served_main, card)
+    serve_launches, _, serial = serving_path(workdir, served_main, card,
+                                             serving_ak)
+    ahead.shutdown()
     mark("phase 14 serving")
     pretraining = pretraining_path(workdir, peaks, card)
     print(f"[{card}] phase 15: " + json.dumps(pretraining, default=str),
@@ -8205,10 +9073,16 @@ def main() -> int:
     mark("phase 17 DAG")
     tuning, tuning_launches = tuning_path(card)
     mark("phase 18 tuning")
-    clustering_features_path(card)
-    mark("phase 19 clustering and features")
-    graph_text_path(card)
+    side = start_side(workdir, card, kernels.build())
+    try:
+        graph_text_path(card)
+    except BaseException:
+        side[0].kill()
+        side[0].wait()
+        raise
     mark("phase 20 graphs, text, neighbours and constrained features")
+    join_side(*side)
+    mark("phase 21 in the second process, after phase 20")
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -8290,4 +9164,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--side"]:
+        sys.exit(side_phase(sys.argv[2]))
     sys.exit(main())

@@ -31,7 +31,12 @@ route; it builds no kernel), ``graph`` (phase 20: the graph engine's ops on
 a scale-17 Graph 500 graph and the host graph ops at scale 12, BRUTE and
 LSH vector neighbours in sift-128's shape, the text pipeline with
 NaiveBayesText and TextRank keywords, and the constrained features on the
-Covertype-layout rows, each against the CPU route; it builds no kernel).
+Covertype-layout rows, each against the CPU route; it builds no kernel),
+``recomm`` (phase 21: ALS, ItemCF, Swing, FM and DeepFM on MovieLens-1M-
+layout ratings, the outlier detectors on ODDS-mnist-layout rows and the
+model ops on credit-card-layout rows, the grouped k-sigma, the scorecards,
+PSI and the sparse indexer on the Covertype-layout rows, each against the
+CPU route; it builds no kernel).
 Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
@@ -44,13 +49,14 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
           "families", "ingest", "serving", "pretrain", "fleet", "dag",
-          "tuning", "features", "graph")
+          "tuning", "features", "graph", "recomm")
 
 
 def main() -> int:
@@ -74,7 +80,8 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if not set(phases) <= {"ingest", "pretrain", "features", "graph"}:
+    if not set(phases) <= {"ingest", "pretrain", "features", "graph",
+                           "recomm"}:
         kernels.build()
         print(f"build {kernels.build_seconds:.1f} s", flush=True)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
@@ -86,24 +93,34 @@ def main() -> int:
         return cs.check_wide_histograms(
             peaks, apply_bins(X, quantile_bins(X, cs.HIST_BINS)))
 
+    def phase4():
+        """Phase 4's serving, with its model written first (as ``main``
+        writes it beside the kernel build)."""
+        cfg = cs.serving_config()
+        model = cs.write_bert_model(workdir, cfg)
+        return cs.main_path(workdir, cfg, model)[1]
+
     def families():
-        _, served = cs.main_path(workdir, cs.serving_config())
+        served = phase4()
         X, y = cs.covertype_data(cs.COVTYPE_TRAIN + cs.COVTYPE_TEST, cs.SEED)
         gbdt = cs.gbdt_path(X, y)
         return cs.model_families(served, X, y, gbdt,
                                  card.splitlines()[0])
 
     def serving():
-        _, served = cs.main_path(workdir, cs.serving_config())
-        return cs.serving_path(workdir, served, card.splitlines()[0])[1]
+        served = phase4()
+        with ThreadPoolExecutor(1) as ahead:   # as ``main`` writes it
+            written = ahead.submit(cs.write_serving_pipeline, workdir, served)
+            return cs.serving_path(workdir, served, card.splitlines()[0],
+                                   written)[1]
 
     def fleet():
-        _, served = cs.main_path(workdir, cs.serving_config())
+        served = phase4()
         return cs.fleet_path(workdir, card.splitlines()[0],
                              cs.fleet_inputs(workdir, served))
 
     def dag():
-        _, served = cs.main_path(workdir, cs.serving_config())
+        served = phase4()
         return cs.dag_path(workdir, served, card.splitlines()[0])
 
     run = {"sgns": cs.check_sgns_wide, "hist": wide_hist,
@@ -118,6 +135,7 @@ def main() -> int:
            "features": lambda: cs.clustering_features_path(
                card.splitlines()[0]),
            "graph": lambda: cs.graph_text_path(card.splitlines()[0]),
+           "recomm": lambda: cs.recomm_outlier_path(card.splitlines()[0]),
            "pretrain": lambda: cs.pretraining_path(workdir, peaks,
                                                    card.splitlines()[0])}
     out = {}

@@ -1296,6 +1296,17 @@ def test_graph_text_phase_is_in_main_after_phase_19():
         < src.index("graph_text_path(card)") < src.index("line = {")
 
 
+def test_clustering_phase_runs_beside_the_kernel_build():
+    """Phase 19 builds no kernel: ``main`` runs it while the build runs in
+    a thread, and waits for the build before phase 3's first launch."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("ahead.submit(kernels.build") \
+        < src.index("clustering_features_path(card)") \
+        < src.index("built.result()") < src.index("check_kernel(peaks)")
+
+
 def test_graph_text_phase_fails_when_the_routes_part(monkeypatch, capsys):
     """A card route whose PageRank ranks, neighbour distances or
     NaiveBayesText counts drift from the CPU route's fails the phase."""
@@ -1344,3 +1355,210 @@ def test_graph_text_phase_fails_when_the_routes_part(monkeypatch, capsys):
     for part in ("20.1 PageRank", "20.2 EUCLIDEAN", "20.2 COSINE",
                  "20.3 NaiveBayesText counts"):
         assert part in fail, fail
+
+
+def _phase21_on_cpu(monkeypatch):
+    """Phase 21 at a small size with the CPU standing in for the card, as
+    ``_phase19_on_cpu`` sets it up."""
+    _phase19_on_cpu(monkeypatch)
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    for name, value in (("ML_USERS", 300), ("ML_ITEMS", 200),
+                        ("ML_RATINGS", 12_000), ("ML_MAX_USER_RATINGS", 150),
+                        ("ML_HELD_OUT", 1_000), ("ALS_CHECK_USERS", 40),
+                        ("ALS_BLOCK_ROWS", 64), ("ITEMCF_USERS", 50),
+                        ("SWING_ITEMS", 30), ("FM_EPOCHS", 3),
+                        ("MNIST_ROWS", 600), ("MNIST_DIM", 20),
+                        ("MNIST_OUTLIERS", 60), ("CREDIT_ROWS", 3_000),
+                        ("CREDIT_FRAUD", 30), ("OUTLIER_GROUPS", 20),
+                        ("COVTYPE_TRAIN", 3_000), ("COVTYPE_TEST", 500),
+                        ("INDEXER_ROWS", 500), ("INDEXER_VOCAB", 100),
+                        ("SOS_ROWS", 300), ("OCSVM_CHECK_ROWS", 400)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    # the AUC floors hold the full size's rows; these few rows rank worse
+    monkeypatch.setattr(chip_smoke, "AUC_FLOORS",
+                        dict.fromkeys(chip_smoke.AUC_FLOORS, 0.0))
+
+
+def test_recomm_outlier_phase_passes_on_the_cpu(monkeypatch, capsys):
+    """Phase 21 runs end to end at a small size on the CPU (both routes
+    the CPU): every part reports, no check fails, no kernel launches."""
+    _phase21_on_cpu(monkeypatch)
+    out = chip_smoke.recomm_outlier_path("cpu stand-in")
+    assert set(out) == {"21.1", "21.2", "21.3", "launches"}
+    assert sum(out["launches"].values()) == 0
+    als = out["21.1"]["als"]
+    assert als["half_sweeps"] == 2 * chip_smoke.ALS["numIter"]
+    assert als["rate_max_err"] == 0.0 and als["top10_diff"] == 0
+    assert als["blocked_equal"] and als["user_width"] >= 20
+    cf = out["21.1"]["cf"]
+    assert cf["neighbours_differ"] == 0 and cf["swing"]["finite"]
+    for op in ("FmRecommTrainBatchOp", "DeepFmRecommTrainBatchOp"):
+        assert out["21.1"]["fm"][op]["rmse_gap"] < 1e-6
+    o = out["21.2"]
+    assert o["KdeOutlierBatchOp"]["flags_differ"] == 0
+    for op in ("IForestOutlierBatchOp", "IForestModel"):
+        assert o[op]["score_gap"] == 0.0 and o[op]["flags_differ"] == 0
+    assert o["IForestModel"]["check_rows"] == chip_smoke.CREDIT_ROWS
+    assert o["grouped"]["equal"] and o["grouped"]["groups"] == 20
+    f = out["21.3"]
+    assert f["score_gap"] == 0.0 and f["psi_equal"] and f["sparse"]["equal"]
+    assert "phase 21: {" in capsys.readouterr().out
+
+
+def test_recomm_outlier_phase_is_in_main_after_phase_20():
+    """Phase 21 runs in the second process, which ``main`` starts before
+    phase 20 and joins, printing its output, after phase 20 and before
+    the kernels line."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("start_side(") < src.index("graph_text_path(card)") \
+        < src.index("join_side(") < src.index("line = {")
+    assert "recomm_outlier_path(card)" in inspect.getsource(
+        chip_smoke.side_phase)
+
+
+def test_side_phase_runs_phase_21_with_its_mark(monkeypatch, capsys):
+    ran = []
+    monkeypatch.setattr(chip_smoke, "recomm_outlier_path", ran.append)
+    threads = torch.get_num_threads()
+    try:
+        assert chip_smoke.side_phase("cpu stand-in") == 0
+        assert torch.get_num_threads() == chip_smoke.SIDE_THREADS
+    finally:
+        torch.set_num_threads(threads)
+    assert ran == ["cpu stand-in"]
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "[phase 21 recommendation, outliers and finance: ")
+
+
+def test_start_side_runs_this_script_with_the_kernel_library(monkeypatch,
+                                                             tmp_path):
+    from alink_tpu_torch.native import kernels
+
+    seen = {}
+
+    def popen(args, stdout, stderr, env):
+        seen.update(args=args, env=env, log=stdout.name)
+        return "process"
+
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", popen)
+    proc, log = chip_smoke.start_side(str(tmp_path), "card, 700 W", "/k.so")
+    assert proc == "process" and log == seen["log"]
+    assert seen["args"][1:] == [os.path.abspath(chip_smoke.__file__),
+                                "--side", "card, 700 W"]
+    assert seen["env"][kernels.PREBUILT_ENV] == "/k.so"
+    assert seen["env"]["OMP_NUM_THREADS"] == str(chip_smoke.SIDE_THREADS)
+
+
+@pytest.mark.parametrize("code, want", [
+    ("print('[phase 21 ok]')", None),
+    ("print('FAIL: phase 21: x'); raise SystemExit(1)", "exit 1"),
+    ("import time; print('started', flush=True); time.sleep(60)",
+     "killed after"),
+])
+def test_join_side_prints_the_log_and_fails_with_the_process(
+        monkeypatch, capsys, tmp_path, code, want):
+    import subprocess
+    import sys
+
+    monkeypatch.setattr(chip_smoke, "SIDE_TIMEOUT_S", 5)
+    log = tmp_path / "side.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                                stderr=subprocess.STDOUT)
+    if want is None:
+        chip_smoke.join_side(proc, str(log))
+        assert capsys.readouterr().out == "[phase 21 ok]\n"
+        return
+    with pytest.raises(SystemExit):
+        chip_smoke.join_side(proc, str(log))
+    assert proc.poll() is not None
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] in ("FAIL: phase 21: x", "started")
+    assert out[-1].startswith("FAIL: phase 21 (second process): ")
+    assert want in out[-1]
+
+
+def test_recomm_outlier_phase_fails_when_the_routes_part(monkeypatch,
+                                                         capsys):
+    """A card route whose ALS sweeps, CF similarities, pairwise distances,
+    isolation-forest scores or scorecard regression drift from the CPU
+    route's fails the phase."""
+    import contextlib
+
+    from alink_tpu_torch import optim
+    from alink_tpu_torch.outlier import detectors
+    from alink_tpu_torch.recommendation import als, cf
+
+    _phase21_on_cpu(monkeypatch)
+    cpu_route = []
+
+    @contextlib.contextmanager
+    def torch_device(name):
+        cpu_route.append(name)
+        try:
+            yield
+        finally:
+            cpu_route.pop()
+
+    sweep, sim = als.half_sweep, cf.interaction_similarity
+    dists, optimize = detectors._pairwise_sq_dists, optim.optimize
+    iforest_score = detectors.iforest_score
+
+    def drifting_iforest(*a, **kw):
+        score, flags = iforest_score(*a, **kw)
+        return (score, flags) if cpu_route else (score * (1 + 1e-4), flags)
+
+    def drifting_sweep(*a, **kw):
+        out = sweep(*a, **kw)
+        return out if cpu_route else out * (1 + 1e-3)
+
+    def drifting_sim(*a, **kw):
+        ids, nbrs, sims, counts = sim(*a, **kw)
+        return ids, nbrs, sims if cpu_route else sims * 1.001, counts
+
+    def drifting_dists(*a, **kw):
+        d = dists(*a, **kw)
+        return d if cpu_route else d * np.float32(1.01)
+
+    def drifting_optimize(*a, **kw):
+        res = optimize(*a, **kw)
+        return res if cpu_route else res._replace(weights=res.weights * 1.01)
+
+    monkeypatch.setattr(chip_smoke, "torch_device", torch_device)
+    monkeypatch.setattr(als, "half_sweep", drifting_sweep)
+    monkeypatch.setattr(
+        __import__("alink_tpu_torch.operator.batch.recommendation",
+                   fromlist=["x"]), "interaction_similarity", drifting_sim)
+    monkeypatch.setattr(detectors, "_pairwise_sq_dists", drifting_dists)
+    monkeypatch.setattr(detectors, "iforest_score", drifting_iforest)
+    monkeypatch.setattr(optim, "optimize", drifting_optimize)
+    with pytest.raises(SystemExit):
+        chip_smoke.recomm_outlier_path("cpu stand-in")
+    fail = capsys.readouterr().out.splitlines()[-1]
+    assert fail.startswith("FAIL: phase 21: ")
+    for part in ("21.1 ALS: held-out", "21.1 ItemCF", "21.2 KdeOutlier",
+                 "21.2 IForestOutlierBatchOp", "21.2 IForestModel",
+                 "21.3 scorecard"):
+        assert part in fail, fail
+
+
+def test_chip_smoke_binds_each_module_name_once():
+    """A phase's constant or helper never rebinds an earlier phase's (a
+    second ``SPARSE_ROWS`` once resized phase 11's sparse LR)."""
+    import ast
+    import collections
+
+    with open(chip_smoke.__file__) as f:
+        tree = ast.parse(f.read())
+    seen = collections.Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            seen[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            for target in node.targets:
+                for name in ast.walk(target):
+                    if isinstance(name, ast.Name):
+                        seen[name.id] += 1
+    assert [n for n, c in seen.items() if c > 1] == []

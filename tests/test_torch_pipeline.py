@@ -293,7 +293,7 @@ def test_port_stages_are_reference_stages():
     stages = [n for n in P.__all__ if n in PORT]
     assert sum(issubclass(PORT[n], (P.EstimatorBase, P.ModelBase))
                and PORT[n] not in (P.EstimatorBase, P.ModelBase)
-               for n in stages) == 113
+               for n in stages) == 115
     for name in stages:
         assert name in REF, name
         assert set(getattr(P, name).param_infos()) <= \
@@ -458,3 +458,59 @@ def test_slice_stage_matches_reference(name):
     finally:
         remove_session(sid)
     same_table(out[1], out[0])
+
+
+def test_als_stage_matches_reference(tmp_path):
+    """ALS through Pipeline: fit, transform, save, load — the port against
+    the reference (predictions within 2e-4: the port's Gramians sum in
+    float64, the reference's in float32), and the port's saved model loaded
+    back."""
+    from torch_table_parity import reference_session, remove_session
+
+    import alink_tpu.pipeline as RP
+    import alink_tpu_torch.pipeline as PP
+    from alink_tpu.common.mtable import MTable as RT
+    from alink_tpu_torch.common.mtable import MTable as PT
+
+    rng = np.random.RandomState(4)
+    U, V = rng.randn(15, 3) / np.sqrt(3), rng.randn(10, 3) / np.sqrt(3)
+    us, is_ = np.nonzero(rng.rand(15, 10) < 0.6)
+    cols = {"user": us.astype(np.int64), "item": is_.astype(np.int64),
+            "rating": (U @ V.T)[us, is_]}
+    sid = reference_session()
+    kw = dict(userCol="user", itemCol="item", rateCol="rating", rank=3,
+              numIter=20, predictionCol="p", **{"lambda": 0.01})
+    try:
+        ref = RP.Pipeline(RP.ALS(**kw, MLEnvironmentId=sid)).fit(
+            RT(dict(cols)))
+        r = np.asarray(ref.transform(RT(dict(cols))).collect().col("p"))
+    finally:
+        remove_session(sid)
+    port = PP.Pipeline(PP.ALS(**kw)).fit(PT(dict(cols)))
+    p = np.asarray(port.transform(PT(dict(cols))).collect().col("p"))
+    np.testing.assert_allclose(p, r, atol=2e-4)
+    assert np.sqrt(np.mean((p - cols["rating"]) ** 2)) < 0.15
+    path = str(tmp_path / "als.ak")
+    port.save(path)
+    again = PP.PipelineModel.load(path).transform(PT(dict(cols))).collect()
+    np.testing.assert_array_equal(np.asarray(again.col("p")), p)
+
+
+def test_sparse_feature_indexer_stage_matches_reference():
+    """The stage's fitted pipeline indexes the seeded strings as the
+    reference's does (tables equal)."""
+    from torch_table_parity import same_table
+
+    import alink_tpu.pipeline as RP
+    import alink_tpu_torch.pipeline as PP
+    from alink_tpu.common.mtable import MTable as RT
+    from alink_tpu_torch.common.mtable import MTable as PT
+
+    sf = {"f": np.asarray(["a:1,b:2", "b:3,c:1", "c:4"], object)}
+    outs = []
+    for P, T in ((RP, RT), (PP, PT)):
+        est = P.estimators.SparseFeatureIndexer(selectedCol="f",
+                                                outputCol="v")
+        outs.append(P.Pipeline(est).fit(T(dict(sf))).transform(
+            T(dict(sf))).collect())
+    same_table(outs[1], outs[0])

@@ -118,7 +118,18 @@ def test_port_imports_no_jax_flax_msgpack_or_reference():
             "alink_tpu_torch.operator.batch.similarity",
             "alink_tpu_torch.operator.batch.feature4",
             "alink_tpu_torch.operator.batch.nlp",
-            "alink_tpu_torch.operator.batch.nlp2"} \
+            "alink_tpu_torch.operator.batch.nlp2",
+            "alink_tpu_torch.recommendation.als",
+            "alink_tpu_torch.recommendation.cf",
+            "alink_tpu_torch.outlier.detectors",
+            "alink_tpu_torch.operator.local",
+            "alink_tpu_torch.operator.stream.modelstream",
+            "alink_tpu_torch.operator.batch.recommendation",
+            "alink_tpu_torch.operator.batch.recommendation2",
+            "alink_tpu_torch.operator.batch.outlier",
+            "alink_tpu_torch.operator.batch.utils2",
+            "alink_tpu_torch.operator.batch.finance",
+            "alink_tpu_torch.operator.batch.misc2"} \
         <= set(scanned.split(","))
     smoke = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; print(','.join(sorted("
@@ -661,3 +672,107 @@ def test_slice16_classes_and_params_are_the_references(module):
         assert hasattr(port, name), name
         assert params(getattr(port, name)) == params(getattr(ref, name)), \
             name
+
+
+def test_recommendation_outlier_and_finance_entry_points_refuse_cpu(
+        monkeypatch):
+    """ALS, the CF similarity products, FM and DeepFM, the ALS and DeepFM
+    serving kernels, the pairwise outlier detectors, the one-class SVM and
+    the scorecard's regression run on the card: without one they raise
+    unless the CPU is asked for. The host ops need no card."""
+    import torch
+
+    from alink_tpu_torch.common.exceptions import AkIllegalStateException
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator import batch as B
+    from alink_tpu_torch.outlier import kde, lof, ocsvm
+    from alink_tpu_torch.recommendation import interaction_similarity, \
+        train_als
+
+    rng = np.random.default_rng(0)
+    u, i = rng.integers(0, 6, 40), rng.integers(0, 5, 40)
+    trip = B.TableSourceBatchOp(MTable({"u": u, "i": i,
+                                        "r": rng.random(40)}))
+    X = rng.normal(size=(30, 2))
+    feats = B.TableSourceBatchOp(MTable({"a": X[:, 0], "b": X[:, 1]}))
+    credit = B.TableSourceBatchOp(MTable({
+        "a": X[:, 0], "y": np.asarray([str(int(v > 0)) for v in X[:, 1]],
+                                      object)}))
+    rc = dict(userCol="u", itemCol="i", rateCol="r")
+    runs = [lambda: train_als(u, i, np.ones(40)),
+            lambda: interaction_similarity(u, i),
+            lambda: kde(X), lambda: lof(X), lambda: ocsvm(X)]
+    for train, kw in ((B.AlsTrainBatchOp, dict(numIter=1)),
+                      (B.ItemCfTrainBatchOp, {}),
+                      (B.FmRecommTrainBatchOp, dict(numEpochs=1)),
+                      (B.DeepFmRecommTrainBatchOp, dict(numEpochs=1))):
+        runs.append(lambda t=train, kw=kw: t(**rc, **kw).link_from(trip)
+                    .collect())
+    for op, kw in ((B.KdeOutlierBatchOp, {}), (B.LofOutlierBatchOp, {}),
+                   (B.SosOutlierBatchOp, {}), (B.OcsvmOutlierBatchOp, {}),
+                   (B.DbscanOutlierBatchOp, {}),
+                   (B.OcsvmModelOutlierTrainBatchOp, {})):
+        runs.append(lambda o=op, kw=kw: o(featureCols=["a", "b"], **kw)
+                    .link_from(feats).collect())
+    runs.append(lambda: B.ScorecardTrainBatchOp(
+        selectedCols=["a"], labelCol="y", positiveLabelValueString="1")
+        .link_from(credit).collect())
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    als = B.AlsTrainBatchOp(**rc, numIter=1).link_from(trip)
+    deepfm = B.DeepFmRecommTrainBatchOp(**rc, numEpochs=1).link_from(trip)
+    als.collect()
+    deepfm.collect()
+    runs += [lambda: B.AlsItemsPerUserRecommBatchOp(userCol="u")
+             .link_from(als, trip).collect(),
+             lambda: B.DeepFmRateRecommBatchOp().link_from(deepfm, trip)
+             .collect()]
+    monkeypatch.delenv("ALINK_TORCH_DEVICE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in runs:
+        with pytest.raises(AkIllegalStateException):
+            run()
+    # the host ops need no card
+    assert B.HbosOutlierBatchOp(featureCols=["a", "b"]).link_from(
+        feats).collect().num_rows == 30
+    assert B.RankingListBatchOp(objectCol="i").link_from(
+        trip).collect().num_rows == 5
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    for run in runs:
+        run()
+
+
+@pytest.mark.parametrize("module", [
+    "recommendation.als", "recommendation.cf", "outlier.detectors",
+    "operator.local", "operator.batch.recommendation",
+    "operator.batch.recommendation2", "operator.batch.outlier",
+    "operator.batch.utils2", "operator.batch.finance",
+    "operator.batch.misc2"])
+def test_slice17_classes_and_params_are_the_references(module):
+    """Every class and public function the reference module defines has a
+    counterpart of the same name in the port's module, the classes with
+    the same ParamInfo names, defaults and aliases."""
+    import importlib
+    import inspect
+
+    ref = importlib.import_module(f"alink_tpu.{module}")
+    port = importlib.import_module(f"alink_tpu_torch.{module}")
+
+    def params(cls):
+        out = {}
+        for klass in reversed(cls.__mro__):
+            for v in vars(klass).values():
+                if type(v).__name__ == "ParamInfo":
+                    out[v.name] = (repr(v.default),
+                                   tuple(getattr(v, "aliases", ()) or ()))
+        return out
+
+    defined = [n for n, c in vars(ref).items()
+               if (inspect.isclass(c) or inspect.isfunction(c)
+                   and not n.startswith("_"))
+               and c.__module__ == ref.__name__]
+    assert defined
+    for name in defined:
+        assert hasattr(port, name), name
+        if inspect.isclass(getattr(ref, name)):
+            assert params(getattr(port, name)) == \
+                params(getattr(ref, name)), name
