@@ -180,22 +180,25 @@ resnet_torch_to_flax = keras_torch_to_flax
 # ---------------------------------------------------------------------------
 
 
-def to_flax(model) -> dict:
-    """The reference's variables tree of ``model``'s state (BERT,
-    KerasSequential or ResNet), as numpy arrays."""
+def _keras_layout(model) -> bool:
     from .modules import KerasSequential
     from .resnet import ResNet
 
-    if isinstance(model, (KerasSequential, ResNet)):
+    return isinstance(model, (KerasSequential, ResNet)) \
+        or getattr(model, "flax_layout", None) == "keras"
+
+
+def to_flax(model) -> dict:
+    """The reference's variables tree of ``model``'s state (BERT,
+    KerasSequential, ResNet or a net with ``flax_layout = "keras"``, such
+    as the timeseries nets), as numpy arrays."""
+    if _keras_layout(model):
         return keras_torch_to_flax(model.state_dict())
     return torch_to_flax(model.state_dict(), model.cfg)
 
 
 def from_flax(model, variables) -> Dict[str, torch.Tensor]:
     """``model``'s state dict from the reference's variables tree."""
-    from .modules import KerasSequential
-    from .resnet import ResNet
-
-    if isinstance(model, (KerasSequential, ResNet)):
+    if _keras_layout(model):
         return keras_flax_to_torch(variables)
     return flax_to_torch(variables)

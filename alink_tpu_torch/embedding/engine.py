@@ -1,7 +1,8 @@
 """Engine selection for the huge-embedding family (port of
 ``alink_tpu.embedding.engine``).
 
-One knob spans the family (Word2Vec, DeepWalk and Node2Vec embeddings):
+One knob spans the family (Word2Vec, DeepWalk, Node2Vec, MetaPath2Vec and
+LINE embeddings):
 
 - ``sharded`` (default): tables row-sharded over the ``model`` ranks, APS
   pull/push with the hot-key cache and the ``sgns_block_grads`` kernel;
@@ -53,11 +54,15 @@ def train_embedding(
     engine: Optional[str] = None,
     device=None,
     hot_rows: Optional[int] = None,
+    negatives: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Train SGNS through the resolved engine on ``device``; returns the
-    (V, dim) input table on the host either way."""
+    (V, dim) input table on the host either way. ``negatives``: the tests'
+    replay of a given negative stream, (steps, B, negs)."""
     if huge_engine(engine) == "host":
-        return train_skipgram(pairs, vocab_size, counts, cfg, device=device)
+        return train_skipgram(pairs, vocab_size, counts, cfg, device=device,
+                              negatives=negatives)
     handle = train_skipgram_sharded(pairs, vocab_size, counts, cfg,
-                                    device=device, hot_rows=hot_rows)
+                                    device=device, hot_rows=hot_rows,
+                                    negatives=negatives)
     return handle.to_numpy()

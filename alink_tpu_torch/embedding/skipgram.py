@@ -218,12 +218,13 @@ def _run_pairs_host(pairs, V, D, B, negs, steps, n_blocks, lr0, seed, *,
 
 def _run_pairs_sharded(pairs, V, D, B, negs, steps, n_blocks, lr0, seed, *,
                        tie=False, neg_logits=None, neg_v=0, device=None,
-                       hot_rows=None, negatives=None):
+                       hot_rows=None, negatives=None, probs=None):
     """Sharded engine: per step one ``sgns_pull_grads`` (the pull, through
     the hot cache when ``hot > 0``, and the gradients), then the pushes.
-    Returns the input table's handle. The reference also sizes the
-    multi-rank exchange's buckets here (``cold_capacity``); one rank has no
-    exchange."""
+    Returns the input table's handle. ``probs`` (the ids' empirical
+    distribution) only sizes the multi-rank exchange's buckets in the
+    reference (``cold_capacity``); one rank has no exchange, so it is
+    accepted and unused (ROADMAP A3)."""
     from ..parallel.aps import ShardedEmbedding, push
     from ..parallel.hotcache import (note_cache_dropped, note_cache_traffic,
                                      refresh_hot, refresh_hot_many,

@@ -1,8 +1,8 @@
 """Random walks over graphs, corpus generators for DeepWalk/Node2Vec.
 
 A copy of the host-numpy walks of ``alink_tpu.embedding.walks``: the port
-keeps its own, so that it imports nothing of the JAX package. The reference's
-``line_embeddings`` comes with ``LineBatchOp`` (ROADMAP A6).
+keeps its own, so that it imports nothing of the JAX package.
+:func:`line_embeddings` trains LINE through the huge-embedding engine.
 
 (reference: operator/batch/graph/DeepWalkBatchOp + walkpath/ and
 storage/BaseCSRGraph.java random-walk storage; Node2Vec biased walks in
@@ -153,3 +153,61 @@ def metapath_walks(
                 walk.append(cur)
             walks.append(walk + [-1] * (walk_len - len(walk)))
     return np.asarray(walks, np.int64)
+
+
+def line_embeddings(
+    src: np.ndarray,
+    dst: np.ndarray,
+    num_nodes: int,
+    dim: int = 64,
+    order: int = 2,
+    num_negatives: int = 5,
+    num_steps: int = 2000,
+    batch_size: int = 512,
+    learning_rate: float = 0.025,
+    seed: int = 0,
+    *,
+    engine: Optional[str] = None,
+    device=None,
+    hot_rows: Optional[int] = None,
+    negatives: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """LINE first/second-order proximity embeddings (reference:
+    operator/batch/graph/LineBatchOp + huge LINE impl).
+
+    LINE is SGNS over edge mini-batches — order=2 trains a separate context
+    table, order=1 ties both sides to ONE table — so it rides the shared
+    huge-embedding engine (``embedding/skipgram.py``) on ``device``: on the
+    card one ``sgns_pull_grads`` launch a step. Negatives are uniform over
+    nodes. One process is one rank, so the batch is clamped to
+    ``min(batch_size, E)``: one block never tiles the edge set into
+    duplicate scatter-adds (which would multiply the effective learning
+    rate), and the shuffled tail shorter than a block is dropped.
+    ``negatives``: the tests' replay of a given negative stream,
+    (num_steps, B, num_negatives)."""
+    from ..common.env import resolve_device
+    from .engine import huge_engine
+    from .skipgram import _prep_pairs, _run_pairs_host, _run_pairs_sharded
+
+    rng = np.random.default_rng(seed)
+    E = src.shape[0]
+    if E == 0:
+        resolve_device(device)
+        return ((rng.random((num_nodes, dim)) - 0.5) / dim).astype(np.float32)
+    eng = huge_engine(engine)
+    ndev = 1
+    B = max(1, min(batch_size, E // ndev))
+    edges = np.stack([src, dst], axis=1).astype(np.int32)
+    edges, n_batches = _prep_pairs(edges, B, ndev, seed)
+    common = dict(tie=order != 2, neg_logits=None, neg_v=num_nodes,
+                  device=device, negatives=negatives)
+    if eng == "host":
+        return _run_pairs_host(
+            edges, num_nodes, dim, B, num_negatives, num_steps, n_batches,
+            learning_rate, seed, **common)
+    # the reference also passes probs=deg + 1, which only sizes the
+    # multi-rank exchange's buckets: one rank passes none (ROADMAP A3)
+    handle = _run_pairs_sharded(
+        edges, num_nodes, dim, B, num_negatives, num_steps, n_batches,
+        learning_rate, seed, hot_rows=hot_rows, **common)
+    return handle.to_numpy()

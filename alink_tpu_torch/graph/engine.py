@@ -67,11 +67,14 @@ class MemoryGraph:
     def from_table(t, source_col: str, target_col: str,
                    weight_col: Optional[str] = None,
                    directed: bool = False) -> "MemoryGraph":
-        s = np.asarray(t.col(source_col), object).astype(str)
-        d = np.asarray(t.col(target_col), object).astype(str)
-        labels, inv = np.unique(np.concatenate([s, d]), return_inverse=True)
-        src = inv[:len(s)].astype(np.int32)
-        dst = inv[len(s):].astype(np.int32)
+        # the ids as strings, factorized through a dict: the sorted labels
+        # and inverse of np.unique, without sorting every endpoint
+        s = list(map(str, np.asarray(t.col(source_col), object).tolist()))
+        d = list(map(str, np.asarray(t.col(target_col), object).tolist()))
+        labels = np.asarray(sorted(set(s).union(d)), dtype=str)
+        index = {v: i for i, v in enumerate(labels.tolist())}
+        src = np.fromiter(map(index.__getitem__, s), np.int32, len(s))
+        dst = np.fromiter(map(index.__getitem__, d), np.int32, len(d))
         w = (np.asarray(t.col(weight_col), np.float32) if weight_col
              else np.ones(len(s), np.float32))
         if not directed:

@@ -402,3 +402,32 @@ from .misc2 import (AddressParserBatchOp, BaseFormatTransBatchOp,
                     BaseSinkBatchOp, BaseSourceBatchOp, BaseSqlApiBatchOp,
                     PSIBatchOp, SomBatchOp, SparseFeatureIndexerPredictBatchOp,
                     SparseFeatureIndexerTrainBatchOp)
+from .timeseries import (ArimaBatchOp, AutoArimaBatchOp, DeepARBatchOp,
+                         DifferenceBatchOp, EvalTimeSeriesBatchOp,
+                         GarchBatchOp, HoltWintersBatchOp, LSTNetBatchOp,
+                         ProphetBatchOp, ShiftBatchOp, TFTBatchOp)
+from .timeseries2 import (AutoGarchBatchOp, DeepARPredictBatchOp,
+                          DeepARTrainBatchOp, LSTNetPredictBatchOp,
+                          LSTNetTrainBatchOp, LookupRecentDaysBatchOp,
+                          LookupValueInTimeSeriesBatchOp,
+                          LookupVectorInTimeSeriesBatchOp,
+                          ProphetPredictBatchOp, ProphetTrainBatchOp)
+from .huge import LineBatchOp, MetaPath2VecBatchOp, MetaPathWalkBatchOp
+from .windowfe import (GenerateFeatureOfLatestBatchOp,
+                       GenerateFeatureOfLatestNDaysBatchOp,
+                       GenerateFeatureOfWindowBatchOp)
+from .relational2 import (AsBatchOp, DataSetWrapperBatchOp,
+                          FullOuterJoinBatchOp, IntersectAllBatchOp,
+                          LeftOuterJoinBatchOp, MinusAllBatchOp, PrintBatchOp,
+                          RandomVectorSourceBatchOp, RightOuterJoinBatchOp,
+                          SampleWithSizeBatchOp,
+                          StratifiedSampleWithSizeBatchOp)
+from .graph2 import (CommunityDetectionClassifyBatchOp,
+                     HugeDeepWalkTrainBatchOp, HugeIndexerStringPredictBatchOp,
+                     HugeLabeledWord2VecTrainBatchOp, HugeLookupBatchOp,
+                     HugeMetaPath2VecTrainBatchOp,
+                     HugeMultiIndexerStringPredictBatchOp,
+                     HugeNode2VecTrainBatchOp, HugeWord2VecTrainBatchOp,
+                     IndexToNodeBatchOp, MdsBatchOp, Node2VecBatchOp,
+                     NodeIndexerTrainBatchOp, NodeToIndexBatchOp,
+                     RiskAlikeBuildGraphBatchOp, SimrankBatchOp)

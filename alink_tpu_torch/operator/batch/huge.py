@@ -3,9 +3,9 @@
 
 Training runs on the session's device (``self.env.device``) through
 ``train_embedding``; the model table (word, vec DenseVector) written by
-either package serves in the other's ``Word2VecPredictBatchOp``. Not ported
-yet: ``MetaPathWalkBatchOp``, ``MetaPath2VecBatchOp`` and ``LineBatchOp``
-(ROADMAP A6).
+either package serves in the other's ``Word2VecPredictBatchOp``. On the card
+every training op launches the ``sgns_block_grads`` kernel once a step
+(``sgns_pull_grads``), LINE's order 1 on one tied table.
 
 Capability parity:
 - Word2VecTrainBatchOp (reference: operator/batch/nlp/Word2VecTrainBatchOp +
@@ -16,6 +16,10 @@ Capability parity:
   DeepWalkBatchOp, Node2VecWalkBatchOp) — emit walks as token sequences.
 - DeepWalkEmbeddingBatchOp / Node2VecEmbeddingBatchOp (reference:
   huge/DeepWalkBatchOp, huge/Node2VecBatchOp) — walks + SGNS end to end.
+- MetaPathWalkBatchOp / MetaPath2VecBatchOp (reference: operator/batch/graph/
+  MetaPathWalkBatchOp, MetaPath2VecBatchOp) — typed walks (+ SGNS).
+- LineBatchOp (reference: operator/batch/graph/LineBatchOp) — LINE first or
+  second order over edge mini-batches.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import numpy as np
 from ...common.exceptions import AkIllegalDataException
 from ...common.linalg import DenseVector
 from ...common.mtable import AlinkTypes, MTable, TableSchema
-from ...common.params import MinValidator, ParamInfo
+from ...common.params import InValidator, MinValidator, ParamInfo
 from ...embedding import (
     SkipGramConfig,
     build_vocab,
@@ -291,3 +295,132 @@ class Node2VecEmbeddingBatchOp(_WalkEmbeddingBase):
     _walk_op_cls = Node2VecWalkBatchOp
     P = ParamInfo("p", float, default=1.0)
     Q = ParamInfo("q", float, default=1.0)
+
+
+class MetaPathWalkBatchOp(BatchOperator, HasWalkParams):
+    """Metapath-constrained walks over a heterogeneous graph; second input
+    holds (vertex, type) rows (reference:
+    operator/batch/graph/MetaPathWalkBatchOp.java)."""
+
+    METAPATH = ParamInfo("metaPath", str, optional=False,
+                         desc="type sequence, e.g. 'user-item-user'")
+    VERTEX_COL = ParamInfo("vertexCol", str, default="vertex")
+    TYPE_COL = ParamInfo("typeCol", str, default="type")
+
+    _min_inputs = 2
+    _max_inputs = 2
+
+    def _out_schema(self, *in_schemas) -> TableSchema:
+        return TableSchema(["path"], [AlinkTypes.STRING])
+
+    def _execute_impl(self, edges: MTable, types_t: MTable) -> MTable:
+        from ...embedding.walks import metapath_walks
+
+        nodes, src, dst, w = _edges_of(self, edges)
+        idx = {v: i for i, v in enumerate(nodes)}
+        node_types = np.asarray(["?"] * len(nodes), object)
+        for v, tp in zip(types_t.col(self.get(self.VERTEX_COL)),
+                         types_t.col(self.get(self.TYPE_COL))):
+            j = idx.get(str(v))
+            if j is not None:
+                node_types[j] = str(tp)
+        indptr, indices, _ = build_csr(
+            src, dst, w, num_nodes=len(nodes),
+            directed=not self.get(self.IS_TO_UNDIGRAPH))
+        metapath = self.get(self.METAPATH).split("-")
+        walks = metapath_walks(
+            indptr, indices, node_types, metapath,
+            num_walks=self.get(self.WALK_NUM),
+            seed=self.get(self.RANDOM_SEED))
+        delim = self.get(self.DELIMITER)
+        out = np.asarray(
+            [delim.join(nodes[v] for v in row if v >= 0) for row in walks],
+            object)
+        return MTable({"path": out}, TableSchema(["path"],
+                                                 [AlinkTypes.STRING]))
+
+
+class MetaPath2VecBatchOp(BatchOperator, HasWalkParams, HasWord2VecParams):
+    """Metapath walks + SGNS end-to-end (reference:
+    operator/batch/graph/MetaPath2VecBatchOp.java via APS)."""
+
+    METAPATH = MetaPathWalkBatchOp.METAPATH
+    VERTEX_COL = MetaPathWalkBatchOp.VERTEX_COL
+    TYPE_COL = MetaPathWalkBatchOp.TYPE_COL
+    SELECTED_COL = ParamInfo("selectedCol", str)  # unused; graph input
+
+    _min_inputs = 2
+    _max_inputs = 2
+    _huge_sgns = True      # plan validator: SGNS op under ALINK_HUGE_ENGINE
+    _negatives = None      # tests: a replayed negative stream
+
+    def _out_schema(self, *in_schemas) -> TableSchema:
+        return TableSchema(["word", "vec"],
+                           [AlinkTypes.STRING, AlinkTypes.DENSE_VECTOR])
+
+    def _execute_impl(self, edges: MTable, types_t: MTable) -> MTable:
+        walk_op = MetaPathWalkBatchOp(self.get_params().clone())
+        walks_t = walk_op._execute_impl(edges, types_t)
+        delim = self.get(self.DELIMITER)
+        docs = [str(v).split(delim) for v in walks_t.col("path")]
+        vocab, counts = build_vocab(docs, self.get(self.MIN_COUNT))
+        cfg = SkipGramConfig(
+            dim=self.get(self.VECTOR_SIZE),
+            window=self.get(self.WINDOW),
+            negatives=self.get(self.NEGATIVE),
+            epochs=self.get(self.NUM_ITER),
+            batch_size=self.get(self.BATCH_SIZE),
+            learning_rate=self.get(self.LEARNING_RATE),
+            subsample=0.0,
+            seed=self.get(self.RANDOM_SEED),
+        )
+        pairs = make_pairs(docs, vocab, counts, cfg.window, 0.0, cfg.seed)
+        emb = train_embedding(pairs, len(vocab), counts, cfg,
+                              device=self.env.device,
+                              negatives=self._negatives)
+        return _w2v_model_table(vocab, emb)
+
+
+class LineBatchOp(BatchOperator, HasWalkParams):
+    """LINE first/second-order embeddings (reference:
+    operator/batch/graph/LineBatchOp.java)."""
+
+    _huge_sgns = True      # plan validator: SGNS op under ALINK_HUGE_ENGINE
+    _negatives = None      # tests: a replayed negative stream
+
+    VECTOR_SIZE = ParamInfo("vectorSize", int, default=64)
+    ORDER = ParamInfo("order", int, default=2,
+                      validator=InValidator(1, 2))
+    NUM_STEPS = ParamInfo("numSteps", int, default=2000)
+    NEGATIVE = ParamInfo("negative", int, default=5)
+    LEARNING_RATE = ParamInfo("learningRate", float, default=0.025)
+    BATCH_SIZE = ParamInfo("batchSize", int, default=512,
+                           validator=MinValidator(1),
+                           desc="per-device edge mini-batch size")
+
+    _min_inputs = 1
+    _max_inputs = 1
+
+    def _out_schema(self, in_schema) -> TableSchema:
+        return TableSchema(["word", "vec"],
+                           [AlinkTypes.STRING, AlinkTypes.DENSE_VECTOR])
+
+    def _execute_impl(self, t: MTable) -> MTable:
+        from ...embedding.walks import line_embeddings
+
+        nodes, src, dst, w = _edges_of(self, t)
+        if self.get(self.IS_TO_UNDIGRAPH):
+            src, dst = (np.concatenate([src, dst]),
+                        np.concatenate([dst, src]))
+        emb = line_embeddings(
+            src, dst, num_nodes=len(nodes),
+            dim=self.get(self.VECTOR_SIZE),
+            order=self.get(self.ORDER),
+            num_negatives=self.get(self.NEGATIVE),
+            num_steps=self.get(self.NUM_STEPS),
+            batch_size=self.get(self.BATCH_SIZE),
+            learning_rate=self.get(self.LEARNING_RATE),
+            seed=self.get(self.RANDOM_SEED),
+            device=self.env.device, negatives=self._negatives)
+        vocab = {v: i for i, v in enumerate(nodes)}
+        return _w2v_model_table(vocab, emb)

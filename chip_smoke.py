@@ -357,9 +357,7 @@ non-zero:
     20,000 rows of 19.1's PCA output (ε the median 10th-neighbour distance
     of 1,000 rows, minPoints 10): the ε-tiles' and the host expansion's
     seconds, labels against the CPU route's;
-    ``scripts/chip_phase_check.py features`` runs this phase alone. It
-    runs first, while the kernels of step 2 build (host work of nvcc
-    beside it), and its walls are taken so;
+    ``scripts/chip_phase_check.py features`` runs this phase alone;
 20. graphs, vector neighbours, text and constrained features
     (``graph_text_path``; no kernel of the port: its launch count must stay
     0; TF32 must be off), every op as ``TableSourceBatchOp`` → op →
@@ -425,11 +423,66 @@ non-zero:
     training and held-out rows, each on both routes;
     ``SparseFeatureIndexerTrain/Predict`` on seeded k:v strings on both
     routes. ``scripts/chip_phase_check.py recomm`` runs this phase alone.
-    Phase 21 runs in a second process (``python3 chip_smoke.py --side``,
-    started by this one, SIDE_THREADS host threads) while phase 20 runs
-    here: it builds and launches no kernel, keeps its own launch counts,
-    and its output is printed after phase 20's;
-22. one JSON line of kernels, then the device line last.
+20.5. LINE, MetaPath2Vec, SimRank and MDS (``walks_path``; the
+    ``sgns_block_grads`` kernel on new paths, its launch count set to 0
+    before each run and read after it): (20.5.1) ``LineBatchOp`` at its
+    defaults (vectorSize 64, 2,000 steps, batches of 512 edges, 5
+    uniform negatives) with order 2 and then order 1 (one tied table) on
+    phase 20's scale-17 Graph 500 graph, 2 % of its edges held out: one
+    launch a step; the held-out edges' AUC against as many random vertex
+    pairs by dot product, at least LINE_AUC_FLOOR; each order's table
+    against the ``ALINK_SGNS_PALLAS=0`` route at LINE_ROUTE_STEPS steps (a
+    cut, as Word2Vec's routes are) within SGNS_ROUTE_RTOL of what
+    training moved the table, the kernel route's AUC above 0.5 and within
+    LINE_AUC_SLACK of the plain route's there; device operations a step
+    (``torch.profiler``); (20.5.2) ``MetaPath2VecBatchOp`` ("user-item-
+    user", walkNum 10, vectorSize 100, window 5, 3 epochs, batches of
+    1,024) on phase 21's MovieLens-1M-layout user-item graph: one launch a
+    step, the table against the plain route on the op's own pairs, within
+    SGNS_ROUTE_RTOL of what training moved it; (20.5.3)
+    ``SimrankBatchOp`` (decay 0.8, 5 sweeps, top 10) on the whole graph,
+    device ms of the op's own sweeps (CUDA events, ``superstep_trace``),
+    card against the CPU route on the first SIMRANK_CPU_USERS users'
+    ratings (a cut: the whole graph's float64 products take minutes on
+    the host);
+    ``MdsBatchOp`` on MDS_ROWS rows of the sift layout, card against the
+    CPU route up to each column's sign. ``scripts/chip_phase_check.py
+    walks`` runs this phase alone;
+21. (above) and 22. time series and window features (``timeseries_path``;
+    no kernel of the port: its launch count must stay 0): (22.1) the
+    electricity layout (LSTNet's electricity.txt: 321 clients, the last
+    672 hours fit and 24 held out, from a seed) through ``ArimaBatchOp``
+    (order [1, 1, 1]) and ``HoltWintersBatchOp`` (frequency 24, the
+    1,000-point grid) over every client by ``groupCol``, ``GarchBatchOp``
+    over every client's hourly log returns and ``AutoGarchBatchOp`` over
+    AUTO_GARCH_SERIES of them, ``AutoArimaBatchOp`` at its defaults over
+    AUTO_ARIMA_SERIES (cuts): each a batched-lane fit, held against the
+    CPU route on its first CPU_SERIES series (cuts), the chosen orders
+    equal; sMAPE on the held-out day beside the
+    seasonal-naive forecast's; ms an Adam step, host syncs and idle share
+    of the lane fits (``torch.profiler``); peak memory; (22.2)
+    ``DeepARBatchOp``, ``LSTNetBatchOp`` and ``TFTBatchOp`` at their
+    defaults on NET_SERIES clients (one model a series), and at
+    NET_ROUTE_EPOCHS epochs against the CPU route; ``DeepARTrainBatchOp``
+    → ``.ak`` → ``DeepARPredictBatchOp``;
+    (22.3) ``GenerateFeatureOfLatestNDaysBatchOp`` (1 day) and a
+    ``GenerateFeatureOfWindowBatchOp`` hop window (1 h every 30 min) of
+    SUM, COUNT, AVG, MAX and MIN over the credit-card layout's amounts by
+    a seeded account column (10,000 accounts of Zipf activity: the
+    public set has no account ids), WINDOW_ORACLE_ROWS rows of each
+    against a numpy oracle of the same windows. ``scripts/
+    chip_phase_check.py timeseries`` runs this phase alone.
+    Phases 11, 13 and 18 to 22 run in three side processes (SIDE_GROUPS:
+    ``python3 chip_smoke.py --side CARD 19,20,20.5``, then ``22,21`` and
+    ``11,13,18``, SIDE_THREADS host threads each), started by this one
+    after phase 10, when the kernels line's device times are taken, and
+    joined, their output printed, before phase 16: phases 12, 14 and 15
+    run here meanwhile, and every wall of those phases is taken so. Each
+    process keeps its own launch counts, set to 0 before a path and read
+    after it; phases 18 and 20.5 hand theirs back in a JSON file beside
+    the process's log (SIDE_OUT_ENV). Nothing runs beside phases 16 and
+    17, whose overlap and recovery checks time the wall;
+23. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -648,6 +701,8 @@ sparse indexer equal (host).
 from __future__ import annotations
 
 import copy
+import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -7595,11 +7650,14 @@ WOE_BUCKETS = 10
 SELECTOR_MAX = 5
 
 
+@functools.lru_cache(maxsize=2)
 def rmat_edges(scale, edge_factor, seed):
     """Graph 500's Kronecker (R-MAT) edge list: ``edge_factor · 2**scale``
     undirected edges, each endpoint bit drawn from the initiator (A, B, C,
     D = 1 − A − B − C), self loops and repeats kept as the generator makes
-    them; weights in (0, 1]. Vertex ids as strings."""
+    them; weights in (0, 1]. Vertex ids as strings. Kept for the process
+    (phase 20.5 trains LINE on phase 20's graph); callers do not modify
+    it."""
     g = np.random.default_rng(seed)
     m = edge_factor << scale
     a, b, c = RMAT_ABC
@@ -8882,52 +8940,929 @@ def recomm_outlier_path(card):
     return out
 
 
-# phase 21 builds and launches no kernel of the port: a second process runs
-# it on the card while this one runs phase 20, which takes longer. Its
-# host threads are capped, so that the two processes share the host's
-# cores rather than oversubscribe them
+# ---------------------------------------------------------------------------
+# phase 20.5: LINE, MetaPath2Vec, SimRank and MDS (kernel 3 on new paths)
+# ---------------------------------------------------------------------------
+
+LINE = dict(vectorSize=64, numSteps=2000, batchSize=512, negative=5)
+LINE_HELD_OUT = 0.02        # edges held out before training, for the AUC
+LINE_AUC_SLACK = 0.02       # kernel route's AUC ≥ the plain route's − this
+LINE_AUC_FLOOR = {2: 0.5505, 1: 0.5895}   # the op's held-out AUC at its
+#                             2,000 steps on an NVIDIA H100 80GB HBM3 at
+#                             700 W (0.5565, 0.5955) less three standard
+#                             errors (0.002 at ~42,000 held-out edges)
+LINE_ROUTE_STEPS = 500      # both routes' steps of the table comparison: a
+#                             cut of the 2,000, as Word2Vec's routes are
+SGNS_ROUTE_RTOL = 1e-3      # kernel vs plain route: this share of what
+#                             training moved the plain route's table,
+#                             max|plain − init| (LINE's order-2 table moves
+#                             ~1.5e-3 in 500 steps: TABLE_ATOL alone would
+#                             pass a dropped negative there)
+METAPATH = dict(metaPath="user-item-user", walkNum=10, vectorSize=100,
+                window=5, numIter=3, batchSize=1024)
+SIMRANK = dict(decayFactor=0.8, numIter=5, topN=10)
+SIMRANK_CPU_USERS = 1_000   # the CPU route's cut: users 0..999 and their
+#                             ratings (float64 products of the whole
+#                             6,040 × 3,706 graph take minutes on the host)
+SIMRANK_ATOL = 1e-6         # similarities, card vs CPU route (float64
+#                             products rounded to float32, JSON 6 decimals)
+MDS_ROWS = 3_000            # of the sift layout's 128-dim base vectors
+MDS_DIM = 2
+MDS_RTOL = 1e-6             # coordinates up to sign, of the largest |coord|
+
+
+def line_auc(emb, held, pairs):
+    """AUC of held-out edges against as many random vertex pairs, both
+    scored by the dot product of their endpoints' rows (ties count half)."""
+    pos = (emb[held[:, 0]] * emb[held[:, 1]]).sum(1)
+    neg = (emb[pairs[:, 0]] * emb[pairs[:, 1]]).sum(1)
+    scores = np.concatenate([pos, neg])
+    order = np.argsort(scores, kind="stable")
+    ranks = np.empty(len(scores))
+    ranks[order] = np.arange(1, len(scores) + 1)
+    _, inv, counts = np.unique(scores, return_inverse=True,
+                               return_counts=True)
+    sums = np.bincount(inv, ranks)
+    ranks = (sums / counts)[inv]
+    n_pos = len(pos)
+    return float((ranks[:n_pos].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * len(neg)))
+
+
+def auc_se(auc, n_pos, n_neg):
+    """The AUC's standard error (Hanley and McNeil, 1982)."""
+    q1, q2 = auc / (2 - auc), 2 * auc * auc / (1 + auc)
+    return float(np.sqrt((auc * (1 - auc) + (n_pos - 1) * (q1 - auc * auc)
+                          + (n_neg - 1) * (q2 - auc * auc)) / (n_pos * n_neg)))
+
+
+def line_split(big, seed):
+    """The R-MAT graph's vertices and edges as ids (the op's sorted string
+    order), 2 % of the edges held out, and as many random vertex pairs."""
+    src_s = np.asarray(big["source"], str)
+    dst_s = np.asarray(big["target"], str)
+    nodes, inv = np.unique(np.concatenate([src_s, dst_s]),
+                           return_inverse=True)
+    src, dst = inv[:len(src_s)], inv[len(src_s):]
+    g = np.random.default_rng(seed)
+    held = g.random(len(src)) < LINE_HELD_OUT
+    pairs = g.integers(0, len(nodes), (int(held.sum()), 2))
+    return nodes, src, dst, held, np.stack([src[held], dst[held]], 1), pairs
+
+
+def line_graph():
+    """Phase 20's R-MAT graph as LineBatchOp sees it: its vertices and
+    edges as ids, the 2 % held out with as many random pairs, and the
+    op's vocabulary (the training edges' vertices, sorted): ``row`` maps
+    a vertex to its row there (-1 if unseen), ``s_ids``/``d_ids`` are the
+    training edges as rows."""
+    big = rmat_edges(GRAPH_SCALE, GRAPH_EDGE_FACTOR, SEED + 20)
+    nodes, src, dst, held, held_edges, pairs = line_split(big, SEED + 205)
+    keep = ~held
+    words = np.unique(np.concatenate([src[keep], dst[keep]]))
+    row = np.full(len(nodes), -1)
+    row[words] = np.arange(len(words))
+    return dict(big=big, nodes=nodes, keep=keep, held_edges=held_edges,
+                pairs=pairs, words=words, row=row, s_ids=row[src[keep]],
+                d_ids=row[dst[keep]])
+
+
+def line_table(src, dst, n, order, steps, device=None):
+    """``line_embeddings`` at LINE's settings on the op's undirected edge
+    list (``src``, ``dst`` and their reverses) for ``steps`` steps, on the
+    route that ``ALINK_SGNS_PALLAS`` selects."""
+    from alink_tpu_torch.embedding.walks import line_embeddings
+
+    return line_embeddings(
+        np.concatenate([src, dst]), np.concatenate([dst, src]), num_nodes=n,
+        dim=LINE["vectorSize"], order=order, num_negatives=LINE["negative"],
+        num_steps=steps, batch_size=LINE["batchSize"], seed=SEED,
+        device=device)
+
+
+def line_routes(src, dst, n, order, steps, device=None):
+    """``line_table`` for ``steps`` steps on the kernel route and on the
+    ``ALINK_SGNS_PALLAS=0`` route, and before training: (kernel, plain,
+    init)."""
+    from alink_tpu_torch.embedding.sgns_cuda import SGNS_KERNEL_ENV
+
+    kernel = line_table(src, dst, n, order, steps, device)
+    os.environ[SGNS_KERNEL_ENV] = "0"
+    try:
+        plain = line_table(src, dst, n, order, steps, device)
+        init = line_table(src, dst, n, order, 0, device)
+    finally:
+        del os.environ[SGNS_KERNEL_ENV]
+    return kernel, plain, init
+
+
+def route_gap(kernel, plain, init):
+    """(max|kernel − plain|, its limit, max|plain − init|): the limit is
+    SGNS_ROUTE_RTOL of what training moved the plain route's table, at most
+    TABLE_ATOL."""
+    moved = float(np.abs(plain - init).max())
+    return (float(np.abs(kernel - plain).max()),
+            min(TABLE_ATOL, SGNS_ROUTE_RTOL * moved), moved)
+
+
+def route_gap_problems(label, kernel, plain, init):
+    gap, limit, moved = route_gap(kernel, plain, init)
+    print(f"{label}: kernel route vs ALINK_SGNS_PALLAS=0 route max|Δ| "
+          f"{gap:.3g} (limit {limit:.3g}: {SGNS_ROUTE_RTOL} of "
+          f"max|plain − init| {moved:.3g}, at most {TABLE_ATOL}; max|table| "
+          f"{float(np.abs(plain).max()):.3g})", flush=True)
+    return [] if gap <= limit else [f"{label}: the kernel route's table is "
+                                    f"{gap:.3g} from the plain route's "
+                                    f"(limit {limit:.3g})"]
+
+
+def sgns_steps_profile(run, steps):
+    """Device operations and device µs a step of ``run`` (a training of
+    ``steps`` steps) under ``torch.profiler``."""
+    prof = device_profile(run, 1.0)
+    return dict(operations_per_step=prof["operations"] / steps,
+                device_us_per_step=prof["busy_ms"] * 1e3 / steps,
+                traced_wall_us_per_step=prof["traced_wall_ms"] * 1e3 / steps)
+
+
+def line_path(card, problems):
+    """20.5.1: LineBatchOp at its defaults (order 2, then order 1: one tied
+    table) on phase 20's Graph 500 graph at scale 17, 98 % of its edges;
+    the launch count of each run; the held-out edges' AUC, at least
+    LINE_AUC_FLOOR; each order's table against the plain route at
+    LINE_ROUTE_STEPS steps (both routes there, within SGNS_ROUTE_RTOL of
+    what training moved the table, and the AUCs at those steps)."""
+    import torch
+
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.operator.batch import LineBatchOp, TableSourceBatchOp
+
+    gr = line_graph()
+    big, nodes, keep, row = gr["big"], gr["nodes"], gr["keep"], gr["row"]
+    held_edges, pairs, words = gr["held_edges"], gr["pairs"], gr["words"]
+    s_ids, d_ids = gr["s_ids"], gr["d_ids"]
+    table = MTable({"source": big["source"][keep],
+                    "target": big["target"][keep]})
+    out = {"vertices": len(nodes), "edges": int(keep.sum()),
+           "held_out": len(held_edges)}
+    known = row >= 0
+    ids = np.where(known, row, 0)
+
+    def auc_of(t):
+        return line_auc(np.where(known[:, None], t[ids], 0.0), held_edges,
+                        pairs)
+
+    for order in (2, 1):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = LineBatchOp(sourceCol="source", targetCol="target",
+                            order=order, **LINE).link_from(
+            TableSourceBatchOp(table)).collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launches()["sgns_block_grads"]
+        if list(model.col("word")) != list(nodes[words]):
+            problems.append(f"LINE order {order}: the vocabulary is not the "
+                            f"training edges' sorted vertices")
+        emb = np.stack([np.asarray(v.data, np.float32)
+                        for v in model.col("vec")])
+        auc = auc_of(emb)
+        se = auc_se(auc, len(held_edges), len(pairs))
+        if launches != LINE["numSteps"]:
+            problems.append(f"LINE order {order}: {launches} "
+                            f"sgns_block_grads launches for "
+                            f"{LINE['numSteps']} steps")
+        if emb.shape[1] != LINE["vectorSize"] or not np.isfinite(emb).all():
+            problems.append(f"LINE order {order}: bad table")
+        if not auc >= LINE_AUC_FLOOR[order]:
+            problems.append(f"LINE order {order}: held-out AUC {auc:.4f} "
+                            f"below its floor {LINE_AUC_FLOOR[order]}")
+        # the routes, on the op's own ids of the training edges
+        k_tab, p_tab, i_tab = line_routes(s_ids, d_ids, len(words), order,
+                                          LINE_ROUTE_STEPS)
+        problems += route_gap_problems(
+            f"LINE order {order} at {LINE_ROUTE_STEPS} steps", k_tab, p_tab,
+            i_tab)
+        gap, limit, moved = route_gap(k_tab, p_tab, i_tab)
+        aucs = [auc_of(t) for t in (k_tab, p_tab)]
+        if not (aucs[0] > 0.5 and aucs[0] >= aucs[1] - LINE_AUC_SLACK):
+            problems.append(f"LINE order {order}: AUC {aucs[0]:.4f} on the "
+                            f"kernel route against {aucs[1]:.4f} on the "
+                            f"plain route at {LINE_ROUTE_STEPS} steps")
+        ops = sgns_steps_profile(
+            lambda: line_table(s_ids, d_ids, len(words), order, 100), 100)
+        out[f"order{order}"] = dict(
+            wall_s=wall, launches=launches,
+            steps_per_s=LINE["numSteps"] / wall, auc=auc, auc_se=se,
+            auc_floor=LINE_AUC_FLOOR[order],
+            route_aucs=dict(kernel=aucs[0], plain=aucs[1]),
+            route_gap=gap, route_limit=limit, route_moved=moved, **ops)
+        print(f"LINE order {order} ({LINE}, {len(words)} vertices, "
+              f"{2 * int(keep.sum())} directed edges): {wall:.2f} s wall, "
+              f"{LINE['numSteps'] / wall:.0f} steps/s, {launches} "
+              f"sgns_block_grads launches; held-out AUC {auc:.4f} (se "
+              f"{se:.4f}, floor {LINE_AUC_FLOOR[order]}); at "
+              f"{LINE_ROUTE_STEPS} steps kernel / plain AUC {aucs[0]:.4f} / "
+              f"{aucs[1]:.4f}; {ops['operations_per_step']:.1f} device "
+              f"operations and {ops['device_us_per_step']:.1f} us a step "
+              f"(torch.profiler, 100 steps)", flush=True)
+    return out
+
+
+def metapath_path(card, problems, users, items):
+    """20.5.2: MetaPath2VecBatchOp ("user-item-user", the op's defaults
+    otherwise) on the MovieLens-1M-layout user-item graph; the launch
+    count; the table against the plain route on the op's own pairs."""
+    import torch
+
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.embedding.sgns_cuda import SGNS_KERNEL_ENV
+    from alink_tpu_torch.native import kernels
+    from alink_tpu_torch.operator.batch import (MetaPath2VecBatchOp,
+                                                TableSourceBatchOp, huge)
+
+    edges = MTable({"u": np.char.add("u", users.astype(str)).astype(object),
+                    "i": np.char.add("i", items.astype(str)).astype(object)})
+    verts = MTable({
+        "vertex": np.concatenate([
+            np.char.add("u", np.arange(ML_USERS).astype(str)),
+            np.char.add("i", np.arange(ML_ITEMS).astype(str))]).astype(object),
+        "type": np.asarray(["user"] * ML_USERS + ["item"] * ML_ITEMS,
+                           object)})
+    seen = {}
+    train = huge.train_embedding
+
+    def kept(pairs, V, counts, cfg, **kw):
+        seen.update(pairs=pairs, V=V, counts=counts, cfg=cfg)
+        t0 = time.perf_counter()
+        out = train(pairs, V, counts, cfg, **kw)
+        torch.cuda.synchronize()
+        seen["train_s"] = time.perf_counter() - t0
+        return out
+
+    huge.train_embedding = kept
+    kernels.reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = MetaPath2VecBatchOp(sourceCol="u", targetCol="i",
+                                    **METAPATH).link_from(
+            TableSourceBatchOp(edges), TableSourceBatchOp(verts)).collect()
+        wall = time.perf_counter() - t0
+    finally:
+        huge.train_embedding = train
+    launches = kernels.launches()["sgns_block_grads"]
+    cfg, pairs = seen["cfg"], seen["pairs"]
+    blocks = max(1, pairs.shape[0] // cfg.batch_size)
+    steps = blocks * cfg.epochs
+    emb = np.stack([np.asarray(v.data, np.float32) for v in model.col("vec")])
+    if launches != steps:
+        problems.append(f"MetaPath2Vec: {launches} launches for {steps} "
+                        f"steps")
+    if not np.isfinite(emb).all() or emb.shape[1] != METAPATH["vectorSize"]:
+        problems.append("MetaPath2Vec: bad table")
+    os.environ[SGNS_KERNEL_ENV] = "0"
+    try:
+        plain = train(pairs, seen["V"], seen["counts"], cfg)
+        init = train(pairs, seen["V"], seen["counts"],
+                     dataclasses.replace(cfg, epochs=0))
+    finally:
+        del os.environ[SGNS_KERNEL_ENV]
+    problems += route_gap_problems("MetaPath2Vec", emb, plain, init)
+    walks = ML_USERS * METAPATH["walkNum"]
+    print(f"MetaPath2Vec ({METAPATH}) on {len(users)} user-item edges: "
+          f"{walks} walks, {pairs.shape[0]} training pairs, vocabulary "
+          f"{seen['V']}; {wall:.2f} s wall ({seen['train_s']:.2f} s training, "
+          f"{steps / seen['train_s']:.0f} steps/s); {launches} "
+          f"sgns_block_grads launches for {steps} steps", flush=True)
+    return dict(wall_s=wall, train_s=seen["train_s"], walks=walks,
+                pairs=int(pairs.shape[0]), vocab=seen["V"], steps=steps,
+                launches=launches,
+                **dict(zip(("route_gap", "route_limit", "route_moved"),
+                           route_gap(emb, plain, init))))
+
+
+def simrank_rows(t):
+    return {k: json.loads(v) for k, v in zip(t.col("item"),
+                                              t.col("similarities"))}
+
+
+def simrank_mds_path(card, problems, users, items):
+    """20.5.3: SimRank on the user-item graph (the whole graph on the card;
+    the CPU route on the first SIMRANK_CPU_USERS users, both routes there);
+    MDS on MDS_ROWS rows of the sift layout, card against the CPU route."""
+    import torch
+
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.graph import engine
+    from alink_tpu_torch.operator.batch import (MdsBatchOp, SimrankBatchOp,
+                                                TableSourceBatchOp)
+
+    def simrank(u, i):
+        t = MTable({"u": u.astype(str).astype(object),
+                    "i": i.astype(str).astype(object)})
+        t0 = time.perf_counter()
+        out = SimrankBatchOp(userCol="u", itemCol="i", **SIMRANK).link_from(
+            TableSourceBatchOp(t)).collect()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with engine.superstep_trace() as runs:
+        full, full_s = simrank(users, items)
+    sweeps = [a.elapsed_time(b) for run in runs for a, b in run["events"]]
+    if [r["fn"] for r in runs] != ["simrank"] \
+            or len(sweeps) != SIMRANK["numIter"]:
+        problems.append(f"SimRank: {len(sweeps)} timed sweeps in "
+                        f"{[r['fn'] for r in runs]}, not "
+                        f"{SIMRANK['numIter']} in one run")
+    sweep_ms = float(np.median(sweeps)) if sweeps else float("nan")
+    cut = users < SIMRANK_CPU_USERS
+    card_t, card_s = simrank(users[cut], items[cut])
+    with torch_device("cpu"):
+        cpu_t, cpu_s = simrank(users[cut], items[cut])
+    a, b = simrank_rows(card_t), simrank_rows(cpu_t)
+    gap = max((abs(a[k][j] - b[k][j]) for k in b for j in b[k]
+               if j in a.get(k, {})), default=0.0)
+    differ = sum(set(a[k]) != set(b[k]) for k in b)
+    if set(a) != set(b) or gap > SIMRANK_ATOL or differ:
+        problems.append(f"SimRank: card vs CPU route, {differ} top-N lists "
+                        f"differ, largest similarity gap {gap:.3g}")
+    print(f"SimRank ({SIMRANK}) on {len(users)} ratings ({ML_USERS} users, "
+          f"{ML_ITEMS} items): {full_s:.2f} s wall, {sweep_ms:.2f} device "
+          f"ms a sweep (the op's own, CUDA events, median of "
+          f"{[round(x, 2) for x in sweeps]}); on the first "
+          f"{SIMRANK_CPU_USERS} users' "
+          f"{int(cut.sum())} ratings card {card_s:.2f} s, CPU route "
+          f"{cpu_s:.2f} s, {differ} lists differ, max gap {gap:.3g}",
+          flush=True)
+
+    base, _ = sift_layout(MDS_ROWS, 1, NN_DIM, NN_CLUSTERS, SEED + 205)
+    cols = {f"f{j}": base[:, j].astype(np.float64) for j in range(NN_DIM)}
+    coords = {}
+    for route in ("card", "cpu"):
+        with on_route(route):
+            t0 = time.perf_counter()
+            out = MdsBatchOp(selectedCols=list(cols), dim=MDS_DIM).link_from(
+                TableSourceBatchOp(MTable(dict(cols)))).collect()
+            coords[route] = (np.stack([np.asarray(out.col(f"mds_{j}"))
+                                       for j in range(MDS_DIM)], 1),
+                             time.perf_counter() - t0)
+    (c, c_s), (p, p_s) = coords["card"], coords["cpu"]
+    c = c * np.sign((c * p).sum(0))
+    mds_gap = float(np.abs(c - p).max() / np.abs(p).max())
+    if not mds_gap <= MDS_RTOL:
+        problems.append(f"MDS: card vs CPU route {mds_gap:.3g} of the "
+                        f"largest coordinate")
+    print(f"MDS ({MDS_ROWS} x {NN_DIM} sift-layout rows, dim {MDS_DIM}): "
+          f"card {c_s:.2f} s, CPU route {p_s:.2f} s; coordinates up to sign "
+          f"{mds_gap:.3g} apart (of the largest)", flush=True)
+    return dict(simrank_wall_s=full_s, sweep_ms=sweep_ms, sweeps_ms=sweeps,
+                simrank_cut_card_s=card_s, simrank_cut_cpu_s=cpu_s,
+                simrank_gap=gap, mds_card_s=c_s, mds_cpu_s=p_s,
+                mds_gap=mds_gap)
+
+
+def walks_path(card):
+    """Phase 20.5: LINE (orders 2 and 1) on phase 20's Graph 500 graph and
+    MetaPath2Vec on the MovieLens-1M-layout user-item graph through their
+    ops, each launching sgns_block_grads once a step (the launch counts are
+    set to 0 before each run and read after it) and held against the plain
+    route; SimRank and MDS on the card against the CPU route."""
+    import torch
+
+    if any(tf32_flags()):
+        fail(f"phase 20.5: TF32 is on {tf32_flags()}")
+    problems = []
+    out = {}
+    t0 = time.perf_counter()
+    out["20.5.1"] = line_path(card, problems)
+    out["20.5.1"]["part_s"] = time.perf_counter() - t0
+    users, items, _ = movielens_layout(SEED + 21)
+    t0 = time.perf_counter()
+    out["20.5.2"] = metapath_path(card, problems, users, items)
+    out["20.5.2"]["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["20.5.3"] = simrank_mds_path(card, problems, users, items)
+    out["20.5.3"]["part_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    print(f"[{card}] phase 20.5: " + json.dumps(out, default=str), flush=True)
+    if problems:
+        fail("phase 20.5: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: time series and window features (no kernel of the port)
+# ---------------------------------------------------------------------------
+
+ELEC_CLIENTS = 321          # LSTNet's electricity.txt (UCI
+ELEC_FIT, ELEC_HORIZON = 672, 24   # ElectricityLoadDiagrams20112014):
+#                             321 clients' hourly load; the last 672 hours
+#                             are fit (a cut of the 26,304: four weeks hold
+#                             the daily and weekly profiles) and 24 held out
+#                             (LSTNet's short horizon)
+AUTO_ARIMA_SERIES = 16      # AutoArima's 47 candidate orders on 16 series
+#                             (a cut: 752 lanes of one fit)
+AUTO_GARCH_SERIES = 64      # AutoGarch's 6 candidates on 64 series (a cut)
+CPU_SERIES = dict(          # the CPU routes' series (cuts: each lane's
+    ArimaBatchOp=16,        # arithmetic is its own, so the card's first
+    HoltWintersBatchOp=32,  # series, fit in the whole batch, are held
+    GarchBatchOp=16,        # against the CPU route's fit of those alone;
+    AutoGarchBatchOp=4,     # the CPU route of all 321 took 16.6 s for
+    AutoArimaBatchOp=1)     # ARIMA and 31.4 s for GARCH on the card's host,
+#                             AutoArima's of 4 series 29.7 s)
+NET_SERIES = 1              # DeepAR, LSTNet and TFT at their defaults: one
+#                             model a series on the first client (a cut:
+#                             13-22 s a model on the card)
+NET_ROUTE_EPOCHS = 2        # the nets' card-vs-CPU check: both routes at 2
+#                             epochs on that client (a cut, as Word2Vec's
+#                             routes are: the CPU route takes 2-5 times the
+#                             card's wall); DeepAR's train op to .ak too
+FORECAST_RTOL = 1e-6        # the float64 fits, card vs CPU route, of the
+#                             largest |forecast| (sums in other orders over
+#                             400 Adam steps)
+NET_FORECAST_ATOL = 1e-3    # the float32 nets, card vs CPU route, in units
+#                             of the series' standard deviation (44 Adam
+#                             steps of products summed in other orders, from
+#                             one initialisation drawn on the host)
+WINDOW_ACCOUNTS = 10_000    # the credit-card set drops account ids: a
+WINDOW_ZIPF = 1.1           # seeded account column, Zipf activity
+WINDOW_NDAYS = 1.0          # trailing window of the NDays op
+WINDOW_HOP = dict(windowTime=3600, hopTime=1800)
+WINDOW_STATS = ["SUM", "COUNT", "AVG", "MAX", "MIN"]
+WINDOW_ORACLE_ROWS = 2_000  # rows (and windows) the numpy oracle recomputes
+
+
+def electricity_layout(seed, clients=None, hours=None):
+    """LSTNet's electricity set's layout from a seed (the file is not in
+    the repository): ``clients`` hourly load series (kW) with a lognormal
+    client level, a daily profile (a morning and an evening peak, each
+    client's own mix) and a weekly one (weekends lower), times AR(1) noise
+    (φ 0.8). Returns (clients, hours) float64: ELEC_CLIENTS series of
+    ELEC_FIT + ELEC_HORIZON hours unless asked for others."""
+    clients = clients or ELEC_CLIENTS
+    hours = hours or ELEC_FIT + ELEC_HORIZON
+    g = np.random.default_rng(seed)
+    h = np.arange(hours)
+    hod, dow = h % 24, (h // 24) % 7
+    level = g.lognormal(5.0, 1.0, clients)
+    morning = np.exp(-0.5 * ((hod - 9) / 2.5) ** 2)
+    evening = np.exp(-0.5 * ((hod - 19) / 2.0) ** 2)
+    mix = g.uniform(0.2, 0.8, clients)[:, None]
+    daily = 0.6 + mix * morning + (1 - mix) * evening
+    weekly = np.where(dow >= 5, g.uniform(0.6, 0.95, clients)[:, None], 1.0)
+    e = g.normal(0, 0.05, (clients, hours))
+    ar = np.zeros((clients, hours))
+    for t in range(1, hours):
+        ar[:, t] = 0.8 * ar[:, t - 1] + e[:, t]
+    return level[:, None] * daily * weekly * np.exp(ar)
+
+
+def smape(fc, truth):
+    return float(np.mean(2 * np.abs(fc - truth)
+                         / np.maximum(np.abs(fc) + np.abs(truth), 1e-12)))
+
+
+def forecast_table(Y):
+    from alink_tpu_torch.common.mtable import MTable
+
+    return MTable({"client": np.repeat(np.asarray(
+        [f"MT_{c + 1:03d}" for c in range(len(Y))], object), Y.shape[1]),
+        "load": Y.reshape(-1)})
+
+
+def run_forecaster(op_name, Y, **params):
+    """The op over every series of ``Y`` through ``groupCol``: (forecasts
+    (series, horizon), the output table, wall s)."""
+    import torch
+
+    from alink_tpu_torch.operator.batch import TableSourceBatchOp
+    from alink_tpu_torch.operator import batch as B
+
+    t0 = time.perf_counter()
+    out = getattr(B, op_name)(valueCol="load", groupCol="client",
+                              **params).link_from(
+        TableSourceBatchOp(forecast_table(Y))).collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    fc = np.stack([np.asarray(v.data) for v in out.col(
+        params.get("predictionCol", "forecast"))])
+    return fc, out, time.perf_counter() - t0
+
+
+PROFILE_ADAM_STEPS = 40     # the traced twin of ARIMA's lane fit: 40 of its
+#                             400 Adam steps (a cut: tracing 78,000 device
+#                             operations took longer than the fit); the
+#                             idle share of a step does not change with
+#                             their number
+
+
+def scanned_fits_path(card, problems, Y):
+    """22.1: ARIMA, Holt-Winters (the 1,000-point grid), GARCH, AutoGarch
+    and AutoArima as batched-lane fits on the card, each against the CPU
+    route on its first CPU_SERIES series (cuts in the constants'
+    comments); sMAPE on the held-out day beside the seasonal-naive
+    forecast's; the lane fits' profile."""
+    import torch
+
+    from alink_tpu_torch.stats.lanefit import arma_css_fit_lanes
+
+    fit, truth = Y[:, :ELEC_FIT], Y[:, ELEC_FIT:]
+    naive = fit[:, -ELEC_HORIZON:]
+    rets = np.diff(np.log(fit), axis=1)
+    cases = (
+        ("ArimaBatchOp", fit, dict(order=[1, 1, 1]), True),
+        ("HoltWintersBatchOp", fit, dict(frequency=24), True),
+        ("GarchBatchOp", rets, {}, False),
+        ("AutoGarchBatchOp", rets[:AUTO_GARCH_SERIES], {}, False),
+        ("AutoArimaBatchOp", fit[:AUTO_ARIMA_SERIES], {}, True))
+    out = {"naive_smape": smape(naive, truth)}
+    profile = {}
+    for op, data, params, level in cases:
+        cpu_data = data[:CPU_SERIES[op]]
+        torch.cuda.reset_peak_memory_stats()
+        (fc, table, wall), syncs = count_syncs(lambda: run_forecaster(
+            op, data, predictNum=ELEC_HORIZON, **params))
+        peak = torch.cuda.max_memory_allocated()
+        if op == "HoltWintersBatchOp":
+            prof = device_profile(lambda: run_forecaster(
+                op, data, predictNum=ELEC_HORIZON, **params), wall)
+            profile[op] = dict(lanes=len(data) * 1000, wall_s=wall,
+                               host_syncs=syncs, **prof)
+        elif op == "ArimaBatchOp":
+            ws = [np.diff(y) for y in data]
+            fit_lanes = lambda steps: arma_css_fit_lanes(  # noqa: E731
+                ws, [1] * len(ws), [1] * len(ws), None, steps=steps)
+            t_twin, _ = timed(lambda: fit_lanes(PROFILE_ADAM_STEPS))
+            prof = device_profile(lambda: fit_lanes(PROFILE_ADAM_STEPS),
+                                  t_twin)
+            profile[op] = dict(lanes=len(ws), wall_s=wall, host_syncs=syncs,
+                               adam_steps=PROFILE_ADAM_STEPS,
+                               ms_per_adam_step=t_twin * 1e3
+                               / PROFILE_ADAM_STEPS, **prof)
+        with torch_device("cpu"):
+            cfc, ctable, cwall = run_forecaster(op, cpu_data,
+                                                predictNum=ELEC_HORIZON,
+                                                **params)
+        k = len(cpu_data)
+        gap = float(np.abs(fc[:k] - cfc).max() / np.abs(cfc).max())
+        res = dict(series=len(data), wall_s=wall, cpu_series=k,
+                   cpu_wall_s=cwall, route_gap=gap,
+                   peak_mib=peak / 2 ** 20)
+        if not (np.isfinite(fc).all() and fc.shape == (len(data),
+                                                       ELEC_HORIZON)):
+            problems.append(f"{op}: bad forecasts")
+        if not gap <= FORECAST_RTOL:
+            problems.append(f"{op}: card vs CPU route {gap:.3g} of the "
+                            f"largest forecast")
+        if op.startswith("Auto"):
+            keys = ["p", "d", "q"] if op == "AutoArimaBatchOp" else ["p", "q"]
+            orders = [tuple(table.col(c)[:k]) for c in keys]
+            c_orders = [tuple(ctable.col(c)) for c in keys]
+            res["orders_equal"] = orders == c_orders
+            res["orders"] = {str(o.tolist()): int(n) for o, n in zip(*np.unique(
+                np.stack([table.col(c) for c in keys], 1).astype(int),
+                axis=0, return_counts=True))}
+            if orders != c_orders:
+                problems.append(f"{op}: chosen orders differ between the "
+                                f"card and the CPU route")
+        if level:
+            res["smape"] = smape(fc, truth[:len(data)])
+            res["naive_smape"] = smape(naive[:len(data)], truth[:len(data)])
+        out[op] = res
+        print(f"{op} ({params or 'defaults'}) over {len(data)} series of "
+              f"{data.shape[1]} points: {wall:.2f} s on the card, CPU route "
+              f"({k} series) {cwall:.2f} s, gap {gap:.3g}"
+              + (f"; sMAPE {res['smape']:.4f} vs seasonal naive "
+                 f"{res['naive_smape']:.4f}" if level else "")
+              + (f"; orders {res['orders']}" if "orders" in res else ""),
+              flush=True)
+    out["profile"] = profile
+    ar, hw = profile["ArimaBatchOp"], profile["HoltWintersBatchOp"]
+    print(f"lane fits: ARIMA(1,1,1) {ar['lanes']} lanes, "
+          f"{ar['ms_per_adam_step']:.2f} ms an Adam step and "
+          f"{ar['operations'] / PROFILE_ADAM_STEPS:.0f} device operations "
+          f"a step ({PROFILE_ADAM_STEPS} steps traced), idle "
+          f"{ar['idle_share']:.3f}; the op {ar['host_syncs']} host syncs; "
+          f"Holt-Winters "
+          f"{hw['lanes']} lanes {hw['wall_s']:.2f} s, {hw['host_syncs']} "
+          f"host syncs, {hw['operations']} device operations, idle "
+          f"{hw['idle_share']:.3f}", flush=True)
+    return out
+
+
+def nets_path(card, workdir, problems, Y):
+    """22.2: DeepAR, LSTNet and TFT at their defaults, one model a series
+    on the first NET_SERIES series; each at NET_ROUTE_EPOCHS epochs on the
+    card against the CPU route; DeepAR's train op (NET_ROUTE_EPOCHS
+    epochs) to ``.ak``, read back and served by its predict op."""
+    import torch
+
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import (AkSinkBatchOp,
+                                                AkSourceBatchOp,
+                                                DeepARPredictBatchOp,
+                                                DeepARTrainBatchOp,
+                                                TableSourceBatchOp)
+
+    fit, truth = Y[:NET_SERIES, :ELEC_FIT], Y[:NET_SERIES, ELEC_FIT:]
+    sd = fit.std(1, keepdims=True)
+    out = {}
+    for op in ("DeepARBatchOp", "LSTNetBatchOp", "TFTBatchOp"):
+        torch.cuda.reset_peak_memory_stats()
+        fc, _, wall = run_forecaster(op, fit, predictNum=ELEC_HORIZON)
+        peak = torch.cuda.max_memory_allocated()
+        short = dict(predictNum=ELEC_HORIZON, numEpochs=NET_ROUTE_EPOCHS)
+        rfc, _, rwall = run_forecaster(op, fit, **short)
+        with torch_device("cpu"):
+            cfc, _, cwall = run_forecaster(op, fit, **short)
+        gap = float(np.abs((rfc - cfc) / sd).max())
+        out[op] = dict(wall_s=wall, route_epochs=NET_ROUTE_EPOCHS,
+                       route_card_s=rwall, route_cpu_s=cwall,
+                       route_gap_sd=gap, smape=smape(fc, truth),
+                       peak_mib=peak / 2 ** 20,
+                       naive_smape=smape(fit[:, -ELEC_HORIZON:], truth))
+        if not (np.isfinite(fc).all() and gap <= NET_FORECAST_ATOL):
+            problems.append(f"{op}: card vs CPU route {gap:.3g} sd")
+        print(f"{op} (defaults) on {NET_SERIES} series: {wall:.2f} s on the "
+              f"card; sMAPE {out[op]['smape']:.4f} vs seasonal naive "
+              f"{out[op]['naive_smape']:.4f}; at {NET_ROUTE_EPOCHS} epochs "
+              f"card {rwall:.2f} s, CPU route {cwall:.2f} s, gap {gap:.3g} "
+              f"sd", flush=True)
+    y = fit[0]
+    path = os.path.join(workdir, "deepar.ak")
+    t0 = time.perf_counter()
+    model = DeepARTrainBatchOp(valueCol="load",
+                               numEpochs=NET_ROUTE_EPOCHS).link_from(
+        TableSourceBatchOp(MTable({"load": y})))
+    AkSinkBatchOp(filePath=path, overwriteSink=True).link_from(model) \
+        .collect()
+    hist = MTable({"h": np.asarray([" ".join(map(repr, y.tolist()))], object)})
+    served = DeepARPredictBatchOp(selectedCol="h", outputCol="fc",
+                                  predictNum=ELEC_HORIZON).link_from(
+        AkSourceBatchOp(filePath=path), TableSourceBatchOp(hist)).collect()
+    fc = np.asarray(served.col("fc")[0].data)
+    out["deepar_ak"] = dict(wall_s=time.perf_counter() - t0,
+                            smape=smape(fc[None], truth[:1]),
+                            ak_bytes=os.path.getsize(path))
+    if fc.shape != (ELEC_HORIZON,) or not np.isfinite(fc).all():
+        problems.append("DeepAR through .ak: bad forecast")
+    print(f"DeepARTrainBatchOp → .ak ({out['deepar_ak']['ak_bytes']} bytes) "
+          f"→ DeepARPredictBatchOp: {out['deepar_ak']['wall_s']:.2f} s, "
+          f"sMAPE {out['deepar_ak']['smape']:.4f}", flush=True)
+    return out
+
+
+def transactions_layout(seed):
+    """The credit-card layout's times (integer seconds over 48 h, as the
+    set's Time column holds them) and amounts, with a seeded account
+    column: WINDOW_ACCOUNTS accounts of Zipf activity (the public set
+    drops account ids)."""
+    g = np.random.default_rng(seed)
+    t = np.sort(np.floor(g.uniform(0, 172_792, CREDIT_ROWS)))
+    amount = np.round(g.exponential(88.0, CREDIT_ROWS), 2)
+    w = 1.0 / np.arange(1, WINDOW_ACCOUNTS + 1) ** WINDOW_ZIPF
+    acct = g.choice(WINDOW_ACCOUNTS, CREDIT_ROWS, p=w / w.sum())
+    return t, amount, np.char.add("acct", acct.astype(str)).astype(object)
+
+
+def _stats(vals):
+    return [vals.sum(), float(len(vals)), vals.mean() if len(vals)
+            else np.nan, vals.max() if len(vals) else np.nan,
+            vals.min() if len(vals) else np.nan]
+
+
+def account_rows(acct):
+    """Account → its row indices, in row order."""
+    keys, inv = np.unique(np.asarray(acct, str), return_inverse=True)
+    order = np.argsort(inv, kind="stable")
+    cuts = np.cumsum(np.bincount(inv, minlength=len(keys)))[:-1]
+    return dict(zip(keys, np.split(order, cuts)))
+
+
+def _gap(got, want):
+    return 0.0 if got == want or (got != got and want != want) \
+        else abs(got - want) / max(abs(want), 1.0)
+
+
+def trailing_oracle_gaps(t, amount, acct, got, span, rows):
+    """Worst relative |Δ| between ``got`` (stat → column of the NDays op,
+    the stats of WINDOW_STATS) and each stat recomputed directly on
+    ``rows``: the rows j of the account with t_i − span ≤ t_j ≤ t_i and
+    (t_j, j) ≤ (t_i, i)."""
+    by_acct = account_rows(acct)
+    worst = 0.0
+    for i in rows:
+        mine = by_acct[str(acct[i])]
+        tj = t[mine]
+        same = mine[(tj >= t[i] - span) & ((tj < t[i])
+                                           | ((tj == t[i]) & (mine <= i)))]
+        for s, w in zip(WINDOW_STATS, _stats(amount[same])):
+            worst = max(worst, _gap(got[s][i], w))
+    return worst
+
+
+def window_oracle_gaps(t, amount, acct, table, rows):
+    """Worst relative |Δ| between the hop window op's rows ``rows`` and
+    each stat recomputed directly over the account's rows with start ≤ t <
+    end."""
+    by_acct = account_rows(acct)
+    cols = {c: table.col(c) for c in ("acct", "window_start", "window_end")}
+    worst = 0.0
+    for r in rows:
+        mine = by_acct[str(cols["acct"][r])]
+        tj = t[mine]
+        vals = amount[mine[(tj >= cols["window_start"][r])
+                           & (tj < cols["window_end"][r])]]
+        for st, w in zip(WINDOW_STATS, _stats(vals)):
+            g = table.col(f"amount_{st.lower()}_w{WINDOW_HOP['windowTime']}")[r]
+            worst = max(worst, _gap(g, w))
+    return worst
+
+
+WINDOW_ORACLE_RTOL = 1e-9    # prefix-sum differences against direct sums:
+#                              the account's running sum rounds at ~1e-16 of
+#                              up to ~1e7
+
+
+def window_features_path(card, problems):
+    """22.3: GenerateFeatureOfLatestNDaysBatchOp (1 day) and a
+    GenerateFeatureOfWindowBatchOp hop window (1 h every 30 min) over the
+    amounts by account, on the host; WINDOW_ORACLE_ROWS rows of each held
+    against the numpy oracle."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import (
+        GenerateFeatureOfLatestNDaysBatchOp, GenerateFeatureOfWindowBatchOp,
+        TableSourceBatchOp)
+
+    t, amount, acct = transactions_layout(SEED + 22)
+    table = MTable({"acct": acct, "time": t, "amount": amount})
+    t0 = time.perf_counter()
+    nd = GenerateFeatureOfLatestNDaysBatchOp(
+        timeCol="time", groupCols=["acct"], targetCols=["amount"],
+        statTypes=WINDOW_STATS, nDays=WINDOW_NDAYS).link_from(
+        TableSourceBatchOp(table)).collect()
+    nd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hop = GenerateFeatureOfWindowBatchOp(timeCol="time", featureDefinitions={
+        "groupCols": ["acct"], "windowType": "HOP", **WINDOW_HOP,
+        "targetCols": ["amount"], "statTypes": WINDOW_STATS}).link_from(
+        TableSourceBatchOp(table)).collect()
+    hop_s = time.perf_counter() - t0
+    g = np.random.default_rng(SEED + 23)
+    got = {s: np.asarray(nd.col(f"amount_{s.lower()}_d1"))
+           for s in WINDOW_STATS}
+    nd_gap = trailing_oracle_gaps(
+        t, amount, acct, got, WINDOW_NDAYS * 86400,
+        g.choice(len(t), WINDOW_ORACLE_ROWS, replace=False))
+    hop_gap = window_oracle_gaps(
+        t, amount, acct, hop,
+        g.choice(hop.num_rows, WINDOW_ORACLE_ROWS, replace=False))
+    for name, gap in (("NDays", nd_gap), ("hop window", hop_gap)):
+        if not gap <= WINDOW_ORACLE_RTOL:
+            problems.append(f"window features ({name}): {gap:.3g} from the "
+                            f"numpy oracle")
+    print(f"window features on {CREDIT_ROWS} transactions, "
+          f"{len(np.unique(acct))} accounts: LatestNDays (1 day, "
+          f"{WINDOW_STATS}) {nd_s:.2f} s; hop window ({WINDOW_HOP}) "
+          f"{hop_s:.2f} s, {hop.num_rows} windows; oracle on "
+          f"{WINDOW_ORACLE_ROWS} rows each: {nd_gap:.3g} / {hop_gap:.3g}",
+          flush=True)
+    return dict(ndays_s=nd_s, hop_s=hop_s, windows=hop.num_rows,
+                ndays_gap=nd_gap, hop_gap=hop_gap)
+
+
+def timeseries_path(card, workdir=None):
+    """Phase 22: the time-series forecasters on the electricity layout
+    (ELEC_CLIENTS series of ELEC_FIT hours, ELEC_HORIZON held out) and the
+    window features on the credit-card layout, each held against the CPU
+    route or a numpy oracle. No kernel of the port is on this path: its
+    launch count must stay 0."""
+    import torch
+
+    from alink_tpu_torch.native import kernels
+
+    if any(tf32_flags()):
+        fail(f"phase 22: TF32 is on {tf32_flags()}")
+    workdir = workdir or smoke_workdir()
+    problems = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    Y = electricity_layout(SEED + 220)
+    out = {"layout_s": time.perf_counter() - t0}
+    for part, fn in (("22.1", lambda: scanned_fits_path(card, problems, Y)),
+                     ("22.2", lambda: nets_path(card, workdir, problems, Y)),
+                     ("22.3", lambda: window_features_path(card, problems))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out[part]["part_s"] = time.perf_counter() - t0
+    out["launches"] = dict(kernels.launches())
+    if sum(out["launches"].values()):
+        problems.append(f"phase 22 launched kernels of the port: "
+                        f"{out['launches']}")
+    torch.cuda.synchronize()
+    print(f"[{card}] phase 22: " + json.dumps(out, default=str), flush=True)
+    if problems:
+        fail("phase 22: " + "; ".join(problems))
+    return out
+
+
+def smoke_workdir():
+    """``build/chip_smoke`` beside this script, made if missing: where the
+    run's model files, logs and side results go."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+# phases 11, 13 and 18 to 22 need nothing that phases 3 to 10 made: three
+# other processes run them on the card, started after phase 10, when the
+# kernels line's device times are taken, beside phases 12, 14 and 15 of
+# the main process, which joins them before phase 16, so that nothing runs
+# beside phases 16 and 17. Each group is about 180-200 s of the card host's
+# work. Their host threads are capped, so that the processes share the
+# host's cores rather than oversubscribe them. PERF.md §6 records the
+# arrangements measured against this one
 SIDE_THREADS = 4
-SIDE_TIMEOUT_S = 900
+SIDE_TIMEOUT_S = 1_100
+SIDE_GROUPS = (("19", "20", "20.5"), ("22", "21"), ("11", "13", "18"))
+SIDE_OUT_ENV = "CHIP_SMOKE_SIDE_OUT"   # the JSON file of the phases' returns
+SIDE_RUNS = {"11": ("phase 11 classical path",
+                    lambda card: classical_path(smoke_workdir())),
+             "13": ("phase 13 ingest",
+                    lambda card: ingest_path(smoke_workdir(), card)),
+             "18": ("phase 18 tuning", lambda card: tuning_path(card)),
+             "19": ("phase 19 clustering and features",
+                    lambda card: clustering_features_path(card)),
+             "20": ("phase 20 graphs, text, neighbours and constrained "
+                    "features", lambda card: graph_text_path(card)),
+             "20.5": ("phase 20.5 LINE, MetaPath2Vec, SimRank and MDS",
+                      lambda card: walks_path(card)),
+             "21": ("phase 21 recommendation, outliers and finance",
+                    lambda card: recomm_outlier_path(card)),
+             "22": ("phase 22 time series and window features",
+                    lambda card: timeseries_path(card))}
 
 
-def side_phase(card) -> int:
-    """``python chip_smoke.py --side CARD``: phase 21 in this process, with
-    its own launch counts (set to 0 before it, read after it) and its
-    seconds."""
+def side_phase(card, phases) -> int:
+    """``python chip_smoke.py --side CARD 22,21``: those phases in this
+    process, in order, each with its own launch counts (set to 0 before it,
+    read after it) and its seconds; what they return goes, as JSON, to the
+    file that SIDE_OUT_ENV names, if it names one."""
     import torch
 
     torch.set_num_threads(SIDE_THREADS)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    recomm_outlier_path(card)
-    print(f"[phase 21 recommendation, outliers and finance: "
-          f"{time.perf_counter() - t0:.1f} s in the second process]",
-          flush=True)
+    results = {}
+    for ph in phases.split(","):
+        name, run = SIDE_RUNS[ph]
+        t0 = time.perf_counter()
+        results[ph] = run(card)
+        torch.cuda.empty_cache()    # the next phase, or another process
+        print(f"[{name}: {time.perf_counter() - t0:.1f} s in a side "
+              f"process]", flush=True)
+    out = os.environ.get(SIDE_OUT_ENV)
+    if out:
+        with open(out, "w") as f:
+            json.dump(results, f, default=str)
     return 0
 
 
-def start_side(workdir, card, lib):
-    """Starts ``side_phase`` in a second process on the card, with the
-    kernel library ``lib`` to load should a kernel launch there (its count
-    would then fail the phase), SIDE_THREADS host threads and its output to
-    a log in ``workdir``. Returns (process, log path)."""
+def side_results_path(log):
+    return os.path.splitext(log)[0] + ".json"
+
+
+def start_side(workdir, card, lib, phases, log_name="side_phase.log"):
+    """Starts ``side_phase`` for ``phases`` in another process on the card,
+    with the kernel library ``lib`` (if built) to load, SIDE_THREADS host
+    threads, its output to ``log_name`` in ``workdir`` and its phases'
+    returns beside it. Returns (process, log path)."""
     from alink_tpu_torch.native import kernels
 
-    threads = {v: str(SIDE_THREADS) for v in (
-        "OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
-    log = os.path.join(workdir, "side_phase.log")
+    env = {**os.environ, **{v: str(SIDE_THREADS) for v in (
+        "OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")}}
+    if lib:
+        env[kernels.PREBUILT_ENV] = lib
+    log = os.path.join(workdir, log_name)
+    env[SIDE_OUT_ENV] = side_results_path(log)
+    if os.path.exists(env[SIDE_OUT_ENV]):
+        os.remove(env[SIDE_OUT_ENV])
     with open(log, "w") as f:
         proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--side", card],
-            stdout=f, stderr=subprocess.STDOUT,
-            env={**os.environ, **threads, kernels.PREBUILT_ENV: lib})
+            [sys.executable, os.path.abspath(__file__), "--side", card,
+             ",".join(phases)],
+            stdout=f, stderr=subprocess.STDOUT, env=env)
     return proc, log
 
 
 def join_side(proc, log):
-    """Waits for the second process (SIDE_TIMEOUT_S at most), prints its
-    output, and fails the run if it failed."""
+    """Waits for a side process (SIDE_TIMEOUT_S at most), prints its
+    output, fails the run if it failed, and returns what its phases
+    returned (by phase; {} if it wrote nothing)."""
     try:
         rc = proc.wait(timeout=SIDE_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -8938,7 +9873,12 @@ def join_side(proc, log):
         sys.stdout.write(f.read())
     sys.stdout.flush()
     if rc != 0:
-        fail(f"phase 21 (second process): exit {rc}")
+        fail(f"the second process's phases: exit {rc}")
+    out = side_results_path(log)
+    if not os.path.exists(out):
+        return {}
+    with open(out) as f:
+        return json.load(f)
 
 
 def main() -> int:
@@ -8974,8 +9914,7 @@ def main() -> int:
 
     from alink_tpu_torch.native import kernels
 
-    workdir = os.path.join(here, "build", "chip_smoke")
-    os.makedirs(workdir, exist_ok=True)
+    workdir = smoke_workdir()
     # phase 4's model is host work: it is written while nvcc builds
     ahead = ThreadPoolExecutor(2)
     bert_model = ahead.submit(write_bert_model, workdir, serving_config())
@@ -8991,13 +9930,10 @@ def main() -> int:
         print(f"[{name}: {marks[-1][1] - t_prev:.1f} s, "
               f"{marks[-1][1] - t_start:.1f} s in all]", flush=True)
 
-    # phase 19 builds and launches no kernel: it runs while nvcc builds
-    clustering_features_path(card)
-    mark("phase 19 clustering and features, beside the kernel build")
     built.result()
     print(f"build: {len(kernels.KERNELS)} kernel(s) + binding in "
           f"{kernels.build_seconds:.1f} s", flush=True)
-    mark("setup and build, after phase 19")
+    mark("setup and build")
     stats = check_kernel(peaks)
     mark("phase 3 flash kernel")
     launches, served_main = main_path(workdir, serving_config(),
@@ -9050,39 +9986,46 @@ def main() -> int:
     kernel_train = train_kernel_route()
     sst2 = finetune_sst2(workdir)
     mark("phase 10 BERT training")
-    classical_path(workdir)
-    mark("phase 11 classical path")
-    families, quant_launches = model_families(served_main, X, y, gbdt_model,
-                                              card)
-    mark("phase 12 model families")
-    del X, y
-    ingest_path(workdir, card)
-    mark("phase 13 ingest")
-    serve_launches, _, serial = serving_path(workdir, served_main, card,
-                                             serving_ak)
-    ahead.shutdown()
-    mark("phase 14 serving")
-    pretraining = pretraining_path(workdir, peaks, card)
-    print(f"[{card}] phase 15: " + json.dumps(pretraining, default=str),
-          flush=True)
-    mark("phase 15 pretraining")
+    # phases 11, 13 and 18 to 22 run in three side processes beside phases
+    # 12, 14 and 15, after the device times of the kernels line (phases 3
+    # to 10) are taken; they are joined before phase 16, so that nothing
+    # runs beside phases 16 and 17
+    lib = kernels.build()
+    sides = [start_side(workdir, card, lib, group, f"side_{i}.log")
+             for i, group in enumerate(SIDE_GROUPS)]
+    side = {}
+    try:
+        families, quant_launches = model_families(served_main, X, y,
+                                                  gbdt_model, card)
+        mark("phase 12 model families")
+        del X, y
+        serve_launches, _, serial = serving_path(workdir, served_main, card,
+                                                 serving_ak)
+        ahead.shutdown()
+        mark("phase 14 serving")
+        pretraining = pretraining_path(workdir, peaks, card)
+        print(f"[{card}] phase 15: " + json.dumps(pretraining, default=str),
+              flush=True)
+        mark("phase 15 pretraining")
+        for proc, log in sides:
+            side.update(join_side(proc, log))
+    finally:
+        for proc, _ in sides:       # a phase that failed leaves none behind
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    mark("phases 11, 13 and 18-22 in side processes, joined")
     fleet = fleet_path(workdir, card, fleet_inputs(workdir, served_main,
                                                    serial))
     mark("phase 16 fleet")
     dag = dag_path(workdir, served_main, card)
     mark("phase 17 DAG")
-    tuning, tuning_launches = tuning_path(card)
-    mark("phase 18 tuning")
-    side = start_side(workdir, card, kernels.build())
-    try:
-        graph_text_path(card)
-    except BaseException:
-        side[0].kill()
-        side[0].wait()
-        raise
-    mark("phase 20 graphs, text, neighbours and constrained features")
-    join_side(*side)
-    mark("phase 21 in the second process, after phase 20")
+    tuning, tuning_launches = side["18"]
+    walks = side["20.5"]
+    walk_launches = {
+        "phase 20.5 LINE order 2": walks["20.5.1"]["order2"]["launches"],
+        "phase 20.5 LINE order 1": walks["20.5.1"]["order1"]["launches"],
+        "phase 20.5 MetaPath2Vec": walks["20.5.2"]["launches"]}
 
     def entry(name, launches, st, library_call, shape):
         spec = kernels.KERNELS[name]
@@ -9140,7 +10083,8 @@ def main() -> int:
              forest=forest, forest_levels=levels,
              even_nodes=even, wide_tables=wide_times,
              wide_forest=wide_forest),
-        dict(entry("sgns_block_grads", sgns_launches, sgns, "none",
+        dict(entry("sgns_block_grads",
+                   sgns_launches + sum(walk_launches.values()), sgns, "none",
                    "one fused pull-and-gradients call (sgns_pull_grads): "
                    "B=1024 negs=5 D=100 fp32, the tables, hot replicas "
                    f"({sgns['hot_rows']} rows) and ids of the 300th step of "
@@ -9148,6 +10092,8 @@ def main() -> int:
                    "device time per call from a CUDA graph of 30 launches; "
                    "gathered_* the gathered-rows entry sgns_block_grads on "
                    "that step's pulled rows"),
+             launches_by_path={"phase 9 Word2Vec": sgns_launches,
+                               **walk_launches},
              **{k: sgns[k] for k in (
                  "gathered_ms", "gathered_plain_ms", "gathered_bound_ms",
                  "eager_ms", "eager_plain_ms", "turns", "gathered_turns")},
@@ -9165,5 +10111,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--side"]:
-        sys.exit(side_phase(sys.argv[2]))
+        sys.exit(side_phase(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -36,7 +36,12 @@ Covertype-layout rows, each against the CPU route; it builds no kernel),
 layout ratings, the outlier detectors on ODDS-mnist-layout rows and the
 model ops on credit-card-layout rows, the grouped k-sigma, the scorecards,
 PSI and the sparse indexer on the Covertype-layout rows, each against the
-CPU route; it builds no kernel).
+CPU route; it builds no kernel), ``walks`` (phase 20.5: LINE on the
+scale-17 Graph 500 graph at orders 2 and 1, MetaPath2Vec on the
+MovieLens-1M-layout user-item graph, each against the plain route, SimRank
+and MDS against the CPU route), ``timeseries`` (phase 22: the forecasters
+on the electricity layout and the window features on the credit-card
+layout, against the CPU route or a numpy oracle; it builds no kernel).
 Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
@@ -56,7 +61,7 @@ sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
           "families", "ingest", "serving", "pretrain", "fleet", "dag",
-          "tuning", "features", "graph", "recomm")
+          "tuning", "features", "graph", "recomm", "walks", "timeseries")
 
 
 def main() -> int:
@@ -81,7 +86,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not set(phases) <= {"ingest", "pretrain", "features", "graph",
-                           "recomm"}:
+                           "recomm", "timeseries"}:
         kernels.build()
         print(f"build {kernels.build_seconds:.1f} s", flush=True)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
@@ -136,6 +141,8 @@ def main() -> int:
                card.splitlines()[0]),
            "graph": lambda: cs.graph_text_path(card.splitlines()[0]),
            "recomm": lambda: cs.recomm_outlier_path(card.splitlines()[0]),
+           "walks": lambda: cs.walks_path(card.splitlines()[0]),
+           "timeseries": lambda: cs.timeseries_path(card.splitlines()[0]),
            "pretrain": lambda: cs.pretraining_path(workdir, peaks,
                                                    card.splitlines()[0])}
     out = {}

@@ -1289,22 +1289,41 @@ def test_graph_text_phase_passes_on_the_cpu(monkeypatch, capsys):
 
 
 def test_graph_text_phase_is_in_main_after_phase_19():
+    """Phase 20 runs after phase 19 in one side process, and phase 20.5
+    after it there (it reuses phase 20's graph); main reads the walks'
+    launches from that process's returns after joining it, before the
+    kernels line."""
     import inspect
 
+    assert chip_smoke.SIDE_GROUPS[0] == ("19", "20", "20.5")
+    assert "graph_text_path(card)" in inspect.getsource(
+        chip_smoke.SIDE_RUNS["20"][1])
+    assert "walks_path(card)" in inspect.getsource(
+        chip_smoke.SIDE_RUNS["20.5"][1])
     src = inspect.getsource(chip_smoke.main)
-    assert src.index("clustering_features_path(card)") \
-        < src.index("graph_text_path(card)") < src.index("line = {")
+    assert src.index("side.update(join_side(proc, log))") \
+        < src.index('walks = side["20.5"]') < src.index("line = {")
 
 
 def test_clustering_phase_runs_beside_the_kernel_build():
-    """Phase 19 builds no kernel: ``main`` runs it while the build runs in
-    a thread, and waits for the build before phase 3's first launch."""
+    """The side processes (phase 19's among them) launch nothing timed on
+    the kernels line: ``main`` starts them only after the kernel build and
+    every device time of the kernels line (phases 3 to 10: the flash
+    kernel, serving, the histograms and forest, SGNS and Word2Vec, the
+    backward and training), so no second CUDA context shares the card
+    while they are timed, and before phase 12."""
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
-    assert src.index("ahead.submit(kernels.build") \
-        < src.index("clustering_features_path(card)") \
-        < src.index("built.result()") < src.index("check_kernel(peaks)")
+    start = src.index("start_side(workdir, card, lib, group")
+    for timed in ("built.result()", "check_kernel(peaks)", "main_path(",
+                  "check_histogram(", "forest_path(", "check_sgns(",
+                  "word2vec_path(", "check_backward(",
+                  "train_metric_of_record(", 'mark("phase 10 BERT training")'):
+        assert src.index(timed) < start, timed
+    assert start < src.index("model_families(")
+    assert "classical_path(workdir)" not in src
+    assert "19" in chip_smoke.SIDE_GROUPS[0]
 
 
 def test_graph_text_phase_fails_when_the_routes_part(monkeypatch, capsys):
@@ -1406,16 +1425,33 @@ def test_recomm_outlier_phase_passes_on_the_cpu(monkeypatch, capsys):
 
 
 def test_recomm_outlier_phase_is_in_main_after_phase_20():
-    """Phase 21 runs in the second process, which ``main`` starts before
-    phase 20 and joins, printing its output, after phase 20 and before
-    the kernels line."""
+    """Phases 11, 13 and 18 to 22 run in the three side processes, which
+    ``main`` starts after phase 10 and joins, printing their output,
+    after phase 15 and before phase 16, so that nothing runs beside phases
+    16 and 17; every phase runs once, phase 21 after phase 22 in its
+    process."""
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
-    assert src.index("start_side(") < src.index("graph_text_path(card)") \
-        < src.index("join_side(") < src.index("line = {")
-    assert "recomm_outlier_path(card)" in inspect.getsource(
-        chip_smoke.side_phase)
+    assert src.index("model_families(") < src.index("serving_path(") \
+        < src.index("pretraining_path(") \
+        < src.index("side.update(join_side(proc, log))") \
+        < src.index("fleet_path(") < src.index("dag_path(") \
+        < src.index("line = {")
+    for fn in ("tuning_path(", "graph_text_path(", "walks_path(",
+               "ingest_path(", "classical_path(", "recomm_outlier_path(",
+               "timeseries_path(", "clustering_features_path("):
+        assert fn not in src, fn
+    groups = chip_smoke.SIDE_GROUPS
+    assert groups[1] == ("22", "21")
+    assert sorted(p for g in groups for p in g) == sorted(
+        chip_smoke.SIDE_RUNS)
+    for ph, fn in (("11", "classical_path("), ("13", "ingest_path("),
+                   ("18", "tuning_path(card)"),
+                   ("19", "clustering_features_path(card)"),
+                   ("21", "recomm_outlier_path(card)"),
+                   ("22", "timeseries_path(card)")):
+        assert fn in inspect.getsource(chip_smoke.SIDE_RUNS[ph][1]), ph
 
 
 def test_side_phase_runs_phase_21_with_its_mark(monkeypatch, capsys):
@@ -1423,7 +1459,7 @@ def test_side_phase_runs_phase_21_with_its_mark(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "recomm_outlier_path", ran.append)
     threads = torch.get_num_threads()
     try:
-        assert chip_smoke.side_phase("cpu stand-in") == 0
+        assert chip_smoke.side_phase("cpu stand-in", "21") == 0
         assert torch.get_num_threads() == chip_smoke.SIDE_THREADS
     finally:
         torch.set_num_threads(threads)
@@ -1443,12 +1479,51 @@ def test_start_side_runs_this_script_with_the_kernel_library(monkeypatch,
         return "process"
 
     monkeypatch.setattr(chip_smoke.subprocess, "Popen", popen)
-    proc, log = chip_smoke.start_side(str(tmp_path), "card, 700 W", "/k.so")
+    proc, log = chip_smoke.start_side(str(tmp_path), "card, 700 W", "/k.so",
+                                      ("22", "21"))
     assert proc == "process" and log == seen["log"]
     assert seen["args"][1:] == [os.path.abspath(chip_smoke.__file__),
-                                "--side", "card, 700 W"]
+                                "--side", "card, 700 W", "22,21"]
     assert seen["env"][kernels.PREBUILT_ENV] == "/k.so"
     assert seen["env"]["OMP_NUM_THREADS"] == str(chip_smoke.SIDE_THREADS)
+
+
+def test_side_returns_reach_main_through_the_results_file(monkeypatch,
+                                                          tmp_path, capsys):
+    """A side process writes what its phases return (phase 18's record
+    and launches, say) to the file SIDE_OUT_ENV names; ``join_side`` of
+    that process reads it back, and a stale file is removed at the
+    start."""
+    import subprocess
+    import sys
+
+    log = str(tmp_path / "side_2.log")
+    out = chip_smoke.side_results_path(log)
+    with open(out, "w") as f:
+        f.write('{"18": "stale"}')
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen",
+                        lambda args, stdout, stderr, env: env)
+    env, _ = chip_smoke.start_side(str(tmp_path), "card", None, ("18",),
+                                   "side_2.log")
+    assert env[chip_smoke.SIDE_OUT_ENV] == out and not os.path.exists(out)
+    monkeypatch.undo()      # subprocess.Popen is itself again
+    monkeypatch.setitem(chip_smoke.SIDE_RUNS, "18", (
+        "phase 18 tuning", lambda card: ({"search": {"speedup": 1.5}}, 1080)))
+    monkeypatch.setenv(chip_smoke.SIDE_OUT_ENV, out)
+    threads = torch.get_num_threads()
+    try:
+        assert chip_smoke.side_phase("cpu stand-in", "18") == 0
+    finally:
+        torch.set_num_threads(threads)
+    with open(log, "w") as f:
+        f.write("[phase 18 tuning: 1.0 s in a side process]\n")
+    proc = subprocess.Popen([sys.executable, "-c", "pass"])
+    side = chip_smoke.join_side(proc, log)
+    tuning, launches = side["18"]
+    assert tuning == {"search": {"speedup": 1.5}} and launches == 1080
+    os.remove(out)
+    proc = subprocess.Popen([sys.executable, "-c", "pass"])
+    assert chip_smoke.join_side(proc, log) == {}
 
 
 @pytest.mark.parametrize("code, want", [
@@ -1476,7 +1551,7 @@ def test_join_side_prints_the_log_and_fails_with_the_process(
     assert proc.poll() is not None
     out = capsys.readouterr().out.splitlines()
     assert out[0] in ("FAIL: phase 21: x", "started")
-    assert out[-1].startswith("FAIL: phase 21 (second process): ")
+    assert out[-1].startswith("FAIL: the second process's phases: ")
     assert want in out[-1]
 
 
@@ -1562,3 +1637,208 @@ def test_chip_smoke_binds_each_module_name_once():
                     if isinstance(name, ast.Name):
                         seen[name.id] += 1
     assert [n for n, c in seen.items() if c > 1] == []
+
+
+# ---------------------------------------------------------------------------
+# phases 20.5 and 22
+# ---------------------------------------------------------------------------
+
+
+def test_electricity_layout_shape_and_seasonality():
+    """321 clients × (672 + 24) hours, positive loads, strong daily and
+    weekly autocorrelation (lags 24 and 168) and a weak one at 12 h."""
+    Y = chip_smoke.electricity_layout(chip_smoke.SEED + 220)
+    assert Y.shape == (chip_smoke.ELEC_CLIENTS,
+                       chip_smoke.ELEC_FIT + chip_smoke.ELEC_HORIZON)
+    assert (Y > 0).all() and np.isfinite(Y).all()
+
+    def acf(lag):
+        z = np.log(Y) - np.log(Y).mean(1, keepdims=True)
+        return float(np.mean((z[:, lag:] * z[:, :-lag]).mean(1)
+                             / (z * z).mean(1)))
+
+    assert acf(24) > 0.6 and acf(168) > 0.6 and acf(12) < acf(24) - 0.2
+    levels = np.exp(np.log(Y).mean(1))
+    assert levels.max() / levels.min() > 50       # lognormal client levels
+    np.testing.assert_array_equal(
+        Y, chip_smoke.electricity_layout(chip_smoke.SEED + 220))
+
+
+@pytest.fixture(scope="module")
+def line_phase_routes():
+    """Phase 20.5's route inputs at its own size: the training edges of
+    phase 20's scale-17 graph as the op's rows, and for each order the
+    (kernel, plain, init) tables at LINE_ROUTE_STEPS steps, the wrapper's
+    plain version standing in for the kernel on the CPU."""
+    gr = chip_smoke.line_graph()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ALINK_TORCH_DEVICE", "cpu")
+        mp.delenv("ALINK_SGNS_PALLAS", raising=False)
+        tables = {order: chip_smoke.line_routes(
+            gr["s_ids"], gr["d_ids"], len(gr["words"]), order,
+            chip_smoke.LINE_ROUTE_STEPS, device="cpu") for order in (2, 1)}
+    return gr, tables
+
+
+def _dropped_negative(ref):
+    def grads(win, w_ctx, center, uids, *, negs, **kw):
+        gv, gu = ref(win, w_ctx, center, uids, negs=negs, **kw)
+        gu = gu.clone()
+        gu[center.shape[0] + negs - 1::negs] = 0.0   # b-major negatives
+        return gv, gu
+    return grads
+
+
+def _untied(ref):
+    def grads(win, w_ctx, center, uids, **kw):
+        return ref(win, torch.zeros_like(w_ctx), center, uids, **kw)
+    return grads
+
+
+@pytest.mark.parametrize("order, mutant", [
+    (2, None), (1, None), (2, _dropped_negative), (1, _untied)])
+def test_line_route_check_rejects_mutants(monkeypatch, line_phase_routes,
+                                          order, mutant):
+    """Phase 20.5's route check at the phase's own graph (89,783 vertices
+    of 4.1 M directed training edges), dimension and LINE_ROUTE_STEPS: the
+    kernel route (here the wrapper's plain version, the CPU stand-in)
+    passes; a step that unties order 1's table fails it, and so does one
+    that drops a negative's gradients, though that one stays within
+    TABLE_ATOL of the plain route there (training moves order 2's table
+    only ~1.5e-3)."""
+    from alink_tpu_torch.embedding import skipgram
+
+    gr, tables = line_phase_routes
+    kernel, plain, init = tables[order]
+    assert len(gr["words"]) == 89_783 and len(gr["s_ids"]) == 2_054_861
+    if mutant is not None:
+        monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+        monkeypatch.delenv("ALINK_SGNS_PALLAS", raising=False)
+        monkeypatch.setattr(skipgram, "sgns_pull_grads",
+                            mutant(skipgram.sgns_pull_grads_ref))
+        kernel = chip_smoke.line_table(
+            gr["s_ids"], gr["d_ids"], len(gr["words"]), order,
+            chip_smoke.LINE_ROUTE_STEPS, device="cpu")
+        if mutant is _dropped_negative:
+            assert np.abs(kernel - plain).max() < chip_smoke.TABLE_ATOL
+    problems = chip_smoke.route_gap_problems("LINE", kernel, plain, init)
+    assert bool(problems) == (mutant is not None)
+
+
+def test_line_auc_floors_tell_learning_from_chance():
+    """Each order's AUC floor sits more than ten standard errors of a
+    chance ranking above 0.5 at the phase's held-out edges, and the
+    standard error is the Mann-Whitney one at AUC 0.5."""
+    n = int(round(chip_smoke.LINE_HELD_OUT
+                  * (chip_smoke.GRAPH_EDGE_FACTOR << chip_smoke.GRAPH_SCALE)))
+    assert chip_smoke.auc_se(0.5, n, n) == pytest.approx(
+        np.sqrt((2 * n + 1) / (12 * n * n)), rel=1e-12)
+    for order, floor in chip_smoke.LINE_AUC_FLOOR.items():
+        assert floor - 0.5 > 10 * chip_smoke.auc_se(0.5, n, n), order
+
+
+def test_line_auc_ranks_held_edges():
+    emb = np.eye(4, dtype=np.float32)
+    held = np.asarray([[0, 0], [1, 1]])
+    pairs = np.asarray([[0, 1], [2, 3]])
+    assert chip_smoke.line_auc(emb, held, pairs) == 1.0
+    assert chip_smoke.line_auc(emb, pairs, held) == 0.0
+    assert chip_smoke.line_auc(np.zeros((4, 2)), held, pairs) == 0.5
+
+
+def _transactions():
+    t = np.asarray([0, 100, 86_400, 86_400, 90_000, 172_800, 5, 86_405,
+                    86_405, 172_805], np.float64)
+    acct = np.asarray(["a"] * 6 + ["b"] * 4, object)
+    amount = np.asarray([1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 3.0, 5.0, 7.0,
+                         11.0])
+    return t, amount, acct
+
+
+def _ndays(t, amount, acct, n_days):
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import (
+        GenerateFeatureOfLatestNDaysBatchOp, TableSourceBatchOp)
+
+    out = GenerateFeatureOfLatestNDaysBatchOp(
+        timeCol="time", groupCols=["acct"], targetCols=["amount"],
+        statTypes=chip_smoke.WINDOW_STATS, nDays=n_days).link_from(
+        TableSourceBatchOp(MTable({"acct": acct, "time": t,
+                                   "amount": amount}))).collect()
+    cols = [c for c in out.names if c.startswith("amount_")]
+    return {s: np.asarray(out.col(c))
+            for s, c in zip(chip_smoke.WINDOW_STATS, cols)}
+
+
+def test_window_oracle_rejects_an_off_by_one_edge(monkeypatch):
+    """The NDays oracle passes the op's 1-day columns, and rejects the
+    columns of a window one second short (its left edge drops the rows
+    exactly one day back); the hop-window oracle passes the op's windows
+    and rejects them with each window's end one second late."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import (
+        GenerateFeatureOfWindowBatchOp, TableSourceBatchOp)
+
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    t, amount, acct = _transactions()
+    rows = np.arange(len(t))
+    good = _ndays(t, amount, acct, 1.0)
+    assert chip_smoke.trailing_oracle_gaps(t, amount, acct, good, 86_400,
+                                           rows) == 0.0
+    short = _ndays(t, amount, acct, (86_400 - 1) / 86_400)
+    assert chip_smoke.trailing_oracle_gaps(t, amount, acct, short, 86_400,
+                                           rows) > 0.1
+    t2 = np.asarray([0, 1800, 3600, 3601, 5400, 7199, 7200], np.float64)
+    a2 = np.asarray(["a"] * 7, object)
+    v2 = np.arange(1.0, 8.0)
+    hop = GenerateFeatureOfWindowBatchOp(timeCol="time", featureDefinitions={
+        "groupCols": ["acct"], "windowType": "HOP", **chip_smoke.WINDOW_HOP,
+        "targetCols": ["amount"], "statTypes": chip_smoke.WINDOW_STATS}) \
+        .link_from(TableSourceBatchOp(MTable(
+            {"acct": a2, "time": t2, "amount": v2}))).collect()
+    wrows = np.arange(hop.num_rows)
+    assert chip_smoke.window_oracle_gaps(t2, v2, a2, hop, wrows) == 0.0
+    late = hop.with_column("window_end",
+                           np.asarray(hop.col("window_end")) + 1.0)
+    assert chip_smoke.window_oracle_gaps(t2, v2, a2, late, wrows) > 0.1
+
+
+def test_timeseries_phase_passes_on_the_cpu_at_a_small_size(monkeypatch,
+                                                            capsys):
+    """Phase 22 end to end with the CPU on both routes at a small size:
+    every check passes and no kernel launches."""
+    import alink_tpu_torch.operator.batch.timeseries as ts
+
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    for name, value in dict(ELEC_CLIENTS=4, ELEC_FIT=72, ELEC_HORIZON=24,
+                            AUTO_ARIMA_SERIES=1, AUTO_GARCH_SERIES=2,
+                            CPU_SERIES=dict(ArimaBatchOp=2,
+                                            HoltWintersBatchOp=2,
+                                            GarchBatchOp=2,
+                                            AutoGarchBatchOp=1,
+                                            AutoArimaBatchOp=1),
+                            NET_SERIES=1, NET_ROUTE_EPOCHS=1,
+                            CREDIT_ROWS=2000,
+                            WINDOW_ACCOUNTS=50,
+                            WINDOW_ORACLE_ROWS=100).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    for cls in (ts.DeepARBatchOp, ts.LSTNetBatchOp, ts.TFTBatchOp):
+        monkeypatch.setattr(cls, "NUM_EPOCHS", type(cls.NUM_EPOCHS)(
+            "numEpochs", int, default=1))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "device_profile", lambda fn, warm: (
+        fn(), dict(operations=0, busy_ms=0.0, traced_wall_ms=1.0,
+                   idle_share=1.0))[1])
+    monkeypatch.setattr(chip_smoke, "count_syncs", lambda fn: (fn(), 0))
+    out = chip_smoke.timeseries_path("cpu stand-in")
+    assert sum(out["launches"].values()) == 0
+    fits = out["22.1"]
+    assert fits["AutoArimaBatchOp"]["orders_equal"]
+    assert all(fits[op]["route_gap"] == 0.0 for op in (
+        "ArimaBatchOp", "HoltWintersBatchOp", "GarchBatchOp"))
+    assert out["22.3"]["ndays_gap"] <= chip_smoke.WINDOW_ORACLE_RTOL
+    assert "phase 22: {" in capsys.readouterr().out

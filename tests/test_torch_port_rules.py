@@ -776,3 +776,90 @@ def test_slice17_classes_and_params_are_the_references(module):
         if inspect.isclass(getattr(ref, name)):
             assert params(getattr(port, name)) == \
                 params(getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("module", [
+    "operator.batch.timeseries", "operator.batch.timeseries2",
+    "operator.batch.windowfe", "operator.batch.relational2",
+    "operator.batch.graph2", "operator.batch.huge", "embedding.walks"])
+def test_slice18_classes_and_params_are_the_references(module):
+    """Every class and public function the reference module defines has a
+    counterpart of the same name in the port's module, the classes with
+    the same ParamInfo names, defaults and aliases."""
+    test_slice17_classes_and_params_are_the_references(module)
+
+
+SLICE18_MODULES = ("stats/lanefit.py", "operator/batch/timeseries.py",
+                   "operator/batch/timeseries2.py",
+                   "operator/batch/windowfe.py",
+                   "operator/batch/relational2.py",
+                   "operator/batch/graph2.py", "operator/batch/huge.py",
+                   "embedding/walks.py")
+
+
+@pytest.mark.parametrize("path", SLICE18_MODULES)
+def test_slice18_modules_import_no_pandas_flax_optax_or_msgpack(path):
+    """Not at module level and not inside a function either."""
+    with open(os.path.join(REPO, "alink_tpu_torch", path)) as f:
+        tree = ast.parse(f.read())
+    roots = set(_all_imports(tree))
+    assert not roots & {"pandas", "flax", "optax", "msgpack", "jax",
+                        "alink_tpu", "prophet"}, roots
+
+
+def test_slice18_entry_points_refuse_cpu_without_request(monkeypatch):
+    """The forecasters, SimRank, MDS, LINE and MetaPath2Vec run on the
+    card: without one they raise unless the CPU is asked for."""
+    import torch
+
+    from alink_tpu_torch.common.exceptions import AkIllegalStateException
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.embedding.walks import line_embeddings
+    from alink_tpu_torch.operator import batch as B
+
+    y = np.sin(np.arange(40) / 3.0) + np.arange(40) * 0.01
+    series = B.TableSourceBatchOp(MTable({"v": y}))
+    edges = B.TableSourceBatchOp(MTable({
+        "s": np.asarray(["a", "b", "c", "a"], object),
+        "t": np.asarray(["b", "c", "a", "c"], object)}))
+    types = B.TableSourceBatchOp(MTable({
+        "vertex": np.asarray(["a", "b", "c"], object),
+        "type": np.asarray(["u", "i", "u"], object)}))
+    nets = dict(lookback=6, hiddenSize=4, numEpochs=1, batchSize=8)
+    runs = [lambda: line_embeddings(np.array([0, 1]), np.array([1, 2]), 3,
+                                    dim=4, num_steps=2)]
+    for op in (B.ArimaBatchOp(valueCol="v"),
+               B.AutoArimaBatchOp(valueCol="v", maxP=1, maxQ=1, maxD=1),
+               B.HoltWintersBatchOp(valueCol="v"),
+               B.GarchBatchOp(valueCol="v"),
+               B.AutoGarchBatchOp(valueCol="v", maxOrder=1),
+               B.DeepARBatchOp(valueCol="v", **nets),
+               B.LSTNetBatchOp(valueCol="v", **nets),
+               B.TFTBatchOp(valueCol="v", **nets),
+               B.DeepARTrainBatchOp(valueCol="v", **nets),
+               B.LSTNetTrainBatchOp(valueCol="v", **nets),
+               B.MdsBatchOp(selectedCols=["v"])):
+        runs.append(lambda op=op: op.link_from(series).collect())
+    runs += [
+        lambda: B.SimrankBatchOp(userCol="s", itemCol="t")
+        .link_from(edges).collect(),
+        lambda: B.LineBatchOp(sourceCol="s", targetCol="t", numSteps=2,
+                              vectorSize=4).link_from(edges).collect(),
+        lambda: B.MetaPath2VecBatchOp(sourceCol="s", targetCol="t",
+                                      metaPath="u-i-u", vectorSize=4,
+                                      numIter=1).link_from(edges, types)
+        .collect()]
+    monkeypatch.delenv("ALINK_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in runs:
+        with pytest.raises(AkIllegalStateException):
+            run()
+    # the host ops need no card
+    assert B.ShiftBatchOp(selectedCol="v").link_from(series).collect() \
+        .num_rows == 40
+    assert B.MetaPathWalkBatchOp(sourceCol="s", targetCol="t", walkNum=1,
+                                 metaPath="u-i-u").link_from(
+        edges, types).collect().num_rows == 2
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    for run in runs:
+        run()
