@@ -431,3 +431,41 @@ from .graph2 import (CommunityDetectionClassifyBatchOp,
                      IndexToNodeBatchOp, MdsBatchOp, Node2VecBatchOp,
                      NodeIndexerTrainBatchOp, NodeToIndexBatchOp,
                      RiskAlikeBuildGraphBatchOp, SimrankBatchOp)
+from .media import (ExtractMfccFeatureBatchOp, ReadAudioToTensorBatchOp,
+                    ReadImageToTensorBatchOp)
+from .insights import AutoDiscoveryBatchOp
+from .xgboost import XGBoostPredictBatchOp, XGBoostTrainBatchOp
+from .connectors import KvSinkBatchOp, LookupKvBatchOp
+from . import modelinfo as _modelinfo
+from .modelinfo import *  # noqa: F401,F403 — ModelInfo family
+from . import format as _format
+from .format import *  # noqa: F401,F403 — format conversion family
+from .tensorops import (MTableSerializeBatchOp, TensorReshapeBatchOp,
+                        TensorSerializeBatchOp, TensorToVectorBatchOp,
+                        ToMTableBatchOp, ToTensorBatchOp, ToVectorBatchOp,
+                        VectorSerializeBatchOp, VectorToTensorBatchOp)
+from .udf2 import (BaseGroupPandasUdfBatchOp, BasePandasUdfBatchOp,
+                   BasePyScalarFnBatchOp, BasePyTableFnBatchOp,
+                   FlatMapBatchOp, FlatModelMapBatchOp, FlattenKObjectBatchOp,
+                   GroupPandasFileUdfBatchOp, GroupPandasUdfBatchOp,
+                   GroupRBatchOp, PandasUdfBatchOp, PandasUdfFileBatchOp,
+                   PyFileScalarFnBatchOp, PyFileTableFnBatchOp,
+                   PyScalarFnBatchOp, PyTableFnBatchOp, RUdfBatchOp,
+                   UDFBatchOp, UDTFBatchOp)
+from .script import JaxScriptBatchOp
+from .io2 import (AggLookupBatchOp, CatalogSinkBatchOp, CatalogSourceBatchOp,
+                  HBaseSinkBatchOp, InternalFullStatsBatchOp,
+                  LinearRegStepwisePredictBatchOp,
+                  LinearRegStepwiseTrainBatchOp, LookupHBaseBatchOp,
+                  LookupRedisRowBatchOp, LookupRedisStringBatchOp,
+                  RedisRowSinkBatchOp, RedisStringSinkBatchOp,
+                  TF2TableModelTrainBatchOp, TFRecordDatasetSinkBatchOp,
+                  TFRecordDatasetSourceBatchOp,
+                  TFTableModelClassifierPredictBatchOp,
+                  TFTableModelClassifierTrainBatchOp,
+                  TFTableModelPredictBatchOp,
+                  TFTableModelRegressorPredictBatchOp,
+                  TFTableModelRegressorTrainBatchOp, TFTableModelTrainBatchOp,
+                  TensorFlow2BatchOp, TensorFlowBatchOp,
+                  WriteTensorToImageBatchOp, XGBoostRegPredictBatchOp,
+                  XGBoostRegTrainBatchOp, XlsSinkBatchOp)

@@ -25,3 +25,22 @@ def axis_size(axis: str = AXIS_MODEL) -> int:
 def pad_to_multiple(n: int, k: int) -> int:
     """Rows pad to a multiple of the axis size (even shards)."""
     return ((n + k - 1) // k) * k
+
+
+class DeviceMesh:
+    """The port's one-rank device handle where the reference hands a user
+    script the session's ``jax.sharding.Mesh``: the session's torch device
+    along the data axis."""
+
+    axis_names = (AXIS_DATA,)
+
+    def __init__(self, device):
+        self.device = device
+        self.devices = [device]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self) -> str:
+        return f"DeviceMesh({self.device}, axis_names={self.axis_names})"

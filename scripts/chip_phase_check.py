@@ -41,7 +41,10 @@ scale-17 Graph 500 graph at orders 2 and 1, MetaPath2Vec on the
 MovieLens-1M-layout user-item graph, each against the plain route, SimRank
 and MDS against the CPU route), ``timeseries`` (phase 22: the forecasters
 on the electricity layout and the window features on the credit-card
-layout, against the CPU route or a numpy oracle; it builds no kernel).
+layout, against the CPU route or a numpy oracle; it builds no kernel),
+``batch`` (phase 23: MFCC, AggLookup and AutoDiscovery against the CPU
+route, the script op and the aliases, the host families and the plugin
+gates; it builds no kernel).
 Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
@@ -61,7 +64,8 @@ sys.path.insert(0, ROOT)
 
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
           "families", "ingest", "serving", "pretrain", "fleet", "dag",
-          "tuning", "features", "graph", "recomm", "walks", "timeseries")
+          "tuning", "features", "graph", "recomm", "walks", "timeseries",
+          "batch")
 
 
 def main() -> int:
@@ -86,7 +90,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not set(phases) <= {"ingest", "pretrain", "features", "graph",
-                           "recomm", "timeseries"}:
+                           "recomm", "timeseries", "batch"}:
         kernels.build()
         print(f"build {kernels.build_seconds:.1f} s", flush=True)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
@@ -143,6 +147,8 @@ def main() -> int:
            "recomm": lambda: cs.recomm_outlier_path(card.splitlines()[0]),
            "walks": lambda: cs.walks_path(card.splitlines()[0]),
            "timeseries": lambda: cs.timeseries_path(card.splitlines()[0]),
+           "batch": lambda: cs.batch_families_path(card.splitlines()[0],
+                                                   workdir),
            "pretrain": lambda: cs.pretraining_path(workdir, peaks,
                                                    card.splitlines()[0])}
     out = {}

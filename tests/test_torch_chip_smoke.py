@@ -1842,3 +1842,133 @@ def test_timeseries_phase_passes_on_the_cpu_at_a_small_size(monkeypatch,
         "ArimaBatchOp", "HoltWintersBatchOp", "GarchBatchOp"))
     assert out["22.3"]["ndays_gap"] <= chip_smoke.WINDOW_ORACLE_RTOL
     assert "phase 22: {" in capsys.readouterr().out
+
+
+# -- phase 23: the rest of the batch families --------------------------------
+
+CARD_STANDIN = "cpu:0"      # the "card" route here; torch_device("cpu") the
+#                             CPU route, so a mutant can act on one of them
+
+
+def _on_card():
+    return os.environ.get("ALINK_TORCH_DEVICE") == CARD_STANDIN
+
+
+def _phase23_on_cpu(monkeypatch):
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", CARD_STANDIN)
+    for name, value in dict(SPEECH_CLIPS=40, MFCC_CPU_CLIPS=20, WAV_FILES=6,
+                            VOCAB_KEYS=500, AGG_ROWS=400, AGG_EMPTY=8,
+                            FACT_ROWS=10_000, LSQ_ROWS=3_000, LSQ_BATCH=512,
+                            TRIPLE_ROWS=300, TENSOR_CELLS=50).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "dag_profile",
+                        lambda run: (run(), (0.0, 1.0))[1])
+
+
+def test_batch_families_phase_passes_on_the_cpu(monkeypatch, capsys,
+                                                tmp_path):
+    """Phase 23 end to end with the CPU on both routes at a small size:
+    every check passes, every gate holds, no kernel launches."""
+    _phase23_on_cpu(monkeypatch)
+    out = chip_smoke.batch_families_path("cpu stand-in", str(tmp_path))
+    assert sum(out["launches"].values()) == 0
+    assert out["23.1"]["gaps"]["route"] <= chip_smoke.MFCC_ATOL
+    assert all(out["23.2"][h]["rows_not_equal"] == 0
+               for h in ("MAX", "MIN", "CONCAT"))
+    assert set(chip_smoke.FACT_FAMILIES) <= set(out["23.3"]["kinds"])
+    assert out["23.3"]["budget_cut"] == 0
+    assert out["23.4"]["route_gap"] <= chip_smoke.LSQ_ATOL
+    assert out["23.5"]["triples"] == 4 * chip_smoke.TRIPLE_ROWS
+    assert out["23.6"]["xgboost"] == "absent, raised"
+    assert "phase 23: {" in capsys.readouterr().out
+
+
+def _periodic_window(monkeypatch):
+    real = torch.hann_window
+
+    def window(n, periodic=True, **kw):
+        return real(n, periodic=periodic or _on_card(), **kw)
+
+    monkeypatch.setattr(torch, "hann_window", window)
+
+
+def _max_as_mean(monkeypatch):
+    from alink_tpu_torch.operator.batch import io2
+
+    real = io2.AggLookupMapper._reduce
+
+    def reduce(self, rows, counts, how):
+        if how == "MAX" and _on_card():
+            how = "AVG"
+        return real(self, rows, counts, how)
+
+    monkeypatch.setattr(io2.AggLookupMapper, "_reduce", reduce)
+
+
+def _pearson_keeps_nan_rows(monkeypatch):
+    from alink_tpu_torch.operator.batch import insights
+
+    real = insights._pearson
+
+    def pearson(X, device):
+        if not _on_card():
+            return real(X, device)
+        Z = torch.tensor(X, dtype=torch.float64)
+        Z = Z - Z.mean(dim=0)
+        c = (Z.T @ Z) / (Z.shape[0] - 1)
+        sd = torch.sqrt(torch.diagonal(c))
+        return (c / sd[:, None] / sd[None, :]).numpy()
+
+    monkeypatch.setattr(insights, "_pearson", pearson)
+
+
+@pytest.mark.parametrize("mutant, want", [
+    (_periodic_window, "23.1: MFCC route gap"),
+    (_max_as_mean, "23.2: AggLookup MAX"),
+    (_pearson_keeps_nan_rows, "23.3: the findings'")])
+def test_batch_families_checks_reject_a_parted_card_route(
+        monkeypatch, capsys, tmp_path, mutant, want):
+    """A card route with a periodic Hann window, MAX computed as a mean, or
+    a Pearson matrix over the rows with a NaN fails phase 23 (the CPU
+    route is untouched)."""
+    _phase23_on_cpu(monkeypatch)
+    mutant(monkeypatch)
+    with pytest.raises(SystemExit):
+        chip_smoke.batch_families_path("cpu stand-in", str(tmp_path))
+    assert want in capsys.readouterr().out.splitlines()[-1]
+
+
+def test_batch_families_gates_reject_an_op_that_returns(monkeypatch,
+                                                        tmp_path):
+    """A gate that returns instead of raising (XlsSink writing nothing, a
+    redis:// store opened without the package) fails the gate check."""
+    from alink_tpu_torch.io import kv
+    from alink_tpu_torch.operator.batch import io2
+
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    problems, seen = chip_smoke.gate_problems(str(tmp_path))
+    assert problems == [] and seen["redis"] == "absent, raised"
+    monkeypatch.setattr(io2.XlsSinkBatchOp, "_execute_impl",
+                        lambda self, t: t)
+    monkeypatch.setattr(kv, "RedisKvStore",
+                        lambda uri: kv.MemoryKvStore("gate"))
+    problems, seen = chip_smoke.gate_problems(str(tmp_path))
+    assert seen["redis"] == "absent, ran"
+    assert "23.6: redis gate: absent, ran" in problems
+    assert "23.6: an op that needs openpyxl ran" in problems
+
+
+def test_batch_families_phase_runs_in_main_after_phase_15():
+    """Phase 23 runs in this process after phase 15 and before the side
+    processes are joined, so nothing is added beside phases 3-10, 16 or
+    17; its launch counts reach the kernels line."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("pretraining_path(") \
+        < src.index("batch_families_path(card, workdir)") \
+        < src.index("side.update(join_side(proc, log))")
+    assert src.count('"phase 23 batch families":') == 3
+    assert "23" not in chip_smoke.SIDE_RUNS

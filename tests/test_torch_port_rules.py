@@ -863,3 +863,94 @@ def test_slice18_entry_points_refuse_cpu_without_request(monkeypatch):
     monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
     for run in runs:
         run()
+
+
+SLICE19 = ("io.kv", "io.hbase", "io.odps", "io.hivecatalog",
+           "io.directreader", "operator.batch.connectors",
+           "operator.batch.format", "operator.batch.tensorops",
+           "operator.batch.modelinfo", "operator.batch.media",
+           "operator.batch.insights", "operator.batch.script",
+           "operator.batch.udf2", "operator.batch.xgboost",
+           "operator.batch.io2")
+
+
+@pytest.mark.parametrize("module", SLICE19)
+def test_slice19_classes_and_params_are_the_references(module):
+    """Every class and public function the reference module defines (the
+    BERT embedding names io2 re-exports from ``dl.py`` among them) has a
+    counterpart of the same name in the port's module, the classes with
+    the same ParamInfo names, defaults and aliases."""
+    import importlib
+    import inspect
+
+    test_slice17_classes_and_params_are_the_references(module)
+    ref = importlib.import_module(f"alink_tpu.{module}")
+    port = importlib.import_module(f"alink_tpu_torch.{module}")
+    public = getattr(ref, "__all__", None)
+    if public is not None:
+        assert sorted(port.__all__) == sorted(public)
+    ref_classes = [n for n, c in vars(ref).items() if inspect.isclass(c)
+                   and c.__module__ == ref.__name__]
+    for name in ref_classes:
+        assert inspect.isclass(getattr(port, name)), name
+
+
+@pytest.mark.parametrize("module", SLICE19)
+def test_slice19_modules_import_no_pandas_or_clients_at_module_level(
+        module):
+    """pandas nowhere; the optional clients (redis, happybase, pyodps,
+    pyhive, xgboost, Pillow) only inside the functions that need them."""
+    path = os.path.join(REPO, "alink_tpu_torch", *module.split(".")) + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    clients = {"redis", "happybase", "odps", "pyhive", "xgboost", "PIL"}
+    assert not set(_module_level_imports(tree)) & (clients | {"pandas"})
+    assert not set(_all_imports(tree)) & {
+        "pandas", "openpyxl", "jax", "flax", "optax", "alink_tpu"}
+
+
+def test_slice19_entry_points_refuse_cpu_without_request(monkeypatch):
+    """MFCC, AggLookup and AutoDiscovery run on the card: without one they
+    raise unless the CPU is asked for. The host ops need no card."""
+    import torch
+
+    from alink_tpu_torch.common.exceptions import AkIllegalStateException
+    from alink_tpu_torch.common.linalg import DenseVector
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator import batch as B
+    from alink_tpu_torch.operator.batch.media import mfcc, mfcc_batch
+
+    rng = np.random.default_rng(0)
+    clip = rng.normal(size=2_000)
+    audio = np.empty(2, object)
+    audio[:] = [DenseVector(clip), DenseVector(clip[:300])]
+    waves = B.TableSourceBatchOp(MTable({"a": audio}, "a DENSE_VECTOR"))
+    emb = B.TableSourceBatchOp(MTable(
+        {"k": np.asarray(["x", "y"], object),
+         "v": np.asarray(["1 0", "0 1"], object)}, "k string, v VECTOR"))
+    keys = B.TableSourceBatchOp(MTable(
+        {"q": np.asarray(["x,y", "z"], object)}))
+    seg = np.asarray(["a", "b", "c"] * 20, object)
+    facts = B.TableSourceBatchOp(MTable({"s": seg, "m": rng.normal(size=60),
+                                         "n": rng.normal(size=60)}))
+    runs = [lambda: mfcc(clip, 16000),
+            lambda: mfcc_batch([clip], 16000)]
+    for pool in ("NONE", "MEAN"):
+        runs.append(lambda p=pool: B.ExtractMfccFeatureBatchOp(
+            selectedCol="a", poolingMode=p).link_from(waves).collect())
+    for how in ("AVG", "SUM", "MAX", "MIN", "CONCAT"):
+        runs.append(lambda h=how: B.AggLookupBatchOp(
+            selectedCol="q", handle=h).link_from(emb, keys).collect())
+    runs.append(lambda: B.AutoDiscoveryBatchOp().link_from(facts).collect())
+    monkeypatch.delenv("ALINK_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in runs:
+        with pytest.raises(AkIllegalStateException):
+            run()
+    # the host ops need no card
+    assert B.ColumnsToTripleBatchOp().link_from(facts).collect() \
+        .num_rows == 180
+    assert mfcc(clip, 16000, device="cpu").shape == (6, 13)
+    monkeypatch.setenv("ALINK_TORCH_DEVICE", "cpu")
+    for run in runs:
+        run()

@@ -55,6 +55,9 @@ def same_value(a, b, rtol):
             np.testing.assert_allclose(a.data, b.data, rtol=rtol,
                                        atol=rtol * max(1.0, np.abs(
                                            b.data).max(initial=0.0)))
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, (a, b)
+        np.testing.assert_allclose(a, b, rtol=rtol)
     elif isinstance(b, float) and isinstance(a, float):
         np.testing.assert_allclose(a, b, rtol=rtol)
     else:
