@@ -1,6 +1,6 @@
 """Diagnostic/report model of the static-analysis layer (port of the part of
-``alink_tpu.analysis.diagnostics`` that the plan rules need: ALK101–ALK103,
-ALK105, ALK106, ALK110, ALK111). The report dict keeps the reference's keys
+``alink_tpu.analysis.diagnostics`` that the plan rules need: ALK101–ALK106,
+ALK109, ALK110, ALK111). The report dict keeps the reference's keys
 and ordering (severity, then rule); the source linter's file:line locations
 come back with its rules (ROADMAP A10).
 """
@@ -29,6 +29,9 @@ RULES: Dict[str, tuple] = {
                "shape or key hazard: a batch size off the bucket_rows "
                "ladder, or a block-kernel closure capturing state that "
                "cannot be content-keyed"),
+    "ALK104": (WARNING,
+               "stateful stream op without state_snapshot/state_restore "
+               "hooks — the recovery coordinator refuses it at job build"),
     "ALK105": (INFO,
                "a non-fusable op interrupts a linear mapper chain — the run "
                "splits into multiple device programs with host round trips "
@@ -36,6 +39,11 @@ RULES: Dict[str, tuple] = {
     "ALK106": (INFO,
                "static output schema could not be derived for a node; "
                "downstream schema checks were skipped"),
+    "ALK109": (WARNING,
+               "stream-train op bound to a ModelStreamPublisher without "
+               "state_snapshot/state_restore hooks — after a crash the "
+               "retrain diverges from the published version history, so "
+               "the republish-bit-identical contract cannot hold"),
     "ALK110": (WARNING,
                "model loaded into a serving fleet without a readable "
                ".ak.warmup.json sidecar — a respawned replica would fall "

@@ -15,15 +15,19 @@ turns what would be a mid-job error into a structured diagnostic:
 - **ALK105** fusion breakers interrupting linear mapper chains;
 - **ALK106** nodes whose static schema cannot be derived (checks downstream
   of them are skipped);
+- **ALK104** stateful stream ops without ``state_snapshot`` hooks (the
+  recovery coordinator refuses them at job build);
+- **ALK109** a stream-train op bound to a ``ModelStreamPublisher`` without
+  snapshot hooks;
 - **ALK110** / **ALK111** the serving tier's fleet-model and quantized-load
   pre-flights.
 
-The stream rules (ALK104, ALK107, ALK109) wait for the stream operators'
-checkpoint hooks (ROADMAP A7).
+ALK107 (keyed-state hooks under elastic parallelism) waits for the elastic
+stream job (ROADMAP A7).
 
 Wiring: ``ALINK_VALIDATE_PLAN=off|warn|error`` (default ``off``) gates an
-automatic pre-flight in ``AlgoOperator.execute()/collect()`` and
-``Pipeline.fit()`` — ``warn`` logs + counts diagnostics and never changes
+automatic pre-flight in ``AlgoOperator.execute()/collect()``,
+``Pipeline.fit()`` and ``StreamOperator.collect()`` — ``warn`` logs + counts diagnostics and never changes
 results, ``error`` raises
 :class:`~alink_tpu_torch.common.exceptions.AkPlanValidationException` when
 any error-severity diagnostic is found. Validation only reads static
@@ -313,6 +317,61 @@ def _check_huge_engine(op, label: str, report: Report) -> None:
                  "this job")
 
 
+def _validate_stream(roots: Sequence[Any], report: Report,
+                     recovery: bool = False) -> None:
+    from ..common.jitcache import bucket_rows
+
+    order = _collect_batch(roots)  # same _inputs shape
+    labels = _node_labels(order)
+    for op in order:
+        label = labels[id(op)]
+        if getattr(op, "_stateful_unhooked", False):
+            report.add(
+                "ALK104",
+                f"{type(op).__name__} keeps cross-chunk state without "
+                "state_snapshot/state_restore hooks; the recovery "
+                "coordinator refuses it at job build",
+                where=label,
+                severity=ERROR if recovery else "",
+                hint="add the snapshot hooks (move generator-local state "
+                     "onto the instance) or run the op outside "
+                     "run_with_recovery")
+        if getattr(op, "_modelstream_bound", False) \
+                and _without_snapshot_hooks(op):
+            report.add(
+                "ALK109",
+                f"{type(op).__name__} is bound to a ModelStreamPublisher "
+                "but has no state_snapshot/state_restore hooks; after a "
+                "crash the retrain diverges and the publisher cannot "
+                "republish bit-identically",
+                where=label,
+                severity=ERROR if recovery else "",
+                hint="add the snapshot hooks, or publish from an op that "
+                     "has them (the publisher republishes the crashed "
+                     "epoch from the restored state)")
+        try:
+            p = op.get_params()
+            cs = p.get("chunkSize") if p.contains("chunkSize") else None
+        except Exception:
+            cs = None
+        if cs and int(cs) > 0 and bucket_rows(int(cs)) != int(cs):
+            report.add(
+                "ALK103",
+                f"chunkSize={int(cs)} is off the bucket_rows ladder "
+                f"(pads to {bucket_rows(int(cs))} every micro-batch and "
+                "traces a fresh program on first use)",
+                where=label,
+                hint=f"use a ladder size (e.g. "
+                     f"floor_bucket_rows({int(cs)})="
+                     f"{_floor(int(cs))}) so steady chunks ship unpadded")
+
+
+def _without_snapshot_hooks(op) -> bool:
+    from ..operator.stream.base import StreamOperator
+
+    return type(op).state_snapshot is StreamOperator.state_snapshot
+
+
 def _floor(n: int) -> int:
     from ..common.jitcache import floor_bucket_rows
 
@@ -457,17 +516,20 @@ def _pipeline_tail(stages, op, report: Report):
     return op
 
 
-def validate_plan(target, data=None) -> Report:
+def validate_plan(target, data=None, *, recovery: bool = False) -> Report:
     """Statically validate a deferred plan before running it.
 
     ``target`` may be a batch :class:`AlgoOperator` (or a list of them — the
-    DAG reachable from all roots is walked once), a :class:`Pipeline` or
+    DAG reachable from all roots is walked once), a
+    :class:`StreamOperator` (``recovery`` raises ALK104/ALK109 to error
+    severity, as ``RecoverableStreamJob`` asks), a :class:`Pipeline` or
     fitted :class:`PipelineModel` (``data`` — an operator, MTable,
     TableSchema, or schema string — supplies the input schema). Returns a
     :class:`~alink_tpu_torch.analysis.diagnostics.Report`; never executes a
     node and never raises on a finding (mode enforcement lives in
     :func:`preflight`)."""
     from ..operator.base import AlgoOperator
+    from ..operator.stream.base import StreamOperator
     from ..pipeline.pipeline import Pipeline, PipelineModel
 
     report = Report(engine="plan")
@@ -485,9 +547,12 @@ def validate_plan(target, data=None) -> Report:
     if not roots:
         return report
     report.target = ", ".join(sorted({type(r).__name__ for r in roots}))
-    if not isinstance(roots[0], AlgoOperator):
+    if isinstance(roots[0], StreamOperator):
+        _validate_stream(roots, report, recovery=recovery)
+    elif isinstance(roots[0], AlgoOperator):
+        _validate_batch(roots, report)
+    else:
         raise TypeError(f"cannot validate {type(roots[0]).__name__}")
-    _validate_batch(roots, report)
     return report
 
 
@@ -529,10 +594,11 @@ def _record_report(report: Report, mode: str) -> None:
         _last_report = {"mode": mode, **report.to_dict()}
 
 
-def preflight(target, data=None, *, where: str = "execute"
-              ) -> Optional[Report]:
+def preflight(target, data=None, *, where: str = "execute",
+              recovery: bool = False) -> Optional[Report]:
     """The opt-in pre-flight hook ``execute()``/``collect()``/``fit()``
-    call. ``off`` → None without walking anything. ``warn`` → validate,
+    call (and ``RecoverableStreamJob`` with ``recovery=True``, which
+    escalates ALK104/ALK109 to error severity). ``off`` → None without walking anything. ``warn`` → validate,
     log + count findings, return the report (results are bit-identical to
     validation-off). ``error`` → additionally raise
     ``AkPlanValidationException`` when error-severity diagnostics exist. A
@@ -543,7 +609,7 @@ def preflight(target, data=None, *, where: str = "execute"
     if mode == "off" or getattr(_suppressed, "depth", 0):
         return None
     try:
-        report = validate_plan(target, data)
+        report = validate_plan(target, data, recovery=recovery)
     except Exception as e:
         metrics.incr("analysis.validator_errors")
         logger.debug("plan validator failed at %s: %r", where, e)

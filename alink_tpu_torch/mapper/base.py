@@ -164,6 +164,14 @@ class ModelMapper(Mapper):
     def load_model(self, model: MTable) -> "ModelMapper":
         raise NotImplementedError
 
+    def create_new(self, model: MTable) -> "ModelMapper":
+        """Build a fresh mapper with new model rows (model-stream hot swap),
+        on the same device."""
+        fresh = type(self)(self.model_schema, self.data_schema,
+                           self.get_params(), device=self.device)
+        fresh.load_model(model)
+        return fresh
+
 class RichModelMapper(ModelMapper, HasPredictionCol, HasPredictionDetailCol,
                       HasReservedCols):
     """Prediction + optional JSON detail column (reference:

@@ -33,11 +33,11 @@ Swaps are zero-trace after the first load: a new version of the same
 model meets only the batch shapes the first one's warmup ran (pinned by
 the ``modelstream.swap_trace_delta`` counter staying 0).
 
-The coordinators that call :meth:`ModelStreamPublisher.publish_epoch` and
-:meth:`~ModelStreamPublisher.swap_epoch` at their epoch barriers
-(``common/recovery.py``'s ``RecoverableStreamJob`` and
-``common/elastic.ElasticStreamJob``) wait for ROADMAP A7; until then a
-caller drives the two halves itself.
+``RecoverableStreamJob(publishers=[...])`` (``common/recovery.py``) binds
+and validates each publisher at job build; its coordinator calls
+:meth:`ModelStreamPublisher.publish_epoch` at each epoch barrier before the
+epoch's snapshot commits and :meth:`~ModelStreamPublisher.swap_epoch` after
+it, and :meth:`~ModelStreamPublisher.resume` after a restore.
 """
 
 from __future__ import annotations

@@ -494,6 +494,10 @@ class FeatureHasherMapper(Mapper, HasSelectedCols, HasOutputCol, HasReservedCols
             input_schema, [out], [AlinkTypes.SPARSE_VECTOR])
 
     def map_table(self, t: MTable) -> MTable:
+        """The reference's per-row slot sums, in bulk: each distinct
+        categorical value is hashed once, every row's slots sorted at once,
+        and only rows where two columns share a slot summed one by one (in
+        column order from 0.0, as the per-row dict does)."""
         out = self.get(HasOutputCol.OUTPUT_COL) or "hashed"
         cols = list(self.get(HasSelectedCols.SELECTED_COLS) or t.names)
         cat_cols = set(self.get(self.CATEGORICAL_COLS) or
@@ -501,21 +505,36 @@ class FeatureHasherMapper(Mapper, HasSelectedCols, HasOutputCol, HasReservedCols
                         if not AlinkTypes.is_numeric(t.schema.type_of(c))])
         m = int(self.get(self.NUM_FEATURES))
         n = t.num_rows
-        acc: List[Dict[int, float]] = [dict() for _ in range(n)]
-        for c in cols:
-            vals = t.col(c)
+        slots = np.empty((n, len(cols)), np.int64)
+        vals = np.ones((n, len(cols)), np.float64)
+        for j, c in enumerate(cols):
+            col = t.col(c)
             if c in cat_cols:
-                for i, v in enumerate(vals):
-                    slot = _hash32(f"{c}={v}") % m
-                    acc[i][slot] = acc[i].get(slot, 0.0) + 1.0
+                try:
+                    memo = {v: _hash32(f"{c}={v}") % m
+                            for v in dict.fromkeys(col)}
+                    slots[:, j] = np.fromiter((memo[v] for v in col),
+                                              np.int64, n)
+                except TypeError:       # unhashable cells: one at a time
+                    slots[:, j] = [_hash32(f"{c}={v}") % m for v in col]
             else:
-                slot = _hash32(c) % m
-                arr = np.asarray(vals, np.float64)
-                for i in range(n):
-                    acc[i][slot] = acc[i].get(slot, 0.0) + float(arr[i])
-        vecs = np.asarray(
-            [SparseVector(m, list(d.keys()), list(d.values())) for d in acc],
-            object)
+                slots[:, j] = _hash32(c) % m
+                vals[:, j] = np.asarray(col, np.float64)
+        order = np.argsort(slots, axis=1, kind="stable")
+        ss = np.take_along_axis(slots, order, 1)
+        sv = np.take_along_axis(vals, order, 1) + 0.0
+        shared = (ss[:, 1:] == ss[:, :-1]).any(1) if len(cols) > 1 else \
+            np.zeros(n, bool)
+        vecs = np.empty(n, object)
+        for i in range(n):
+            if shared[i]:
+                acc: Dict[int, float] = {}
+                for slot, v in zip(slots[i].tolist(), vals[i].tolist()):
+                    acc[slot] = acc.get(slot, 0.0) + v
+                vecs[i] = SparseVector(m, list(acc.keys()),
+                                       list(acc.values()))
+            else:
+                vecs[i] = SparseVector.from_sorted(m, ss[i], sv[i])
         return self._append_result(t, {out: vecs},
                                    {out: AlinkTypes.SPARSE_VECTOR})
 

@@ -1,27 +1,31 @@
-"""Filesystem model stream: timestamped model files (port of
-``FileModelStreamSink`` and ``scan_model_dir`` of
-``alink_tpu.operator.stream.modelstream``).
+"""Filesystem model stream: timestamped model files + scanner source (port
+of ``alink_tpu.operator.stream.modelstream``).
 
 Capability parity with the reference's modelstream package (reference:
 core/src/main/java/com/alibaba/alink/operator/common/modelstream/
 FileModelStreamSink.java (writes <dir>/<timestamp> model dirs atomically) and
-ModelStreamFileScanner.java:41-178 (lists newly landed models in timestamp
-order)).
+ModelStreamFileScanner.java:41-178 (polls the directory, emits newly landed
+models in timestamp order) — feeding ModelStreamModelMapperAdapter hot-swap,
+common/mapper/ModelMapper.java:71-76).
 
 A model lands as ONE ``<millis>.ak`` file written via tmp+rename (atomic on
 POSIX); the scanner orders by the numeric timestamp in the name. The stream
-source over them (``ModelStreamFileSourceStreamOp``) is ROADMAP A7.
+source (``ModelStreamFileSourceStreamOp``) yields each model table as a
+micro-batch chunk, so any model-consuming stream op (FtrlPredict hot-swap,
+ModelMapStreamOp) can link from it directly.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
-from ...common.mtable import MTable
-from ...io.ak import write_ak
+from ...common.mtable import MTable, TableSchema
+from ...common.params import ParamInfo
+from ...io.ak import read_ak, write_ak
 from ...io.filesystem import get_file_system
+from .base import StreamOperator
 
 
 class FileModelStreamSink:
@@ -60,3 +64,45 @@ def scan_model_dir(path: str, after: int = -1) -> List[Tuple[int, str]]:
             out.append((ts, fs.join(path, name)))
     out.sort()
     return out
+
+
+class ModelStreamFileSourceStreamOp(StreamOperator):
+    """Stream source yielding each landed model table as one chunk. Bounded
+    by ``maxModels``/``timeoutMs`` so tests and batch-style replays
+    terminate (the reference scanner polls forever)."""
+
+    FILE_PATH = ParamInfo("filePath", str, optional=False)
+    POLL_INTERVAL_MS = ParamInfo("pollIntervalMs", int, default=100)
+    MAX_MODELS = ParamInfo("maxModels", int, default=0,
+                           desc="stop after N models; 0 = until timeout")
+    TIMEOUT_MS = ParamInfo("timeoutMs", int, default=1000,
+                           desc="stop when no new model lands for this long")
+
+    _max_inputs = 0
+
+    def _stream_impl(self) -> Iterator[MTable]:
+        path = self.get(self.FILE_PATH)
+        poll_s = self.get(self.POLL_INTERVAL_MS) / 1000.0
+        max_models = self.get(self.MAX_MODELS)
+        timeout_s = self.get(self.TIMEOUT_MS) / 1000.0
+        last_ts = -1
+        emitted = 0
+        idle_since = time.monotonic()
+        while True:
+            fresh = scan_model_dir(path, after=last_ts)
+            for ts, f in fresh:
+                yield read_ak(f)
+                last_ts = ts
+                emitted += 1
+                idle_since = time.monotonic()
+                if max_models and emitted >= max_models:
+                    return
+            if not fresh and time.monotonic() - idle_since > timeout_s:
+                return
+            if not fresh:
+                time.sleep(poll_s)
+
+    def _out_schema(self) -> TableSchema:
+        from ...common.model import MODEL_SCHEMA
+
+        return MODEL_SCHEMA

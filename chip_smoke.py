@@ -509,7 +509,39 @@ non-zero:
     client's gate (GATED: absent, its op raises the missing-plugin
     exception naming it) and the pandas UDF and XlsSink gates.
     ``scripts/chip_phase_check.py batch`` runs this phase alone;
-24. one JSON line of kernels, then the device line last.
+24. exactly-once online learning on the stream (``stream_path``; no
+    kernel of the port: its launch counts must stay 0), in the side
+    process of phases 22 and 21: (24.1) Alink's FTRL demo
+    (FTRLExample.java, ftrl_demo.ipynb) on a seeded Avazu-layout table
+    (the 11 categorical columns it uses with Zipf categories of Avazu's
+    cardinalities, C14-C21, a click share of about 17 %, a planted
+    logistic signal): ``StandardScaler`` on C14-C21 and ``FeatureHasher``
+    to HASH_FEATURES through the batch ops, a
+    ``LogisticRegressionTrainBatchOp`` warm start on the AVAZU_WARM_ROWS
+    rows before the stream, then AVAZU_STREAM_ROWS streamed rows (a cut of
+    Avazu's 40,428,967) through ``TableSourceStreamOp(chunkSize=1024)`` →
+    ``SplitStreamOp(0.5)`` → ``FtrlTrainStreamOp`` (the demo's alpha,
+    beta, l1, l2); the split's other side through ``FtrlPredictStreamOp``
+    with the train stream's models hot-swapped in, one a chunk in their
+    order, and ``EvalBinaryClassStreamOp``; train and predict rows/s, the
+    scan's device µs a row (CUDA events), host syncs a source chunk, the
+    idle share of a traced STREAM_PROFILE_CHUNKS-chunk cut, peak memory;
+    the cumulative AUC above STREAM_AUC_FLOOR; the CPU route on the first
+    STREAM_CPU_ROWS streamed rows, its model snapshots and predictions
+    against the card's; (24.2) a ``RecoverableStreamJob`` over the first
+    RECOVERY_ROWS predicted rows (a cut) in chunks of RECOVERY_CHUNK,
+    ``epoch_chunks`` RECOVERY_EPOCH_CHUNKS, with three chains: FTRL → a
+    DataHub sink, OnlineFm → a base64 encoder of its tensors → a Kafka
+    sink, EvalBinaryClass → a KV sink by window, all ``memory://``, and a
+    ``ModelStreamPublisher`` bound to FTRL swapping into a
+    ``ModelServer``; a fault-free run, then RECOVERY_DRILLS (a crash at
+    epoch 2's pre-commit, one mid-stream, one at the publisher's
+    pre-manifest), each committing byte-identical sinks and published
+    blobs and serving the same row; the FTRL and OnlineFm state on the
+    card; snapshot, commit and restore seconds, ``modelstream.lag_s``,
+    replayed chunks. ``scripts/chip_phase_check.py stream`` runs this
+    phase alone;
+25. one JSON line of kernels, then the device line last.
 
 Tolerances. fp32 kernel vs plain: atol 1e-5 (the reference kernel's
 contract); ``blockwise_attention`` routes: atol 2e-5 (the reference's
@@ -736,6 +768,13 @@ print 3 decimals of r and 6 digits of a mean), scores and the detail's
 floats within INSIGHT_SCORE_ATOL = 1e-9; the script's weights within LSQ_ATOL = 1e-9
 (normal equations of about 33 × 33 sums over 10**6 rows, then a solve);
 the host families exactly.
+Phase 24, card against the port's CPU route on the same rows: FTRL model
+snapshots within STREAM_MODEL_RTOL = 1e-5 of the largest |w| and the
+predicted probabilities within STREAM_PROB_ATOL = 1e-5, labels equal (the
+scan's dot products and sigmoids run in float64 and round once, the rest
+is the same float32 arithmetic one op at a time; the predict mapper's
+float32 sums run in another order); the exactly-once drills byte for
+byte.
 """
 
 from __future__ import annotations
@@ -10442,6 +10481,511 @@ def batch_families_path(card, workdir=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: exactly-once online learning on the stream (no kernel of the port)
+# ---------------------------------------------------------------------------
+
+# Alink's FTRL demo (FTRLExample.java, ftrl_demo.ipynb) on a seeded table in
+# Avazu's layout (the Kaggle CTR set): its 11 categorical columns with Zipf
+# categories of Avazu's cardinalities, the 8 numerical columns C14-C21, a
+# click share of about 17 % and a planted logistic signal
+AVAZU_CATEGORICAL = (("C1", 7), ("banner_pos", 7), ("site_category", 26),
+                     ("app_domain", 580), ("app_category", 36),
+                     ("device_type", 5), ("device_conn_type", 4),
+                     ("site_id", 4_737), ("site_domain", 7_745),
+                     ("device_id", 2_686_408), ("device_model", 8_251))
+AVAZU_NUMERIC = tuple(f"C{i}" for i in range(14, 22))
+AVAZU_NUMERIC_CARDS = (2_626, 8, 9, 435, 4, 68, 172, 60)
+AVAZU_ZIPF = 1.1
+AVAZU_CLICK_SHARE = 0.17
+AVAZU_EFFECT_SD = 0.35      # each category's planted logit effect
+AVAZU_STREAM_ROWS = 500_000  # streamed rows: a cut of Avazu's 40,428,967
+AVAZU_WARM_ROWS = 20_000     # rows before the stream: the scaler's fit and
+#                              the batch LR warm start
+AVAZU_WARM_ITERS = 10        # the demo's warm-start LR: maxIter 10
+HASH_FEATURES = 30_000       # the demo's numHashFeatures
+FTRL_DEMO = dict(alpha=0.1, beta=0.1, l1=0.01, l2=0.01)   # the demo's
+AVAZU_CHUNK = 1_024
+SPLIT_FRACTION = 0.5
+STREAM_CPU_ROWS = 16_384     # streamed rows the CPU route runs again
+STREAM_MODEL_RTOL = 1e-5     # model snapshots, card vs CPU, of max |w|
+STREAM_PROB_ATOL = 1e-5      # predicted probabilities, card vs CPU
+STREAM_AUC_FLOOR = 0.824     # the cumulative AUC: 0.8290 measured less 0.005
+STREAM_PROFILE_CHUNKS = 8    # train chunks traced for the idle share
+RECOVERY_ROWS = 6_144        # the exactly-once job's rows (a cut: 24
+RECOVERY_CHUNK = 256         # chunks, 3 epochs and the final one)
+RECOVERY_EPOCH_CHUNKS = 8
+RECOVERY_SAVE_INTERVAL = 8   # a model a train op emits each epoch
+RECOVERY_DRILLS = (
+    ("pre_commit", "recovery:count=1,kinds=crash,match=epoch2.pre_commit"),
+    ("mid_stream", "recovery:count=1,kinds=crash,match=chunk21"),
+    ("pre_manifest", "publish:count=1,kinds=crash,match=pre_manifest"))
+
+
+def zipf_ids(rng, n, card, s=AVAZU_ZIPF):
+    """``n`` draws of 0 … card-1 with P(k) ∝ (k + 1)^-s."""
+    p = np.arange(1, card + 1, dtype=np.float64) ** -s
+    cdf = np.cumsum(p)
+    return np.minimum(np.searchsorted(cdf, rng.random(n) * cdf[-1]),
+                      card - 1)
+
+
+def avazu_layout(n, seed):
+    """An Avazu-layout table of ``n`` rows: the categorical columns as
+    strings, C14-C21 as integer-valued doubles, ``click`` 0/1 from a
+    planted logistic model with its intercept set for AVAZU_CLICK_SHARE."""
+    from alink_tpu_torch.common.mtable import MTable
+
+    rng = np.random.default_rng(seed)
+    cols, logit = {}, np.zeros(n)
+    for name, card in AVAZU_CATEGORICAL:
+        ids = zipf_ids(rng, n, card)
+        logit += rng.normal(0.0, AVAZU_EFFECT_SD, card)[ids]
+        uniq, inv = np.unique(ids, return_inverse=True)
+        cols[name] = np.asarray([f"{name}_{k:x}" for k in uniq],
+                                object)[inv]
+    for name, card in zip(AVAZU_NUMERIC, AVAZU_NUMERIC_CARDS):
+        v = zipf_ids(rng, n, card).astype(np.float64)
+        z = (v - v.mean()) / (v.std() + 1e-12)
+        logit += rng.normal(0.0, AVAZU_EFFECT_SD) * z
+        cols[name] = v
+    lo, hi = -10.0, 10.0           # the intercept for the click share
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if (1 / (1 + np.exp(-(logit + mid)))).mean() \
+            < AVAZU_CLICK_SHARE else (lo, mid)
+    cols["click"] = (rng.random(n) < 1 / (1 + np.exp(-(logit + lo)))) \
+        .astype(np.int64)
+    return MTable(cols)
+
+
+def avazu_features(raw, warm_rows):
+    """The demo's features through the port's batch ops: StandardScaler on
+    C14-C21 (fit on the first ``warm_rows``), then FeatureHasher of all 19
+    columns to HASH_FEATURES; returns the (click, vec) table."""
+    from alink_tpu_torch.operator.batch import (FeatureHasherBatchOp,
+                                                StandardScalerPredictBatchOp,
+                                                StandardScalerTrainBatchOp)
+    from alink_tpu_torch.operator.batch.base import TableSourceBatchOp
+
+    cats = [c for c, _ in AVAZU_CATEGORICAL]
+    scaler = StandardScalerTrainBatchOp(selectedCols=list(AVAZU_NUMERIC)) \
+        .link_from(TableSourceBatchOp(raw.slice(0, warm_rows)))
+    scaled = StandardScalerPredictBatchOp().link_from(
+        scaler, TableSourceBatchOp(raw))
+    return FeatureHasherBatchOp(
+        selectedCols=cats + list(AVAZU_NUMERIC), categoricalCols=cats,
+        outputCol="vec", numFeatures=HASH_FEATURES,
+        reservedCols=["click"]).link_from(scaled).collect()
+
+
+def _table_stream(tables):
+    """A stream source over given tables (one chunk each)."""
+    from alink_tpu_torch.operator.stream.base import StreamOperator
+
+    class _Tables(StreamOperator):
+        _max_inputs = 0
+
+        def _stream_impl(self):
+            yield from tables
+
+    return _Tables()
+
+
+def scan_events():
+    """Wraps the FTRL scan's ``run`` with CUDA events: returns (restore,
+    records), records of (rows, start, end) a chunk."""
+    import torch
+
+    from alink_tpu_torch.operator.stream import onlinelearning as ol
+
+    orig = ol._FtrlScan.run
+    records = []
+
+    def run(self, idx, val, y):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        orig(self, idx, val, y)
+        b.record()
+        records.append((int(idx.shape[0]), a, b))
+
+    ol._FtrlScan.run = run
+
+    def restore():
+        ol._FtrlScan.run = orig
+
+    return restore, records
+
+
+def ftrl_demo(feats, init, rows, card_route=True):
+    """The demo's stream over the first ``rows`` of ``feats``: source →
+    Split → FtrlTrainStreamOp(init); then FtrlPredictStreamOp over the
+    split's other side with the train stream's models hot-swapped in, one
+    a chunk, in the order they came. Returns (models, predictions, train_s,
+    predict_s, train_rows, the device type of the FTRL state)."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.stream import (FtrlPredictStreamOp,
+                                                 FtrlTrainStreamOp,
+                                                 SplitStreamOp,
+                                                 TableSourceStreamOp)
+
+    src = TableSourceStreamOp(feats.slice(0, rows), chunkSize=AVAZU_CHUNK)
+    split = SplitStreamOp(fraction=SPLIT_FRACTION,
+                          randomSeed=SEED + 240).link_from(src)
+    rest = split.complement()
+    ftrl = FtrlTrainStreamOp(init, vectorCol="vec", labelCol="click",
+                             vectorSize=HASH_FEATURES, **FTRL_DEMO) \
+        .link_from(split)
+    t0 = time.perf_counter()
+    models = list(ftrl._stream())
+    sync()
+    train_s = time.perf_counter() - t0
+    train_rows = min(rows, feats.num_rows) - sum(c.num_rows
+                                                 for c in split._rest)
+    t0 = time.perf_counter()
+    pred = FtrlPredictStreamOp(predictionCol="pred",
+                               predictionDetailCol="details").link_from(
+        _table_stream(models), rest)
+    chunks = list(pred._stream())
+    sync()
+    predict_s = time.perf_counter() - t0
+    return (models, MTable.concat(chunks), train_s, predict_s, train_rows,
+            ftrl._fstate["scan"].S.device.type)
+
+
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def model_gap(card_models, cpu_models):
+    """max |Δw| over the CPU route's snapshots against the card's first
+    ones, relative to the largest |w|, and whether the metas agree."""
+    from alink_tpu_torch.common.model import table_to_model
+
+    worst, metas = 0.0, True
+    for a, b in zip(card_models, cpu_models):
+        (ma, aa), (mb, ab) = table_to_model(a), table_to_model(b)
+        metas &= ma == mb
+        wa = np.concatenate([aa["weights"], aa["intercept"]])
+        wb = np.concatenate([ab["weights"], ab["intercept"]])
+        worst = max(worst, float(np.abs(wa - wb).max())
+                    / max(float(np.abs(wb).max()), 1e-30))
+    return worst, metas
+
+
+def prob_gap(card_pred, cpu_pred):
+    """max |Δp| of the positive class over the CPU route's rows, and
+    whether the predicted labels agree."""
+    n = cpu_pred.num_rows
+    pa = np.asarray([json.loads(d)["1"] for d in card_pred.col("details")[:n]])
+    pb = np.asarray([json.loads(d)["1"] for d in cpu_pred.col("details")])
+    same = list(card_pred.col("pred")[:n]) == list(cpu_pred.col("pred"))
+    return float(np.abs(pa - pb).max()), same
+
+
+def ftrl_demo_path(card, problems):
+    """24.1: the FTRL demo's path on AVAZU_STREAM_ROWS streamed rows, the
+    card against the CPU route on the first STREAM_CPU_ROWS."""
+    import torch
+
+    from alink_tpu_torch.common.env import resolve_device
+    from alink_tpu_torch.operator.batch import LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.batch.base import TableSourceBatchOp
+    from alink_tpu_torch.operator.stream import EvalBinaryClassStreamOp
+
+    t0 = time.perf_counter()
+    raw = avazu_layout(AVAZU_WARM_ROWS + AVAZU_STREAM_ROWS, SEED + 24)
+    res = {"layout_s": time.perf_counter() - t0,
+           "click_share": float(np.mean(raw.col("click")))}
+    t0 = time.perf_counter()
+    feats = avazu_features(raw, AVAZU_WARM_ROWS)
+    res["features_s"] = time.perf_counter() - t0
+    del raw
+    t0 = time.perf_counter()
+    init = LogisticRegressionTrainBatchOp(
+        vectorCol="vec", labelCol="click", withIntercept=True,
+        maxIter=AVAZU_WARM_ITERS).link_from(
+        TableSourceBatchOp(feats.slice(0, AVAZU_WARM_ROWS))).collect()
+    res["warm_start_s"] = time.perf_counter() - t0
+    stream = feats.slice(AVAZU_WARM_ROWS, feats.num_rows)
+    del feats
+
+    torch.cuda.reset_peak_memory_stats()
+    restore, records = scan_events()
+    try:
+        (models, pred, train_s, predict_s, train_rows, on), syncs = count_syncs(
+            lambda: ftrl_demo(stream, init, AVAZU_STREAM_ROWS))
+    finally:
+        restore()
+    dev_ms = sum(a.elapsed_time(b) for _, a, b in records)
+    res.update(
+        train_rows=train_rows, train_chunks=len(records),
+        predict_rows=pred.num_rows, models=len(models),
+        train_s=train_s, predict_s=predict_s,
+        train_rows_per_s=train_rows / train_s,
+        predict_rows_per_s=pred.num_rows / predict_s,
+        scan_device_ms=dev_ms,
+        device_us_per_row=dev_ms * 1e3 / max(1, train_rows),
+        host_syncs=syncs,
+        source_chunks=-(-AVAZU_STREAM_ROWS // AVAZU_CHUNK),
+        host_syncs_per_source_chunk=syncs / -(-AVAZU_STREAM_ROWS
+                                               // AVAZU_CHUNK),
+        scan_busy_share=dev_ms / (train_s * 1e3),
+        peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
+        ftrl_state_on=on)
+    if on != resolve_device().type:
+        problems.append(f"24.1: the FTRL state is on {on}")
+    t0 = time.perf_counter()
+    ev = EvalBinaryClassStreamOp(
+        labelCol="click", predictionDetailCol="details",
+        positiveLabelValueString="1").link_from(
+        _table_stream([pred.slice(s, min(s + AVAZU_CHUNK, pred.num_rows))
+                       for s in range(0, pred.num_rows, AVAZU_CHUNK)])) \
+        .collect()
+    res["eval_s"] = time.perf_counter() - t0
+    final = json.loads(ev.col("Data")[-1])
+    res.update(auc=final["AUC"], accuracy=final["Accuracy"],
+               eval_rows=final["Count"], eval_windows=ev.num_rows - 1)
+    if final["Count"] != pred.num_rows:
+        problems.append(f"24.1: the eval counted {final['Count']} of "
+                        f"{pred.num_rows} predicted rows")
+    if not final["AUC"] >= STREAM_AUC_FLOOR:
+        problems.append(f"24.1: cumulative AUC {final['AUC']} is below "
+                        f"{STREAM_AUC_FLOOR}")
+
+    # the idle share of the train stream, over a traced cut
+    cut = STREAM_PROFILE_CHUNKS * AVAZU_CHUNK
+
+    def cut_run():
+        return ftrl_demo(stream, init, cut)[2]
+
+    res["profile_cut_rows"] = cut
+    warm = cut_run()
+    res["profile"] = device_profile(cut_run, warm)
+
+    # the CPU route on the first STREAM_CPU_ROWS rows
+    t0 = time.perf_counter()
+    with torch_device("cpu"):
+        cpu_models, cpu_pred, _, _, _, cpu_on = ftrl_demo(
+            stream, init, STREAM_CPU_ROWS)
+    res["cpu_route_s"] = time.perf_counter() - t0
+    if cpu_on != "cpu":
+        problems.append(f"24.1: the CPU route's FTRL state is on {cpu_on}")
+    res["cpu_models"] = len(cpu_models)
+    res["model_gap"], metas = model_gap(models, cpu_models)
+    res["prob_gap"], labels_same = prob_gap(pred, cpu_pred)
+    res["cpu_rows"] = cpu_pred.num_rows
+    if not metas or len(cpu_models) < 2:
+        problems.append("24.1: the CPU route's model snapshots differ in "
+                        "meta or count")
+    if not res["model_gap"] <= STREAM_MODEL_RTOL:
+        problems.append(f"24.1: model snapshots card vs CPU "
+                        f"{res['model_gap']:.3g} > {STREAM_MODEL_RTOL} of "
+                        "max |w|")
+    if not res["prob_gap"] <= STREAM_PROB_ATOL:
+        problems.append(f"24.1: probabilities card vs CPU "
+                        f"{res['prob_gap']:.3g} > {STREAM_PROB_ATOL}")
+    if not labels_same:
+        res["labels_differ"] = True
+        problems.append("24.1: predicted labels differ card vs CPU")
+    return res, pred, init
+
+
+def model_b64(t):
+    """Model rows with their tensors as base64 of the raw bytes: a Kafka
+    JSON message carries no arrays."""
+    import base64
+
+    return type(t)({
+        "key": np.asarray(t.col("key"), object),
+        "json": np.asarray(t.col("json"), object),
+        "tensor": np.asarray(
+            [base64.b64encode(np.ascontiguousarray(a).tobytes()).decode()
+             for a in t.col("tensor")], object)})
+
+
+def recovery_run(workdir, tag, table, init, warm_row, spec=None):
+    """One supervised run of 24.2's job (fresh checkpoint and store
+    directories), optionally under a fault spec. Returns the sinks'
+    contents, the published blobs, the summary and the run's wall."""
+    from alink_tpu_torch.common import faults
+    from alink_tpu_torch.common.recovery import (RecoverableStreamJob,
+                                                 run_with_recovery)
+    from alink_tpu_torch.common.resilience import RetryPolicy
+    from alink_tpu_torch.io.datahub import MemoryDatahubService
+    from alink_tpu_torch.io.kafka import MemoryKafkaBroker
+    from alink_tpu_torch.io.kv import MemoryKvStore
+    from alink_tpu_torch.modelstream import ModelStreamPublisher
+    from alink_tpu_torch.operator.stream import (DatahubSinkStreamOp,
+                                                 EvalBinaryClassStreamOp,
+                                                 FtrlTrainStreamOp,
+                                                 KafkaSinkStreamOp,
+                                                 KvSinkStreamOp,
+                                                 OnlineFmTrainStreamOp,
+                                                 TableSourceStreamOp)
+    from alink_tpu_torch.operator.stream.base import _FuncStreamOp
+    from alink_tpu_torch.serving import ModelServer
+
+    root = os.path.join(workdir, f"stream24-{tag}")
+    shutil.rmtree(root, ignore_errors=True)
+    server = ModelServer()
+    pub = ModelStreamPublisher(os.path.join(root, "store"), f"ftrl-{tag}",
+                               server=server,
+                               input_schema="vec SPARSE_VECTOR",
+                               warmup_rows=[[warm_row]], keep=100)
+    target = f"memory://stream24-{tag}"
+    jobs = []
+
+    def job():
+        jobs.append(RecoverableStreamJob(
+            source=TableSourceStreamOp(table, chunkSize=RECOVERY_CHUNK),
+            chains=[
+                ([FtrlTrainStreamOp(
+                    init, vectorCol="vec", labelCol="click",
+                    vectorSize=HASH_FEATURES,
+                    modelSaveInterval=RECOVERY_SAVE_INTERVAL, **FTRL_DEMO)],
+                 [DatahubSinkStreamOp(endpoint=target, topic="ftrl")]),
+                ([OnlineFmTrainStreamOp(
+                    vectorCol="vec", labelCol="click", randomSeed=SEED,
+                    modelSaveInterval=RECOVERY_SAVE_INTERVAL),
+                  _FuncStreamOp(model_b64)],
+                 [KafkaSinkStreamOp(bootstrapServers=target, topic="fm")]),
+                ([EvalBinaryClassStreamOp(
+                    labelCol="click", predictionDetailCol="details",
+                    positiveLabelValueString="1")],
+                 [KvSinkStreamOp(storeUri=target, keyCol="WindowId")]),
+            ],
+            checkpoint_dir=os.path.join(root, "ck"),
+            epoch_chunks=RECOVERY_EPOCH_CHUNKS, publishers=[pub]))
+        return jobs[-1]
+
+    faults.clear()
+    if spec:
+        faults.install(faults.FaultSpec.parse(spec, seed=SEED))
+    t0 = time.perf_counter()
+    try:
+        summary = run_with_recovery(job, RetryPolicy(max_attempts=5,
+                                                     base_delay=0.001))
+    finally:
+        faults.clear()
+    wall = time.perf_counter() - t0
+    name = target[len("memory://"):]
+    sinks = {
+        "datahub": [tuple(x.tobytes() if isinstance(x, np.ndarray) else x
+                          for x in r) for r in
+                    MemoryDatahubService.named(name)._topics.get("ftrl", [])],
+        "kafka": list(MemoryKafkaBroker.named(name)._topics.get("fm", [])),
+        "kv": {k: dict(v) for k, v in MemoryKvStore._named.get(
+            name, {}).items() if not k.startswith("__alink_txn__")},
+        "blobs": {e: open(pub.store.blob_path(e), "rb").read()
+                  for e in pub.store.versions()},
+        "served": server.predict(f"ftrl-{tag}", [warm_row])}
+    server.close()
+    shutil.rmtree(root, ignore_errors=True)
+    # where the last attempt's train state lives (None: that attempt only
+    # restored the final snapshot and trained nothing)
+    import torch
+
+    ftrl, fm = jobs[-1].chains[0][0][0], jobs[-1].chains[1][0][0]
+    scan = getattr(ftrl, "_fstate", {}).get("scan")
+    fm_state = getattr(fm, "_fmstate", {}).get("state")
+    fm_V = fm_state[0][2] if fm_state is not None else None
+    summary["state_on"] = {
+        "ftrl": scan.S.device.type if scan is not None else None,
+        "online_fm": fm_V.device.type if torch.is_tensor(fm_V) else None}
+    return sinks, summary, wall
+
+
+def recovery_path(workdir, pred, init, problems):
+    """24.2: the exactly-once job on the first RECOVERY_ROWS rows of 24.1's
+    predictions: a fault-free run and RECOVERY_DRILLS, each committing the
+    fault-free run's bytes."""
+    import torch
+
+    from alink_tpu_torch.common.env import resolve_device
+    from alink_tpu_torch.common.metrics import metrics
+
+    table = pred.slice(0, RECOVERY_ROWS)
+    warm_row = str(table.col("vec")[0])
+    res = {"rows": table.num_rows, "chunks": -(-table.num_rows
+                                              // RECOVERY_CHUNK)}
+    before = {k: metrics.counter(k) for k in (
+        "checkpoint.replayed_chunks", "recovery.restarts",
+        "checkpoint.restores", "recovery.sink_replays")}
+    clean, summary, wall = recovery_run(workdir, "clean", table, init,
+                                        warm_row)
+    res["state_on"] = summary["state_on"]
+    if set(summary["state_on"].values()) != {resolve_device().type}:
+        problems.append(f"24.2: train state on {summary['state_on']}")
+    res["clean"] = dict(wall_s=wall, epochs=summary["epochs"],
+                        ftrl_models=len(clean["datahub"]),
+                        fm_messages=len(clean["kafka"]),
+                        kv_windows=len(clean["kv"]),
+                        published=sorted(clean["blobs"]))
+    if not clean["blobs"] or not clean["datahub"] or not clean["kafka"]:
+        problems.append("24.2: the fault-free run committed nothing")
+    for label, spec in RECOVERY_DRILLS:
+        got, summary, wall = recovery_run(workdir, label, table, init,
+                                          warm_row, spec)
+        diff = [k for k in ("datahub", "kafka", "kv", "blobs")
+                if got[k] != clean[k]]
+        res[label] = dict(wall_s=wall, restored=summary.get("restored"),
+                          restored_epoch=summary.get("restored_epoch"),
+                          replayed_chunks=summary.get("replayed_chunks"),
+                          sink_replays=summary.get("sink_replays"),
+                          differs=diff)
+        if diff:
+            problems.append(f"24.2 {label}: {diff} differ from the "
+                            "fault-free run")
+        if got["served"] != clean["served"]:
+            problems.append(f"24.2 {label}: the served row differs")
+    res["counters"] = {k: metrics.counter(k) - v for k, v in before.items()}
+    for name in ("recovery.snapshot_epoch_s", "recovery.commit_epoch_s",
+                 "modelstream.lag_s"):
+        h = metrics.histogram(name)
+        res[name] = {k: h[k] for k in ("count", "mean", "p50", "p99", "max")
+                     if k in h} if h else None
+    res["recovery.restore_s"] = metrics.timer_stats("recovery.restore_s")
+    torch.cuda.empty_cache()
+    return res
+
+
+def stream_path(card, workdir=None):
+    """Phase 24: the FTRL demo's stream on the Avazu layout, card against
+    the CPU route, and the exactly-once job's crash drills. No kernel of
+    the port is on this path: its launch counts must stay 0."""
+    import torch
+
+    from alink_tpu_torch.native import kernels
+
+    if any(tf32_flags()):
+        fail(f"phase 24: TF32 is on {tf32_flags()}")
+    workdir = workdir or smoke_workdir()
+    problems = []
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["24.1"], pred, init = ftrl_demo_path(card, problems)
+    out["24.1"]["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["24.2"] = recovery_path(workdir, pred, init, problems)
+    out["24.2"]["part_s"] = time.perf_counter() - t0
+    out["launches"] = dict(kernels.launches())
+    if sum(out["launches"].values()):
+        problems.append(f"phase 24 launched kernels of the port: "
+                        f"{out['launches']}")
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 24: " + json.dumps(out, default=str), flush=True)
+    if problems:
+        fail("phase 24: " + "; ".join(problems))
+    return out
+
+
 def smoke_workdir():
     """``build/chip_smoke`` beside this script, made if missing: where the
     run's model files, logs and side results go."""
@@ -10461,7 +11005,7 @@ def smoke_workdir():
 # arrangements measured against this one
 SIDE_THREADS = 4
 SIDE_TIMEOUT_S = 1_100
-SIDE_GROUPS = (("19", "20", "20.5"), ("22", "21"), ("11", "13", "18"))
+SIDE_GROUPS = (("19", "20", "20.5"), ("22", "21", "24"), ("11", "13", "18"))
 SIDE_OUT_ENV = "CHIP_SMOKE_SIDE_OUT"   # the JSON file of the phases' returns
 SIDE_RUNS = {"11": ("phase 11 classical path",
                     lambda card: classical_path(smoke_workdir())),
@@ -10477,7 +11021,9 @@ SIDE_RUNS = {"11": ("phase 11 classical path",
              "21": ("phase 21 recommendation, outliers and finance",
                     lambda card: recomm_outlier_path(card)),
              "22": ("phase 22 time series and window features",
-                    lambda card: timeseries_path(card))}
+                    lambda card: timeseries_path(card)),
+             "24": ("phase 24 stream: FTRL and exactly-once recovery",
+                    lambda card: stream_path(card))}
 
 
 def side_phase(card, phases) -> int:
@@ -10699,6 +11245,7 @@ def main() -> int:
     mark("phase 17 DAG")
     tuning, tuning_launches = side["18"]
     walks = side["20.5"]
+    stream = side["24"]["launches"]
     walk_launches = {
         "phase 20.5 LINE order 2": walks["20.5.1"]["order2"]["launches"],
         "phase 20.5 LINE order 1": walks["20.5.1"]["order1"]["launches"],
@@ -10729,6 +11276,8 @@ def main() -> int:
              launches_by_path={"phase 4 serving": launches,
                                "phase 23 batch families":
                                batch["launches"]["flash_block_update"],
+                               "phase 24 stream":
+                               stream["flash_block_update"],
                                **{f"12.1 {p}": families["12.1"][p]["launches"]
                                   for p in POLICIES},
                                "phase 14 serving": serve_launches,
@@ -10755,7 +11304,8 @@ def main() -> int:
              launches_by_path={"phase 6 forest": tree_launches,
                                "phase 18 tuning": tuning_launches,
                                "phase 23 batch families":
-                               batch["launches"]["tree_histogram"]},
+                               batch["launches"]["tree_histogram"],
+                               "phase 24 stream": stream["tree_histogram"]},
              tuning={k: tuning["search"][k] for k in (
                  "identical", "profile", "speedup")} | {
                  r: {k: tuning["search"][r][k] for k in (
@@ -10776,7 +11326,8 @@ def main() -> int:
              launches_by_path={"phase 9 Word2Vec": sgns_launches,
                                **walk_launches,
                                "phase 23 batch families":
-                               batch["launches"]["sgns_block_grads"]},
+                               batch["launches"]["sgns_block_grads"],
+                               "phase 24 stream": stream["sgns_block_grads"]},
              **{k: sgns[k] for k in (
                  "gathered_ms", "gathered_plain_ms", "gathered_bound_ms",
                  "eager_ms", "eager_plain_ms", "turns", "gathered_turns")},

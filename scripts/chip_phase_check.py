@@ -44,7 +44,9 @@ on the electricity layout and the window features on the credit-card
 layout, against the CPU route or a numpy oracle; it builds no kernel),
 ``batch`` (phase 23: MFCC, AggLookup and AutoDiscovery against the CPU
 route, the script op and the aliases, the host families and the plugin
-gates; it builds no kernel).
+gates; it builds no kernel), ``stream`` (phase 24: the FTRL demo's stream
+on the Avazu layout against the CPU route, and the exactly-once job's
+crash drills; it builds no kernel).
 Each
 prints what chip_smoke.py prints for it; the results go to
 ``build/chip_phase_check.json``.
@@ -65,7 +67,7 @@ sys.path.insert(0, ROOT)
 PHASES = ("sgns", "hist", "bwd", "record", "kernel", "sst2", "forest",
           "families", "ingest", "serving", "pretrain", "fleet", "dag",
           "tuning", "features", "graph", "recomm", "walks", "timeseries",
-          "batch")
+          "batch", "stream")
 
 
 def main() -> int:
@@ -90,7 +92,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not set(phases) <= {"ingest", "pretrain", "features", "graph",
-                           "recomm", "timeseries", "batch"}:
+                           "recomm", "timeseries", "batch", "stream"}:
         kernels.build()
         print(f"build {kernels.build_seconds:.1f} s", flush=True)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
@@ -149,6 +151,7 @@ def main() -> int:
            "timeseries": lambda: cs.timeseries_path(card.splitlines()[0]),
            "batch": lambda: cs.batch_families_path(card.splitlines()[0],
                                                    workdir),
+           "stream": lambda: cs.stream_path(card.splitlines()[0], workdir),
            "pretrain": lambda: cs.pretraining_path(workdir, peaks,
                                                    card.splitlines()[0])}
     out = {}

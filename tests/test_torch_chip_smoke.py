@@ -25,7 +25,9 @@ both routes, and fail when the card route's EM or LDA step drifts from the
 CPU route's. Phase 20 (graphs, vector neighbours, text, constrained
 features) likewise: end to end at a small size, no kernel launched, and a
 failure when the card route's PageRank, neighbour distances or
-NaiveBayesText counts part from the CPU route's.
+NaiveBayesText counts part from the CPU route's. Phase 24 (the stream)
+likewise, with a failure when a crash drill's restored FTRL state is one
+ulp off.
 """
 
 import json
@@ -1425,11 +1427,11 @@ def test_recomm_outlier_phase_passes_on_the_cpu(monkeypatch, capsys):
 
 
 def test_recomm_outlier_phase_is_in_main_after_phase_20():
-    """Phases 11, 13 and 18 to 22 run in the three side processes, which
-    ``main`` starts after phase 10 and joins, printing their output,
+    """Phases 11, 13, 18 to 22 and 24 run in the three side processes,
+    which ``main`` starts after phase 10 and joins, printing their output,
     after phase 15 and before phase 16, so that nothing runs beside phases
     16 and 17; every phase runs once, phase 21 after phase 22 in its
-    process."""
+    process and phase 24 after them."""
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
@@ -1443,14 +1445,15 @@ def test_recomm_outlier_phase_is_in_main_after_phase_20():
                "timeseries_path(", "clustering_features_path("):
         assert fn not in src, fn
     groups = chip_smoke.SIDE_GROUPS
-    assert groups[1] == ("22", "21")
+    assert groups[1] == ("22", "21", "24")
     assert sorted(p for g in groups for p in g) == sorted(
         chip_smoke.SIDE_RUNS)
     for ph, fn in (("11", "classical_path("), ("13", "ingest_path("),
                    ("18", "tuning_path(card)"),
                    ("19", "clustering_features_path(card)"),
                    ("21", "recomm_outlier_path(card)"),
-                   ("22", "timeseries_path(card)")):
+                   ("22", "timeseries_path(card)"),
+                   ("24", "stream_path(card)")):
         assert fn in inspect.getsource(chip_smoke.SIDE_RUNS[ph][1]), ph
 
 
@@ -1972,3 +1975,101 @@ def test_batch_families_phase_runs_in_main_after_phase_15():
         < src.index("side.update(join_side(proc, log))")
     assert src.count('"phase 23 batch families":') == 3
     assert "23" not in chip_smoke.SIDE_RUNS
+
+
+def _phase24_on_cpu(monkeypatch):
+    """Phase 24 cut to a small size, the card's timers and profiler
+    patched: the "card" route is ``ALINK_TORCH_DEVICE=cpu`` here. The
+    job's 6 chunks make 3 epochs, so the pre-commit drill's last attempt
+    restores epoch 2 and trains nothing, as on the card."""
+    for name, value in dict(AVAZU_STREAM_ROWS=6_144, AVAZU_WARM_ROWS=2_000,
+                            AVAZU_CHUNK=1_024, STREAM_CPU_ROWS=2_048,
+                            STREAM_PROFILE_CHUNKS=1, RECOVERY_ROWS=1_536,
+                            RECOVERY_CHUNK=256, RECOVERY_EPOCH_CHUNKS=2,
+                            RECOVERY_SAVE_INTERVAL=2, STREAM_AUC_FLOOR=0.5,
+                            RECOVERY_DRILLS=(
+                                ("pre_commit", "recovery:count=1,kinds=crash,"
+                                 "match=epoch2.pre_commit"),
+                                ("mid_stream", "recovery:count=1,kinds=crash,"
+                                 "match=chunk5"),
+                                ("pre_manifest", "publish:count=1,kinds=crash,"
+                                 "match=pre_manifest"))).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "device_profile", lambda fn, warm: (
+        fn(), dict(operations=0, busy_ms=0.0, traced_wall_ms=1.0,
+                   idle_share=1.0))[1])
+    monkeypatch.setattr(chip_smoke, "count_syncs", lambda fn: (fn(), 0))
+
+    class _Event:
+        def __init__(self, **kw):
+            self.t = None
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+
+    import time
+
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # the job's chain threads share the CPU
+    try:
+        return chip_smoke.stream_path("cpu stand-in")
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_stream_phase_passes_on_the_cpu_at_a_small_size(monkeypatch,
+                                                        capsys):
+    """Phase 24 end to end at a small size: the demo's stream, the CPU
+    route's gaps 0 (both routes on the CPU), every drill committing the
+    fault-free run's bytes, no kernel launched."""
+    out = _phase24_on_cpu(monkeypatch)
+    assert sum(out["launches"].values()) == 0
+    demo = out["24.1"]
+    assert demo["model_gap"] == 0.0 and demo["prob_gap"] == 0.0
+    assert demo["train_rows"] + demo["predict_rows"] == 6_144
+    assert demo["ftrl_state_on"] == "cpu"
+    rec = out["24.2"]
+    assert rec["state_on"] == {"ftrl": "cpu", "online_fm": "cpu"}
+    assert rec["clean"]["published"] == list(range(rec["clean"]["epochs"]))
+    for label in ("pre_commit", "mid_stream", "pre_manifest"):
+        assert rec[label]["differs"] == []
+    assert rec["pre_commit"]["restored"] and \
+        rec["pre_commit"]["sink_replays"] == 3
+    assert rec["counters"]["recovery.restarts"] == 3
+    assert "phase 24: {" in capsys.readouterr().out
+
+
+def test_stream_phase_fails_on_a_drill_that_diverges(monkeypatch):
+    """A crash drill whose restored FTRL state is off by one ulp commits
+    other bytes than the fault-free run: the phase fails."""
+    from alink_tpu_torch.operator.stream import onlinelearning as ol
+
+    orig = ol.FtrlTrainStreamOp.state_restore
+
+    def restore(self, state):
+        state = dict(state)
+        state["z"] = np.nextafter(state["z"], np.float32(np.inf))
+        orig(self, state)
+
+    monkeypatch.setattr(ol.FtrlTrainStreamOp, "state_restore", restore)
+    with pytest.raises(SystemExit):
+        _phase24_on_cpu(monkeypatch)
+
+
+def test_stream_phase_runs_in_the_shortest_side_group():
+    """Phase 24 runs in the side process of phases 22 and 21, and its
+    launch counts reach every kernel's row of the kernels line."""
+    import inspect
+
+    assert ("22", "21", "24") in chip_smoke.SIDE_GROUPS
+    assert "24" in chip_smoke.SIDE_RUNS
+    src = inspect.getsource(chip_smoke.main)
+    assert src.count('"phase 24 stream"') == 3

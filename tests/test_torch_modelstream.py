@@ -11,8 +11,9 @@
 - The publisher with a duck-typed fleet (the reference's own fleet test
   double): it binds its store's newest blob as the fleet's model source
   and counts each replica's swap outcome; both packages count alike.
-- The publisher's two halves driven by hand (the coordinators that call
-  them at epoch barriers are not ported): a model trained by each package
+- The publisher's two halves driven by hand (the recovery coordinator
+  that calls them at its epoch barriers is held in
+  tests/test_torch_recovery.py): a model trained by each package
   is wrapped, committed with its warmup sidecar and swapped into that
   package's ``ModelServer``; the port's served rows equal its
   ``LocalPredictor`` on the committed blob, the reference's
